@@ -1,0 +1,452 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py              # one card; exits non-zero without one
+    python3 chip_smoke.py --profile    # also prints device time by kernel
+
+Phases, in order (any failed check raises, so the exit code is non-zero):
+
+1. the card's name and power limit (nvidia-smi);
+2. build every CUDA kernel of the port from csrc/ (one nvcc per source,
+   started together), timed;
+3. kernel phase: two warm-up frames of the flagship (Cornell, bf16,
+   1920x1080) record the inputs each kernel wrapper gets on the main path;
+   each kernel is then held against its plain PyTorch version on those
+   inputs on the card, and both are timed with CUDA events;
+4. path phase: all launch counts are zeroed, a fresh Renderer renders 8
+   flagship frames, the counts are read; per frame the dense trace runs
+   2 times, the temporal kernel once, the a-trous kernel 5 times, and the
+   history fetch once on the fast path (frame 0 has no history: like the
+   JAX package it takes the plain 2x2-take branch there);
+5. reference phase: a 64x64 render on the card against the same render
+   through the plain versions on the CPU, same uniforms, 5 frames.
+
+Before the last line it prints a `kernels` JSON line (per kernel: launches
+on the main path, max error against the plain version, time, plain time,
+the least time the work could take on the card and what bounds it) and
+the nvidia-smi line; the last line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+W, H = 1920, 1080
+PATH_FRAMES = 8
+REF_SIZE, REF_FRAMES = 64, 5
+# H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s
+# outside the tensor cores (exp/sqrt/div counted as one operation each)
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+TPU = "low_precision_raytracer_tpu/ops/"
+KERNELS = {  # wrapper name -> (source, TPU kernel it replaces)
+    "dense_trace": ("low_precision_raytracer_tpu_torch/csrc/dense_trace.cu",
+                    TPU + "dense_pallas.py:183"),
+    "coef_fetch": ("low_precision_raytracer_tpu_torch/csrc/svgf.cu",
+                   TPU + "svgf_pallas.py:762"),
+    "temporal_accum": ("low_precision_raytracer_tpu_torch/csrc/svgf.cu",
+                       TPU + "svgf_pallas.py:920"),
+    "wavelet_iter": ("low_precision_raytracer_tpu_torch/csrc/svgf.cu",
+                     TPU + "svgf_pallas.py:79"),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn, reps):
+    """Mean ms per call of fn over `reps` calls, CUDA events, after one
+    warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes, n_ops):
+    t_bytes, t_ops = n_bytes / HBM_BPS, n_ops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+# ---------------------------------------------------------------------------
+# operation counts (f32 arithmetic, from the kernels' code)
+
+TRI_TEST_OPS = 40  # 6 dot rows (28) + t = -Oz/Dz (2) + u, v (4) + u+v (1) + 5 compares
+SHADOW_SETUP_OPS = 14  # to-light vector 3, length 6, 1/max 2, direction 3
+
+
+def dense_trace_ops(args, kw, out):
+    """Triangle tests this run's data needs: every live lane against every
+    triangle, then per winner and light the tests up to the first
+    occluder (the kernel's any-hit loop stops there)."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import tri_quantities
+
+    o, d, skip, mind, maxd, coef, tri_ids = args[:7]
+    lights = args[8] if len(args) > 8 else kw.get("lights")
+    d_mov = kw.get("d_mov", 0.0)
+    TI = coef.shape[0]
+    tests = int((maxd > mind).sum()) * TI
+    t, tri = out[0], out[3]
+    got = tri >= 0
+    n_got = int(got.sum())
+    p = (o + t[:, None] * d)[got]
+    wtri = tri[got]
+    for l in range(0 if lights is None else lights.shape[0]):
+        a = lights[l, 1:4]
+        dvec = a[None, :] - p
+        dist = torch.sqrt(dvec[:, 0] * dvec[:, 0] + dvec[:, 1] * dvec[:, 1]
+                          + dvec[:, 2] * dvec[:, 2])
+        isdir = lights[l, 0] > 0
+        inv = 1.0 / dist.clamp(min=1e-20)
+        sdir = torch.where(isdir, a[None, :].expand_as(dvec), dvec * inv[:, None])
+        maxd_l = torch.where(isdir, torch.full_like(dist, 1000.0), dist)
+        t2, _, _, geom = tri_quantities(coef, p, sdir)
+        blk = geom & (t2 > d_mov) & (t2 < maxd_l[:, None]) & (tri_ids[None] != wtri[:, None]) \
+            & torch.isfinite(t2)
+        first = torch.where(blk.any(1), blk.to(torch.int8).argmax(1) + 1, TI)
+        tests += int(first.sum())
+    n_lights = 0 if lights is None else lights.shape[0]
+    return tests * TRI_TEST_OPS + n_got * n_lights * SHADOW_SETUP_OPS
+
+
+def coef_fetch_ops(C, HW):
+    # per view: coefficient terms (compare-select each, adds between) and
+    # C multiply-adds; then the weight sum and C divides
+    terms = 0
+    for vx in range(-1, 3):
+        for vy in range(-1, 3):
+            n = sum(1 for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1))
+                    if -1 <= vy - dy <= 1 and -1 <= vx - dx <= 1)
+            terms += n + (n - 1) + 2 * C
+    return (terms + 3 + C) * HW
+
+
+def temporal_ops(HW):
+    # stage 1 per instance-channel: 3 box sums of 16 adds + 3 operands, 2
+    # divides, var/sqrt 3, clamp 6, lerp 3, luminance 2 = 67 (x 6)
+    # moments per tap: dd 3, t1 3, n.n' 5, max 1, pow128 7, weight 3, two
+    # instances x 7 = 36 (x 25); write-out ~20
+    return (6 * 67 + 25 * 36 + 20) * HW
+
+
+def wavelet_ops(HW):
+    # prefilter 9 taps x 6, reciprocals 10; per tap: geometry 20, two
+    # instances x 18 = 56 (x 25); write-out 10
+    return (54 + 10 + 25 * 56 + 10) * HW
+
+
+# ---------------------------------------------------------------------------
+
+
+def capture_inputs(renderer, frames):
+    """Render `frames` frames and return the wrapper calls of the last one:
+    {name: [(args, kwargs, output), ...]}, recorded at the call sites."""
+    from low_precision_raytracer_tpu_torch.ops import reproject, svgf_kernels, trace
+
+    sites = [(trace, "dense_trace"), (reproject, "coef_fetch"),
+             (svgf_kernels, "temporal_accum"), (svgf_kernels, "wavelet_iter")]
+    calls = {}
+    originals = []
+
+    def recorder(name, fn):
+        def rec(*args, **kw):
+            out = fn(*args, **kw)
+            calls.setdefault(name, []).append((args, kw, out))
+            return out
+        return rec
+
+    try:
+        for mod, name in sites:
+            originals.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, recorder(name, getattr(mod, name)))
+        for _ in range(frames):
+            calls.clear()
+            renderer.render()
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    return calls
+
+
+def check_svgf(name, k, p):
+    """NaN positions identical, rtol 1e-4 / atol 1e-5 elsewhere.  -> max
+    abs error."""
+    import torch
+
+    k, p = (torch.cat([t.reshape(-1) for t in x]) if isinstance(x, tuple) else x
+            for x in (k, p))
+    if not torch.equal(torch.isnan(k), torch.isnan(p)):
+        raise AssertionError(f"{name}: NaN positions differ")
+    ok = ~torch.isnan(k)
+    if not torch.allclose(k[ok], p[ok], rtol=1e-4, atol=1e-5):
+        raise AssertionError(f"{name}: kernel and plain version disagree "
+                             f"(max abs err {(k[ok] - p[ok]).abs().max().item()})")
+    return float((k[ok] - p[ok]).abs().max())
+
+
+def check_dense(k, p):
+    """tri agreement > 0.999, obj equal and t/u/v within 2e-3 where it
+    agrees, visibility agreement > 0.999.  -> (max abs err, agreement)."""
+    t, u, v, tri, obj, vis = k
+    pt, pu, pv, ptri, pobj, pvis = p
+    same = tri == ptri
+    agree = float(same.float().mean())
+    if agree <= 0.999:
+        raise AssertionError(f"dense_trace: tri agreement {agree}")
+    if not bool((obj[same] == pobj[same]).all()):
+        raise AssertionError("dense_trace: obj differs where tri agrees")
+    hit = same & (tri >= 0)
+    err = 0.0
+    for a, b in ((t, pt), (u, pu), (v, pv)):
+        d = (a[hit] - b[hit]).abs()
+        if not bool((d <= 2e-3 + 2e-3 * b[hit].abs()).all()):
+            raise AssertionError(f"dense_trace: t/u/v beyond rtol/atol 2e-3 ({d.max().item()})")
+        err = max(err, float(d.max()))
+    vis_agree = float((vis == pvis).float().mean())
+    if vis_agree <= 0.999:
+        raise AssertionError(f"dense_trace: visibility agreement {vis_agree}")
+    return err, agree
+
+
+def kernel_phase(calls):
+    """Hold every kernel against its plain version on the recorded inputs;
+    time both.  -> {name: report}."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import dense_trace, dense_trace_plain
+    from low_precision_raytracer_tpu_torch.ops.svgf_kernels import (
+        coef_fetch,
+        coef_fetch_plain,
+        temporal_accum,
+        temporal_accum_plain,
+        wavelet_iter,
+        wavelet_iter_plain,
+    )
+
+    pairs = {
+        "dense_trace": (dense_trace, dense_trace_plain),
+        "coef_fetch": (coef_fetch, coef_fetch_plain),
+        "temporal_accum": (temporal_accum, temporal_accum_plain),
+        "wavelet_iter": (wavelet_iter, wavelet_iter_plain),
+    }
+    reports = {}
+    for name, (kern, plain) in pairs.items():
+        if name not in calls:
+            raise AssertionError(f"{name}: the main path made no call to record")
+        per = []
+        for args, kw, _ in calls[name]:
+            out_k = kern(*args, **kw)
+            torch.cuda.synchronize()
+            out_p = plain(*args, **kw)
+            torch.cuda.synchronize()
+            HW = H * W
+            if name == "dense_trace":
+                err, agree = check_dense(out_k, out_p)
+                b_in = nbytes(*args[:8], args[8] if len(args) > 8 else kw.get("lights"))
+                n_bytes = b_in + nbytes(*out_k)
+                n_ops = dense_trace_ops(args, kw, out_p)
+                extra = {"tri_agreement": agree}
+            else:
+                err = check_svgf(name, out_k, out_p)
+                tensors = [a for a in args if isinstance(a, torch.Tensor)]
+                outs = out_k if isinstance(out_k, tuple) else (out_k,)
+                n_bytes = nbytes(*tensors) + nbytes(*outs)
+                n_ops = {"coef_fetch": lambda: coef_fetch_ops(args[0].shape[0], HW),
+                         "temporal_accum": lambda: temporal_ops(HW),
+                         "wavelet_iter": lambda: wavelet_ops(HW)}[name]()
+                extra = {"stride": args[2]} if name == "wavelet_iter" else {}
+            ms = cuda_ms(lambda: kern(*args, **kw), 20)
+            plain_ms = cuda_ms(lambda: plain(*args, **kw), 3)
+            b_ms, b_by = bound_ms(n_bytes, n_ops)
+            per.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                            max_abs_err=err, bytes=n_bytes, ops=n_ops, **extra))
+            log(f"kernel {name}: {json.dumps(per[-1])}")
+        mean = lambda k: statistics.fmean(p[k] for p in per)
+        reports[name] = dict(
+            max_abs_err=max(p["max_abs_err"] for p in per), ms=mean("ms"),
+            plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+            bound_by=max(per, key=lambda p: p["bound_ms"])["bound_by"])
+    return reports
+
+
+def path_phase(cuda_lib):
+    """8 flagship frames through a fresh Renderer with the counts zeroed
+    just before.  -> (launch totals, per-frame records, image)."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.models.procedural import cornell_box_scene
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    renderer = Renderer(cornell_box_scene(), RenderConfig(width=W, height=H, precision="bf16"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    frames = []
+    img = None
+    for f in range(PATH_FRAMES):
+        before = dict(cuda_lib.LAUNCHES)
+        t0 = time.perf_counter()
+        img, aux = renderer.render()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: cuda_lib.LAUNCHES[k] - before[k] for k in before}
+        frames.append(dict(frame=f, ms=ms, n_rays=int(aux["n_rays"]),
+                           fast_fetch=aux["svgf_fast_path"], launches=counts))
+        log(f"frame {json.dumps(frames[-1])}")
+    totals = dict(cuda_lib.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    for rec in frames:
+        want = {"dense_trace": 2, "temporal_accum": 1, "wavelet_iter": 5,
+                "coef_fetch": 1 if rec["frame"] > 0 else 0}
+        if rec["launches"] != want:
+            raise AssertionError(f"frame {rec['frame']}: launches {rec['launches']} != {want}")
+        if rec["fast_fetch"] != (rec["frame"] > 0):
+            raise AssertionError(f"frame {rec['frame']}: history fetch fast path "
+                                 f"{rec['fast_fetch']}")
+    if tuple(img.shape) != (H, W, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError("image is not a finite (H, W, 3) array")
+    if float(img.min()) < 0 or float(img.max()) > 1 or float(img.std()) < 1e-3:
+        raise AssertionError("image is outside [0, 1] or constant")
+    return totals, frames, peak_gib
+
+
+def reference_phase():
+    """A small frame on the card against the plain versions on the CPU,
+    same uniforms: PSNR >= 35 dB and validity agreement >= 0.999 on every
+    frame (the port-vs-JAX bars of tests/test_torch_render_e2e.py)."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.models.procedural import cornell_box_scene
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    cfg = RenderConfig(width=REF_SIZE, height=REF_SIZE, precision="bf16")
+    gpu = Renderer(cornell_box_scene(), cfg)
+    cpu = Renderer(cornell_box_scene(), cfg, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    psnrs = []
+    for f in range(REF_FRAMES):
+        us = torch.rand((7 * REF_SIZE * REF_SIZE,), generator=gen)
+        img_g, aux_g = gpu.render(uniforms=[us.cuda()])
+        img_c, aux_c = cpu.render(uniforms=[us])
+        mse = float(((img_g.cpu().double() - img_c.double()) ** 2).mean())
+        psnr = float("inf") if mse == 0 else 10 * math.log10(1.0 / mse)
+        agree = float((aux_g["valid"].cpu() == aux_c["valid"]).float().mean())
+        if psnr < 35 or agree < 0.999:
+            raise AssertionError(f"reference frame {f}: PSNR {psnr:.2f} dB, valid agreement {agree}")
+        psnrs.append(psnr)
+    return psnrs
+
+
+def profile_frame():
+    """Device time by kernel over one steady flagship frame."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.models.procedural import cornell_box_scene
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    r = Renderer(cornell_box_scene(), RenderConfig(width=W, height=H, precision="bf16"))
+    for _ in range(3):
+        r.render()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        r.render()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
+    log(f"profile: frame wall {wall:.3f} ms")
+    for line in table.splitlines():
+        log("profile: " + line)
+
+
+def main(argv) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.models.procedural import cornell_box_scene
+    from low_precision_raytracer_tpu_torch.ops import cuda_lib
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+    t0 = time.perf_counter()
+    build_logs = cuda_lib.build_all()
+    log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(build_logs) or 'cached'})")
+    for name, text in build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
+
+    warm = Renderer(cornell_box_scene(), RenderConfig(width=W, height=H, precision="bf16"))
+    calls = capture_inputs(warm, 2)
+    del warm
+    reports = kernel_phase(calls)
+    del calls
+    torch.cuda.empty_cache()
+
+    totals, frames, peak_gib = path_phase(cuda_lib)
+    steady = frames[2:]
+    frame_ms = statistics.median(f["ms"] for f in steady)
+    n_rays = statistics.median(f["n_rays"] for f in steady)
+    log(f"path: frame_ms(median of frames 3-{PATH_FRAMES}) {frame_ms:.3f}  "
+        f"Mrays/s {n_rays / frame_ms / 1e3:.3f}  n_rays {n_rays}  "
+        f"peak memory {peak_gib:.3f} GiB  launches {json.dumps(totals)}")
+    for name in KERNELS:
+        if totals[name] == 0:
+            raise AssertionError(f"{name}: no launch on the main path")
+
+    psnrs = reference_phase()
+    log(f"reference: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
+        + " ".join(f"{p:.2f}" for p in psnrs))
+
+    if "--profile" in argv:
+        profile_frame()
+
+    kernels = []
+    for name, (src, replaces) in KERNELS.items():
+        rep = reports[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=totals[name], max_abs_err=rep["max_abs_err"], ms=rep["ms"],
+            plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
+            library_ms=None))
+    log(json.dumps({"kernels": kernels}))
+    log(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

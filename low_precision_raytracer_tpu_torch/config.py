@@ -1,0 +1,178 @@
+"""Configuration (port of `low_precision_raytracer_tpu/config.py`).
+
+Frozen dataclasses with the same field names and defaults as the JAX
+package, cut to the fields the ported path reads.  `check_supported`
+refuses, with `NotImplementedError`, every configuration this port does
+not cover yet; it never approximates one.
+
+`resolve_device` is the one place an entry point picks its device: CUDA
+unless the caller asks for the CPU, and an error when no card is there.
+It also pins float32 matmuls and convolutions to true f32 (no TF32): the
+JAX package runs its f32 math at `highest` precision.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class Precision:
+    """A low-precision rendering policy: per-op rounding units of the
+    dtype triangle test and the self-intersection offsets."""
+
+    name: str
+    delta1: float
+    delta2: float
+    ray_moveforward_t: float = 1e-4
+    # for launches whose origins ride exactly (f32 hit positions): only
+    # the intersection test's own t error needs clearing
+    ray_moveforward_t_exact: float = 1e-4
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return {"fp32": torch.float32, "bf16": torch.bfloat16,
+                "fp16": torch.float16}[self.name]
+
+    @property
+    def is_f32(self) -> bool:
+        return self.name == "fp32"
+
+
+FP32 = Precision("fp32", delta1=2.0**-10, delta2=2.0**-8, ray_moveforward_t=1e-4)
+FP16 = Precision("fp16", delta1=2.0**-10, delta2=2.0**-8, ray_moveforward_t=1e-1,
+                 ray_moveforward_t_exact=1e-2)
+BF16 = Precision("bf16", delta1=2.0**-7, delta2=2.0**-5, ray_moveforward_t=1e-1,
+                 ray_moveforward_t_exact=1e-2)
+
+_PRECISIONS = {"fp32": FP32, "fp16": FP16, "bf16": BF16}
+
+
+def get_precision(name: str | Precision) -> Precision:
+    if isinstance(name, Precision):
+        return name
+    return _PRECISIONS[name]
+
+
+@dataclass(frozen=True)
+class SVGFConfig:
+    """SVGF denoiser constants."""
+
+    sigma_z: float = 1.0
+    sigma_n: float = 128.0
+    sigma_l: float = 4.0
+    eps: float = 1e-5
+    # a-trous strides; iteration #1's output is next frame's colour history
+    strides: tuple[int, ...] = (1, 2, 4, 8, 16)
+    color_mix_weight: float = 0.1
+    moments_mix_weight: float = 0.1
+    # frames below this use the spatial (bilateral) moments estimate
+    spatial_moments_below: int = 4
+    # carried temporal state and denoiser arithmetic in f32
+    state_f32: bool = True
+
+
+@dataclass(frozen=True)
+class DemoSettings:
+    """Per-term display toggles."""
+
+    add_direct_out: bool = True
+    add_gi_colored: bool = True
+    add_gi_white: bool = True
+    demodulate: bool = False
+    svgf: bool = True
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    """The renderer configuration (fields the ported path reads)."""
+
+    width: int = 1024
+    height: int = 768
+    precision: str = "fp32"
+
+    gi_on: bool = True
+    # a first-round shade plus one GI bounce
+    max_bounces: int = 2
+    max_direct_lights: int = 4
+
+    svgf: SVGFConfig = SVGFConfig()
+    demo: DemoSettings = DemoSettings()
+    taa_mix_weight: float = 1.0
+    taa_on: bool = True
+    taa_force_full: bool = False
+    # shading computes in f32 even in bf16 mode
+    shade_f32: bool = True
+    # 'auto' resolves to 'mxu3' (f32-grade u/v, strict acceptance) for
+    # bf16 on the dense route
+    triangle_fallback: str = "auto"
+    traversal_impl: str = "auto"
+    # fused in-kernel shadow phase on single-chunk scenes
+    di_fuse: str = "auto"
+    # multi-device mesh (JAX: jax.sharding.Mesh); not ported
+    mesh: object = None
+
+    def __post_init__(self):
+        if self.precision not in _PRECISIONS:
+            raise ValueError(f"unknown precision {self.precision!r}")
+        if self.max_bounces < 1:
+            raise ValueError("max_bounces counts the primary shade round")
+
+    @property
+    def prec(self) -> Precision:
+        return get_precision(self.precision)
+
+
+# Skybox ambient colour used by the NO_GI fake-ambient path (all zero)
+SKYBOX_COLOR = (0.0, 0.0, 0.0)
+
+
+def check_supported(cfg: RenderConfig) -> None:
+    """Raise NotImplementedError for configurations the port does not
+    cover yet; each message names the ROADMAP queue-1 item that adds it."""
+    if cfg.precision != "bf16":
+        raise NotImplementedError(
+            f"precision={cfg.precision!r}: only bf16 is ported "
+            "(fp32 and fp16 renders wait, ROADMAP queue 1 item 8a)")
+    if cfg.taa_on and (cfg.taa_force_full or float(cfg.taa_mix_weight) != 1.0):
+        raise NotImplementedError(
+            "TAA at mix weight != 1 (or taa_force_full): the TAA half waits "
+            "(ROADMAP queue 1 item 8a)")
+    if cfg.mesh is not None:
+        raise NotImplementedError(
+            "cfg.mesh: multiple GPUs wait (ROADMAP queue 1 item 12)")
+    if cfg.traversal_impl not in ("auto", "dense_pallas"):
+        raise NotImplementedError(
+            f"traversal_impl={cfg.traversal_impl!r}: only the dense route is "
+            "ported (ROADMAP queue 1 item 10)")
+    if cfg.triangle_fallback not in ("auto", "mxu3"):
+        raise NotImplementedError(
+            f"triangle_fallback={cfg.triangle_fallback!r}: only the mxu3 "
+            "acceptance is ported (ROADMAP queue 1 item 8a)")
+    if cfg.di_fuse != "auto":
+        raise NotImplementedError(
+            "di_fuse='off': the unfused _trace_di/_trace_di_gi path waits "
+            "(ROADMAP queue 1 item 8a)")
+    if not cfg.shade_f32 or not cfg.svgf.state_f32:
+        raise NotImplementedError(
+            "shade_f32=False / state_f32=False ablations wait (ROADMAP queue 1 item 8a)")
+    if not float(cfg.svgf.sigma_n).is_integer() or max(cfg.svgf.strides) > 16:
+        raise NotImplementedError(
+            "non-integer svgf.sigma_n / a-trous strides above 16 wait "
+            "(ROADMAP queue 1 item 8a)")
+
+
+def resolve_device(device=None) -> torch.device:
+    """CUDA unless the caller passes a device; raises when CUDA is asked
+    for (explicitly or by default) and no card is present.  Also turns
+    TF32 off for f32 matmuls and convolutions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions of the kernels on the CPU")
+    return dev

@@ -1,0 +1,429 @@
+// SVGF kernels for the denoiser pair (GI-coloured and GI-white instances).
+// All planes are unpadded channel-major (C, H, W) f32; a tap outside the
+// image reads 0 in every channel (mask channels included), which is what
+// the zero pads of the TPU layout gave.  Plain versions live in
+// ops/svgf_kernels.py.  Arithmetic follows the TPU kernels' order so that
+// NaN/Inf travel the same way (no fast-math; built with --fmad=false).
+//
+// lprt_coef_fetch  replaces ops/svgf_pallas.py:_coef_fetch_kernel
+//                  (coef_fetch_pallas): the weighted temporal history fetch.
+// lprt_temporal    replaces ops/svgf_pallas.py:_temporal_kernel
+//                  (temporal_accum_pallas_pair): temporal accumulation.
+// lprt_wavelet     replaces ops/svgf_pallas.py:_wavelet_kernel
+//                  (wavelet_iter_pallas): one a-trous iteration.
+//
+// What bounds them on the H100, at 1920x1080: each is a stencil whose
+// compulsory traffic is a few hundred MB (K2 17 planes in, 11 out; K3 24
+// in, 20 out; K4 23 in, 12 out: 0.09-0.37 GB, 27-110 us at 3.35 TB/s) but
+// whose tap loops re-read neighbours many times (K2 16 views x 10
+// channels, K3 a 9x9 box per stage-1 position, K4 25 taps x 18 channels)
+// and run ~0.2-1.5 kFLOP per pixel.  The designs keep those re-reads on
+// chip: K2 and K4 read taps through the read-only cache (neighbouring
+// threads share rows of taps), K3 stages the colour tile with its 6-pixel
+// halo in shared memory and does the 9x9 box sums separably there, so its
+// device-memory traffic stays near the compulsory bytes.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  // jnp.maximum semantics: NaN in either operand gives NaN
+  return (a != a || b != b) ? a + b : fmaxf(a, b);
+}
+
+__device__ __forceinline__ float pow_int(float x, int n) {
+  // binary squaring, the same multiply chain as ops/svgf.py:_pow_int
+  if (n <= 0) return 1.f;
+  float result = 0.f, base = x;
+  bool have = false;
+  while (n > 0) {
+    if (n & 1) {
+      result = have ? result * base : base;
+      have = true;
+    }
+    base = base * base;
+    n >>= 1;
+  }
+  return result;
+}
+
+__device__ __forceinline__ int pmod(int a, int m) {
+  int r = a % m;
+  return r < 0 ? r + m : r;
+}
+
+// a-trous / bilateral tap weights h = (3/8, 1/4, 1/16) and the 3x3
+// gaussian (1/2, 1/4): products formed in double, then rounded to f32 like
+// the TPU kernels' jnp.asarray(python float, f32)
+__device__ __forceinline__ float wavelet_h(int a, int b) {
+  const double h[3] = {3.0 / 8.0, 1.0 / 4.0, 1.0 / 16.0};
+  return (float)(h[a < 0 ? -a : a] * h[b < 0 ? -b : b]);
+}
+
+__device__ __forceinline__ float gauss_g(int a, int b) {
+  const double g[2] = {1.0 / 2.0, 1.0 / 4.0};
+  return (float)(g[a < 0 ? -a : a] * g[b < 0 ? -b : b]);
+}
+
+// ---------------------------------------------------------------------------
+// K2: weighted temporal fetch on the shifted-select fast path.
+// hist (C, H, W) in the consumer's channel order; rw (7, H, W) =
+// [res_y, res_x, w0..w3, count]; (my, mx) the global motion.  View (vy, vx)
+// of pixel (y, x) reads the 1-pixel zero-padded history at
+// ((y + 1 + vy + my) mod (H + 2), (x + 1 + vx + mx) mod (W + 2)) — the
+// XLA-side roll + wrap pad of the TPU path, folded into the index.
+// out (C + 1, H, W) = [sum_k w_k tap_k / sum_k w_k, 0 where count == 0 |
+// count].  Every view is multiplied by its coefficient (also 0), as on the
+// TPU, so a non-finite neighbour reaches the sum the same way.
+#define LPRT_MAX_FETCH_C 16
+
+__global__ void coef_fetch_kernel(const float* __restrict__ hist,
+                                  const float* __restrict__ rw, int C, int H,
+                                  int W, int my, int mx,
+                                  float* __restrict__ out) {
+  int x = blockIdx.x * blockDim.x + threadIdx.x;
+  int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const size_t HW = (size_t)H * W;
+  const size_t p = (size_t)y * W + x;
+  float ry = rw[p], rx = rw[HW + p];
+  float wk[4] = {rw[2 * HW + p], rw[3 * HW + p], rw[4 * HW + p], rw[5 * HW + p]};
+  float count = rw[6 * HW + p];
+  float num[LPRT_MAX_FETCH_C];
+  for (int c = 0; c < C; ++c) num[c] = 0.f;
+  const int tdy[4] = {0, 0, 1, 1}, tdx[4] = {0, 1, 0, 1};
+  for (int vx = -1; vx <= 2; ++vx) {
+    int px = pmod(x + 1 + vx + mx, W + 2) - 1;
+    for (int vy = -1; vy <= 2; ++vy) {
+      float coeff = 0.f;
+      bool any = false;
+      for (int k = 0; k < 4; ++k) {
+        int sy = vy - tdy[k], sx = vx - tdx[k];
+        if (sy < -1 || sy > 1 || sx < -1 || sx > 1) continue;
+        float term = (ry == (float)sy && rx == (float)sx) ? wk[k] : 0.f;
+        coeff = any ? coeff + term : term;
+        any = true;
+      }
+      if (!any) continue;
+      int py = pmod(y + 1 + vy + my, H + 2) - 1;
+      bool inb = py >= 0 && py < H && px >= 0 && px < W;
+      size_t q = (size_t)py * W + px;
+      for (int c = 0; c < C; ++c) {
+        float v = inb ? __ldg(hist + c * HW + q) : 0.f;
+        num[c] = num[c] + coeff * v;
+      }
+    }
+  }
+  float den = wk[0] + wk[1] + wk[2] + wk[3];
+  float den_safe = den > 0.f ? den : 1.f;
+  bool gate = count > 0.f;
+  for (int c = 0; c < C; ++c) out[c * HW + p] = gate ? num[c] / den_safe : 0.f;
+  out[C * HW + p] = count;
+}
+
+// ---------------------------------------------------------------------------
+// K3: temporal accumulation for both instances.
+// col6 (6, H, W) raw colour [inst0 rgb | inst1 rgb]; geo7 (7, H, W) =
+// [depth (NaN -> 1e30), gx*sigma_z, gy*sigma_z, nx, ny, nz, one];
+// ctr11 (11, H, W) = the K2 fetch [h0 rgb, h1 rgb, m1_0, m1_1, m2_0, m2_1,
+// count].  Stage 1 (outlier clamp of the 9x9 box moments, history lerp,
+// illuminance) runs on the tile plus a 2-pixel ring, so the 5x5 moments of
+// stage 2 read it from shared memory.
+// out: cv (12, H, W) [per instance r, g, b, var, fc, fv], ext (4, H, W)
+// [il0, il1, pen0, pen1], mst (4, H, W) [m1_0, m1_1, m2_0, m2_1].
+#define T_TW 32
+#define T_TH 8
+#define T_S1W (T_TW + 4)
+#define T_S1H (T_TH + 4)
+#define T_INW (T_S1W + 8)
+#define T_INH (T_S1H + 8)
+
+__global__ void __launch_bounds__(T_TW* T_TH)
+    temporal_kernel(const float* __restrict__ col6,
+                    const float* __restrict__ geo7,
+                    const float* __restrict__ ctr11, int H, int W,
+                    float color_w, float moments_w, float below, int sigma_n,
+                    float eps_z, float* __restrict__ cv,
+                    float* __restrict__ ext, float* __restrict__ mst) {
+  __shared__ float s_raw[T_INH][T_INW];
+  __shared__ float s_cs[3][T_INH][T_S1W];
+  __shared__ float s_acc[T_S1H][T_S1W];
+  __shared__ float s_il[2][T_S1H][T_S1W];
+  __shared__ float s_fil[2][T_S1H][T_S1W];
+  __shared__ float s_ic[6][T_TH][T_TW];
+
+  const int tid = threadIdx.y * T_TW + threadIdx.x;
+  const int nthr = T_TW * T_TH;
+  const int row0 = blockIdx.y * T_TH, col0 = blockIdx.x * T_TW;
+  const size_t HW = (size_t)H * W;
+  const float lum_w[3] = {0.2126f, 0.7152f, 0.0722f};
+  const float one_m_wc = 1.f - color_w;
+
+  for (int inst = 0; inst < 2; ++inst) {
+    for (int c = 0; c < 3; ++c) {
+      const float* ch = col6 + (size_t)(3 * inst + c) * HW;
+      for (int i = tid; i < T_INH * T_INW; i += nthr) {
+        int iy = i / T_INW, ix = i % T_INW;
+        int y = row0 - 6 + iy, x = col0 - 6 + ix;
+        bool in = y >= 0 && y < H && x >= 0 && x < W;
+        s_raw[iy][ix] = in ? ch[(size_t)y * W + x] : 0.f;
+      }
+      __syncthreads();
+      // 9-tap row sums (column offsets -4..4, in order) of the finite
+      // indicator, the sanitised value and its square
+      for (int i = tid; i < T_INH * T_S1W; i += nthr) {
+        int iy = i / T_S1W, sx = i % T_S1W;
+        int y = row0 - 6 + iy;
+        float a = 0.f, b = 0.f, q = 0.f;
+        for (int dj = 0; dj < 9; ++dj) {
+          int x = col0 - 6 + sx + dj;
+          float one = (y >= 0 && y < H && x >= 0 && x < W) ? 1.f : 0.f;
+          float raw = s_raw[iy][sx + dj];
+          bool fin = isfinite(raw);
+          float finv = (fin ? 1.f : 0.f) * one;
+          float safe = (fin ? raw : 0.f) * one;
+          if (dj == 0) {
+            a = finv; b = safe; q = safe * safe;
+          } else {
+            a = a + finv; b = b + safe; q = q + safe * safe;
+          }
+        }
+        s_cs[0][iy][sx] = a;
+        s_cs[1][iy][sx] = b;
+        s_cs[2][iy][sx] = q;
+      }
+      __syncthreads();
+      for (int i = tid; i < T_S1H * T_S1W; i += nthr) {
+        int sy = i / T_S1W, sx = i % T_S1W;
+        float rs_f = s_cs[0][sy][sx], rs_s = s_cs[1][sy][sx], rs_s2 = s_cs[2][sy][sx];
+        for (int di = 1; di < 9; ++di) {
+          rs_f = rs_f + s_cs[0][sy + di][sx];
+          rs_s = rs_s + s_cs[1][sy + di][sx];
+          rs_s2 = rs_s2 + s_cs[2][sy + di][sx];
+        }
+        float m1c = rs_s / rs_f;
+        float m2c = rs_s2 / rs_f;
+        float raw = s_raw[sy + 4][sx + 4];
+        float p = isfinite(raw) ? raw : m1c;
+        float stdc = sqrtf(m2c - m1c * m1c);
+        if (isfinite(stdc)) p = fminf(fmaxf(p, m1c - 0.5f * stdc), m1c + 0.5f * stdc);
+        int y = row0 - 2 + sy, x = col0 - 2 + sx;
+        bool in = y >= 0 && y < H && x >= 0 && x < W;
+        size_t q = (size_t)y * W + x;
+        float h = in ? ctr11[(size_t)(3 * inst + c) * HW + q] : 0.f;
+        float fcq = in ? ctr11[10 * HW + q] : 0.f;
+        float hist = fcq > 0.f ? h : p;
+        hist = isfinite(hist) ? hist : p;
+        float ic = color_w * p + one_m_wc * hist;
+        float term = lum_w[c] * ic;
+        s_acc[sy][sx] = c == 0 ? term : s_acc[sy][sx] + term;
+        int ty = sy - 2, tx = sx - 2;
+        if (ty >= 0 && ty < T_TH && tx >= 0 && tx < T_TW) s_ic[3 * inst + c][ty][tx] = ic;
+      }
+      __syncthreads();
+    }
+    for (int i = tid; i < T_S1H * T_S1W; i += nthr) {
+      int sy = i / T_S1W, sx = i % T_S1W;
+      int y = row0 - 2 + sy, x = col0 - 2 + sx;
+      float one = (y >= 0 && y < H && x >= 0 && x < W) ? 1.f : 0.f;
+      float acc = s_acc[sy][sx];
+      bool fin = isfinite(acc);
+      s_il[inst][sy][sx] = fin ? acc : 0.f;
+      s_fil[inst][sy][sx] = (fin ? 1.f : 0.f) * one;
+    }
+    __syncthreads();
+  }
+
+  const int ty = threadIdx.y, tx = threadIdx.x;
+  const int y = row0 + ty, x = col0 + tx;
+  if (y >= H || x >= W) return;
+  const size_t p = (size_t)y * W + x;
+  const float depth_p = geo7[p], gx = geo7[HW + p], gy = geo7[2 * HW + p];
+  const float nx_p = geo7[3 * HW + p], ny_p = geo7[4 * HW + p], nz_p = geo7[5 * HW + p];
+  float num[2] = {0.f, 0.f}, num2[2] = {0.f, 0.f}, wsum[2] = {0.f, 0.f};
+  for (int tj = -2; tj <= 2; ++tj) {
+    for (int ti = -2; ti <= 2; ++ti) {
+      int qy = y + ti, qx = x + tj;
+      bool in = qy >= 0 && qy < H && qx >= 0 && qx < W;
+      size_t q = (size_t)qy * W + qx;
+      float dq = in ? geo7[q] : 0.f;
+      float nxq = in ? geo7[3 * HW + q] : 0.f;
+      float nyq = in ? geo7[4 * HW + q] : 0.f;
+      float nzq = in ? geo7[5 * HW + q] : 0.f;
+      float dd = gx * (float)ti + gy * (float)tj;
+      float t1 = fabsf(depth_p - dq) / fabsf(dd + eps_z);
+      float ndot = nx_p * nxq + ny_p * nyq + nz_p * nzq;
+      float w_n = pow_int(nan_max(0.f, ndot), sigma_n);
+      float hw = wavelet_h(ti, tj) * expf(-t1) * w_n;
+      for (int i = 0; i < 2; ++i) {
+        float hm = hw * s_fil[i][ty + 2 + ti][tx + 2 + tj];
+        float iq = s_il[i][ty + 2 + ti][tx + 2 + tj];
+        num[i] = num[i] + hm * iq;
+        num2[i] = num2[i] + hm * iq * iq;
+        wsum[i] = wsum[i] + hm;
+      }
+    }
+  }
+
+  const float one_m_mw = 1.f - moments_w;
+  const float fc_c = ctr11[10 * HW + p];
+  const bool spatial = fc_c < below;
+  const float n2 = nx_p * nx_p + ny_p * ny_p + nz_p * nz_p;
+  const bool geo_ok_base = (depth_p < 1e30f * 0.5f) && (n2 > 0.5f);
+  for (int i = 0; i < 2; ++i) {
+    float ic0 = s_ic[3 * i][ty][tx], ic1 = s_ic[3 * i + 1][ty][tx], ic2 = s_ic[3 * i + 2][ty][tx];
+    float ilc = s_il[i][ty + 2][tx + 2];
+    bool fin_il = s_fil[i][ty + 2][tx + 2] > 0.f;
+    float m1_sp = num[i] / wsum[i];
+    float m2_sp = num2[i] / wsum[i];
+    float m1_t = one_m_mw * ctr11[(size_t)(6 + i) * HW + p] + moments_w * ilc;
+    m1_t = isfinite(m1_t) ? m1_t : ilc;
+    float il2 = ilc * ilc;
+    float m2_t = one_m_mw * ctr11[(size_t)(8 + i) * HW + p] + moments_w * il2;
+    m2_t = isfinite(m2_t) ? m2_t : il2;
+    float miu1 = spatial ? m1_sp : m1_t;
+    float miu2 = spatial ? m2_sp : m2_t;
+    float var = miu2 - miu1 * miu1;
+    bool fin_ic = isfinite(ic0) && isfinite(ic1) && isfinite(ic2);
+    bool geo_ok = geo_ok_base && fin_il;
+    size_t b = (size_t)(6 * i) * HW;
+    cv[b + p] = ic0;
+    cv[b + HW + p] = ic1;
+    cv[b + 2 * HW + p] = ic2;
+    cv[b + 3 * HW + p] = var;
+    cv[b + 4 * HW + p] = (fin_ic && geo_ok) ? 1.f : 0.f;
+    cv[b + 5 * HW + p] = (isfinite(var) && geo_ok) ? 1.f : 0.f;
+    ext[(size_t)i * HW + p] = ilc;
+    ext[(size_t)(2 + i) * HW + p] = geo_ok ? 0.f : 1e30f;
+    mst[(size_t)i * HW + p] = miu1;
+    mst[(size_t)(2 + i) * HW + p] = miu2;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4: one a-trous iteration at `stride` for both instances.
+// geo (11, H, W) = geo7 + [il0, il1, pen0, pen1]; cv (12, H, W) as K3
+// writes it.  Shared depth/normal edge weights, per-instance luminance term
+// on the 3x3-gaussian-prefiltered raw variance; a dead centre (pen > 0) or
+// a non-finite result falls back to the raw centre value.
+__global__ void wavelet_kernel(const float* __restrict__ geo,
+                               const float* __restrict__ cvin, int H, int W,
+                               int stride, int sigma_n, float sigma_l,
+                               float eps, float eps_z,
+                               float* __restrict__ cvout) {
+  int x = blockIdx.x * blockDim.x + threadIdx.x;
+  int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const size_t HW = (size_t)H * W;
+  const size_t p = (size_t)y * W + x;
+  auto ld = [&](const float* base, int ch, int qy, int qx) -> float {
+    bool in = qy >= 0 && qy < H && qx >= 0 && qx < W;
+    return in ? __ldg(base + ch * HW + (size_t)qy * W + qx) : 0.f;
+  };
+
+  const float depth_p = geo[p], gx = geo[HW + p], gy = geo[2 * HW + p];
+  const float nx_p = geo[3 * HW + p], ny_p = geo[4 * HW + p], nz_p = geo[5 * HW + p];
+  const float il_p[2] = {geo[7 * HW + p], geo[8 * HW + p]};
+  const float pen[2] = {geo[9 * HW + p], geo[10 * HW + p]};
+
+  float gnum[2] = {0.f, 0.f}, gden = 0.f;
+  for (int dj = -1; dj <= 1; ++dj) {
+    for (int di = -1; di <= 1; ++di) {
+      float g = gauss_g(di, dj);
+      gnum[0] = gnum[0] + g * ld(cvin, 3, y + di, x + dj);
+      gnum[1] = gnum[1] + g * ld(cvin, 9, y + di, x + dj);
+      gden = gden + g * ld(geo, 6, y + di, x + dj);
+    }
+  }
+  float recip2[2];
+  for (int i = 0; i < 2; ++i) recip2[i] = 1.f / (sigma_l * sqrtf(gnum[i] / gden) + eps);
+
+  float num_r[2] = {0.f, 0.f}, num_g[2] = {0.f, 0.f}, num_b[2] = {0.f, 0.f};
+  float den_c[2] = {0.f, 0.f}, num_v[2] = {0.f, 0.f}, den_v[2] = {0.f, 0.f};
+  for (int tj = -2; tj <= 2; ++tj) {
+    int dj = tj * stride;
+    for (int ti = -2; ti <= 2; ++ti) {
+      int di = ti * stride;
+      int qy = y + di, qx = x + dj;
+      float dd = gx * (float)di + gy * (float)dj;
+      float t1 = fabsf(depth_p - ld(geo, 0, qy, qx)) / fabsf(dd + eps_z);
+      float ndot = nx_p * ld(geo, 3, qy, qx) + ny_p * ld(geo, 4, qy, qx) +
+                   nz_p * ld(geo, 5, qy, qx);
+      float w_n = pow_int(nan_max(0.f, ndot), sigma_n);
+      float hvn = wavelet_h(ti, tj) * w_n;
+      for (int i = 0; i < 2; ++i) {
+        int b = 6 * i;
+        float t2 = fabsf(il_p[i] - ld(geo, 7 + i, qy, qx)) * recip2[i];
+        float hw = hvn * expf(-(t1 + t2));
+        float fc = ld(cvin, b + 4, qy, qx), fv = ld(cvin, b + 5, qy, qx);
+        float hc = hw * fc;
+        float hv = hw * fv;
+        float cr = fc > 0.f ? ld(cvin, b, qy, qx) : 0.f;
+        float cg = fc > 0.f ? ld(cvin, b + 1, qy, qx) : 0.f;
+        float cb = fc > 0.f ? ld(cvin, b + 2, qy, qx) : 0.f;
+        float vc = fv > 0.f ? ld(cvin, b + 3, qy, qx) : 0.f;
+        num_r[i] = num_r[i] + hc * cr;
+        num_g[i] = num_g[i] + hc * cg;
+        num_b[i] = num_b[i] + hc * cb;
+        den_c[i] = den_c[i] + hc;
+        num_v[i] = num_v[i] + hv * hv * vc;
+        den_v[i] = den_v[i] + hv;
+      }
+    }
+  }
+
+  for (int i = 0; i < 2; ++i) {
+    int b = 6 * i;
+    if (pen[i] > 0.f) {
+      den_c[i] = 0.f;
+      den_v[i] = 0.f;
+    }
+    float oc[3] = {num_r[i] / den_c[i], num_g[i] / den_c[i], num_b[i] / den_c[i]};
+    bool valid_c = isfinite(oc[0]) && isfinite(oc[1]) && isfinite(oc[2]);
+    float ov = num_v[i] / (den_v[i] * den_v[i]);
+    bool valid_v = isfinite(ov);
+    for (int c = 0; c < 3; ++c)
+      cvout[(b + c) * HW + p] = valid_c ? oc[c] : cvin[(b + c) * HW + p];
+    cvout[(b + 3) * HW + p] = valid_v ? ov : cvin[(b + 3) * HW + p];
+    cvout[(b + 4) * HW + p] = valid_c ? 1.f : cvin[(b + 4) * HW + p];
+    cvout[(b + 5) * HW + p] = valid_v ? 1.f : cvin[(b + 5) * HW + p];
+  }
+}
+
+}  // namespace
+
+extern "C" int lprt_coef_fetch(const float* hist, const float* rw, int C,
+                               int H, int W, int my, int mx, float* out,
+                               void* stream) {
+  if (C > LPRT_MAX_FETCH_C) return (int)cudaErrorInvalidValue;
+  dim3 block(32, 8);
+  dim3 grid((W + 31) / 32, (H + 7) / 8);
+  coef_fetch_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(hist, rw, C, H, W,
+                                                              my, mx, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lprt_temporal(const float* col6, const float* geo7,
+                             const float* ctr11, int H, int W, float color_w,
+                             float moments_w, float below, int sigma_n,
+                             float eps_z, float* cv, float* ext, float* mst,
+                             void* stream) {
+  dim3 block(T_TW, T_TH);
+  dim3 grid((W + T_TW - 1) / T_TW, (H + T_TH - 1) / T_TH);
+  temporal_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      col6, geo7, ctr11, H, W, color_w, moments_w, below, sigma_n, eps_z, cv,
+      ext, mst);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lprt_wavelet(const float* geo, const float* cvin, int H, int W,
+                            int stride, int sigma_n, float sigma_l, float eps,
+                            float eps_z, float* cvout, void* stream) {
+  dim3 block(32, 8);
+  dim3 grid((W + 31) / 32, (H + 7) / 8);
+  wavelet_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      geo, cvin, H, W, stride, sigma_n, sigma_l, eps, eps_z, cvout);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,1 @@
+"""math layer of the PyTorch/CUDA port (see the package docstring)."""

@@ -1,0 +1,358 @@
+"""Scene resources: the host half of `low_precision_raytracer_tpu/models/scene.py`
+(copied, not imported) plus torch device arrays.
+
+- :class:`HostScene` / :class:`Mesh` — load-time host state (numpy);
+- :class:`SceneArrays` — load-time device tensors the dense path, the
+  G-buffer and shade read (per-triangle attribute rows, material table);
+- :class:`FrameInput` — per-frame device tensors: object transforms,
+  lights, camera, and the dense route's world-space coefficient table.
+
+The BLAS/TLAS, texture-atlas and skybox fields of the JAX package are not
+here: the single-chunk dense route reads no BVH, and scenes with textures
+or a skybox are refused (ROADMAP queue 1 items 9 and 13).
+
+`scene_from_numpy` carries the JAX package's leaves across (as numpy
+arrays), so a test can run both packages on exactly the same tables.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field, fields
+
+import numpy as np
+import torch
+
+from low_precision_raytracer_tpu_torch.config import Precision, get_precision
+from low_precision_raytracer_tpu_torch.math.hostmath import (
+    cross_product_difference,
+    inverse_3x3_dop,
+    perspective,
+)
+from low_precision_raytracer_tpu_torch.models.hierarchy import (
+    CameraObject,
+    FlatScene,
+    Object,
+    build_flat_scene,
+)
+from low_precision_raytracer_tpu_torch.models.materials import pack_materials
+
+# triangles per kernel chunk in the JAX package's dense kernel; a scene
+# whose instance triangles fit in one chunk is a single-chunk scene
+DENSE_CHUNK_TRIS = 128
+
+
+@dataclass
+class Mesh:
+    """One triangle mesh: positions + the vertex attribute set."""
+
+    positions: np.ndarray  # (V, 3) f32
+    indices: np.ndarray  # (T, 3) i32
+    normals: np.ndarray | None = None
+    tangents: np.ndarray | None = None
+    colors: np.ndarray | None = None
+    uv0: np.ndarray | None = None
+    uv1: np.ndarray | None = None
+    name: str = ""
+
+    def __post_init__(self):
+        self.positions = np.asarray(self.positions, np.float32).reshape(-1, 3)
+        self.indices = np.asarray(self.indices, np.int32).reshape(-1, 3)
+        v = self.positions.shape[0]
+        if self.normals is None:
+            self.normals = np.tile(np.array([0, 1, 0], np.float32), (v, 1))
+        if self.tangents is None:
+            self.tangents = np.tile(np.array([1, 0, 0], np.float32), (v, 1))
+        if self.colors is None:
+            self.colors = np.ones((v, 3), np.float32)
+        if self.uv0 is None:
+            self.uv0 = np.zeros((v, 2), np.float32)
+        if self.uv1 is None:
+            self.uv1 = np.zeros((v, 2), np.float32)
+        for name in ("normals", "tangents", "colors"):
+            setattr(self, name, np.asarray(getattr(self, name), np.float32).reshape(v, 3))
+        for name in ("uv0", "uv1"):
+            setattr(self, name, np.asarray(getattr(self, name), np.float32).reshape(v, 2))
+
+    @property
+    def aabb(self):
+        return self.positions.min(axis=0), self.positions.max(axis=0)
+
+    @property
+    def n_triangles(self) -> int:
+        return self.indices.shape[0]
+
+
+@dataclass
+class HostScene:
+    """All load-time host state."""
+
+    meshes: list = field(default_factory=list)
+    materials: list = field(default_factory=list)
+    textures: list = field(default_factory=list)
+    root: Object = field(default_factory=Object)
+    active_camera: CameraObject | None = None
+    skybox: object = None
+    animated: bool = False
+
+    def add_mesh(self, mesh: Mesh) -> int:
+        self.meshes.append(mesh)
+        return len(self.meshes) - 1
+
+    def add_material(self, mat) -> int:
+        self.materials.append(mat)
+        return len(self.materials) - 1
+
+
+@dataclass(frozen=True)
+class SceneArrays:
+    # packed per-triangle attribute rows (T, 48) in the render dtype:
+    # 3 vertices x [pos3 nrm3 tan3 col3 uv0.2 uv1.2]
+    tri_attr: torch.Tensor
+    # material table
+    mat_color: torch.Tensor  # (M, 3) dtype
+    mat_emission: torch.Tensor  # (M, 3) dtype
+    mat_metallic: torch.Tensor  # (M,) dtype
+    mat_roughness: torch.Tensor  # (M,) dtype
+    mat_double_sided: torch.Tensor  # (M,) bool
+    n_meshes: int = 0  # static
+
+
+@dataclass(frozen=True)
+class FrameInput:
+    obj_l2w: torch.Tensor  # (O, 4, 4) dtype
+    obj_l2w_f32: torch.Tensor  # (O, 4, 4) f32
+    obj_w2l_f32: torch.Tensor  # (O, 4, 4) f32
+    obj_mesh: torch.Tensor  # (O,) i32
+    obj_material: torch.Tensor  # (O,) i32
+    # lights, padded to max_direct_lights
+    light_type: torch.Tensor  # (Lmax,) i32
+    light_pos: torch.Tensor  # (Lmax, 3) dtype
+    light_dir: torch.Tensor  # (Lmax, 3) dtype
+    light_intensity: torch.Tensor  # (Lmax, 3) dtype
+    light_valid: torch.Tensor  # (Lmax,) bool
+    # camera: f32 world-to-clip (reprojection) and f32 ray generation
+    cam_w2c: torch.Tensor  # (4, 4) f32
+    cam_l2w_f32: torch.Tensor  # (4, 4) f32
+    cam_fov_y_f32: torch.Tensor  # () f32
+    # dense route: per-instance-triangle world-space test coefficients,
+    # rows n = m @ A (A = W2L linear part), offsets e = m.(b - v2) + n.c,
+    # recentred at the scene centre c
+    dense_n_f32: torch.Tensor  # (TI, 3, 3) f32
+    dense_e: torch.Tensor  # (TI, 3) f32
+    dense_tri: torch.Tensor  # (TI,) i32 global triangle id
+    dense_obj: torch.Tensor  # (TI,) i32 object id
+    dense_center: torch.Tensor  # (3,) f32
+    # static: ((mesh_id, tri_start, tri_end), ...) per object
+    obj_layout: tuple = ()
+    # static: active light count (<= max_direct_lights)
+    n_lights: int = 0
+
+
+_STATIC = ("n_meshes", "obj_layout", "n_lights")
+
+
+def tensor_fields(cls) -> list[str]:
+    """Names of the tensor fields of SceneArrays / FrameInput."""
+    return [f.name for f in fields(cls) if f.name not in _STATIC]
+
+
+def compute_m_matrices(positions_f32: np.ndarray, tri_idx: np.ndarray):
+    """Per-triangle shear/inverse matrices in fp32: M1 columns are
+    [v0-v2, v1-v2, cross_dop(v0-v2, v1-v2) - v2] and M = M1^-1 via the
+    difference-of-products cofactor inverse."""
+    v0 = positions_f32[tri_idx[:, 0]]
+    v1 = positions_f32[tri_idx[:, 1]]
+    v2 = positions_f32[tri_idx[:, 2]]
+    e0 = v0 - v2
+    e1 = v1 - v2
+    col2 = cross_product_difference(e0, e1) - v2
+    m1 = np.stack([e0, e1, col2], axis=-1)  # columns
+    return inverse_3x3_dop(m1).astype(np.float32)
+
+
+def _host_m_cache(host: HostScene):
+    """Per-HostScene cache of the fp32 M matrices and third vertices,
+    keyed on the identity of every mesh's arrays."""
+    key = tuple((id(m.positions), id(m.indices)) for m in host.meshes)
+    cache = getattr(host, "_m_cache", None)
+    if cache is not None and cache[0] == key:
+        return cache[1], cache[2]
+    v_off = np.cumsum([0] + [m.positions.shape[0] for m in host.meshes])
+    pos = np.concatenate([m.positions for m in host.meshes]).astype(np.float32)
+    tri_idx = np.concatenate(
+        [m.indices + v_off[i] for i, m in enumerate(host.meshes)]
+    ).astype(np.int32)
+    m_f32 = compute_m_matrices(pos, tri_idx)
+    v2_f32 = pos[tri_idx[:, 2]]
+    host._m_cache = (key, m_f32, v2_f32)
+    return m_f32, v2_f32
+
+
+def _dense_coefficients(host: HostScene, flat: FlatScene, t_off):
+    """World-space per-instance-triangle test coefficients (host float64
+    -> fp32): with the local test m @ (A o + b - v2) and the W2L linear
+    part A, the world-ray form is n.o + e with rows n = m @ A and offsets
+    e = m.(b - v2) + n.c (recentred at the scene centre c).
+
+    -> numpy dict (dense_n_f32, dense_e, dense_tri, dense_obj, dense_center).
+    Single-chunk scenes keep object order (the JAX package morton-sorts
+    only above one chunk)."""
+    m_f32, v2_f32 = _host_m_cache(host)
+    center = (
+        (flat.obj_aabb_lo.min(axis=0) + flat.obj_aabb_hi.max(axis=0)) / 2
+    ).astype(np.float64)
+    ns, es, tris, objs = [], [], [], []
+    for o in range(flat.obj_mesh.shape[0]):
+        mesh = int(flat.obj_mesh[o])
+        t0, t1 = int(t_off[mesh]), int(t_off[mesh + 1])
+        if t0 == t1:
+            continue
+        w2l = flat.obj_w2l[o].astype(np.float64)
+        A = w2l[:3, :3]
+        b = w2l[:3, 3]
+        m = m_f32[t0:t1].astype(np.float64)  # (T, 3, 3) rows
+        v2 = v2_f32[t0:t1].astype(np.float64)
+        ns.append((m @ A).astype(np.float32))
+        # stays f64: it cancels against n.c below
+        es.append(np.einsum("trk,tk->tr", m, b[None, :] - v2))
+        tris.append(np.arange(t0, t1, dtype=np.int32))
+        objs.append(np.full(t1 - t0, o, np.int32))
+    n_all = np.concatenate(ns)
+    e_all = (np.concatenate(es) + n_all.astype(np.float64) @ center).astype(np.float32)
+    return dict(
+        dense_n_f32=n_all,
+        dense_e=e_all,
+        dense_tri=np.concatenate(tris),
+        dense_obj=np.concatenate(objs),
+        dense_center=center.astype(np.float32),
+    )
+
+
+def _to_tensor(a, device, dtype=None) -> torch.Tensor:
+    """numpy -> torch on `device`; bfloat16 numpy arrays (ml_dtypes, as the
+    JAX package hands them out) travel bit-exactly through int16."""
+    a = np.array(a)  # a writable copy: JAX hands out read-only buffers
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def build_scene_arrays(host: HostScene, prec: Precision | str, device) -> SceneArrays:
+    """Flatten host meshes/materials into device tensors."""
+    prec = get_precision(prec)
+    dt = prec.dtype
+    meshes = host.meshes
+    if not meshes:
+        raise ValueError("scene has no meshes")
+    v_off = np.cumsum([0] + [m.positions.shape[0] for m in meshes])
+    pos = np.concatenate([m.positions for m in meshes]).astype(np.float32)
+    nrm = np.concatenate([m.normals for m in meshes]).astype(np.float32)
+    tan = np.concatenate([m.tangents for m in meshes]).astype(np.float32)
+    col = np.concatenate([m.colors for m in meshes]).astype(np.float32)
+    uv0 = np.concatenate([m.uv0 for m in meshes]).astype(np.float32)
+    uv1 = np.concatenate([m.uv1 for m in meshes]).astype(np.float32)
+    tri_idx = np.concatenate(
+        [m.indices + v_off[i] for i, m in enumerate(meshes)]
+    ).astype(np.int32)
+    n_tris = tri_idx.shape[0]
+    per_vert = np.concatenate([pos, nrm, tan, col, uv0, uv1], axis=1)  # (V, 16)
+    tri_attr = per_vert[tri_idx].reshape(n_tris, 48).astype(np.float32)
+    mats = pack_materials(host.materials)
+    as_dt = lambda x: _to_tensor(np.asarray(x, np.float32), device, dt)
+    return SceneArrays(
+        tri_attr=as_dt(tri_attr),
+        mat_color=as_dt(mats["color"]),
+        mat_emission=as_dt(mats["emission"]),
+        mat_metallic=as_dt(mats["metallic"]),
+        mat_roughness=as_dt(mats["roughness"]),
+        mat_double_sided=_to_tensor(mats["double_sided"], device),
+        n_meshes=len(meshes),
+    )
+
+
+def flatten_frame(
+    host: HostScene,
+    prec: Precision | str,
+    device,
+    max_direct_lights: int = 4,
+    width: int | None = None,
+    height: int | None = None,
+) -> FrameInput:
+    """Host flatten of the (static) hierarchy -> device FrameInput."""
+    prec = get_precision(prec)
+    dt = prec.dtype
+    flat = build_flat_scene(host.root, host.active_camera)
+
+    n_l = flat.light_type.shape[0]
+    lmax = max_direct_lights
+    lt = np.zeros(lmax, np.int32)
+    lp = np.zeros((lmax, 3), np.float32)
+    ld = np.tile(np.array([0, 0, -1], np.float32), (lmax, 1))
+    li = np.zeros((lmax, 3), np.float32)
+    lv = np.zeros(lmax, np.bool_)
+    k = min(n_l, lmax)
+    lt[:k] = flat.light_type[:k]
+    lp[:k] = flat.light_pos[:k]
+    ld[:k] = flat.light_dir[:k]
+    li[:k] = flat.light_intensity[:k]
+    lv[:k] = True
+
+    w = width if width is not None else 1
+    h = height if height is not None else 1
+    v2c = perspective(flat.cam_fov_y, w, h, flat.cam_z_near, flat.cam_z_far)
+    w2c = (v2c @ flat.cam_w2v).astype(np.float32)
+
+    t_off = np.cumsum([0] + [m.n_triangles for m in host.meshes])
+    obj_layout = tuple(
+        (int(m), int(t_off[m]), int(t_off[m + 1])) for m in flat.obj_mesh.tolist()
+    )
+    dense = _dense_coefficients(host, flat, t_off)
+
+    as_dt = lambda x: _to_tensor(np.asarray(x, np.float32), device, dt)
+    f32 = lambda x: _to_tensor(np.asarray(x, np.float32), device)
+    i32 = lambda x: _to_tensor(np.asarray(x, np.int32), device)
+    return FrameInput(
+        obj_l2w=as_dt(flat.obj_l2w),
+        obj_l2w_f32=f32(flat.obj_l2w),
+        obj_w2l_f32=f32(flat.obj_w2l),
+        obj_mesh=i32(flat.obj_mesh),
+        obj_material=i32(flat.obj_material),
+        light_type=i32(lt),
+        light_pos=as_dt(lp),
+        light_dir=as_dt(ld),
+        light_intensity=as_dt(li),
+        light_valid=_to_tensor(lv, device),
+        cam_w2c=f32(w2c),
+        cam_l2w_f32=f32(flat.cam_l2w),
+        cam_fov_y_f32=f32(flat.cam_fov_y),
+        dense_n_f32=f32(dense["dense_n_f32"]),
+        dense_e=f32(dense["dense_e"]),
+        dense_tri=i32(dense["dense_tri"]),
+        dense_obj=i32(dense["dense_obj"]),
+        dense_center=f32(dense["dense_center"]),
+        obj_layout=obj_layout,
+        n_lights=int(k),
+    )
+
+
+def scene_from_numpy(scene_np: dict, frame_np: dict, device):
+    """Build (SceneArrays, FrameInput) from the JAX package's leaves given
+    as numpy arrays, keyed by field name.  Static fields come as plain
+    Python values: `n_meshes` in scene_np, `obj_layout` and `n_lights` in
+    frame_np.  Extra keys are ignored; bfloat16 arrays carry over bit for
+    bit."""
+
+    def build(cls, src):
+        kw = {f: _to_tensor(src[f], device) for f in tensor_fields(cls)}
+        kw.update({f: src[f] for f in _STATIC if f in src and f in cls.__dataclass_fields__})
+        return cls(**kw)
+
+    return build(SceneArrays, scene_np), build(FrameInput, frame_np)
+
+
+def instance_tris(frame: FrameInput) -> int:
+    return int(sum(t1 - t0 for _m, t0, t1 in frame.obj_layout))

@@ -1,0 +1,78 @@
+"""Traced primary-visibility G-buffer (port of
+`low_precision_raytracer_tpu/ops/gbuffer.py`): `fill_gbuffer` and
+`interpolate_hit_attributes` (the small-scene per-triangle-row path)."""
+
+from __future__ import annotations
+
+import torch
+
+from low_precision_raytracer_tpu_torch.math.vec import normalize
+from low_precision_raytracer_tpu_torch.ops.trace import Hit, trace
+
+
+def _finish_world(l2w, position, normal, tangent):
+    """World transform with (R, 4, 4)-gathered rows; normals/tangents go
+    through L2W directly (no inverse-transpose), like the reference."""
+    rot = l2w[..., :3, :3]
+    normal = normalize((rot @ normal[..., :, None])[..., 0])
+    tangent = normalize((rot @ tangent[..., :, None])[..., 0])
+    pos_w = (rot @ position[..., :, None])[..., 0] + l2w[..., :3, 3]
+    return pos_w, normal, tangent
+
+
+def interpolate_hit_attributes(scene, frame, hit: Hit, dtype):
+    """Barycentric attribute interpolation + local-to-world transform in
+    `dtype` (misses read triangle/object 0; callers mask them)."""
+    dt = dtype
+    u = hit.u.to(dt)[..., None]
+    v = hit.v.to(dt)[..., None]
+    w = (1.0 - hit.u - hit.v).to(dt)[..., None]
+    tri = torch.clamp(hit.tri, min=0).long()
+    obj = torch.clamp(hit.obj, min=0).long()
+    a = scene.tri_attr[tri].to(dt)  # (R, 48): 3 vertices x 16 attributes
+    # position, normal, tangent, colour of each vertex (the uv sets wait)
+    attr = u * a[:, 0:12] + v * a[:, 16:28] + w * a[:, 32:44]
+    # f32 attributes read the f32 L2W copy; a dtype matrix would
+    # re-quantize the world transform itself
+    l2w_tab = frame.obj_l2w_f32 if dt == torch.float32 else frame.obj_l2w
+    l2w = l2w_tab[obj].to(dt)
+    pos_w, normal, tangent = _finish_world(
+        l2w, attr[:, 0:3], normalize(attr[:, 3:6]), normalize(attr[:, 6:9]))
+    return dict(
+        position=pos_w,
+        normal=normal,
+        tangent=tangent,
+        color=attr[:, 9:12],
+        material=frame.obj_material[obj],
+        obj=hit.obj,
+        tri=hit.tri,
+    )
+
+
+def fill_gbuffer(scene, frame, origins, directions, *, cfg, prec, di_lights=None):
+    """Trace primary rays and produce the G-buffer pixel arrays (zeros on
+    miss); `depth` is the f32 hit distance under shade_f32.  With
+    `di_lights` the launch also returns round-0 shadow visibility in
+    g["di_vis"]."""
+    hit, vis = trace(frame, origins, directions, cfg=cfg, prec=prec,
+                     di_lights=di_lights)
+    attr_dt = torch.float32 if cfg.shade_f32 else prec.dtype
+    attrs = interpolate_hit_attributes(scene, frame, hit, attr_dt)
+    valid = hit.tri >= 0
+    vz = valid[..., None]
+    zero3 = torch.zeros_like(attrs["position"])
+    g = dict(
+        valid=valid,
+        position=torch.where(vz, attrs["position"], zero3),
+        normal=torch.where(vz, attrs["normal"], zero3),
+        tangent=torch.where(vz, attrs["tangent"], zero3),
+        color=torch.where(vz, attrs["color"], zero3),
+        obj=torch.where(valid, hit.obj, 0),
+        tri=torch.where(valid, hit.tri, 0),
+        material=torch.where(valid, attrs["material"], 0),
+        depth=torch.where(valid, hit.t, 0.0).to(attr_dt),
+        t=hit.t,
+    )
+    if di_lights is not None:
+        g["di_vis"] = vis
+    return g, hit

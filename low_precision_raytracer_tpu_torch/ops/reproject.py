@@ -1,0 +1,145 @@
+"""Temporal reprojection, SVGF half (port of
+`low_precision_raytracer_tpu/ops/reproject.py`: `generate_temporal_maps`
+with `packed=True, want_taa=False`, `_footprint`, `_residuals` and
+`fetch_weighted_packed`).
+
+Each pixel's f32 hit position is reprojected through its object's
+composite matrix (last W2C @ last L2W @ current W2L) to last frame's
+screen; the 2x2 bilinear footprint there is validated per tap by mesh id,
+renormalised, and carries the frame count forward.  The history fetch
+takes the fast shifted path (K2, ops/svgf_kernels.coef_fetch) when every
+caring anchor sits within one pixel of pixel + one global motion, else
+the general 2x2 take in plain PyTorch, as the JAX package runs it in XLA.
+Choosing the branch reads one flag from the device (a host sync per
+frame).  The TAA half waits (ROADMAP queue 1 item 8a).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from low_precision_raytracer_tpu_torch.ops.svgf_kernels import coef_fetch
+
+RES_K = 1  # residual radius of the shifted fast path
+
+
+def _footprint(fx, fy, H: int, W: int, dt):
+    """2x2 bilinear footprint: anchor (trunc toward zero), per-tap weights
+    in `dt` in window order, per-tap in-bounds masks; anchors pre-shifted
+    for a 1-pixel pad and clipped into range."""
+    lx = torch.trunc(fx)
+    ly = torch.trunc(fy)
+    wx1 = (fx - lx).to(dt)
+    wy1 = (fy - ly).to(dt)
+    wx0 = ((lx + 1) - fx).to(dt)
+    wy0 = ((ly + 1) - fy).to(dt)
+    w = torch.stack([wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1], dim=-1)
+    lyi = ly.to(torch.int32)
+    lxi = lx.to(torch.int32)
+    y0_ok = (lyi >= 0) & (lyi < H)
+    y1_ok = (lyi + 1 >= 0) & (lyi + 1 < H)
+    x0_ok = (lxi >= 0) & (lxi < W)
+    x1_ok = (lxi + 1 >= 0) & (lxi + 1 < W)
+    inb = torch.stack([y0_ok & x0_ok, y0_ok & x1_ok, y1_ok & x0_ok, y1_ok & x1_ok], dim=-1)
+    base_y = torch.clamp(lyi + 1, 0, H)
+    base_x = torch.clamp(lxi + 1, 0, W)
+    inb = inb & (lyi + 1 == base_y)[..., None] & (lxi + 1 == base_x)[..., None]
+    return base_y, base_x, w, inb
+
+
+def _residuals(base_y, base_x, care):
+    """Global integer motion (my, mx) (0-dim int tensors), per-pixel
+    residual planes and the all_ok flag (0-dim bool): every caring anchor
+    within RES_K of pixel + (my, mx)."""
+    H, W = base_y.shape
+    dev = base_y.device
+    row = torch.arange(H, dtype=torch.int32, device=dev)[:, None]
+    col = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+    dy = base_y - (row + 1)
+    dx = base_x - (col + 1)
+    cf = care.to(torch.float32)
+    n = torch.clamp(torch.sum(cf), min=1.0)
+    my = torch.round(torch.sum(dy * cf) / n).to(torch.int32)
+    mx = torch.round(torch.sum(dx * cf) / n).to(torch.int32)
+    res_y = dy - my
+    res_x = dx - mx
+    in_win = (torch.abs(res_y) <= RES_K) & (torch.abs(res_x) <= RES_K)
+    all_ok = torch.all(in_win | ~care)
+    return my, mx, res_y, res_x, all_ok
+
+
+def _gather2x2(planes, base_y, base_x):
+    """The 4 taps (k, C, H, W) of every anchor from the 1-pixel zero-padded
+    (C, H, W) planes, tap order [(0,0), (0,1), (1,0), (1,1)]."""
+    P = F.pad(planes, (1, 1, 1, 1))
+    by, bx = base_y.long(), base_x.long()
+    return torch.stack([P[:, by + dy, bx + dx] for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1))])
+
+
+def fetch_weighted_packed(payload_cm, base_y, base_x, wgt, count, residuals):
+    """Finished weighted fetch in the temporal kernel's channel order:
+    -> (C + 1, H, W) f32 = [sum_k w_k tap_k / sum_k w_k (0 where count
+    == 0) | count].  Also returns whether the fast path (K2) ran."""
+    f32 = torch.float32
+    my, mx, res_y, res_x, all_ok = residuals
+    my_h, mx_h, ok_h = torch.stack([my, mx, all_ok.to(torch.int32)]).tolist()
+    w32 = wgt.to(f32)
+    if ok_h:
+        rw = torch.stack([res_y.to(f32), res_x.to(f32)]
+                         + [w32[..., k] for k in range(4)] + [count.to(f32)])
+        return coef_fetch(payload_cm.contiguous(), rw.contiguous(), my_h, mx_h), True
+    taps = _gather2x2(payload_cm.to(f32), base_y, base_x)  # (4, C, H, W)
+    wk = w32.permute(2, 0, 1)[:, None]  # (4, 1, H, W)
+    num = taps[0] * wk[0] + taps[1] * wk[1] + taps[2] * wk[2] + taps[3] * wk[3]
+    den = wk[0] + wk[1] + wk[2] + wk[3]
+    out = num / torch.where(den > 0, den, 1.0)
+    out = torch.where(count > 0, out, 0.0)
+    return torch.cat([out, count.to(f32)[None]], dim=0), False
+
+
+def generate_svgf_map(g, frame, state, width: int, height: int, dtype,
+                      position_f32, svgf_payload):
+    """The SVGF temporal map and its packed history fetch.
+    g: G-buffer dict of (H, W, ...) tensors; state: FrameState;
+    svgf_payload: (10, H, W) f32 history in ctr order or None.
+    -> (svgf_map dict(frame_count, weights, base_y, base_x),
+        ctr (11, H, W) or None, fast_path (bool or None))."""
+    dt = dtype
+    H, W = height, width
+    f32 = torch.float32
+    valid = g["valid"]
+    obj = g["obj"].long()
+    mesh_p = frame.obj_mesh[obj]
+    comp = state.last_w2c[None] @ state.last_l2w @ frame.obj_w2l_f32  # (O, 4, 4)
+    comp_px = comp[obj]  # (H, W, 4, 4)
+    p4 = torch.cat([position_f32.to(f32), torch.ones((H, W, 1), dtype=f32,
+                                                     device=valid.device)], dim=-1)
+    clip = (comp_px @ p4[..., None])[..., 0]
+    g_fx = (1 + clip[..., 0] / clip[..., 3]) / 2 * W
+    g_fy = (1 + clip[..., 1] / clip[..., 3]) / 2 * H
+
+    by, bx, w, inb = _footprint(g_fx - 0.5, g_fy - 0.5, H, W, dt)
+    care = valid & inb.any(dim=-1)
+    res = _residuals(by, bx, care)
+    # last-frame validation data (mesh id + 1, frame count): exact small
+    # integers, fetched as integers (the JAX package packs them into float
+    # channels, exact for the same ranges)
+    val = torch.stack([state.last_mesh_id + 1, torch.clamp(state.svgf_frame_count, 0, 255)])
+    taps = _gather2x2(val, by, bx)  # (4, 2, H, W)
+    tap_mesh = taps[:, 0].permute(1, 2, 0) - 1
+    tap_count = taps[:, 1].permute(1, 2, 0)
+    tap_ok = inb & (tap_mesh == mesh_p[..., None]) & valid[..., None]
+    w_s = torch.where(tap_ok, w, torch.zeros_like(w)).to(dt)
+    total = torch.sum(w_s, dim=-1)
+    any_ok = total > 0
+    w_s = torch.where(any_ok[..., None],
+                      w_s / torch.where(any_ok, total, torch.ones_like(total))[..., None],
+                      torch.zeros_like(w_s))
+    fc = torch.amax(torch.where(tap_ok, tap_count, 0), dim=-1)
+    new_count = torch.where(any_ok & valid, torch.clamp(fc + 1, max=255), 0).to(torch.int32)
+    svgf_map = dict(frame_count=new_count, weights=w_s, base_y=by, base_x=bx)
+    if svgf_payload is None:
+        return svgf_map, None, None
+    ctr, fast = fetch_weighted_packed(svgf_payload, by, bx, w_s, new_count, res)
+    return svgf_map, ctr, fast

@@ -1,0 +1,43 @@
+"""The carried frame state (port of
+`low_precision_raytracer_tpu/render/framestate.py`): everything frame N
+hands to frame N + 1.  The TAA history joins it with the TAA half
+(ROADMAP queue 1 item 8a); at mix weight 1 nothing reads it."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from low_precision_raytracer_tpu_torch.config import RenderConfig
+from low_precision_raytracer_tpu_torch.ops.svgf import SVGFState, init_svgf_state
+
+
+@dataclass(frozen=True)
+class FrameState:
+    # SVGF per-instance temporal state (GI-coloured / GI-white), f32
+    svgf_colored: SVGFState
+    svgf_white: SVGFState
+    # committed SVGF temporal-map frame counts
+    svgf_frame_count: torch.Tensor  # (H, W) i32
+    # last frame's per-pixel mesh id (-1 = empty) / primitive
+    last_mesh_id: torch.Tensor  # (H, W) i32
+    last_prim: torch.Tensor  # (H, W) i32
+    # last frame's per-object L2W and world-to-clip, f32
+    last_l2w: torch.Tensor  # (n_objects, 4, 4)
+    last_w2c: torch.Tensor  # (4, 4)
+
+
+def init_frame_state(cfg: RenderConfig, n_objects: int, device) -> FrameState:
+    H, W = cfg.height, cfg.width
+    f32 = torch.float32
+    eye = torch.eye(4, dtype=f32, device=device)
+    return FrameState(
+        svgf_colored=init_svgf_state(H, W, f32, device),
+        svgf_white=init_svgf_state(H, W, f32, device),
+        svgf_frame_count=torch.zeros((H, W), dtype=torch.int32, device=device),
+        last_mesh_id=torch.full((H, W), -1, dtype=torch.int32, device=device),
+        last_prim=torch.zeros((H, W), dtype=torch.int32, device=device),
+        last_l2w=eye.expand(n_objects, 4, 4).contiguous(),
+        last_w2c=eye,
+    )

@@ -1,0 +1,278 @@
+"""The frame orchestrator (port of `low_precision_raytracer_tpu/render/renderer.py`:
+the fused-DI branch of `render_frame` and the `Renderer` class).
+
+One frame, in order: the f32 camera grid; trace launch 1 (primary closest
+hit + the round-0 shadow phase, K1a); the G-buffer; the SVGF temporal map
+and its packed history fetch (K2); shade round 0; trace launch 2 (GI
+bounce + the round-1 shadow phase, K1a); shade round 1; the clean /
+demodulated split; the SVGF pair (K3, then K4 per stride); compose and
+tonemap.  TAA at mix weight 1 is the identity and is not run.
+
+The unfused `_trace_di` / `_trace_di_gi` path (multi-chunk scenes, scenes
+without lights) waits (ROADMAP queue 1 item 8a).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from low_precision_raytracer_tpu_torch.config import (
+    RenderConfig,
+    check_supported,
+    resolve_device,
+)
+from low_precision_raytracer_tpu_torch.models.scene import (
+    DENSE_CHUNK_TRIS,
+    HostScene,
+    build_scene_arrays,
+    flatten_frame,
+    instance_tris,
+)
+from low_precision_raytracer_tpu_torch.ops.camera import primary_ray_grid
+from low_precision_raytracer_tpu_torch.ops.compose import (
+    add_denoised_color,
+    tonemap_gamma,
+    write_clean_color,
+)
+from low_precision_raytracer_tpu_torch.ops.gbuffer import (
+    fill_gbuffer,
+    interpolate_hit_attributes,
+)
+from low_precision_raytracer_tpu_torch.ops.reproject import generate_svgf_map
+from low_precision_raytracer_tpu_torch.ops.shade import (
+    SHADE_COMMON,
+    SHADE_INVALID,
+    SHADE_SKYBOX,
+    ShadeInput,
+    gbuffer_to_shade_input,
+    shade,
+)
+from low_precision_raytracer_tpu_torch.ops.svgf import SVGFState, preprocess_normal_depth
+from low_precision_raytracer_tpu_torch.ops.svgf_kernels import svgf_pair_full
+from low_precision_raytracer_tpu_torch.ops.trace import (
+    di_fusible,
+    moveforward_eps,
+    trace,
+)
+from low_precision_raytracer_tpu_torch.render.framestate import (
+    FrameState,
+    init_frame_state,
+)
+
+
+def _gi_shade_input(scene, frame, shade_out, hit, prec):
+    """Closest GI hit -> next round's ShadeInput (COMMON / SKYBOX /
+    INVALID), attributes interpolated in the render dtype."""
+    attrs = interpolate_hit_attributes(scene, frame, hit, prec.dtype)
+    got = hit.tri >= 0
+    stype = torch.where(
+        shade_out.gi_valid,
+        torch.where(got, SHADE_COMMON, SHADE_SKYBOX),
+        SHADE_INVALID,
+    ).to(torch.int32)
+    # f32 bounce-hit position from the f32 ray-origin chain
+    pos32 = shade_out.source + hit.t[:, None] * shade_out.gi_direction.to(torch.float32)
+    return ShadeInput(
+        type=stype,
+        position=attrs["position"],
+        position_f32=pos32,
+        normal=attrs["normal"],
+        tangent=attrs["tangent"],
+        color=attrs["color"],
+        material=attrs["material"],
+        obj=torch.clamp(hit.obj, min=0),
+        tri=torch.clamp(hit.tri, min=0),
+    )
+
+
+def _di_light_spec(frame, cfg):
+    """The light tensors of the fused shadow phase (the same L every
+    shade round uses)."""
+    L = min(frame.n_lights, cfg.max_direct_lights)
+    return dict(
+        light_type=frame.light_type[:L],
+        light_pos=frame.light_pos[:L],
+        light_dir=frame.light_dir[:L],
+    )
+
+
+def _di_from_vis(vis_bits, lights, dt):
+    """Decode the fused launch's visibility bitmask against this round's
+    light commands: visible ? multiplier : 0.  -> (R, L, 3)."""
+    L = lights.valid.shape[1]
+    shifts = torch.arange(L, dtype=torch.int32, device=vis_bits.device)
+    bits = (vis_bits[:, None] >> shifts[None, :]) & 1
+    ok = (bits > 0) & lights.valid
+    return ok.to(dt)[..., None] * lights.multiplier
+
+
+def _trace_gi_fused_di(scene, frame, shade_out, cfg, prec, di_spec):
+    """GI bounce launch carrying the next round's shadow phase.
+    -> (gi ShadeInput, vis_bits (R,) i32)."""
+    maxt = torch.where(shade_out.gi_valid, 1e5, 0.0).to(torch.float32)
+    hit, vis = trace(
+        frame, shade_out.source, shade_out.gi_direction, cfg=cfg, prec=prec,
+        skip_tri=shade_out.skip_tri, min_dist=moveforward_eps(cfg, prec),
+        max_dist=maxt, di_lights=di_spec,
+    )
+    return _gi_shade_input(scene, frame, shade_out, hit, prec), vis
+
+
+def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
+                 uniforms=None, generator=None):
+    """One full frame.  -> (image (H, W, 3) f32 gamma-encoded, aux, state).
+
+    `uniforms`: one (7 H W,) f32 tensor per GI shade round (the JAX
+    package's `jax.random.uniform(k_shade, (7R,), f32)`), else drawn from
+    `generator`.  aux["svgf_fast_path"] says whether the history fetch took
+    the K2 path (None with the denoiser off)."""
+    check_supported(cfg)
+    if not di_fusible(frame, cfg):
+        raise NotImplementedError(
+            "the unfused shadow path (multi-chunk scenes or no lights) waits "
+            "(ROADMAP queue 1 items 8a, 9)")
+    prec = cfg.prec
+    dt = prec.dtype
+    f32 = torch.float32
+    H, W = cfg.height, cfg.width
+    R = H * W
+    dev = frame.dense_center.device
+    # shade rounds that draw GI uniforms: all but the last
+    gi_rounds = cfg.max_bounces - 1 if cfg.gi_on else 0
+    if uniforms is None:
+        uniforms = [torch.rand((7 * R,), generator=generator, dtype=f32, device=dev)
+                    for _ in range(gi_rounds)]
+    if len(uniforms) != gi_rounds:
+        raise ValueError(f"render_frame: {gi_rounds} GI rounds need as many "
+                         f"uniform tensors, got {len(uniforms)}")
+
+    # ---- primary rays (f32 grid in every mode) + G-buffer, with the
+    # round-0 shadow phase fused into the launch
+    di_spec = _di_light_spec(frame, cfg)
+    o32g, d32g = primary_ray_grid(frame.cam_l2w_f32, frame.cam_fov_y_f32, W, H, f32)
+    d32 = d32g.reshape(R, 3)
+    g_flat, _ = fill_gbuffer(scene, frame, o32g.reshape(R, 3), d32, cfg=cfg,
+                             prec=prec, di_lights=di_spec)
+    g2d = {k: v.reshape((H, W) + tuple(v.shape[1:])) for k, v in g_flat.items()}
+    pos32 = o32g + g2d["t"][..., None] * d32g
+
+    # ---- SVGF temporal map + packed history fetch (K2)
+    svgf_payload = None
+    if cfg.demo.svgf:
+        sc, sw = state.svgf_colored, state.svgf_white
+        svgf_payload = torch.stack([
+            sc.color_history[..., 0], sc.color_history[..., 1], sc.color_history[..., 2],
+            sw.color_history[..., 0], sw.color_history[..., 1], sw.color_history[..., 2],
+            sc.miu1, sw.miu1, sc.miu2, sw.miu2,
+        ])
+    svgf_map, svgf_ctr, fast = generate_svgf_map(
+        g2d, frame, state, W, H, dt, pos32, svgf_payload)
+
+    # ---- shade round 0, then the GI launch carrying round 1's shadows
+    sin0 = gbuffer_to_shade_input(g_flat, position_f32=pos32.reshape(R, 3))
+    out0 = shade(scene, frame, sin0, view_dir=-d32, cfg=cfg, first_round=True,
+                 no_gi=gi_rounds == 0, uniforms=uniforms[0] if gi_rounds else None)
+    di0 = _di_from_vis(g_flat["di_vis"], out0.lights, dt)
+    sin_next = vis_next = None
+    if gi_rounds >= 1:
+        sin_next, vis_next = _trace_gi_fused_di(scene, frame, out0, cfg, prec, di_spec)
+    intensity0 = out0.intensity + torch.sum(di0, dim=1)
+    n_rays = R + torch.sum(out0.lights.valid.to(torch.int32))
+
+    # ---- GI rounds; round-1 radiance feeds the SVGF channels directly,
+    # deeper rounds fold in times the path throughput
+    intensity1 = torch.zeros((R, 3), dtype=dt, device=dev)
+    path_mult = torch.ones((R, 3), dtype=dt, device=dev)
+    out_prev = out0
+    for r in range(1, gi_rounds + 1):
+        last = r == gi_rounds
+        out_r = shade(scene, frame, sin_next, view_dir=out_prev.view_dir_out,
+                      cfg=cfg, first_round=False, no_gi=last,
+                      uniforms=None if last else uniforms[r])
+        di_r = _di_from_vis(vis_next, out_r.lights, dt)
+        if not last:
+            sin_next, vis_next = _trace_gi_fused_di(scene, frame, out_r, cfg, prec, di_spec)
+        contrib = out_r.intensity + torch.sum(di_r, dim=1)
+        intensity1 = intensity1 + path_mult * contrib
+        n_rays = (n_rays + torch.sum(out_prev.gi_valid.to(torch.int32))
+                  + torch.sum(out_r.lights.valid.to(torch.int32)))
+        if not last:
+            path_mult = path_mult * out_r.gi_multiplier
+            out_prev = out_r
+
+    # ---- clean colour split + the two denoiser instances
+    clean, mul_c, mul_w = write_clean_color(
+        intensity0.reshape(H, W, 3), intensity1.reshape(H, W, 3),
+        out0.gi_multiplier.reshape(H, W, 3), cfg.demo)
+    new_colored, new_white = state.svgf_colored, state.svgf_white
+    if cfg.demo.svgf:
+        normal2d, depth2d = g2d["normal"], g2d["depth"]
+        grad = preprocess_normal_depth(normal2d, depth2d)
+        out2, st2 = svgf_pair_full(
+            torch.stack([mul_c, mul_w]), svgf_ctr, depth2d, grad, normal2d,
+            cfg.svgf, cfg.svgf.color_mix_weight, cfg.svgf.moments_mix_weight)
+        mul_c, mul_w = out2[0].to(mul_c.dtype), out2[1].to(mul_w.dtype)
+        new_colored = SVGFState(*(x[0] for x in st2))
+        new_white = SVGFState(*(x[1] for x in st2))
+    albedo = out0.albedo.reshape(H, W, 3)
+    color = add_denoised_color(clean, mul_c, mul_w, albedo, cfg.demo)
+    image = tonemap_gamma(color)
+
+    valid = g2d["valid"]
+    new_state = FrameState(
+        svgf_colored=new_colored,
+        svgf_white=new_white,
+        svgf_frame_count=svgf_map["frame_count"],
+        last_mesh_id=torch.where(valid, frame.obj_mesh[g2d["obj"].long()], -1).to(torch.int32),
+        last_prim=g2d["tri"].to(torch.int32),
+        last_l2w=frame.obj_l2w_f32,
+        last_w2c=frame.cam_w2c,
+    )
+    aux = dict(
+        clean=clean,
+        gi_colored=mul_c,
+        gi_white=mul_w,
+        albedo=albedo,
+        valid=valid,
+        hit_t=g2d["t"],
+        n_rays=n_rays,
+        svgf_fast_path=fast,
+    )
+    return image, aux, new_state
+
+
+class Renderer:
+    """Owns the device scene, the frame state and the random generator,
+    and renders frame after frame.  Runs on CUDA unless `device` says
+    otherwise; raises when no card is there."""
+
+    def __init__(self, host_scene: HostScene, cfg: RenderConfig, device=None,
+                 seed: int = 0):
+        check_supported(cfg)
+        if host_scene.textures or host_scene.skybox is not None:
+            raise NotImplementedError(
+                "textures and skyboxes wait (ROADMAP queue 1 item 9)")
+        if host_scene.animated:
+            raise NotImplementedError("animated scenes wait (ROADMAP queue 1 item 11)")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.scene = build_scene_arrays(host_scene, cfg.prec, self.device)
+        self.frame = flatten_frame(
+            host_scene, cfg.prec, self.device,
+            max_direct_lights=cfg.max_direct_lights,
+            width=cfg.width, height=cfg.height,
+        )
+        if instance_tris(self.frame) > DENSE_CHUNK_TRIS:
+            raise NotImplementedError(
+                f"{instance_tris(self.frame)} instance triangles: multi-chunk "
+                "scenes wait (ROADMAP queue 1 item 9)")
+        self.state = init_frame_state(cfg, len(self.frame.obj_layout), self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def render(self, uniforms=None):
+        """Render one frame of the static scene.  -> (image, aux)."""
+        image, aux, self.state = render_frame(
+            self.scene, self.frame, self.state, self.cfg, uniforms=uniforms,
+            generator=self.generator,
+        )
+        return image, aux
