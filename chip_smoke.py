@@ -8,20 +8,34 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of the port from csrc/ (one nvcc per source,
    started together), timed;
-3. kernel phase: two warm-up frames of the flagship (Cornell, bf16,
-   1920x1080) record the inputs each kernel wrapper gets on the main path;
-   each kernel is then held against its plain PyTorch version on those
-   inputs on the card, and both are timed with CUDA events;
-4. path phase: all launch counts are zeroed, a fresh Renderer renders 8
-   flagship frames, the counts are read; per frame the dense trace runs
-   2 times, the temporal kernel once, the a-trous kernel 5 times, and the
-   history fetch once on the fast path (frame 0 has no history: like the
-   JAX package it takes the plain 2x2-take branch there);
-5. reference phase: a 64x64 render on the card against the same render
-   through the plain versions on the CPU, same uniforms, 5 frames.
+3. flagship kernel phase: two warm-up frames of the flagship (Cornell,
+   bf16, 1920x1080) record the inputs each kernel wrapper gets on the main
+   path; each kernel is then held against its plain PyTorch version on
+   those inputs on the card, and both are timed with CUDA events;
+4. flagship path phase: all launch counts are zeroed, a fresh Renderer
+   renders 8 flagship frames, the counts are read; per frame the
+   single-chunk trace K1a runs 2 times, the temporal kernel once, the
+   a-trous kernel 5 times, and the history fetch once on the fast path
+   (frame 0 has no history: like the JAX package it takes the plain 2x2
+   branch there);
+5. flagship reference phase: a 64x64 render on the card against the same
+   render through the plain versions on the CPU, same uniforms, 5 frames;
+6. Sponza kernel phase: two warm-up frames of the Sponza-class frame
+   (`sponza_like_scene()`, 5,314 instance triangles in 42 chunks, skybox,
+   bf16, 1920x1080) record the inputs of its four multi-chunk trace (K1b)
+   launches: primary, round-0 shadows, the GI bounce (sorted) and round-1
+   shadows (sorted).  K1b is timed on each full launch and held against
+   its plain version on a fixed strided slice of 2^18 of its rays (tri,
+   obj, t, u, v all exact); the sorted launches are also timed unsorted
+   and with their sort + unsort;
+7. Sponza path phase: counts zeroed, 8 frames; per frame K1b 4, K1a 0,
+   the temporal kernel 1, the a-trous kernel 5, the history fetch 1 from
+   frame 1;
+8. Sponza reference phase: a 64x64 Sponza render on the card against the
+   plain versions on the CPU, 4 frames.
 
 Before the last line it prints a `kernels` JSON line (per kernel: launches
-on the main path, max error against the plain version, time, plain time,
+on its path's run, max error against the plain version, time, plain time,
 the least time the work could take on the card and what bounds it) and
 the nvidia-smi line; the last line is {"ok": true, "device": {...}}.
 """
@@ -38,6 +52,8 @@ import time
 W, H = 1920, 1080
 PATH_FRAMES = 8
 REF_SIZE, REF_FRAMES = 64, 5
+SPONZA_REF_FRAMES = 4
+CHECK_RAYS = 1 << 18  # K1b: rays per launch held against the plain version
 # H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s
 # outside the tensor cores (exp/sqrt/div counted as one operation each)
 HBM_BPS = 3.35e12
@@ -46,6 +62,8 @@ TPU = "low_precision_raytracer_tpu/ops/"
 KERNELS = {  # wrapper name -> (source, TPU kernel it replaces)
     "dense_trace": ("low_precision_raytracer_tpu_torch/csrc/dense_trace.cu",
                     TPU + "dense_pallas.py:183"),
+    "dense_trace_multi": ("low_precision_raytracer_tpu_torch/csrc/dense_multi.cu",
+                          TPU + "dense_pallas.py:526"),
     "coef_fetch": ("low_precision_raytracer_tpu_torch/csrc/svgf.cu",
                    TPU + "svgf_pallas.py:762"),
     "temporal_accum": ("low_precision_raytracer_tpu_torch/csrc/svgf.cu",
@@ -89,6 +107,9 @@ def nbytes(*ts):
 
 TRI_TEST_OPS = 40  # 6 dot rows (28) + t = -Oz/Dz (2) + u, v (4) + u+v (1) + 5 compares
 SHADOW_SETUP_OPS = 14  # to-light vector 3, length 6, 1/max 2, direction 3
+# K1b slab test per chunk: 6 subtracts, 6 multiplies, 6 min/max, 6
+# finiteness tests, 4 running min/max, entry 2, acceptance 4
+BOX_TEST_OPS = 34
 
 
 def dense_trace_ops(args, kw, out):
@@ -125,6 +146,29 @@ def dense_trace_ops(args, kw, out):
         tests += int(first.sum())
     n_lights = 0 if lights is None else lights.shape[0]
     return tests * TRI_TEST_OPS + n_got * n_lights * SHADOW_SETUP_OPS
+
+
+def dense_multi_ops(args, t_final):
+    """K1b operations this run's data needs: per live ray, one slab test
+    per chunk, and the tests of every triangle of each chunk whose box
+    its segment enters before `t_final` (its closest hit, or 1e5)."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import CHUNK, ray_aabb_entry
+
+    o, d, _skip, mind, maxd, coef, _tri, _obj, lo, hi = args
+    TI, NC = coef.shape[0], lo.shape[0]
+    sizes = torch.full((NC,), float(CHUNK), dtype=torch.float64, device=o.device)
+    sizes[-1] = TI - CHUNK * (NC - 1)
+    live = maxd > mind
+    tests = 0.0
+    step = 1 << 18
+    for r0 in range(0, o.shape[0], step):
+        sl = slice(r0, r0 + step)
+        entry, ok = ray_aabb_entry(lo, hi, o[sl], d[sl], maxd[sl])
+        need = ok & (entry <= t_final[sl, None]) & live[sl, None]
+        tests += float((need.to(torch.float64) * sizes).sum())
+    return tests * TRI_TEST_OPS + int(live.sum()) * NC * BOX_TEST_OPS
 
 
 def coef_fetch_ops(C, HW):
@@ -287,16 +331,16 @@ def kernel_phase(calls):
     return reports
 
 
-def path_phase(cuda_lib):
-    """8 flagship frames through a fresh Renderer with the counts zeroed
-    just before.  -> (launch totals, per-frame records, image)."""
+def path_phase(cuda_lib, scene_fn, want_fn):
+    """8 frames at 1920x1080 through a fresh Renderer with the counts
+    zeroed just before; `want_fn(frame)` gives the launches each frame
+    must make.  -> (launch totals, per-frame records, peak GiB)."""
     import torch
 
     from low_precision_raytracer_tpu_torch.config import RenderConfig
-    from low_precision_raytracer_tpu_torch.models.procedural import cornell_box_scene
     from low_precision_raytracer_tpu_torch.render.renderer import Renderer
 
-    renderer = Renderer(cornell_box_scene(), RenderConfig(width=W, height=H, precision="bf16"))
+    renderer = Renderer(scene_fn(), RenderConfig(width=W, height=H, precision="bf16"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
@@ -316,8 +360,7 @@ def path_phase(cuda_lib):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     for rec in frames:
-        want = {"dense_trace": 2, "temporal_accum": 1, "wavelet_iter": 5,
-                "coef_fetch": 1 if rec["frame"] > 0 else 0}
+        want = want_fn(rec["frame"])
         if rec["launches"] != want:
             raise AssertionError(f"frame {rec['frame']}: launches {rec['launches']} != {want}")
         if rec["fast_fetch"] != (rec["frame"] > 0):
@@ -330,22 +373,30 @@ def path_phase(cuda_lib):
     return totals, frames, peak_gib
 
 
-def reference_phase():
+def report_path(name, frames, peak_gib, totals):
+    steady = frames[2:]
+    frame_ms = statistics.median(f["ms"] for f in steady)
+    n_rays = statistics.median(f["n_rays"] for f in steady)
+    log(f"path {name}: frame_ms(median of frames 3-{PATH_FRAMES}) {frame_ms:.3f}  "
+        f"Mrays/s {n_rays / frame_ms / 1e3:.3f}  n_rays {n_rays}  "
+        f"peak memory {peak_gib:.3f} GiB  launches {json.dumps(totals)}")
+
+
+def reference_phase(scene_fn, frames):
     """A small frame on the card against the plain versions on the CPU,
     same uniforms: PSNR >= 35 dB and validity agreement >= 0.999 on every
     frame (the port-vs-JAX bars of tests/test_torch_render_e2e.py)."""
     import torch
 
     from low_precision_raytracer_tpu_torch.config import RenderConfig
-    from low_precision_raytracer_tpu_torch.models.procedural import cornell_box_scene
     from low_precision_raytracer_tpu_torch.render.renderer import Renderer
 
     cfg = RenderConfig(width=REF_SIZE, height=REF_SIZE, precision="bf16")
-    gpu = Renderer(cornell_box_scene(), cfg)
-    cpu = Renderer(cornell_box_scene(), cfg, device="cpu")
+    gpu = Renderer(scene_fn(), cfg)
+    cpu = Renderer(scene_fn(), cfg, device="cpu")
     gen = torch.Generator().manual_seed(1)
     psnrs = []
-    for f in range(REF_FRAMES):
+    for f in range(frames):
         us = torch.rand((7 * REF_SIZE * REF_SIZE,), generator=gen)
         img_g, aux_g = gpu.render(uniforms=[us.cuda()])
         img_c, aux_c = cpu.render(uniforms=[us])
@@ -358,15 +409,14 @@ def reference_phase():
     return psnrs
 
 
-def profile_frame():
-    """Device time by kernel over one steady flagship frame."""
+def profile_frame(name, scene_fn):
+    """Device time by kernel over one steady 1080p frame."""
     import torch
 
     from low_precision_raytracer_tpu_torch.config import RenderConfig
-    from low_precision_raytracer_tpu_torch.models.procedural import cornell_box_scene
     from low_precision_raytracer_tpu_torch.render.renderer import Renderer
 
-    r = Renderer(cornell_box_scene(), RenderConfig(width=W, height=H, precision="bf16"))
+    r = Renderer(scene_fn(), RenderConfig(width=W, height=H, precision="bf16"))
     for _ in range(3):
         r.render()
     torch.cuda.synchronize()
@@ -376,10 +426,119 @@ def profile_frame():
         r.render()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25)
-    log(f"profile: frame wall {wall:.3f} ms")
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
+    log(f"profile {name}: frame wall {wall:.3f} ms")
     for line in table.splitlines():
-        log("profile: " + line)
+        log(f"profile {name}: " + line)
+
+
+# ---------------------------------------------------------------------------
+# Sponza-class frame: K1b
+
+
+def capture_sponza_launches(renderer, frames):
+    """Render `frames` frames; -> the last frame's K1b launches, in order
+    [(kind, args, kwargs, unsorted_args | None)]: primary, round-0
+    shadows, GI bounce (sorted), round-1 shadows (sorted).  For a sorted
+    launch `args` are the kernel's (sorted) inputs and `unsorted_args`
+    the rays as the sorted launch received them."""
+    from low_precision_raytracer_tpu_torch.ops import dense_trace, trace
+
+    calls, sorted_calls = [], []
+    orig_multi, orig_sorted = dense_trace.dense_trace_multi, trace.dense_trace_multi_sorted
+
+    def rec_multi(*args, **kw):
+        calls.append((args, kw))
+        return orig_multi(*args, **kw)
+
+    def rec_sorted(*args, **kw):
+        sorted_calls.append((args, kw))
+        return orig_sorted(*args, **kw)
+
+    try:
+        dense_trace.dense_trace_multi = rec_multi
+        trace.dense_trace_multi = rec_multi
+        trace.dense_trace_multi_sorted = rec_sorted
+        for _ in range(frames):
+            calls.clear()
+            sorted_calls.clear()
+            renderer.render()
+    finally:
+        dense_trace.dense_trace_multi = orig_multi
+        trace.dense_trace_multi = orig_multi
+        trace.dense_trace_multi_sorted = orig_sorted
+    kinds = ("primary", "shadow0", "gi_sorted", "shadow1_sorted")
+    if len(calls) != 4 or len(sorted_calls) != 2:
+        raise AssertionError(f"Sponza frame: {len(calls)} K1b launches "
+                             f"({len(sorted_calls)} sorted), want 4 (2)")
+    unsorted = [None, None, sorted_calls[0][0], sorted_calls[1][0]]
+    return [(k, a, kw, u) for k, (a, kw), u in zip(kinds, calls, unsorted)]
+
+
+def sponza_kernel_phase(launches):
+    """K1b on each recorded launch: timed on the full launch, held against
+    the plain version on a strided slice of CHECK_RAYS rays (every output
+    exact), its bound from the data; the sorted launches also unsorted and
+    with their sort.  -> report dict."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import (
+        dense_trace_multi,
+        dense_trace_multi_plain,
+        dense_trace_multi_sorted,
+    )
+
+    per = []
+    for kind, args, kw, unsorted in launches:
+        R = args[0].shape[0]
+        out = dense_trace_multi(*args, **kw)
+        torch.cuda.synchronize()
+        sel = torch.arange(0, R, max(1, R // CHECK_RAYS), device=args[0].device)[:CHECK_RAYS]
+        sub = [a[sel].contiguous() if a.shape[0] == R else a for a in args]
+        ref = dense_trace_multi_plain(*sub, **kw)
+        err = 0.0
+        for name, a, b in zip(("t", "u", "v", "tri", "obj"), out, ref):
+            a = a[sel]
+            if not torch.equal(a, b):
+                raise AssertionError(f"dense_trace_multi {kind}: {name} differs from the plain "
+                                     f"version on {int((a != b).sum())} of {sel.numel()} rays")
+            if a.dtype == torch.float32:
+                err = max(err, float((a - b).abs().max()))
+        # the bound: any-hit rays need the chunks up to their first blocker
+        t_final = out[0] if not kw.get("find_any") else torch.where(
+            out[3] >= 0, dense_trace_multi(*args)[0], 1e5)
+        n_ops = dense_multi_ops(args, t_final)
+        n_bytes = nbytes(*args) + nbytes(*out)
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        ms = cuda_ms(lambda: dense_trace_multi(*args, **kw), 10)
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        dense_trace_multi_plain(*args, **kw)
+        t1.record()
+        t1.synchronize()
+        plain_ms = t0.elapsed_time(t1)
+        rec = dict(kind=kind, rays=R, live=int((args[4] > args[3]).sum()),
+                   hits=int((out[3] >= 0).sum()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, max_abs_err=err, checked_rays=int(sel.numel()),
+                   bytes=n_bytes, ops=n_ops)
+        if unsorted is not None:
+            srt = dense_trace_multi_sorted(*unsorted, **kw)
+            direct = dense_trace_multi(*unsorted, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(srt, direct)):
+                raise AssertionError(f"dense_trace_multi {kind}: sorted launch differs "
+                                     "from the unsorted one")
+            rec["unsorted_ms"] = cuda_ms(lambda: dense_trace_multi(*unsorted, **kw), 10)
+            rec["sorted_total_ms"] = cuda_ms(lambda: dense_trace_multi_sorted(*unsorted, **kw), 5)
+            rec["sort_unsort_ms"] = rec["sorted_total_ms"] - ms
+        per.append(rec)
+        log(f"kernel dense_trace_multi: {json.dumps(rec)}")
+    mean = lambda k: statistics.fmean(p[k] for p in per)
+    return dict(max_abs_err=max(p["max_abs_err"] for p in per), ms=mean("ms"),
+                plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+                bound_by=max(per, key=lambda p: p["bound_ms"])["bound_by"])
 
 
 def main(argv) -> int:
@@ -389,7 +548,10 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     from low_precision_raytracer_tpu_torch.config import RenderConfig
-    from low_precision_raytracer_tpu_torch.models.procedural import cornell_box_scene
+    from low_precision_raytracer_tpu_torch.models.procedural import (
+        cornell_box_scene,
+        sponza_like_scene,
+    )
     from low_precision_raytracer_tpu_torch.ops import cuda_lib
     from low_precision_raytracer_tpu_torch.render.renderer import Renderer
 
@@ -398,6 +560,7 @@ def main(argv) -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     build_logs = cuda_lib.build_all()
@@ -406,31 +569,56 @@ def main(argv) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    cfg = RenderConfig(width=W, height=H, precision="bf16")
 
-    warm = Renderer(cornell_box_scene(), RenderConfig(width=W, height=H, precision="bf16"))
+    # ---- the flagship (Cornell): K1a, K2, K3, K4
+    warm = Renderer(cornell_box_scene(), cfg)
     calls = capture_inputs(warm, 2)
     del warm
     reports = kernel_phase(calls)
     del calls
     torch.cuda.empty_cache()
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
-    totals, frames, peak_gib = path_phase(cuda_lib)
-    steady = frames[2:]
-    frame_ms = statistics.median(f["ms"] for f in steady)
-    n_rays = statistics.median(f["n_rays"] for f in steady)
-    log(f"path: frame_ms(median of frames 3-{PATH_FRAMES}) {frame_ms:.3f}  "
-        f"Mrays/s {n_rays / frame_ms / 1e3:.3f}  n_rays {n_rays}  "
-        f"peak memory {peak_gib:.3f} GiB  launches {json.dumps(totals)}")
-    for name in KERNELS:
+    totals, frames, peak_gib = path_phase(
+        cuda_lib, cornell_box_scene,
+        lambda f: {"dense_trace": 2, "dense_trace_multi": 0, "temporal_accum": 1,
+                   "wavelet_iter": 5, "coef_fetch": 1 if f > 0 else 0})
+    report_path("flagship", frames, peak_gib, totals)
+    for name in ("dense_trace", "coef_fetch", "temporal_accum", "wavelet_iter"):
         if totals[name] == 0:
-            raise AssertionError(f"{name}: no launch on the main path")
+            raise AssertionError(f"{name}: no launch on the flagship path")
 
-    psnrs = reference_phase()
-    log(f"reference: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
+    psnrs = reference_phase(cornell_box_scene, REF_FRAMES)
+    log(f"reference flagship: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
         + " ".join(f"{p:.2f}" for p in psnrs))
+    torch.cuda.empty_cache()
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    # ---- the Sponza-class frame: K1b (with K2, K3, K4)
+    warm = Renderer(sponza_like_scene(), cfg)
+    launches = capture_sponza_launches(warm, 2)
+    del warm
+    reports["dense_trace_multi"] = sponza_kernel_phase(launches)
+    del launches
+    torch.cuda.empty_cache()
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    s_totals, s_frames, s_peak = path_phase(
+        cuda_lib, sponza_like_scene,
+        lambda f: {"dense_trace": 0, "dense_trace_multi": 4, "temporal_accum": 1,
+                   "wavelet_iter": 5, "coef_fetch": 1 if f > 0 else 0})
+    report_path("sponza", s_frames, s_peak, s_totals)
+    totals["dense_trace_multi"] = s_totals["dense_trace_multi"]
+
+    psnrs = reference_phase(sponza_like_scene, SPONZA_REF_FRAMES)
+    log(f"reference sponza: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
+        + " ".join(f"{p:.2f}" for p in psnrs))
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     if "--profile" in argv:
-        profile_frame()
+        profile_frame("flagship", cornell_box_scene)
+        profile_frame("sponza", sponza_like_scene)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():

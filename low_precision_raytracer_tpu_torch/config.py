@@ -109,8 +109,24 @@ class RenderConfig:
     # bf16 on the dense route
     triangle_fallback: str = "auto"
     traversal_impl: str = "auto"
+    # above packet_bvh_min_tris 'auto' leaves the dense route for the
+    # packet BVH; the wavefront takes incoherent launches up to
+    # packet_bvh_max_tris
+    packet_bvh_min_tris: int = 1 << 20
+    packet_bvh_max_tris: int = 4 << 20
+    # incoherent launches (GI bounces, bounce shadows) on multi-chunk
+    # scenes: 'anchor' sorts rays by their nearest chunk's entry bound +
+    # direction bits before the trace; 'none' keeps pixel order
+    incoherent_sort: str = "anchor"
+    # 'wavefront' sends incoherent launches above wavefront_min_tris to
+    # the per-ray wavefront; 'tile' never does
+    incoherent_impl: str = "wavefront"
+    wavefront_min_tris: int = 16384
     # fused in-kernel shadow phase on single-chunk scenes
     di_fuse: str = "auto"
+    # dense chunk epilogue: 'auto' = 'reduce5' (exact winner); 'pack'
+    # quantizes u/v
+    dense_epilogue: str = "auto"
     # multi-device mesh (JAX: jax.sharding.Mesh); not ported
     mesh: object = None
 
@@ -119,6 +135,12 @@ class RenderConfig:
             raise ValueError(f"unknown precision {self.precision!r}")
         if self.max_bounces < 1:
             raise ValueError("max_bounces counts the primary shade round")
+        for name, allowed in (("incoherent_sort", ("anchor", "beam", "origin", "none")),
+                              ("incoherent_impl", ("tile", "wavefront")),
+                              ("di_fuse", ("auto", "off")),
+                              ("dense_epilogue", ("auto", "reduce5", "pack"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name}={getattr(self, name)!r} not in {allowed}")
 
     @property
     def prec(self) -> Precision:
@@ -151,10 +173,14 @@ def check_supported(cfg: RenderConfig) -> None:
         raise NotImplementedError(
             f"triangle_fallback={cfg.triangle_fallback!r}: only the mxu3 "
             "acceptance is ported (ROADMAP queue 1 item 8a)")
-    if cfg.di_fuse != "auto":
+    if cfg.dense_epilogue == "pack":
         raise NotImplementedError(
-            "di_fuse='off': the unfused _trace_di/_trace_di_gi path waits "
+            "dense_epilogue='pack': the packed winner epilogue waits "
             "(ROADMAP queue 1 item 8a)")
+    if cfg.incoherent_sort in ("beam", "origin"):
+        raise NotImplementedError(
+            f"incoherent_sort={cfg.incoherent_sort!r}: only the 'anchor' key "
+            "(and 'none') is ported; the morton keys wait (ROADMAP queue 1 item 8a)")
     if not cfg.shade_f32 or not cfg.svgf.state_f32:
         raise NotImplementedError(
             "shade_f32=False / state_f32=False ablations wait (ROADMAP queue 1 item 8a)")

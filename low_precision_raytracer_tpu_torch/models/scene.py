@@ -1,15 +1,19 @@
 """Scene resources: the host half of `low_precision_raytracer_tpu/models/scene.py`
 (copied, not imported) plus torch device arrays.
 
-- :class:`HostScene` / :class:`Mesh` — load-time host state (numpy);
+- :class:`HostScene` / :class:`Mesh` / :class:`Skybox` — load-time host
+  state (numpy);
 - :class:`SceneArrays` — load-time device tensors the dense path, the
-  G-buffer and shade read (per-triangle attribute rows, material table);
-- :class:`FrameInput` — per-frame device tensors: object transforms,
-  lights, camera, and the dense route's world-space coefficient table.
+  G-buffer and shade read (per-triangle attribute rows, material table,
+  the quad-packed skybox);
+- :class:`FrameInput` — per-frame device tensors: object transforms and
+  world AABBs, lights, camera, sky scalars, and the dense route's
+  world-space coefficient table with its per-chunk AABBs (morton-ordered
+  above one chunk, as in the JAX package).
 
-The BLAS/TLAS, texture-atlas and skybox fields of the JAX package are not
-here: the single-chunk dense route reads no BVH, and scenes with textures
-or a skybox are refused (ROADMAP queue 1 items 9 and 13).
+The BLAS/TLAS, per-leaf AABB and texture-atlas fields of the JAX package
+are not here: the dense route reads no BVH (the BVH backends are ROADMAP
+queue 1 item 10), and scenes with textures are refused (item 9a).
 
 `scene_from_numpy` carries the JAX package's leaves across (as numpy
 arrays), so a test can run both packages on exactly the same tables.
@@ -39,6 +43,8 @@ from low_precision_raytracer_tpu_torch.models.materials import pack_materials
 # triangles per kernel chunk in the JAX package's dense kernel; a scene
 # whose instance triangles fit in one chunk is a single-chunk scene
 DENSE_CHUNK_TRIS = 128
+# spatial (morton) dense-table order above one chunk
+DENSE_MORTON = True
 
 
 @dataclass
@@ -83,6 +89,16 @@ class Mesh:
 
 
 @dataclass
+class Skybox:
+    """Equirectangular HDR skybox."""
+
+    data: np.ndarray  # (H, W, 3) f32 linear HDR
+    delta_x: float = 0.0
+    delta_y: float = 0.0
+    exposure: float = 1.0
+
+
+@dataclass
 class HostScene:
     """All load-time host state."""
 
@@ -91,7 +107,7 @@ class HostScene:
     textures: list = field(default_factory=list)
     root: Object = field(default_factory=Object)
     active_camera: CameraObject | None = None
-    skybox: object = None
+    skybox: Skybox | None = None
     animated: bool = False
 
     def add_mesh(self, mesh: Mesh) -> int:
@@ -114,7 +130,13 @@ class SceneArrays:
     mat_metallic: torch.Tensor  # (M,) dtype
     mat_roughness: torch.Tensor  # (M,) dtype
     mat_double_sided: torch.Tensor  # (M,) bool
+    # skybox: the panorama and its quad-packed bilinear footprint rows in
+    # the render dtype, row (y, x) = [(y,x), (y,x+1 wrap), (y+1 clamp,x),
+    # (y+1 clamp,x+1 wrap)] x RGB; a (1, 1, 3) zero panorama without sky
+    sky_data: torch.Tensor  # (h, w, 3) f32
+    sky_quad: torch.Tensor  # (h*w, 12) dtype
     n_meshes: int = 0  # static
+    sky_valid: bool = False  # static
 
 
 @dataclass(frozen=True)
@@ -124,6 +146,8 @@ class FrameInput:
     obj_w2l_f32: torch.Tensor  # (O, 4, 4) f32
     obj_mesh: torch.Tensor  # (O,) i32
     obj_material: torch.Tensor  # (O,) i32
+    obj_aabb_lo: torch.Tensor  # (O, 3) f32 world AABBs
+    obj_aabb_hi: torch.Tensor  # (O, 3) f32
     # lights, padded to max_direct_lights
     light_type: torch.Tensor  # (Lmax,) i32
     light_pos: torch.Tensor  # (Lmax, 3) dtype
@@ -134,6 +158,10 @@ class FrameInput:
     cam_w2c: torch.Tensor  # (4, 4) f32
     cam_l2w_f32: torch.Tensor  # (4, 4) f32
     cam_fov_y_f32: torch.Tensor  # () f32
+    # skybox dynamics
+    sky_delta_x: torch.Tensor  # () f32
+    sky_delta_y: torch.Tensor  # () f32
+    sky_exposure: torch.Tensor  # () f32
     # dense route: per-instance-triangle world-space test coefficients,
     # rows n = m @ A (A = W2L linear part), offsets e = m.(b - v2) + n.c,
     # recentred at the scene centre c
@@ -142,13 +170,19 @@ class FrameInput:
     dense_tri: torch.Tensor  # (TI,) i32 global triangle id
     dense_obj: torch.Tensor  # (TI,) i32 object id
     dense_center: torch.Tensor  # (3,) f32
+    # world AABBs of each DENSE_CHUNK_TRIS consecutive table rows, widened
+    # to stay conservative under f32 rounding
+    dense_chunk_lo: torch.Tensor  # (NC, 3) f32
+    dense_chunk_hi: torch.Tensor  # (NC, 3) f32
     # static: ((mesh_id, tri_start, tri_end), ...) per object
     obj_layout: tuple = ()
     # static: active light count (<= max_direct_lights)
     n_lights: int = 0
+    # static: table rows are morton-ordered by world centroid
+    dense_morton: bool = False
 
 
-_STATIC = ("n_meshes", "obj_layout", "n_lights")
+_STATIC = ("n_meshes", "sky_valid", "obj_layout", "n_lights", "dense_morton")
 
 
 def tensor_fields(cls) -> list[str]:
@@ -171,12 +205,13 @@ def compute_m_matrices(positions_f32: np.ndarray, tri_idx: np.ndarray):
 
 
 def _host_m_cache(host: HostScene):
-    """Per-HostScene cache of the fp32 M matrices and third vertices,
-    keyed on the identity of every mesh's arrays."""
+    """Per-HostScene cache of the fp32 M matrices, third vertices and
+    local triangle vertices, keyed on the identity of every mesh's
+    arrays."""
     key = tuple((id(m.positions), id(m.indices)) for m in host.meshes)
     cache = getattr(host, "_m_cache", None)
     if cache is not None and cache[0] == key:
-        return cache[1], cache[2]
+        return cache[1:]
     v_off = np.cumsum([0] + [m.positions.shape[0] for m in host.meshes])
     pos = np.concatenate([m.positions for m in host.meshes]).astype(np.float32)
     tri_idx = np.concatenate(
@@ -184,8 +219,49 @@ def _host_m_cache(host: HostScene):
     ).astype(np.int32)
     m_f32 = compute_m_matrices(pos, tri_idx)
     v2_f32 = pos[tri_idx[:, 2]]
-    host._m_cache = (key, m_f32, v2_f32)
-    return m_f32, v2_f32
+    verts_f32 = pos[tri_idx]  # (T, 3, 3)
+    host._m_cache = (key, m_f32, v2_f32, verts_f32)
+    return m_f32, v2_f32, verts_f32
+
+
+def _morton_order(lo_raw, hi_raw):
+    """Stable order of the rows by the 30-bit morton code of their world
+    centroids (10 bits per axis)."""
+    cen = (lo_raw + hi_raw) * 0.5
+    cmin = cen.min(axis=0)
+    ext = np.maximum(cen.max(axis=0) - cmin, 1e-30)
+    q = np.minimum((cen - cmin) / ext * 1024.0, 1023.0).astype(np.uint64)
+
+    def spread(x):
+        x = (x | (x << 32)) & np.uint64(0x1F00000000FFFF)
+        x = (x | (x << 16)) & np.uint64(0x1F0000FF0000FF)
+        x = (x | (x << 8)) & np.uint64(0x100F00F00F00F00F)
+        x = (x | (x << 4)) & np.uint64(0x10C30C30C30C30C3)
+        x = (x | (x << 2)) & np.uint64(0x1249249249249249)
+        return x
+
+    code = spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+    return np.argsort(code, kind="stable")
+
+
+def _chunk_aabbs(lo_raw, hi_raw):
+    """World AABBs of each DENSE_CHUNK_TRIS consecutive rows, widened by
+    1e-3 of their extent + 1e-4; an all-padding chunk parks far away."""
+    ti = lo_raw.shape[0]
+    pad = (-ti) % DENSE_CHUNK_TRIS
+    big = np.float32(1e30)
+    lo_t = np.pad(lo_raw, ((0, pad), (0, 0)), constant_values=big)
+    hi_t = np.pad(hi_raw, ((0, pad), (0, 0)), constant_values=-big)
+    ng = (ti + pad) // DENSE_CHUNK_TRIS
+    g_lo = lo_t.reshape(ng, DENSE_CHUNK_TRIS, 3).min(axis=1)
+    g_hi = hi_t.reshape(ng, DENSE_CHUNK_TRIS, 3).max(axis=1)
+    ext = np.maximum(g_hi - g_lo, 0.0)
+    g_lo = g_lo - ext * 1e-3 - 1e-4
+    g_hi = g_hi + ext * 1e-3 + 1e-4
+    empty = g_hi[:, 0] < g_lo[:, 0]
+    g_lo[empty] = big
+    g_hi[empty] = big
+    return g_lo, g_hi
 
 
 def _dense_coefficients(host: HostScene, flat: FlatScene, t_off):
@@ -194,14 +270,16 @@ def _dense_coefficients(host: HostScene, flat: FlatScene, t_off):
     part A, the world-ray form is n.o + e with rows n = m @ A and offsets
     e = m.(b - v2) + n.c (recentred at the scene centre c).
 
-    -> numpy dict (dense_n_f32, dense_e, dense_tri, dense_obj, dense_center).
-    Single-chunk scenes keep object order (the JAX package morton-sorts
-    only above one chunk)."""
-    m_f32, v2_f32 = _host_m_cache(host)
+    -> numpy dict (dense_n_f32, dense_e, dense_tri, dense_obj,
+    dense_center, dense_chunk_lo, dense_chunk_hi, dense_morton).  Above
+    one chunk the rows are sorted by the morton code of their world
+    centroids, so each 128-row chunk is a compact blob with a tight AABB;
+    single-chunk scenes keep object order."""
+    m_f32, v2_f32, verts_f32 = _host_m_cache(host)
     center = (
         (flat.obj_aabb_lo.min(axis=0) + flat.obj_aabb_hi.max(axis=0)) / 2
     ).astype(np.float64)
-    ns, es, tris, objs = [], [], [], []
+    ns, es, tris, objs, los, his = [], [], [], [], [], []
     for o in range(flat.obj_mesh.shape[0]):
         mesh = int(flat.obj_mesh[o])
         t0, t1 = int(t_off[mesh]), int(t_off[mesh + 1])
@@ -215,16 +293,33 @@ def _dense_coefficients(host: HostScene, flat: FlatScene, t_off):
         ns.append((m @ A).astype(np.float32))
         # stays f64: it cancels against n.c below
         es.append(np.einsum("trk,tk->tr", m, b[None, :] - v2))
+        l2w = flat.obj_l2w[o].astype(np.float64)
+        vw = (verts_f32[t0:t1].astype(np.float64) @ l2w[:3, :3].T + l2w[:3, 3]).astype(np.float32)
+        los.append(vw.min(axis=1))
+        his.append(vw.max(axis=1))
         tris.append(np.arange(t0, t1, dtype=np.int32))
         objs.append(np.full(t1 - t0, o, np.int32))
     n_all = np.concatenate(ns)
     e_all = (np.concatenate(es) + n_all.astype(np.float64) @ center).astype(np.float32)
+    tri_all = np.concatenate(tris)
+    obj_all = np.concatenate(objs)
+    lo_raw = np.concatenate(los)
+    hi_raw = np.concatenate(his)
+    morton = DENSE_MORTON and n_all.shape[0] > DENSE_CHUNK_TRIS
+    if morton:
+        order = _morton_order(lo_raw, hi_raw)
+        n_all, e_all, tri_all, obj_all = n_all[order], e_all[order], tri_all[order], obj_all[order]
+        lo_raw, hi_raw = lo_raw[order], hi_raw[order]
+    chunk_lo, chunk_hi = _chunk_aabbs(lo_raw, hi_raw)
     return dict(
         dense_n_f32=n_all,
         dense_e=e_all,
-        dense_tri=np.concatenate(tris),
-        dense_obj=np.concatenate(objs),
+        dense_tri=tri_all,
+        dense_obj=obj_all,
         dense_center=center.astype(np.float32),
+        dense_chunk_lo=chunk_lo,
+        dense_chunk_hi=chunk_hi,
+        dense_morton=morton,
     )
 
 
@@ -262,6 +357,14 @@ def build_scene_arrays(host: HostScene, prec: Precision | str, device) -> SceneA
     per_vert = np.concatenate([pos, nrm, tan, col, uv0, uv1], axis=1)  # (V, 16)
     tri_attr = per_vert[tri_idx].reshape(n_tris, 48).astype(np.float32)
     mats = pack_materials(host.materials)
+    sky_valid = host.skybox is not None
+    sky_data = (np.asarray(host.skybox.data, np.float32) if sky_valid
+                else np.zeros((1, 1, 3), np.float32))
+    # quad-packed footprint rows: x wraps, y clamps
+    x1 = np.roll(sky_data, -1, axis=1)
+    y1 = np.concatenate([sky_data[1:], sky_data[-1:]], axis=0)
+    y1x1 = np.roll(y1, -1, axis=1)
+    sky_quad = np.concatenate([sky_data, x1, y1, y1x1], axis=2).reshape(-1, 12)
     as_dt = lambda x: _to_tensor(np.asarray(x, np.float32), device, dt)
     return SceneArrays(
         tri_attr=as_dt(tri_attr),
@@ -270,7 +373,10 @@ def build_scene_arrays(host: HostScene, prec: Precision | str, device) -> SceneA
         mat_metallic=as_dt(mats["metallic"]),
         mat_roughness=as_dt(mats["roughness"]),
         mat_double_sided=_to_tensor(mats["double_sided"], device),
+        sky_data=_to_tensor(sky_data, device),
+        sky_quad=as_dt(sky_quad),
         n_meshes=len(meshes),
+        sky_valid=sky_valid,
     )
 
 
@@ -311,6 +417,7 @@ def flatten_frame(
         (int(m), int(t_off[m]), int(t_off[m + 1])) for m in flat.obj_mesh.tolist()
     )
     dense = _dense_coefficients(host, flat, t_off)
+    sky = host.skybox
 
     as_dt = lambda x: _to_tensor(np.asarray(x, np.float32), device, dt)
     f32 = lambda x: _to_tensor(np.asarray(x, np.float32), device)
@@ -321,6 +428,8 @@ def flatten_frame(
         obj_w2l_f32=f32(flat.obj_w2l),
         obj_mesh=i32(flat.obj_mesh),
         obj_material=i32(flat.obj_material),
+        obj_aabb_lo=f32(flat.obj_aabb_lo),
+        obj_aabb_hi=f32(flat.obj_aabb_hi),
         light_type=i32(lt),
         light_pos=as_dt(lp),
         light_dir=as_dt(ld),
@@ -329,21 +438,28 @@ def flatten_frame(
         cam_w2c=f32(w2c),
         cam_l2w_f32=f32(flat.cam_l2w),
         cam_fov_y_f32=f32(flat.cam_fov_y),
+        sky_delta_x=f32(sky.delta_x if sky else 0.0),
+        sky_delta_y=f32(sky.delta_y if sky else 0.0),
+        sky_exposure=f32(sky.exposure if sky else 1.0),
         dense_n_f32=f32(dense["dense_n_f32"]),
         dense_e=f32(dense["dense_e"]),
         dense_tri=i32(dense["dense_tri"]),
         dense_obj=i32(dense["dense_obj"]),
         dense_center=f32(dense["dense_center"]),
+        dense_chunk_lo=f32(dense["dense_chunk_lo"]),
+        dense_chunk_hi=f32(dense["dense_chunk_hi"]),
         obj_layout=obj_layout,
         n_lights=int(k),
+        dense_morton=dense["dense_morton"],
     )
 
 
 def scene_from_numpy(scene_np: dict, frame_np: dict, device):
     """Build (SceneArrays, FrameInput) from the JAX package's leaves given
     as numpy arrays, keyed by field name.  Static fields come as plain
-    Python values: `n_meshes` in scene_np, `obj_layout` and `n_lights` in
-    frame_np.  Extra keys are ignored; bfloat16 arrays carry over bit for
+    Python values: `n_meshes` and `sky_valid` in scene_np, `obj_layout`,
+    `n_lights` and `dense_morton` in frame_np (a missing one takes its
+    default).  Extra keys are ignored; bfloat16 arrays carry over bit for
     bit."""
 
     def build(cls, src):

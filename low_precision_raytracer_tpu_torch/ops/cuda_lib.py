@@ -26,7 +26,7 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("dense_trace", "svgf")
+SOURCES = ("dense_trace", "dense_multi", "svgf")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no contraction into FMA: the kernels round like their plain versions
@@ -40,6 +40,9 @@ SIGNATURES = {
     "dense_trace": {
         "lprt_dense_trace": [P] * 9 + [I, I, I, F] + [P] * 6 + [P],
     },
+    "dense_multi": {
+        "lprt_dense_trace_multi": [P] * 9 + [I, I, I, I] + [P] * 5 + [P],
+    },
     "svgf": {
         "lprt_coef_fetch": [P, P, I, I, I, I, I, P, P],
         "lprt_temporal": [P, P, P, I, I, F, F, F, I, F, P, P, P, P],
@@ -51,7 +54,8 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 # launches per kernel wrapper, counted where the wrapper launches its
 # kernel (never on the CPU path); a run resets them to read its own counts
-LAUNCHES = {"dense_trace": 0, "coef_fetch": 0, "temporal_accum": 0, "wavelet_iter": 0}
+LAUNCHES = {"dense_trace": 0, "dense_trace_multi": 0, "coef_fetch": 0,
+            "temporal_accum": 0, "wavelet_iter": 0}
 
 
 def reset_launches() -> None:

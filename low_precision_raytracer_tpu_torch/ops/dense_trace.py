@@ -1,18 +1,29 @@
-"""Dense single-chunk trace with the fused shadow phase (port of
-`low_precision_raytracer_tpu/ops/dense_pallas.py:trace_rays_dense_pallas`,
-single-chunk mode, `fallback='mxu3'`, `di_lights=L`).
+"""Dense traces (port of `low_precision_raytracer_tpu/ops/dense_pallas.py`,
+`fallback='mxu3'`): the M-shift test of every ray against world-space
+per-instance-triangle coefficient rows, strict f32 acceptance.
 
-`dense_trace` is the kernel wrapper: on CUDA tensors it launches
-`csrc/dense_trace.cu` (or raises), on CPU tensors it runs
-`dense_trace_plain`, the same function in plain PyTorch.  Both take the
-rays already recentred by the scene centre (as the TPU path feeds its
-kernel) and the coefficient table as (TI, 12) f32 rows [n (3x3 row-major)
-| e (3)].
+Two kernels, each with a wrapper and its plain PyTorch version (the
+wrapper launches the kernel on CUDA tensors, or raises; on CPU tensors it
+runs the plain version):
 
-Returns (t, u, v, tri, obj, vis): closest hit per ray (t = 1e5, u = v = 0,
-ids -1 on a miss; ties in t go to the smallest tri id) and the per-ray
-visibility bitmask (bit l = light l unoccluded from the winner's point;
-all zeros when `lights` is None).
+- `dense_trace` (K1a, `csrc/dense_trace.cu`): single-chunk scenes
+  (<= 128 instance triangles), closest hit with the fused shadow phase.
+  Returns (t, u, v, tri, obj, vis), vis the per-ray bitmask of lights
+  unoccluded from the winner's point (zeros when `lights` is None).
+- `dense_trace_multi` (K1b, `csrc/dense_multi.cu`): any table size, the
+  rows grouped in chunks of 128 with one world AABB each; closest hit or
+  any hit.  Returns (t, u, v, tri, obj).
+
+Both take the rays recentred by the scene centre and the coefficient
+table as (TI, 12) f32 rows [n (3x3 row-major) | e (3)].  Closest hit: t =
+1e5, u = v = 0, ids -1 on a miss; ties in t go to the smallest tri id, so
+the result does not depend on the order in which triangles are tested.
+Any hit: tri is a 0 (occluded) / -1 marker, t = 1e5, u = v = 0, obj = -1.
+
+Around K1b: `ray_aabb_entry` (the conservative slab-entry bound both the
+kernel's chunk walk and the sort key use), `anchor_key` and
+`dense_trace_multi_sorted`, the coherence-recovering launch for incoherent
+rays (`trace_rays_dense_pallas_sorted`: key, stable sort, trace, unsort).
 """
 
 from __future__ import annotations
@@ -24,6 +35,9 @@ from low_precision_raytracer_tpu_torch.ops import cuda_lib
 T_MISS = 1e5
 MAX_TRIS = 128  # the kernel's shared-memory table
 MAX_LIGHTS = 32  # bits of the visibility mask
+CHUNK = 128  # K1b: table rows per chunk AABB
+MAX_CHUNKS = 2048  # K1b: chunk AABBs in the kernel's 48 KB of shared memory
+BOX_SLOP = 0.02  # scene-level slab-test slop of the JAX package
 
 
 def tri_quantities(coef, o, d):
@@ -44,15 +58,11 @@ def tri_quantities(coef, o, d):
     return t, u, v, (u > 0) & (v > 0) & (u + v < 1)
 
 
-def dense_trace_plain(origins, directions, skip, mind, maxd, coef, tri_ids,
-                      obj_ids, lights=None, d_mov: float = 0.0):
-    """Plain PyTorch version of the kernel: a dense (R, TI) broadcast test,
-    then the shadow phase as a loop over the lights."""
-    R = origins.shape[0]
-    t, u, v, geom = tri_quantities(coef, origins, directions)
+def _closest(t, u, v, accept, tri_ids, obj_ids):
+    """(R, TI) test results -> the (t, tri)-lexicographic closest accepted
+    hit per ray: (t, u, v, tri, obj), the miss record where none."""
+    R = t.shape[0]
     tri = tri_ids[None, :]
-    accept = (geom & (t > mind[:, None]) & (t < maxd[:, None])
-              & (tri != skip[:, None]) & torch.isfinite(t))
     inf = torch.tensor(float("inf"), dtype=t.dtype, device=t.device)
     t_masked = torch.where(accept, t, inf)
     t_min = t_masked.min(dim=1).values
@@ -69,6 +79,23 @@ def dense_trace_plain(origins, directions, skip, mind, maxd, coef, tri_ids,
     neg = torch.full((R,), -1, dtype=torch.int32, device=t.device)
     tri_out = torch.where(got, tri_win.to(torch.int32), neg)
     obj_out = torch.where(got, obj_ids[k].to(torch.int32), neg)
+    return t_out, u_out, v_out, tri_out, obj_out
+
+
+def _accept(t, geom, skip, mind, maxd, tri_ids):
+    return (geom & (t > mind[:, None]) & (t < maxd[:, None])
+            & (tri_ids[None, :] != skip[:, None]) & torch.isfinite(t))
+
+
+def dense_trace_plain(origins, directions, skip, mind, maxd, coef, tri_ids,
+                      obj_ids, lights=None, d_mov: float = 0.0):
+    """Plain PyTorch version of the kernel: a dense (R, TI) broadcast test,
+    then the shadow phase as a loop over the lights."""
+    R = origins.shape[0]
+    t, u, v, geom = tri_quantities(coef, origins, directions)
+    accept = _accept(t, geom, skip, mind, maxd, tri_ids)
+    t_out, u_out, v_out, tri_out, obj_out = _closest(t, u, v, accept, tri_ids, obj_ids)
+    tri = tri_ids[None, :]
 
     vis = torch.zeros((R,), dtype=torch.int32, device=t.device)
     if lights is None:
@@ -90,6 +117,20 @@ def dense_trace_plain(origins, directions, skip, mind, maxd, coef, tri_ids,
     return t_out, u_out, v_out, tri_out, obj_out, vis
 
 
+def _check_args(what, args, want):
+    """Raise unless every tensor is contiguous, of its dtype and shape, and
+    on the first one's device."""
+    dev = args[0].device
+    for a, (dt, shape) in zip(args, want):
+        if a.dtype != dt or tuple(a.shape) != shape or not a.is_contiguous():
+            raise ValueError(f"{what}: expected contiguous {dt} {shape}, "
+                             f"got {a.dtype} {tuple(a.shape)}")
+        if a.device != dev:
+            raise ValueError(f"{what}: all tensors must be on one device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+
+
 def dense_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
                 lights=None, d_mov: float = 0.0):
     """Kernel wrapper: see the module docstring.  origins/directions (R, 3)
@@ -107,22 +148,15 @@ def dense_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
         args.append(lights)
         want.append((f32, (L, 4)))
     dev = origins.device
-    for a, (dt, shape) in zip(args, want):
-        if a.dtype != dt or tuple(a.shape) != shape or not a.is_contiguous():
-            raise ValueError(f"dense_trace: expected contiguous {dt} {shape}, "
-                             f"got {a.dtype} {tuple(a.shape)}")
-        if a.device != dev:
-            raise ValueError("dense_trace: all tensors must be on one device")
+    _check_args("dense_trace", args, want)
     if TI > MAX_TRIS or L > MAX_LIGHTS:
         raise NotImplementedError(
             f"dense_trace covers single-chunk scenes (<= {MAX_TRIS} instance "
             f"triangles, <= {MAX_LIGHTS} lights); got {TI} / {L} "
-            "(multi-chunk scenes: ROADMAP queue 1 item 9)")
+            "(multi-chunk scenes go to dense_trace_multi)")
     if dev.type == "cpu":
         return dense_trace_plain(origins, directions, skip, mind, maxd, coef,
                                  tri_ids, obj_ids, lights, d_mov)
-    if dev.type != "cuda":
-        raise ValueError(f"dense_trace: unsupported device {dev}")
     t = torch.empty((R,), dtype=f32, device=dev)
     u, v = torch.empty_like(t), torch.empty_like(t)
     tri = torch.empty((R,), dtype=i32, device=dev)
@@ -142,3 +176,152 @@ def dense_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
         vis.zero_()
     return t, u, v, tri, obj, vis
 
+
+
+# ---------------------------------------------------------------------------
+# K1b: multi-chunk dense trace
+
+
+def dense_trace_multi_plain(origins, directions, skip, mind, maxd, coef, tri_ids,
+                            obj_ids, chunk_lo=None, chunk_hi=None, find_any=False,
+                            slab_elems: int = 1 << 24):
+    """Plain PyTorch version of K1b: every ray against every row (the
+    chunk AABBs only prune, so they are not read), as a global (t, tri)
+    minimum or an any-accept, in slabs of rays of about `slab_elems`
+    (ray, row) pairs to bound memory."""
+    R, TI = origins.shape[0], coef.shape[0]
+    dev = origins.device
+    outs = []
+    rs = max(1, slab_elems // TI)
+    for r0 in range(0, max(R, 1), rs):
+        sl = slice(r0, r0 + rs)
+        t, u, v, geom = tri_quantities(coef, origins[sl], directions[sl])
+        acc = _accept(t, geom, skip[sl], mind[sl], maxd[sl], tri_ids)
+        if find_any:
+            n = t.shape[0]
+            blocked = acc.any(dim=1)
+            outs.append((torch.full((n,), T_MISS, dtype=torch.float32, device=dev),
+                         torch.zeros((n,), dtype=torch.float32, device=dev),
+                         torch.zeros((n,), dtype=torch.float32, device=dev),
+                         torch.where(blocked, 0, -1).to(torch.int32),
+                         torch.full((n,), -1, dtype=torch.int32, device=dev)))
+        else:
+            outs.append(_closest(t, u, v, acc, tri_ids, obj_ids))
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def dense_trace_multi(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
+                      chunk_lo, chunk_hi, find_any: bool = False):
+    """K1b wrapper: see the module docstring.  origins/directions (R, 3)
+    f32, skip (R,) i32, mind/maxd (R,) f32, coef (TI, 12) f32, tri_ids /
+    obj_ids (TI,) i32, chunk_lo/chunk_hi (NC, 3) f32 with NC =
+    ceil(TI / 128): the AABB of rows [128 c, 128 c + 128), in the rays'
+    (recentred) frame.  -> (t, u, v, tri, obj)."""
+    R = origins.shape[0]
+    TI = coef.shape[0]
+    NC = -(-TI // CHUNK)
+    f32, i32 = torch.float32, torch.int32
+    _check_args("dense_trace_multi",
+                [origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
+                 chunk_lo, chunk_hi],
+                [(f32, (R, 3)), (f32, (R, 3)), (i32, (R,)), (f32, (R,)), (f32, (R,)),
+                 (f32, (TI, 12)), (i32, (TI,)), (i32, (TI,)), (f32, (NC, 3)),
+                 (f32, (NC, 3))])
+    if NC > MAX_CHUNKS:
+        raise NotImplementedError(
+            f"dense_trace_multi holds <= {MAX_CHUNKS} chunk AABBs in shared "
+            f"memory; got {NC} ({TI} instance triangles: the packet BVH, "
+            "ROADMAP queue 1 item 10)")
+    dev = origins.device
+    if dev.type == "cpu":
+        return dense_trace_multi_plain(origins, directions, skip, mind, maxd, coef,
+                                       tri_ids, obj_ids, chunk_lo, chunk_hi, find_any)
+    if coef.data_ptr() % 16:
+        raise ValueError("dense_trace_multi: the coefficient table must be 16-byte aligned")
+    t = torch.empty((R,), dtype=f32, device=dev)
+    u, v = torch.empty_like(t), torch.empty_like(t)
+    tri = torch.empty((R,), dtype=i32, device=dev)
+    obj = torch.empty_like(tri)
+    boxes = torch.cat([chunk_lo, chunk_hi], dim=1).contiguous()  # (NC, 6)
+    lib = cuda_lib.library("dense_multi")
+    code = lib.lprt_dense_trace_multi(
+        origins.data_ptr(), directions.data_ptr(), skip.data_ptr(), mind.data_ptr(),
+        maxd.data_ptr(), coef.data_ptr(), tri_ids.data_ptr(), obj_ids.data_ptr(),
+        boxes.data_ptr(), R, TI, NC, int(find_any), t.data_ptr(), u.data_ptr(),
+        v.data_ptr(), tri.data_ptr(), obj.data_ptr(), cuda_lib.stream_ptr(dev),
+    )
+    cuda_lib.check(code, "dense_trace_multi")
+    cuda_lib.LAUNCHES["dense_trace_multi"] += 1
+    return t, u, v, tri, obj
+
+
+def ray_aabb_entry(lo, hi, o, d, maxd):
+    """Conservative slab-test entry bound of rays (RS, 3) against boxes
+    (N, 3): -> (entry (RS, N) f32 >= 0, ok (RS, N) bool).  Axes whose slab
+    distances are not finite (a zero direction component) constrain
+    nothing; 0.02 of slop keeps the bound below every hit the box holds."""
+    inv = 1.0 / d
+    big = 3e38
+    t1 = (lo[None] - o[:, None]) * inv[:, None]  # (RS, N, 3)
+    t2 = (hi[None] - o[:, None]) * inv[:, None]
+    a = torch.minimum(t1, t2)
+    b = torch.maximum(t1, t2)
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    tmin = torch.where(fin, a, -big).amax(dim=-1)
+    tmax = torch.where(fin, b, big).amin(dim=-1)
+    entry = torch.clamp(tmin - BOX_SLOP, min=0.0)
+    ok = (fin.any(dim=-1) & (tmin <= tmax + BOX_SLOP) & (tmax + BOX_SLOP >= 0)
+          & (entry < maxd[:, None]))
+    return entry, ok
+
+
+def anchor_key(lo, hi, origins, directions, max_dist, live, slab_elems: int = 1 << 24):
+    """Sort key that groups rays by their nearest chunk (by slab-entry
+    bound; chunks merge into <= 1024 anchor groups) and then by direction
+    octant and 2 magnitude bits per axis; dead lanes sort last.  The
+    (rays, anchors) sweep runs in slabs of about `slab_elems` / 3 pairs."""
+    nc = lo.shape[0]
+    s = -(-nc // 1024)  # group size -> <= 1024 anchors
+    if s > 1:
+        pad = (-nc) % s
+        lo_g = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=3e38)
+        hi_g = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-3e38)
+        lo_g = lo_g.reshape(-1, s, 3).amin(dim=1)
+        hi_g = hi_g.reshape(-1, s, 3).amax(dim=1)
+    else:
+        lo_g, hi_g = lo, hi
+    na = lo_g.shape[0]
+    R = origins.shape[0]
+    rs = max(4096, slab_elems // (3 * na))
+    anchor = torch.empty((R,), dtype=torch.int32, device=origins.device)
+    for r0 in range(0, R, rs):
+        sl = slice(r0, r0 + rs)
+        entry, ok = ray_aabb_entry(lo_g, hi_g, origins[sl], directions[sl], max_dist[sl])
+        anchor[sl] = torch.argmin(torch.where(ok, entry, 3e38), dim=1).to(torch.int32)
+    d = directions
+    octant = ((d[:, 0] > 0).to(torch.int32) | ((d[:, 1] > 0).to(torch.int32) << 1)
+              | ((d[:, 2] > 0).to(torch.int32) << 2))
+    qd = torch.clamp(d.abs() * 3, 0, 3).to(torch.int32)  # 2 bits per axis
+    dirbits = (octant << 6) | (qd[:, 0] << 4) | (qd[:, 1] << 2) | qd[:, 2]
+    key = (anchor << 9) | dirbits
+    return key | torch.where(live, 0, 1 << 28).to(torch.int32)
+
+
+def dense_trace_multi_sorted(origins, directions, skip, mind, maxd, coef, tri_ids,
+                             obj_ids, chunk_lo, chunk_hi, find_any: bool = False):
+    """K1b on incoherent rays, coherence recovered: sort the rays by
+    `anchor_key`, trace them in that order, scatter the results back to
+    the caller's order.  Same arguments and results as
+    `dense_trace_multi`; equal to it bit for bit (its result does not
+    depend on ray order)."""
+    key = anchor_key(chunk_lo, chunk_hi, origins, directions, maxd, live=maxd > mind)
+    order = torch.sort(key, stable=True).indices  # stable: a fixed permutation
+    outs = dense_trace_multi(origins[order], directions[order], skip[order],
+                             mind[order], maxd[order], coef, tri_ids, obj_ids,
+                             chunk_lo, chunk_hi, find_any=find_any)
+    back = []
+    for x in outs:
+        y = torch.empty_like(x)
+        y[order] = x
+        back.append(y)
+    return tuple(back)

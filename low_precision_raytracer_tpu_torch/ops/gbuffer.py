@@ -50,12 +50,15 @@ def interpolate_hit_attributes(scene, frame, hit: Hit, dtype):
 
 
 def fill_gbuffer(scene, frame, origins, directions, *, cfg, prec, di_lights=None):
-    """Trace primary rays and produce the G-buffer pixel arrays (zeros on
-    miss); `depth` is the f32 hit distance under shade_f32.  With
-    `di_lights` the launch also returns round-0 shadow visibility in
-    g["di_vis"]."""
-    hit, vis = trace(frame, origins, directions, cfg=cfg, prec=prec,
-                     di_lights=di_lights)
+    """Trace primary rays (a coherent closest-hit launch) and produce the
+    G-buffer pixel arrays (zeros on miss); `depth` is the f32 hit distance
+    under shade_f32.  With `di_lights` (single-chunk scenes) the launch
+    also returns round-0 shadow visibility in g["di_vis"]."""
+    if di_lights is not None:
+        hit, vis = trace(frame, origins, directions, cfg=cfg, prec=prec,
+                         di_lights=di_lights)
+    else:
+        hit = trace(frame, origins, directions, cfg=cfg, prec=prec)
     attr_dt = torch.float32 if cfg.shade_f32 else prec.dtype
     attrs = interpolate_hit_attributes(scene, frame, hit, attr_dt)
     valid = hit.tri >= 0

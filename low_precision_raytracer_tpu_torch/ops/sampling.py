@@ -1,6 +1,7 @@
 """Importance sampling helpers (port of
 `low_precision_raytracer_tpu/ops/sampling.py`): GGX half-vector sampling
-with a uniform azimuth, and the uniform hemisphere from two uniforms."""
+with a uniform azimuth, the uniform hemisphere from two uniforms, and the
+equirectangular direction -> uv map of the skybox."""
 
 from __future__ import annotations
 
@@ -43,3 +44,17 @@ def uniform_hemisphere_trig(normal, tangent, bitangent, u1, u2):
     y = r * torch.sin(phi)
     v = tangent * x[..., None] + bitangent * y[..., None] + normal * z[..., None]
     return v, z
+
+
+def direction_to_spherical(d, offset_x, offset_y):
+    """Equirectangular direction -> (u, v) in [0, 1), always f32 (the
+    reference's truncated 1/(2 pi) and 1/pi constants kept)."""
+    f32 = torch.float32
+    dx = d[..., 0].to(f32)
+    dy = d[..., 1].to(f32)
+    dz = torch.clamp(d[..., 2].to(f32), -1.0, 1.0)
+    u = 0.1591 * torch.atan2(dy, dx) + 0.5 + offset_x.to(f32)
+    v = 0.3183 * torch.asin(dz) + 0.5 + offset_y.to(f32)
+    u = torch.remainder(u, 1.0)
+    v = 1.0 - torch.remainder(v, 1.0)
+    return u, v

@@ -7,7 +7,8 @@ emission/ambient intensity, the GI bounce ray with its BRDF multiplier
 
 Shading computes in f32 (`cfg.shade_f32`).  The 7*R GI uniforms of a
 round with GI are one f32 draw, passed in by the caller (`uniforms`), so
-tests can feed the JAX package's draws.  Scenes with textures or a skybox
+tests can feed the JAX package's draws.  With a skybox, `di_sky` carries
+the sky radiance of the pixels no surface covers.  Scenes with textures
 are refused before this stage runs.
 """
 
@@ -28,6 +29,7 @@ from low_precision_raytracer_tpu_torch.ops.sampling import (
     tangent_to_world,
     uniform_hemisphere_trig,
 )
+from low_precision_raytracer_tpu_torch.ops.texture import sample_skybox
 
 SHADE_INVALID = 0
 SHADE_COMMON = 1
@@ -57,6 +59,7 @@ class LightCommands(NamedTuple):
 
 class ShadeOutputs(NamedTuple):
     intensity: torch.Tensor  # (R, 3)
+    di_sky: torch.Tensor  # (R, 3) sky radiance (zeros without a skybox)
     albedo: torch.Tensor  # (R, 3) (first round; zeros otherwise)
     lights: LightCommands
     gi_valid: torch.Tensor  # (R,) bool
@@ -110,6 +113,17 @@ def shade(scene, frame, sinput: ShadeInput, view_dir, *, cfg: RenderConfig,
     L = min(frame.n_lights, cfg.max_direct_lights)
 
     is_common = sinput.type == SHADE_COMMON
+
+    # sky radiance: on the first round for pixels no surface covers, along
+    # the primary direction; on a bounce for lanes whose GI ray escaped,
+    # along it (= -view_dir)
+    di_sky = zero3
+    if scene.sky_valid:
+        sky_dir = -view_dir if first_round else -normalize(view_dir)
+        sky_rgb = sample_skybox(scene, frame, sky_dir).to(dt)
+        sky_mask = sinput.type == (SHADE_INVALID if first_round else SHADE_SKYBOX)
+        di_sky = torch.where(sky_mask[:, None], sky_rgb, zero3)
+
     mat = _gather_material(scene, sinput.material)
     for k in ("color", "emission", "metallic", "roughness"):
         mat[k] = mat[k].to(dt)
@@ -248,6 +262,7 @@ def shade(scene, frame, sinput: ShadeInput, view_dir, *, cfg: RenderConfig,
 
     return ShadeOutputs(
         intensity=intensity,
+        di_sky=di_sky,
         albedo=albedo,
         lights=lights,
         gi_valid=gi_valid,

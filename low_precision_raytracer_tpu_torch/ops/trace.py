@@ -1,12 +1,24 @@
 """Trace dispatch for the dense route (port of the pieces of
-`low_precision_raytracer_tpu/ops/trace.py` this path needs).
+`low_precision_raytracer_tpu/ops/trace.py` the dense route needs).
 
-The port has one backend: the single-chunk dense trace with the fused
-shadow phase (ops/dense_trace.py).  `resolve_fallback`, `di_fusible` and
-`moveforward_eps` answer as the JAX package does for that route; `trace`
-prepares the kernel's inputs (recentred rays, the coefficient table, the
-light rows) the way `trace_rays_dense_pallas` prepares them outside its
-kernel.
+`trace` prepares the kernels' inputs (recentred rays, the coefficient
+table, the chunk AABBs, the light rows) the way `trace_rays_dense_pallas`
+prepares them outside its kernel, then dispatches as the JAX package does:
+
+- closest-hit launches on single-chunk scenes (<= 128 instance
+  triangles) -> K1a `dense_trace`, with the fused shadow phase when
+  `di_lights` is given;
+- other coherent launches (multi-chunk, or any hit) -> K1b
+  `dense_trace_multi`;
+- multi-chunk, incoherent launches on scenes with several objects and
+  more than 4 chunks' worth of triangles -> the anchor-sorted K1b launch
+  (`dense_trace_multi_sorted`), unless `incoherent_sort='none'`;
+- incoherent launches the JAX package sends to the per-ray wavefront
+  (above `wavefront_min_tris`) -> NotImplementedError (K5, ROADMAP queue 1
+  item 10).
+
+`resolve_fallback`, `incoherent_reorders`, `di_fusible` and
+`moveforward_eps` answer as the JAX package does for the dense route.
 """
 
 from __future__ import annotations
@@ -22,14 +34,20 @@ from low_precision_raytracer_tpu_torch.models.scene import (
     FrameInput,
     instance_tris,
 )
-from low_precision_raytracer_tpu_torch.ops.dense_trace import dense_trace
+from low_precision_raytracer_tpu_torch.ops.dense_trace import (
+    dense_trace,
+    dense_trace_multi,
+    dense_trace_multi_sorted,
+)
+
+TC = DENSE_CHUNK_TRIS
 
 
 class Hit(NamedTuple):
     t: torch.Tensor  # (R,) f32, 1e5 on a miss
     u: torch.Tensor  # (R,) f32
     v: torch.Tensor  # (R,) f32
-    tri: torch.Tensor  # (R,) i32, -1 on a miss
+    tri: torch.Tensor  # (R,) i32, -1 on a miss (any hit: 0 / -1 marker)
     obj: torch.Tensor  # (R,) i32, -1 on a miss
 
 
@@ -43,21 +61,61 @@ def resolve_fallback(fb: str, prec: Precision) -> str:
     return fb
 
 
+def _wavefront_route(frame: FrameInput, cfg: RenderConfig, prec: Precision) -> bool:
+    """Would the JAX package send this scene's incoherent launches to the
+    per-ray wavefront (`ops/trace.py:299-326`)?"""
+    ti = instance_tris(frame)
+    return (cfg.incoherent_impl == "wavefront" and not prec.is_f32
+            and resolve_fallback(cfg.triangle_fallback, prec) == "mxu3"
+            and ti > max(4 * TC, cfg.wavefront_min_tris)
+            and ti <= cfg.packet_bvh_max_tris)
+
+
+def _sorted_route(frame: FrameInput, cfg: RenderConfig) -> bool:
+    return (len(frame.obj_layout) > 1 and instance_tris(frame) > 4 * TC
+            and cfg.incoherent_sort != "none")
+
+
+def incoherent_reorders(frame: FrameInput, cfg: RenderConfig, prec: Precision) -> bool:
+    """Would a `coherent=False` launch leave pixel order (sorted launch or
+    wavefront)?  The renderer's fuse/unfuse choice reads this."""
+    return _wavefront_route(frame, cfg, prec) or _sorted_route(frame, cfg)
+
+
 def di_fusible(frame: FrameInput, cfg: RenderConfig) -> bool:
     """Can closest-hit launches carry the fused shadow phase?  True for
     single-chunk scenes with at least one light."""
     if cfg.di_fuse == "off":
         return False
-    return 0 < instance_tris(frame) <= DENSE_CHUNK_TRIS and frame.n_lights > 0
+    return 0 < instance_tris(frame) <= TC and frame.n_lights > 0
 
 
-def moveforward_eps(cfg: RenderConfig, prec: Precision) -> float:
+def moveforward_eps(frame: FrameInput, cfg: RenderConfig, prec: Precision,
+                    coherent: bool = True) -> float:
     """Self-intersection epsilon of a secondary launch: origins ride
     exactly on the mxu3 dense route, so only the test's own t error needs
-    clearing (`ray_moveforward_t_exact`)."""
+    clearing (`ray_moveforward_t_exact`); the wavefront re-quantizes its
+    origins and keeps the dtype epsilon."""
     if prec.is_f32 or resolve_fallback(cfg.triangle_fallback, prec) != "mxu3":
         return prec.ray_moveforward_t
+    if not coherent and _wavefront_route(frame, cfg, prec):
+        return prec.ray_moveforward_t
     return prec.ray_moveforward_t_exact
+
+
+def check_scene(frame: FrameInput, cfg: RenderConfig) -> None:
+    """Raise NotImplementedError for scenes whose launches leave the dense
+    route the port covers."""
+    ti = instance_tris(frame)
+    if cfg.traversal_impl == "auto" and ti > cfg.packet_bvh_min_tris:
+        raise NotImplementedError(
+            f"{ti} instance triangles: 'auto' routes to the packet BVH (K6), "
+            "which waits (ROADMAP queue 1 item 10)")
+    if cfg.gi_on and cfg.max_bounces > 1 and _wavefront_route(frame, cfg, cfg.prec):
+        raise NotImplementedError(
+            f"{ti} instance triangles > wavefront_min_tris: incoherent "
+            "launches go to the per-ray wavefront (K5), which waits "
+            "(ROADMAP queue 1 item 10)")
 
 
 def di_light_rows(frame: FrameInput, di_lights: dict) -> torch.Tensor:
@@ -75,32 +133,58 @@ def di_light_rows(frame: FrameInput, di_lights: dict) -> torch.Tensor:
 
 
 def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
-          prec: Precision, skip_tri=None, min_dist=0.0, max_dist=1e5,
-          di_lights=None):
-    """Closest-hit launch on the single-chunk dense route.
-    -> (Hit, vis (R,) i32); vis is all zeros without `di_lights`."""
+          prec: Precision, find_any: bool = False, skip_tri=None, min_dist=0.0,
+          max_dist=1e5, coherent: bool = True, lane_k: int = 1, di_lights=None):
+    """One trace launch on the dense route.  -> Hit, or (Hit, vis (R,) i32)
+    when `di_lights` asks for the fused shadow phase (single-chunk only).
+
+    `coherent=False` marks rays not in screen order (GI bounces, bounce
+    shadows).  `lane_k=K`: the caller packed K command lanes per pixel,
+    pixel-major (row i*K + l = pixel i's lane l); the launch runs them
+    lane-major (K blocks of pixel-ordered rays, so the dead lanes of one
+    light cluster) and returns them pixel-major."""
     if resolve_fallback(cfg.triangle_fallback, prec) != "mxu3":
         raise NotImplementedError(
             "only the mxu3 acceptance is ported (fp32 'both' / bf16 'dtype': "
-            "ROADMAP queue 1 item 3)")
-    if instance_tris(frame) > DENSE_CHUNK_TRIS:
-        raise NotImplementedError(
-            "multi-chunk scenes wait (ROADMAP queue 1 item 9)")
+            "ROADMAP queue 1 item 8a)")
     f32 = torch.float32
     dev = origins.device
     R = origins.shape[0]
-    TI = frame.dense_n_f32.shape[0]
     if skip_tri is None:
         skip_tri = torch.full((R,), -1, dtype=torch.int32, device=dev)
     min_dist = torch.broadcast_to(torch.as_tensor(min_dist, dtype=f32, device=dev), (R,))
     max_dist = torch.broadcast_to(torch.as_tensor(max_dist, dtype=f32, device=dev), (R,))
-    o = (origins.to(f32) - frame.dense_center[None, :]).contiguous()
+
+    if lane_k > 1:
+        if di_lights is not None:
+            raise ValueError("the fused shadow phase is for lane_k=1 launches")
+        K, R0 = lane_k, R // lane_k
+        t3 = lambda x: x.reshape(R0, K, 3).transpose(0, 1).reshape(R, 3)
+        t1 = lambda x: x.reshape(R0, K).T.reshape(R)
+        hit = trace(frame, t3(origins), t3(directions), cfg=cfg, prec=prec,
+                    find_any=find_any, skip_tri=t1(skip_tri), min_dist=t1(min_dist),
+                    max_dist=t1(max_dist), coherent=coherent)
+        return Hit(*(x.reshape(K, R0).T.reshape(R) for x in hit))
+
+    TI = frame.dense_n_f32.shape[0]
+    c = frame.dense_center
+    o = (origins.to(f32) - c[None, :]).contiguous()
     d = directions.to(f32).contiguous()
     coef = torch.cat([frame.dense_n_f32.reshape(TI, 9), frame.dense_e], dim=1).contiguous()
-    lights = None if di_lights is None else di_light_rows(frame, di_lights)
-    t, u, v, tri, obj, vis = dense_trace(
-        o, d, skip_tri.to(torch.int32).contiguous(), min_dist.contiguous(),
-        max_dist.contiguous(), coef, frame.dense_tri, frame.dense_obj, lights,
-        d_mov=prec.ray_moveforward_t_exact,
-    )
-    return Hit(t=t, u=u, v=v, tri=tri, obj=obj), vis
+    rays = (o, d, skip_tri.to(torch.int32).contiguous(), min_dist.contiguous(),
+            max_dist.contiguous(), coef, frame.dense_tri, frame.dense_obj)
+    if di_lights is not None and (find_any or instance_tris(frame) > TC):
+        raise ValueError("the fused shadow phase rides single-chunk closest-hit launches")
+    if instance_tris(frame) <= TC and not find_any:
+        lights = None if di_lights is None else di_light_rows(frame, di_lights)
+        *h, vis = dense_trace(*rays, lights, d_mov=prec.ray_moveforward_t_exact)
+        return (Hit(*h), vis) if di_lights is not None else Hit(*h)
+    if not coherent and _wavefront_route(frame, cfg, prec):
+        raise NotImplementedError(
+            "incoherent launches above wavefront_min_tris go to the per-ray "
+            "wavefront (K5), which waits (ROADMAP queue 1 item 10)")
+    boxes = ((frame.dense_chunk_lo - c[None, :]).contiguous(),
+             (frame.dense_chunk_hi - c[None, :]).contiguous())
+    launch = (dense_trace_multi_sorted if not coherent and _sorted_route(frame, cfg)
+              else dense_trace_multi)
+    return Hit(*launch(*rays, *boxes, find_any=find_any))

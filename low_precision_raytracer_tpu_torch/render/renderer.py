@@ -1,15 +1,19 @@
 """The frame orchestrator (port of `low_precision_raytracer_tpu/render/renderer.py`:
-the fused-DI branch of `render_frame` and the `Renderer` class).
+`render_frame`, its shadow/GI launch helpers and the `Renderer` class).
 
-One frame, in order: the f32 camera grid; trace launch 1 (primary closest
-hit + the round-0 shadow phase, K1a); the G-buffer; the SVGF temporal map
-and its packed history fetch (K2); shade round 0; trace launch 2 (GI
-bounce + the round-1 shadow phase, K1a); shade round 1; the clean /
-demodulated split; the SVGF pair (K3, then K4 per stride); compose and
-tonemap.  TAA at mix weight 1 is the identity and is not run.
+One frame, in order: the f32 camera grid; the primary launch and the
+G-buffer; the SVGF temporal map and its packed history fetch (K2); shade
+round 0; its shadow and GI launches; shade round 1 and its shadow launch;
+the clean / demodulated split; the SVGF pair (K3, then K4 per stride);
+compose and tonemap.  TAA at mix weight 1 is the identity and is not run.
 
-The unfused `_trace_di` / `_trace_di_gi` path (multi-chunk scenes, scenes
-without lights) waits (ROADMAP queue 1 item 8a).
+Single-chunk scenes with lights (Cornell) take the fused route: the
+primary launch carries round 0's shadow phase and the GI launch round 1's
+(K1a x 2).  Other scenes take the unfused route (`_trace_di_gi`): on a
+multi-chunk, multi-object scene (Sponza-class) that is four K1b launches,
+the primary, round 0's shadows (coherent), round 0's GI bounce and round
+1's shadows (both sorted by `anchor_key`).  Sky radiance (`di_sky`) joins
+both rounds' intensity.
 """
 
 from __future__ import annotations
@@ -22,11 +26,9 @@ from low_precision_raytracer_tpu_torch.config import (
     resolve_device,
 )
 from low_precision_raytracer_tpu_torch.models.scene import (
-    DENSE_CHUNK_TRIS,
     HostScene,
     build_scene_arrays,
     flatten_frame,
-    instance_tris,
 )
 from low_precision_raytracer_tpu_torch.ops.camera import primary_ray_grid
 from low_precision_raytracer_tpu_torch.ops.compose import (
@@ -50,7 +52,10 @@ from low_precision_raytracer_tpu_torch.ops.shade import (
 from low_precision_raytracer_tpu_torch.ops.svgf import SVGFState, preprocess_normal_depth
 from low_precision_raytracer_tpu_torch.ops.svgf_kernels import svgf_pair_full
 from low_precision_raytracer_tpu_torch.ops.trace import (
+    Hit,
+    check_scene,
     di_fusible,
+    incoherent_reorders,
     moveforward_eps,
     trace,
 )
@@ -58,6 +63,28 @@ from low_precision_raytracer_tpu_torch.render.framestate import (
     FrameState,
     init_frame_state,
 )
+
+
+def _trace_di(frame, source, lights, skip_tri, cfg, prec, coherent=True):
+    """Any-hit shadow ray per (pixel, light) command; invalid slots get
+    max_dist 0 and cost nothing.  -> di_intensity (R, L, 3) in the render
+    dtype."""
+    R = source.shape[0]
+    L = lights.valid.shape[1]
+    dt = prec.dtype
+    if L == 0:
+        return torch.zeros((R, 0, 3), dtype=dt, device=source.device)
+    # pixel-major command rows, run lane-major inside trace (lane_k)
+    o = source[:, None, :].expand(R, L, 3).reshape(R * L, 3)
+    d = lights.direction.reshape(R * L, 3)
+    maxt = torch.where(lights.valid, lights.max_t.to(torch.float32), 0.0).reshape(R * L)
+    skips = skip_tri[:, None].expand(R, L).reshape(R * L)
+    hit = trace(frame, o, d, cfg=cfg, prec=prec, find_any=True, skip_tri=skips,
+                min_dist=moveforward_eps(frame, cfg, prec, coherent), max_dist=maxt,
+                coherent=coherent, lane_k=L)
+    visible = hit.tri.reshape(R, L) < 0
+    vis = (visible & lights.valid).to(dt)[..., None]
+    return vis * lights.multiplier
 
 
 def _gi_shade_input(scene, frame, shade_out, hit, prec):
@@ -112,10 +139,53 @@ def _trace_gi_fused_di(scene, frame, shade_out, cfg, prec, di_spec):
     maxt = torch.where(shade_out.gi_valid, 1e5, 0.0).to(torch.float32)
     hit, vis = trace(
         frame, shade_out.source, shade_out.gi_direction, cfg=cfg, prec=prec,
-        skip_tri=shade_out.skip_tri, min_dist=moveforward_eps(cfg, prec),
+        skip_tri=shade_out.skip_tri, min_dist=moveforward_eps(frame, cfg, prec, False),
         max_dist=maxt, di_lights=di_spec,
     )
     return _gi_shade_input(scene, frame, shade_out, hit, prec), vis
+
+
+def _trace_di_gi(scene, frame, shade_out, cfg, prec, *, want_gi, coherent):
+    """The round's shadow rays and (optionally) its GI bounce, unfused
+    route.  -> (di_intensity (R, L, 3), gi ShadeInput | None).
+
+    Where incoherent launches get sorted and this round's shadows are
+    coherent (round 0 on a Sponza-class scene), the two run as separate
+    launches: the shadows unsorted, the GI bounce sorted.  Otherwise both
+    share one closest-hit launch of L + 1 lanes per pixel (visible := no
+    hit)."""
+    R = shade_out.source.shape[0]
+    L = shade_out.lights.valid.shape[1]
+    lights = shade_out.lights
+    eps = moveforward_eps(frame, cfg, prec, False)
+    if not want_gi or L == 0 or (coherent and incoherent_reorders(frame, cfg, prec)):
+        di = _trace_di(frame, shade_out.source, lights, shade_out.skip_tri, cfg, prec,
+                       coherent=coherent)
+        sin_next = None
+        if want_gi:
+            maxt = torch.where(shade_out.gi_valid, 1e5, 0.0).to(torch.float32)
+            hit = trace(frame, shade_out.source, shade_out.gi_direction, cfg=cfg,
+                        prec=prec, skip_tri=shade_out.skip_tri, min_dist=eps,
+                        max_dist=maxt, coherent=False)
+            sin_next = _gi_shade_input(scene, frame, shade_out, hit, prec)
+        return di, sin_next
+
+    # pixel-major fused lanes: row i*(L+1)+l = pixel i's l-th shadow ray,
+    # row i*(L+1)+L = its GI bounce
+    K = L + 1
+    o = shade_out.source[:, None, :].expand(R, K, 3).reshape(R * K, 3)
+    d = torch.cat([lights.direction, shade_out.gi_direction.to(torch.float32)[:, None, :]],
+                  dim=1).reshape(R * K, 3)
+    maxt_sh = torch.where(lights.valid, lights.max_t.to(torch.float32), 0.0)
+    maxt_gi = torch.where(shade_out.gi_valid, 1e5, 0.0).to(torch.float32)
+    maxt = torch.cat([maxt_sh, maxt_gi[:, None]], dim=1).reshape(R * K)
+    skips = shade_out.skip_tri[:, None].expand(R, K).reshape(R * K)
+    hit = trace(frame, o, d, cfg=cfg, prec=prec, skip_tri=skips, min_dist=eps,
+                max_dist=maxt, coherent=False, lane_k=K)
+    tri_rk = hit.tri.reshape(R, K)
+    vis = ((tri_rk[:, :L] < 0) & lights.valid).to(prec.dtype)[..., None]
+    hit_gi = Hit(*(x.reshape(R, K)[:, L] for x in hit))
+    return vis * lights.multiplier, _gi_shade_input(scene, frame, shade_out, hit_gi, prec)
 
 
 def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
@@ -127,10 +197,7 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
     `generator`.  aux["svgf_fast_path"] says whether the history fetch took
     the K2 path (None with the denoiser off)."""
     check_supported(cfg)
-    if not di_fusible(frame, cfg):
-        raise NotImplementedError(
-            "the unfused shadow path (multi-chunk scenes or no lights) waits "
-            "(ROADMAP queue 1 items 8a, 9)")
+    fused = di_fusible(frame, cfg)
     prec = cfg.prec
     dt = prec.dtype
     f32 = torch.float32
@@ -147,8 +214,8 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
                          f"uniform tensors, got {len(uniforms)}")
 
     # ---- primary rays (f32 grid in every mode) + G-buffer, with the
-    # round-0 shadow phase fused into the launch
-    di_spec = _di_light_spec(frame, cfg)
+    # round-0 shadow phase fused into the launch on single-chunk scenes
+    di_spec = _di_light_spec(frame, cfg) if fused else None
     o32g, d32g = primary_ray_grid(frame.cam_l2w_f32, frame.cam_fov_y_f32, W, H, f32)
     d32 = d32g.reshape(R, 3)
     g_flat, _ = fill_gbuffer(scene, frame, o32g.reshape(R, 3), d32, cfg=cfg,
@@ -172,11 +239,15 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
     sin0 = gbuffer_to_shade_input(g_flat, position_f32=pos32.reshape(R, 3))
     out0 = shade(scene, frame, sin0, view_dir=-d32, cfg=cfg, first_round=True,
                  no_gi=gi_rounds == 0, uniforms=uniforms[0] if gi_rounds else None)
-    di0 = _di_from_vis(g_flat["di_vis"], out0.lights, dt)
     sin_next = vis_next = None
-    if gi_rounds >= 1:
-        sin_next, vis_next = _trace_gi_fused_di(scene, frame, out0, cfg, prec, di_spec)
-    intensity0 = out0.intensity + torch.sum(di0, dim=1)
+    if fused:
+        di0 = _di_from_vis(g_flat["di_vis"], out0.lights, dt)
+        if gi_rounds >= 1:
+            sin_next, vis_next = _trace_gi_fused_di(scene, frame, out0, cfg, prec, di_spec)
+    else:
+        di0, sin_next = _trace_di_gi(scene, frame, out0, cfg, prec,
+                                     want_gi=gi_rounds >= 1, coherent=True)
+    intensity0 = out0.intensity + torch.sum(di0, dim=1) + out0.di_sky
     n_rays = R + torch.sum(out0.lights.valid.to(torch.int32))
 
     # ---- GI rounds; round-1 radiance feeds the SVGF channels directly,
@@ -189,10 +260,16 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
         out_r = shade(scene, frame, sin_next, view_dir=out_prev.view_dir_out,
                       cfg=cfg, first_round=False, no_gi=last,
                       uniforms=None if last else uniforms[r])
-        di_r = _di_from_vis(vis_next, out_r.lights, dt)
-        if not last:
-            sin_next, vis_next = _trace_gi_fused_di(scene, frame, out_r, cfg, prec, di_spec)
-        contrib = out_r.intensity + torch.sum(di_r, dim=1)
+        if fused:
+            di_r = _di_from_vis(vis_next, out_r.lights, dt)
+            if not last:
+                sin_next, vis_next = _trace_gi_fused_di(scene, frame, out_r, cfg, prec,
+                                                        di_spec)
+        else:
+            # rays from scattered bounce hit points
+            di_r, sin_next = _trace_di_gi(scene, frame, out_r, cfg, prec,
+                                          want_gi=not last, coherent=False)
+        contrib = out_r.intensity + torch.sum(di_r, dim=1) + out_r.di_sky
         intensity1 = intensity1 + path_mult * contrib
         n_rays = (n_rays + torch.sum(out_prev.gi_valid.to(torch.int32))
                   + torch.sum(out_r.lights.valid.to(torch.int32)))
@@ -249,9 +326,8 @@ class Renderer:
     def __init__(self, host_scene: HostScene, cfg: RenderConfig, device=None,
                  seed: int = 0):
         check_supported(cfg)
-        if host_scene.textures or host_scene.skybox is not None:
-            raise NotImplementedError(
-                "textures and skyboxes wait (ROADMAP queue 1 item 9)")
+        if host_scene.textures:
+            raise NotImplementedError("textured scenes wait (ROADMAP queue 1 item 9a)")
         if host_scene.animated:
             raise NotImplementedError("animated scenes wait (ROADMAP queue 1 item 11)")
         self.device = resolve_device(device)
@@ -262,10 +338,7 @@ class Renderer:
             max_direct_lights=cfg.max_direct_lights,
             width=cfg.width, height=cfg.height,
         )
-        if instance_tris(self.frame) > DENSE_CHUNK_TRIS:
-            raise NotImplementedError(
-                f"{instance_tris(self.frame)} instance triangles: multi-chunk "
-                "scenes wait (ROADMAP queue 1 item 9)")
+        check_scene(self.frame, cfg)
         self.state = init_frame_state(cfg, len(self.frame.obj_layout), self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 

@@ -206,3 +206,146 @@ def test_compose(demo):
     img_j = np.asarray(jcompose.tonemap_gamma(col_j))
     ulp = np.abs(img_t.view(np.int32) - img_j.view(np.int32))
     assert ulp.max() <= 1, f"tonemap differs by {ulp.max()} ulp"
+
+
+# ---------------------------------------------------------------------------
+# Sponza-class modules: the skybox fetch, shade's sky branch, and the
+# unfused shadow / GI launches of `_trace_di_gi`.
+#
+# Bars: the sky fetch and the sky branch rtol/atol 1e-5: the same bf16
+# quad texels and bilinear arithmetic in f32, the uv from atan2/asin that
+# differ by ~1 ulp between XLA and PyTorch; with the sun disc's texels
+# near 60, an ulp of u moves a blend weight by ~1e-5 of a texel step.
+# The launches: the bar of tests/test_torch_dense_multi.py (visibility and
+# bounce-tri agreement > 99.9%, bounce positions within 2e-3 where the tri
+# agrees).
+
+NS = 32
+RS = NS * NS
+
+
+def _jt(x):
+    """jnp -> torch (bf16 bit-exact)."""
+    return tscene._to_tensor(np.asarray(x), "cpu")
+
+
+@pytest.fixture(scope="module")
+def sky_setup():
+    from low_precision_raytracer_tpu.models.procedural import sponza_like_scene
+
+    host = sponza_like_scene(3, 1)
+    prec = jax_precision("bf16")
+    jcfg = JaxConfig(width=NS, height=NS, precision="bf16", traversal_impl="dense_pallas")
+    scene = build_scene_arrays(host, prec)
+    frame = flatten_frame(host, prec, max_direct_lights=4, width=NS, height=NS)
+    scene_np = {k: np.asarray(getattr(scene, k)) for k in tscene.tensor_fields(tscene.SceneArrays)}
+    scene_np.update(n_meshes=scene.n_meshes, sky_valid=scene.sky_valid)
+    frame_np = {k: np.asarray(getattr(frame, k)) for k in tscene.tensor_fields(tscene.FrameInput)}
+    frame_np.update(obj_layout=frame.obj_layout, n_lights=frame.n_lights,
+                    dense_morton=frame.dense_morton)
+    tscn, tfrm = tscene.scene_from_numpy(scene_np, frame_np, "cpu")
+    o, d = jax_grid(frame.cam_l2w_f32, frame.cam_fov_y_f32, NS, NS, jnp.float32)
+    o, d = o.reshape(RS, 3), d.reshape(RS, 3)
+    g, hit = jax_fill_gbuffer(scene, frame, o, d, prec, cfg=jcfg)
+    pos32 = o + hit.t[:, None] * d
+    key = jax.random.PRNGKey(4)
+    out_j = jax_shade(scene, frame, jax_sin(g, position_f32=pos32), view_dir=-d, prec=prec,
+                      cfg=jcfg, first_round=True, no_gi=False, key=key)
+    return dict(prec=prec, jcfg=jcfg, scene=scene, frame=frame, tscene=tscn, tframe=tfrm,
+                o=o, d=d, g=g, hit=hit, pos32=pos32, key=key, out_j=out_j,
+                cfg=RenderConfig(width=NS, height=NS, precision="bf16"))
+
+
+def _port_shade_out(out_j):
+    """The JAX package's ShadeOutputs as the port's."""
+    from low_precision_raytracer_tpu_torch.ops.shade import LightCommands, ShadeOutputs
+
+    lights = LightCommands(*(_jt(x) for x in out_j.lights))
+    return ShadeOutputs(**{k: (lights if k == "lights" else _jt(getattr(out_j, k)))
+                           for k in ShadeOutputs._fields})
+
+
+def test_sample_skybox(sky_setup):
+    from low_precision_raytracer_tpu.ops.texture import sample_skybox as jax_sky
+    from low_precision_raytracer_tpu_torch.ops.texture import sample_skybox
+
+    s = sky_setup
+    rng = np.random.default_rng(8)
+    dirs = rng.normal(size=(4096, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    dirs[:16] = [0, 0, 1]  # the poles and the seam
+    dirs[16:32] = [0, 0, -1]
+    dirs[32:48] = [-1, 0, 0]
+    _close(sample_skybox(s["tscene"], s["tframe"], torch.from_numpy(dirs)),
+           jax_sky(s["scene"], s["frame"], jnp.asarray(dirs)), "sky", rtol=1e-5, atol=1e-5)
+
+
+def test_shade_sky_branch(sky_setup):
+    """Round 0: sky radiance on the pixels no surface covers, along the
+    primary direction; a bounce: on SHADE_SKYBOX lanes along -view_dir."""
+    from low_precision_raytracer_tpu.ops.shade import SHADE_SKYBOX
+    from low_precision_raytracer_tpu.ops.shade import ShadeInput as JaxShadeInput
+
+    s = sky_setup
+    out_j = s["out_j"]
+    thit = Hit(*(_jt(getattr(s["hit"], k)) for k in ("t", "u", "v", "tri", "obj")))
+    s_t = dict(s, thit=thit)
+    sin_t = gbuffer_to_shade_input(_port_gbuffer(s_t), position_f32=_jt(s["pos32"]))
+    out_t = shade(s["tscene"], s["tframe"], sin_t, view_dir=-_jt(s["d"]), cfg=s["cfg"],
+                  first_round=True, no_gi=False, uniforms=_jt(
+                      jax.random.uniform(s["key"], (7 * RS,), jnp.float32)))
+    sky0 = np.asarray(out_j.di_sky)
+    assert (sky0.sum(1) > 0).mean() > 0.2  # the sky shows
+    _close(out_t.di_sky, sky0, "di_sky round 0", rtol=1e-5, atol=1e-5)
+    # a bounce round whose lanes all escaped to the sky
+    rng = np.random.default_rng(2)
+    vd = rng.normal(size=(RS, 3)).astype(np.float32)
+    types = np.where(rng.random(RS) < 0.7, SHADE_SKYBOX, 0).astype(np.int32)
+    sin1 = sin_t._replace(type=torch.from_numpy(types))
+    sin1_j = JaxShadeInput(type=jnp.asarray(types), position=s["g"]["position"],
+                           normal=s["g"]["normal"], tangent=s["g"]["tangent"],
+                           color=s["g"]["color"], uv0=s["g"]["uv0"], uv1=s["g"]["uv1"],
+                           material=s["g"]["material"], obj=s["g"]["obj"], tri=s["g"]["tri"],
+                           position_f32=s["pos32"])
+    out1_j = jax_shade(s["scene"], s["frame"], sin1_j, view_dir=jnp.asarray(vd), prec=s["prec"],
+                       cfg=s["jcfg"], first_round=False, no_gi=True, key=s["key"])
+    out1_t = shade(s["tscene"], s["tframe"], sin1, view_dir=torch.from_numpy(vd), cfg=s["cfg"],
+                   first_round=False, no_gi=True)
+    _close(out1_t.di_sky, out1_j.di_sky, "di_sky bounce", rtol=1e-5, atol=1e-5)
+    assert (np.asarray(out1_j.di_sky).sum(1) > 0).mean() > 0.6
+
+
+def test_trace_di_gi_rounds(sky_setup):
+    """Round 0 (coherent: shadows unsorted, the GI bounce sorted) and the
+    bounce round's shadows (sorted), each from the same JAX shade
+    output."""
+    from low_precision_raytracer_tpu.render.renderer import _trace_di_gi as jax_di_gi
+    from low_precision_raytracer_tpu_torch.render.renderer import _trace_di_gi
+
+    s = sky_setup
+    out_j = s["out_j"]
+    di_j, sin_j = jax_di_gi(s["scene"], s["frame"], out_j, s["prec"], s["jcfg"],
+                            want_gi=True, coherent=True)
+    di_t, sin_t = _trace_di_gi(s["tscene"], s["tframe"], _port_shade_out(out_j), s["cfg"],
+                               s["cfg"].prec, want_gi=True, coherent=True)
+    vis_j, vis_t = np.asarray(di_j).any(-1), di_t.numpy().any(-1)
+    assert (vis_j == vis_t).mean() > 0.999
+    both = vis_j & vis_t
+    np.testing.assert_array_equal(di_t.numpy()[both], np.asarray(di_j)[both])
+    assert vis_j.any() and (np.asarray(out_j.lights.valid) & ~vis_j).any()
+    tri_j, tri_t = np.asarray(sin_j.tri), sin_t.tri.numpy()
+    same = tri_j == tri_t
+    assert same.mean() > 0.999
+    np.testing.assert_array_equal(sin_t.type.numpy(), np.asarray(sin_j.type))
+    _close(sin_t.position_f32[same], np.asarray(sin_j.position_f32)[same], "bounce position",
+           rtol=2e-3, atol=2e-3)
+
+    out1_j = jax_shade(s["scene"], s["frame"], sin_j, view_dir=out_j.view_dir_out,
+                       prec=s["prec"], cfg=s["jcfg"], first_round=False, no_gi=True, key=s["key"])
+    di1_j, none_j = jax_di_gi(s["scene"], s["frame"], out1_j, s["prec"], s["jcfg"],
+                              want_gi=False, coherent=False)
+    di1_t, none_t = _trace_di_gi(s["tscene"], s["tframe"], _port_shade_out(out1_j), s["cfg"],
+                                 s["cfg"].prec, want_gi=False, coherent=False)
+    assert none_j is None and none_t is None
+    v1j, v1t = np.asarray(di1_j).any(-1), di1_t.numpy().any(-1)
+    assert (v1j == v1t).mean() > 0.999 and v1j.any()

@@ -1,7 +1,9 @@
-"""PyTorch port, the whole flagship frame: the port's Renderer against the
-JAX Renderer on Cornell, bf16, GI with max_bounces=2, SVGF on, TAA at
-mix weight 1, at 64 x 64 over 5 frames (frame 5 is the first whose SVGF
-moments come from the temporal branch).  The JAX side runs the TPU route
+"""PyTorch port, whole frames: the port's Renderer against the JAX
+Renderer, bf16, GI with max_bounces=2, SVGF on, TAA at mix weight 1, at
+64 x 64 — the flagship Cornell frame over 5 frames (frame 5 is the first
+whose SVGF moments come from the temporal branch), and the Sponza-class
+frame (`sponza_like_scene(3, 1)`, skybox on: multi-chunk, unfused
+shadows, sorted incoherent launches) over 4.  The JAX side runs the TPU route
 (dense Pallas trace, fused Pallas SVGF) in interpret mode; the port is fed
 the JAX package's own GI uniforms, `jax.random.uniform(k_shade0, (7R,))`
 from the key splits of `render_frame`.
@@ -18,9 +20,17 @@ import numpy as np
 from low_precision_raytracer_tpu.config import RenderConfig as JaxConfig
 from low_precision_raytracer_tpu.config import SVGFConfig as JaxSVGF
 from low_precision_raytracer_tpu.models.procedural import cornell_box_scene as jax_cornell
+from low_precision_raytracer_tpu.models.procedural import sponza_like_scene as jax_sponza
+from low_precision_raytracer_tpu.models.scene import flatten_frame
+from low_precision_raytracer_tpu.ops.trace import di_fusible as jax_di_fusible
+from low_precision_raytracer_tpu.ops.trace import incoherent_reorders as jax_reorders
 from low_precision_raytracer_tpu.render.renderer import Renderer as JaxRenderer
 from low_precision_raytracer_tpu_torch.config import RenderConfig
-from low_precision_raytracer_tpu_torch.models.procedural import cornell_box_scene
+from low_precision_raytracer_tpu_torch.models.procedural import (
+    cornell_box_scene,
+    sponza_like_scene,
+)
+from low_precision_raytracer_tpu_torch.ops.trace import di_fusible, incoherent_reorders
 from low_precision_raytracer_tpu_torch.render.renderer import Renderer
 
 N = 64
@@ -32,17 +42,14 @@ def _psnr(a, b):
     return float("inf") if mse == 0 else float(10.0 * np.log10(1.0 / mse))
 
 
-def test_flagship_frame_matches_jax():
+def _run_both(jr, tr, frames):
+    """Render `frames` frames on both, the port fed the JAX draws; hold
+    every frame to the bars.  -> the port's last SVGF frame counts."""
     import torch
 
-    jr = JaxRenderer(jax_cornell(), JaxConfig(
-        width=N, height=N, precision="bf16", traversal_impl="dense_pallas",
-        svgf=JaxSVGF(wavelet_impl="pallas")))
-    tr = Renderer(cornell_box_scene(), RenderConfig(width=N, height=N, precision="bf16"),
-                  device="cpu")
     key = jr.key  # the JAX Renderer's own key chain, replayed for the draws
     R = N * N
-    for f in range(FRAMES):
+    for f in range(frames):
         key, sub = jax.random.split(key)
         _k_taa, k_shade0, _k1 = jax.random.split(sub, 3)
         us = np.array(jax.random.uniform(k_shade0, (7 * R,), jax.numpy.float32))
@@ -60,4 +67,32 @@ def test_flagship_frame_matches_jax():
         np.testing.assert_array_equal(ct[agree], cj[agree], err_msg=f"frame {f}")
         assert int(aux_t["n_rays"]) > R
         assert aux_t["svgf_fast_path"] == (f > 0)  # frame 0 has no history
+    return ct
+
+
+def test_flagship_frame_matches_jax():
+    jr = JaxRenderer(jax_cornell(), JaxConfig(
+        width=N, height=N, precision="bf16", traversal_impl="dense_pallas",
+        svgf=JaxSVGF(wavelet_impl="pallas")))
+    tr = Renderer(cornell_box_scene(), RenderConfig(width=N, height=N, precision="bf16"),
+                  device="cpu")
+    ct = _run_both(jr, tr, FRAMES)
     assert int(ct.max()) == FRAMES - 1
+
+
+def test_sponza_frame_matches_jax():
+    """The Sponza-class route: no fused shadow phase, incoherent launches
+    sorted, sky radiance in both rounds."""
+    jr = JaxRenderer(jax_sponza(3, 1), JaxConfig(
+        width=N, height=N, precision="bf16", traversal_impl="dense_pallas",
+        svgf=JaxSVGF(wavelet_impl="pallas")))
+    tr = Renderer(sponza_like_scene(3, 1), RenderConfig(width=N, height=N, precision="bf16"),
+                  device="cpu")
+    f0 = flatten_frame(jr.host, jr.prec, max_direct_lights=4, width=N, height=N)
+    assert not jax_di_fusible(jr.scene, f0, jr.cfg, jr.prec)
+    assert jax_reorders(jr.scene, f0, jr.cfg, jr.prec)
+    assert not di_fusible(tr.frame, tr.cfg)
+    assert incoherent_reorders(tr.frame, tr.cfg, tr.cfg.prec)
+    assert tr.scene.sky_valid
+    ct = _run_both(jr, tr, 4)
+    assert int(ct.max()) == 3

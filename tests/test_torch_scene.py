@@ -1,7 +1,8 @@
-"""PyTorch port, host side: the port's own Cornell build equals the JAX
-package's tables leaf for leaf, bit for bit; `scene_from_numpy` carries
-the JAX leaves across unchanged; the port imports no JAX; the entry points
-refuse what they do not cover."""
+"""PyTorch port, host side: the port's own Cornell and Sponza-class builds
+equal the JAX package's tables leaf for leaf, bit for bit (morton order,
+chunk AABBs, the quad-packed sky); `scene_from_numpy` carries the JAX
+leaves across unchanged; the port imports no JAX; the entry points refuse
+what they do not cover."""
 
 import subprocess
 import sys
@@ -13,17 +14,22 @@ import torch
 
 from low_precision_raytracer_tpu.config import get_precision as jax_precision
 from low_precision_raytracer_tpu.models.procedural import cornell_box_scene as jax_cornell
+from low_precision_raytracer_tpu.models.procedural import sponza_like_scene as jax_sponza
 from low_precision_raytracer_tpu.models.scene import build_scene_arrays, flatten_frame
 from low_precision_raytracer_tpu_torch.config import RenderConfig
 from low_precision_raytracer_tpu_torch.models import scene as tscene
-from low_precision_raytracer_tpu_torch.models.procedural import _mesh_node, cornell_box_scene
+from low_precision_raytracer_tpu_torch.models.procedural import (
+    _mesh_node,
+    cornell_box_scene,
+    sponza_like_scene,
+)
 from low_precision_raytracer_tpu_torch.render.renderer import Renderer
 
 W, H = 64, 48
 
 
-def _jax_tables(precision):
-    host = jax_cornell()
+def _jax_tables(precision, host=None):
+    host = jax_cornell() if host is None else host
     prec = jax_precision(precision)
     return (build_scene_arrays(host, prec),
             flatten_frame(host, prec, max_direct_lights=4, width=W, height=H))
@@ -45,8 +51,10 @@ def _assert_tables_equal(s_port, f_port, s_jax, f_jax):
             assert a.dtype == b.dtype, f"{name}: {a.dtype} vs {b.dtype}"
             np.testing.assert_array_equal(a, b, err_msg=name)
     assert s_port.n_meshes == s_jax.n_meshes
+    assert s_port.sky_valid == s_jax.sky_valid
     assert f_port.obj_layout == f_jax.obj_layout
     assert f_port.n_lights == f_jax.n_lights
+    assert f_port.dense_morton == f_jax.dense_morton
 
 
 @pytest.mark.parametrize("precision", ["bf16", "fp32"])
@@ -61,12 +69,28 @@ def test_host_copy_matches_jax_bitwise(precision):
     assert tscene.instance_tris(f) == 34
 
 
+@pytest.mark.parametrize("args", [(3, 1), (4, 2)], ids=["colonnade-830", "colonnade-5k"])
+def test_sponza_tables_match_jax_bitwise(args):
+    """Multi-chunk tables: morton-ordered rows, dense_tri / dense_obj, the
+    per-chunk AABBs, the quad-packed sky in bf16 and the sky scalars."""
+    s_jax, f_jax = _jax_tables("bf16", jax_sponza(*args))
+    host = sponza_like_scene(*args)
+    s = tscene.build_scene_arrays(host, "bf16", "cpu")
+    f = tscene.flatten_frame(host, "bf16", "cpu", max_direct_lights=4, width=W, height=H)
+    _assert_tables_equal(s, f, s_jax, f_jax)
+    ti = {(3, 1): 830, (4, 2): 5314}[args]
+    assert tscene.instance_tris(f) == ti and f.dense_chunk_lo.shape == (-(-ti // 128), 3)
+    assert f.dense_morton and s.sky_valid and s.sky_quad.dtype == torch.bfloat16
+
+
 def test_scene_from_numpy_carries_jax_leaves():
     s_jax, f_jax = _jax_tables("bf16")
     scene_np = {k: np.asarray(getattr(s_jax, k)) for k in tscene.tensor_fields(tscene.SceneArrays)}
     scene_np["n_meshes"] = s_jax.n_meshes
     frame_np = {k: np.asarray(getattr(f_jax, k)) for k in tscene.tensor_fields(tscene.FrameInput)}
-    frame_np.update(obj_layout=f_jax.obj_layout, n_lights=f_jax.n_lights)
+    frame_np.update(obj_layout=f_jax.obj_layout, n_lights=f_jax.n_lights,
+                    dense_morton=f_jax.dense_morton)
+    scene_np["sky_valid"] = s_jax.sky_valid
     s, f = tscene.scene_from_numpy(scene_np, frame_np, "cpu")
     _assert_tables_equal(s, f, s_jax, f_jax)
     assert s.tri_attr.dtype == torch.bfloat16 and f.dense_e.dtype == torch.float32
@@ -112,7 +136,8 @@ def test_renderer_without_cuda_raises(monkeypatch):
     dict(taa_force_full=True),
     dict(traversal_impl="jax"),
     dict(triangle_fallback="both"),
-    dict(di_fuse="off"),
+    dict(dense_epilogue="pack"),
+    dict(incoherent_sort="beam"),
 ])
 def test_uncovered_configs_raise(kw):
     cfg = RenderConfig(width=8, height=8, **{"precision": "bf16", **kw})
@@ -121,14 +146,27 @@ def test_uncovered_configs_raise(kw):
 
 
 def test_uncovered_scenes_raise():
+    """Textured scenes, and scenes whose incoherent launches the JAX
+    package sends to the per-ray wavefront (K5), are refused; a two-chunk
+    scene (130 instance triangles), a skybox and di_fuse='off' are
+    covered."""
     cfg = RenderConfig(width=8, height=8, precision="bf16")
     host = cornell_box_scene()
-    host.skybox = object()
+    host.textures = [np.zeros((2, 2, 4), np.uint8)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Renderer(host, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="wavefront.*ROADMAP queue 1 item 10"):
+        Renderer(sponza_like_scene(3, 1), RenderConfig(
+            width=8, height=8, precision="bf16", wavefront_min_tris=600), device="cpu")
     host = cornell_box_scene()
     for i in range(8):  # 34 + 8 x 12 = 130 instance triangles: two chunks
         host.root.add(_mesh_node(host, 1, 0, f"extra{i}", t=[0.1 * i, 0, 0],
                                  s=[0.1, 0.1, 0.1]))
-    with pytest.raises(NotImplementedError, match="multi-chunk"):
-        Renderer(host, cfg, device="cpu")
+    img, _aux = Renderer(host, cfg, device="cpu").render()
+    assert bool(torch.isfinite(img).all())
+    img, _aux = Renderer(sponza_like_scene(2, 0), cfg, device="cpu").render()
+    assert bool(torch.isfinite(img).all())
+    # the unfused route on a single-chunk scene (any-hit shadows on K1b)
+    off = RenderConfig(width=8, height=8, precision="bf16", di_fuse="off")
+    img, _aux = Renderer(cornell_box_scene(), off, device="cpu").render()
+    assert bool(torch.isfinite(img).all())
