@@ -32,12 +32,35 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    the temporal kernel 1, the a-trous kernel 5, the history fetch 1 from
    frame 1;
 8. Sponza reference phase: a 64x64 Sponza render on the card against the
-   plain versions on the CPU, 4 frames.
+   plain versions on the CPU, 4 frames;
+9. colonnade-83k kernel phase: two warm-up frames of `sponza_like_scene(8,
+   3)` (82,690 instance triangles in 647 chunks, bf16, 1920x1080) record
+   its two K1b launches (primary, round-0 shadows) and its two per-ray
+   wavefront launches (the GI bounce, round-1 shadows).  K1b is timed on
+   each full launch and held against its plain version on a strided slice
+   of 2^16 rays (exact).  For each wavefront launch: the schedule kernel
+   equals its plain version on a slice of rays (words and tcut exact, the
+   first pass's list and a 128-deep one from its cursor), K5 equals its
+   plain version on a strided slice of the first pass's pair lanes (the
+   live pairs; t, row, pk exact), and the whole launch on a slice of rays
+   equals the same launch through the plain versions (tri, obj, t, u, v
+   exact).  Each launch is timed whole and by part (setup, schedule, pair
+   sort, K5 on all the first pass's lanes, the return and combine, each
+   tail pass), and against the same rays through the anchor-sorted and
+   the unsorted K1b launch;
+10. colonnade-83k path phase: counts zeroed, 8 frames; per frame K1b 2, K1a
+    0, the wavefront's K5 >= 2 and equal to its schedule kernel, the
+    temporal kernel 1, the a-trous kernel 5, the history fetch 1 from
+    frame 1;
+11. colonnade-83k reference phase: a 64x64 render on the card against the
+    plain versions on the CPU, 4 frames.
 
 Before the last line it prints a `kernels` JSON line (per kernel: launches
-on its path's run, max error against the plain version, time, plain time,
-the least time the work could take on the card and what bounds it) and
-the nvidia-smi line; the last line is {"ok": true, "device": {...}}.
+on its paths' runs, max error against the plain version, time, plain time,
+the least time the work could take on the card and what bounds it; K1b's
+times are those of its Sponza-class launches, its colonnade-83k launches
+are on their own lines) and the nvidia-smi line; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -54,6 +77,7 @@ PATH_FRAMES = 8
 REF_SIZE, REF_FRAMES = 64, 5
 SPONZA_REF_FRAMES = 4
 CHECK_RAYS = 1 << 18  # K1b: rays per launch held against the plain version
+BIG_CHECK = 1 << 16  # colonnade-83k: rays or lanes held against the plain versions
 # H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s
 # outside the tensor cores (exp/sqrt/div counted as one operation each)
 HBM_BPS = 3.35e12
@@ -70,6 +94,11 @@ KERNELS = {  # wrapper name -> (source, TPU kernel it replaces)
                        TPU + "svgf_pallas.py:920"),
     "wavelet_iter": ("low_precision_raytracer_tpu_torch/csrc/svgf.cu",
                      TPU + "svgf_pallas.py:79"),
+    "wavefront_assigned": ("low_precision_raytracer_tpu_torch/csrc/wavefront.cu",
+                           TPU + "wavefront.py:99"),
+    # XLA code in the JAX package (`_schedule`), not a Pallas kernel
+    "wavefront_schedule": ("low_precision_raytracer_tpu_torch/csrc/wavefront.cu",
+                           TPU + "wavefront.py:211"),
 }
 
 
@@ -162,7 +191,7 @@ def dense_multi_ops(args, t_final):
     sizes[-1] = TI - CHUNK * (NC - 1)
     live = maxd > mind
     tests = 0.0
-    step = 1 << 18
+    step = max(1, (1 << 26) // (3 * NC))
     for r0 in range(0, o.shape[0], step):
         sl = slice(r0, r0 + step)
         entry, ok = ray_aabb_entry(lo, hi, o[sl], d[sl], maxd[sl])
@@ -360,9 +389,10 @@ def path_phase(cuda_lib, scene_fn, want_fn):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     for rec in frames:
-        want = want_fn(rec["frame"])
-        if rec["launches"] != want:
-            raise AssertionError(f"frame {rec['frame']}: launches {rec['launches']} != {want}")
+        got, want = rec["launches"], want_fn(rec["frame"])
+        if set(got) != set(want) or not all(
+                w(got) if callable(w) else got[k] == w for k, w in want.items()):
+            raise AssertionError(f"frame {rec['frame']}: launches {got} != {want}")
         if rec["fast_fetch"] != (rec["frame"] > 0):
             raise AssertionError(f"frame {rec['frame']}: history fetch fast path "
                                  f"{rec['fast_fetch']}")
@@ -475,11 +505,14 @@ def capture_sponza_launches(renderer, frames):
     return [(k, a, kw, u) for k, (a, kw), u in zip(kinds, calls, unsorted)]
 
 
-def sponza_kernel_phase(launches):
+def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
+                        scene="sponza"):
     """K1b on each recorded launch: timed on the full launch, held against
-    the plain version on a strided slice of CHECK_RAYS rays (every output
+    the plain version on a strided slice of `check_rays` rays (every output
     exact), its bound from the data; the sorted launches also unsorted and
-    with their sort.  -> report dict."""
+    with their sort.  `plain_on_slice`: the plain version (an all-pairs
+    test) is timed on the slice, beside the kernel on the same slice,
+    instead of on the full launch.  -> report dict."""
     import torch
 
     from low_precision_raytracer_tpu_torch.ops.dense_trace import (
@@ -493,7 +526,7 @@ def sponza_kernel_phase(launches):
         R = args[0].shape[0]
         out = dense_trace_multi(*args, **kw)
         torch.cuda.synchronize()
-        sel = torch.arange(0, R, max(1, R // CHECK_RAYS), device=args[0].device)[:CHECK_RAYS]
+        sel = torch.arange(0, R, max(1, R // check_rays), device=args[0].device)[:check_rays]
         sub = [a[sel].contiguous() if a.shape[0] == R else a for a in args]
         ref = dense_trace_multi_plain(*sub, **kw)
         err = 0.0
@@ -510,12 +543,13 @@ def sponza_kernel_phase(launches):
         n_ops = dense_multi_ops(args, t_final)
         n_bytes = nbytes(*args) + nbytes(*out)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
-        ms = cuda_ms(lambda: dense_trace_multi(*args, **kw), 10)
+        ms = cuda_ms(lambda: dense_trace_multi(*args, **kw), reps)
         torch.cuda.synchronize()
+        plain_args = sub if plain_on_slice else args
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        dense_trace_multi_plain(*args, **kw)
+        dense_trace_multi_plain(*plain_args, **kw)
         t1.record()
         t1.synchronize()
         plain_ms = t0.elapsed_time(t1)
@@ -523,6 +557,9 @@ def sponza_kernel_phase(launches):
                    hits=int((out[3] >= 0).sum()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                    bound_by=b_by, max_abs_err=err, checked_rays=int(sel.numel()),
                    bytes=n_bytes, ops=n_ops)
+        if plain_on_slice:
+            rec["plain_ms_on"] = "slice"
+            rec["slice_ms"] = cuda_ms(lambda: dense_trace_multi(*sub, **kw), reps)
         if unsorted is not None:
             srt = dense_trace_multi_sorted(*unsorted, **kw)
             direct = dense_trace_multi(*unsorted, **kw)
@@ -534,11 +571,241 @@ def sponza_kernel_phase(launches):
             rec["sorted_total_ms"] = cuda_ms(lambda: dense_trace_multi_sorted(*unsorted, **kw), 5)
             rec["sort_unsort_ms"] = rec["sorted_total_ms"] - ms
         per.append(rec)
-        log(f"kernel dense_trace_multi: {json.dumps(rec)}")
+        log(f"kernel dense_trace_multi {scene}: {json.dumps(rec)}")
     mean = lambda k: statistics.fmean(p[k] for p in per)
     return dict(max_abs_err=max(p["max_abs_err"] for p in per), ms=mean("ms"),
                 plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
                 bound_by=max(per, key=lambda p: p["bound_ms"])["bound_by"])
+
+
+# ---------------------------------------------------------------------------
+# colonnade-83k: K1b at 647 chunks, the per-ray wavefront (K5, schedule)
+
+
+def colonnade_83k():
+    from low_precision_raytracer_tpu_torch.models.procedural import sponza_like_scene
+
+    return sponza_like_scene(8, 3)
+
+
+def capture_big_launches(renderer, frames):
+    """Render `frames` frames; -> the last frame's trace launches in order
+    [(route, args, kwargs)]: primary and round-0 shadows on K1b, the GI
+    bounce and round-1 shadows on the wavefront."""
+    from low_precision_raytracer_tpu_torch.ops import trace
+
+    names = ("dense_trace_multi", "dense_trace_multi_sorted", "trace_rays_wavefront")
+    orig = {n: getattr(trace, n) for n in names}
+    calls = []
+
+    def recorder(name):
+        def rec(*args, **kw):
+            calls.append((name, args, kw))
+            return orig[name](*args, **kw)
+        return rec
+
+    try:
+        for n in names:
+            setattr(trace, n, recorder(n))
+        for _ in range(frames):
+            calls.clear()
+            renderer.render()
+    finally:
+        for n, fn in orig.items():
+            setattr(trace, n, fn)
+    got = [(n, kw.get("find_any", False)) for n, _, kw in calls]
+    want = [("dense_trace_multi", False), ("dense_trace_multi", True),
+            ("trace_rays_wavefront", False), ("trace_rays_wavefront", True)]
+    if got != want:
+        raise AssertionError(f"colonnade-83k frame: launches {got}, want {want}")
+    return calls
+
+
+def assigned_ops(lanes, out, TI, s_group, find_any):
+    """K5 operations this run's data needs: every lane (a live pair) tests
+    the rows of its group (an any-hit lane up to its first accepted row)."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import CHUNK
+
+    gid = lanes[5][:, 0].long()
+    span = s_group * CHUNK
+    rows = torch.clamp(TI - gid * span, max=span)
+    if find_any:
+        row = out[1].long()
+        rows = torch.where(row >= 0, row - gid * span + 1, rows)
+    return float(rows.double().sum()) * TRI_TEST_OPS
+
+
+def wavefront_phase(kind, args, kw):
+    """One recorded wavefront launch: the schedule kernel, K5 and the whole
+    launch held against their plain versions (exact), and the launch timed
+    whole and by part.  -> report dict."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops import wavefront as WF
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import (
+        dense_trace_multi,
+        dense_trace_multi_sorted,
+    )
+
+    frame, origins, directions = args
+    find_any = kw["find_any"]
+    R = origins.shape[0]
+    dev = origins.device
+    rep = dict(kind=kind, rays=R, find_any=find_any)
+
+    # the whole launch, each pass timed with events
+    passes = []
+    pair_pass = WF.pair_pass
+
+    def timed_pass(L, sel, emin, kk):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = pair_pass(L, sel, emin, kk)
+        e1.record()
+        passes.append((R if sel is None else int(sel.numel()), kk, e0, e1))
+        return res
+
+    out = WF.trace_rays_wavefront(*args, **kw)
+    WF.pair_pass = timed_pass
+    try:
+        WF.trace_rays_wavefront(*args, **kw)
+    finally:
+        WF.pair_pass = pair_pass
+    torch.cuda.synchronize()
+    rep["passes"] = [dict(rays=n, k=kk, ms=e0.elapsed_time(e1)) for n, kk, e0, e1 in passes]
+    rep["ms"] = cuda_ms(lambda: WF.trace_rays_wavefront(*args, **kw), 3)
+    rep["hits"] = int((out[3] >= 0).sum())
+
+    # the first pass, part by part
+    L = WF.setup(frame, origins, directions, kw["prec"], kw["skip_tri"], kw["min_dist"],
+                 kw["max_dist"], find_any)
+    rep["live"] = int(L.live.sum())
+    NG = L.lo.shape[0]
+    k = min(WF.ONESHOT_K, NG)
+    wmin = torch.full((R,), WF.INT32_MIN, dtype=torch.int32, device=dev)
+    mx = torch.where(L.live, L.maxd, 0.0).contiguous()
+    sched = lambda: WF.schedule(L.lo, L.hi, L.o, L.d, mx, wmin, L.id_bits, k)
+    cand, tcut = sched()
+    pair, lanes = WF.pair_lanes(L, None, cand, L.live)
+    k5 = lambda: WF.assigned_test(*lanes, L.coef, L.tri, L.s_group, find_any)
+    out5 = k5()
+    parts = dict(
+        setup=cuda_ms(lambda: WF.setup(frame, origins, directions, kw["prec"], kw["skip_tri"],
+                                       kw["min_dist"], kw["max_dist"], find_any), 3),
+        schedule=cuda_ms(sched, 5),
+        pair_sort=cuda_ms(lambda: WF.pair_lanes(L, None, cand, L.live), 3),
+        k5=cuda_ms(k5, 5),
+        combine=cuda_ms(lambda: WF.combine(pair, out5, cand, tcut, L.id_bits), 5))
+    parts["tail"] = sum(p["ms"] for p in rep["passes"][1:])
+    rep["parts_ms"] = parts
+    P = lanes[0].shape[0]
+    rep["pairs"] = cand.numel()
+    rep["pair_lanes"] = P  # the live pairs: the lanes K5 tests
+
+    # K5 against its plain version on a strided slice of the pair lanes
+    lsel = torch.arange(0, P, max(1, P // BIG_CHECK), device=dev)[:BIG_CHECK]
+    ref5 = WF.assigned_test_plain(*(x[lsel].contiguous() for x in lanes), L.coef, L.tri,
+                                  L.s_group, find_any)
+    for name, a, b in zip(("t", "row", "pk"), out5, ref5):
+        if not torch.equal(a[lsel], b):
+            raise AssertionError(f"wavefront_assigned {kind}: {name} differs from the plain "
+                                 f"version on {int((a[lsel] != b).sum())} of {lsel.numel()} lanes")
+    k5_err = float((out5[0][lsel] - ref5[0]).abs().max())
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    WF.assigned_test_plain(*lanes, L.coef, L.tri, L.s_group, find_any, slab_lanes=1 << 16)
+    e1.record()
+    e1.synchronize()
+    n_bytes = nbytes(*lanes, L.coef, L.tri, *out5)
+    b_ms, b_by = bound_ms(n_bytes, assigned_ops(lanes, out5, L.coef.shape[0], L.s_group,
+                                                find_any))
+    rep["k5"] = dict(ms=parts["k5"], plain_ms=e0.elapsed_time(e1), bound_ms=b_ms,
+                     bound_by=b_by, max_abs_err=k5_err, checked_lanes=int(lsel.numel()))
+
+    # the schedule kernel against its plain version: the register list of
+    # the first pass, and a deep list (the rescan) from the first cursor
+    rsel = torch.arange(0, R, max(1, R // BIG_CHECK), device=dev)[:BIG_CHECK]
+    for kk, wm in ((k, wmin), (min(128, NG), tcut)):
+        sub = (L.lo, L.hi, L.o[rsel], L.d[rsel], mx[rsel], wm[rsel].contiguous(), L.id_bits, kk)
+        got, want = WF.schedule(*sub), WF.schedule_plain(*sub)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"wavefront_schedule {kind}: k={kk} differs from the plain "
+                                 "version")
+    torch.cuda.synchronize()
+    e0.record()
+    WF.schedule_plain(L.lo, L.hi, L.o, L.d, mx, wmin, L.id_bits, k, slab_elems=1 << 26)
+    e1.record()
+    e1.synchronize()
+    n_live = int(L.live.sum())
+    b_ms, b_by = bound_ms(nbytes(L.o, L.d, mx, wmin, L.lo, L.hi, cand, tcut),
+                          n_live * NG * BOX_TEST_OPS)
+    # exact integer words: the error is 0 whenever the check above passed
+    rep["schedule"] = dict(ms=parts["schedule"], plain_ms=e0.elapsed_time(e1), bound_ms=b_ms,
+                           bound_by=b_by, max_abs_err=0.0, checked_rays=int(rsel.numel()))
+
+    # the whole launch on a slice of rays against the same launch through
+    # the plain versions
+    sub_args = (frame, origins[rsel], directions[rsel])
+    sub_kw = dict(kw, skip_tri=kw["skip_tri"][rsel], min_dist=kw["min_dist"][rsel],
+                  max_dist=kw["max_dist"][rsel])
+    got = WF.trace_rays_wavefront(*sub_args, **sub_kw)
+    kern = WF.schedule, WF.assigned_test
+    WF.schedule, WF.assigned_test = WF.schedule_plain, WF.assigned_test_plain
+    try:
+        want = WF.trace_rays_wavefront(*sub_args, **sub_kw)
+    finally:
+        WF.schedule, WF.assigned_test = kern
+    for name, a, b in zip(("t", "u", "v", "tri", "obj"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"wavefront {kind}: the launch's {name} differs from its "
+                                 f"plain route on {int((a != b).sum())} of {rsel.numel()} rays")
+
+    # the same rays through K1b, anchor-sorted and unsorted
+    c = frame.dense_center
+    TI = frame.dense_n_f32.shape[0]
+    k1b_args = ((origins.float() - c[None, :]).contiguous(), directions.float().contiguous(),
+                kw["skip_tri"].contiguous(), kw["min_dist"].contiguous(),
+                kw["max_dist"].contiguous(), L.coef, frame.dense_tri, frame.dense_obj,
+                (frame.dense_chunk_lo - c[None, :]).contiguous(),
+                (frame.dense_chunk_hi - c[None, :]).contiguous())
+    ref = dense_trace_multi(*k1b_args, find_any=find_any)
+    rep["k1b_unsorted_ms"] = cuda_ms(lambda: dense_trace_multi(*k1b_args, find_any=find_any), 1)
+    rep["k1b_sorted_ms"] = cuda_ms(
+        lambda: dense_trace_multi_sorted(*k1b_args, find_any=find_any), 1)
+    rep["agreement_with_k1b"] = float(((out[3] >= 0) == (ref[3] >= 0)).float().mean()
+                                      if find_any else (out[3] == ref[3]).float().mean())
+    log(f"wavefront {kind}: {json.dumps(rep)}")
+    return rep
+
+
+def colonnade_kernel_phase(cfg):
+    """Phase 9.  -> (K1b report, {wavefront_assigned, wavefront_schedule}
+    reports)."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    warm = Renderer(colonnade_83k(), cfg)
+    calls = capture_big_launches(warm, 2)
+    del warm
+    k1b = k1b_phase([(kind, a, kw, None) for kind, (_n, a, kw)
+                               in zip(("primary", "shadow0"), calls[:2])],
+                              check_rays=BIG_CHECK, reps=3, plain_on_slice=True,
+                              scene="colonnade-83k")
+    wf = [wavefront_phase(kind, a, kw) for kind, (_n, a, kw) in zip(("gi", "shadow1"), calls[2:])]
+    del calls
+    torch.cuda.empty_cache()
+    mean = lambda part, k: statistics.fmean(r[part][k] for r in wf)
+    reports = {}
+    for name, part in (("wavefront_assigned", "k5"), ("wavefront_schedule", "schedule")):
+        reports[name] = dict(max_abs_err=max(r[part]["max_abs_err"] for r in wf),
+                             ms=mean(part, "ms"), plain_ms=mean(part, "plain_ms"),
+                             bound_ms=mean(part, "bound_ms"),
+                             bound_by=max(wf, key=lambda r: r[part]["bound_ms"])[part]["bound_by"])
+    return k1b, reports
 
 
 def main(argv) -> int:
@@ -580,10 +847,11 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
+    no_wavefront = {"wavefront_schedule": 0, "wavefront_assigned": 0}
     totals, frames, peak_gib = path_phase(
         cuda_lib, cornell_box_scene,
         lambda f: {"dense_trace": 2, "dense_trace_multi": 0, "temporal_accum": 1,
-                   "wavelet_iter": 5, "coef_fetch": 1 if f > 0 else 0})
+                   "wavelet_iter": 5, "coef_fetch": 1 if f > 0 else 0, **no_wavefront})
     report_path("flagship", frames, peak_gib, totals)
     for name in ("dense_trace", "coef_fetch", "temporal_accum", "wavelet_iter"):
         if totals[name] == 0:
@@ -599,7 +867,7 @@ def main(argv) -> int:
     warm = Renderer(sponza_like_scene(), cfg)
     launches = capture_sponza_launches(warm, 2)
     del warm
-    reports["dense_trace_multi"] = sponza_kernel_phase(launches)
+    reports["dense_trace_multi"] = k1b_phase(launches)
     del launches
     torch.cuda.empty_cache()
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
@@ -607,18 +875,45 @@ def main(argv) -> int:
     s_totals, s_frames, s_peak = path_phase(
         cuda_lib, sponza_like_scene,
         lambda f: {"dense_trace": 0, "dense_trace_multi": 4, "temporal_accum": 1,
-                   "wavelet_iter": 5, "coef_fetch": 1 if f > 0 else 0})
+                   "wavelet_iter": 5, "coef_fetch": 1 if f > 0 else 0, **no_wavefront})
     report_path("sponza", s_frames, s_peak, s_totals)
     totals["dense_trace_multi"] = s_totals["dense_trace_multi"]
 
     psnrs = reference_phase(sponza_like_scene, SPONZA_REF_FRAMES)
     log(f"reference sponza: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
         + " ".join(f"{p:.2f}" for p in psnrs))
+    torch.cuda.empty_cache()
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    # ---- colonnade-83k: K1b at 647 chunks, the wavefront (K5, schedule)
+    k1b_big, wf_reports = colonnade_kernel_phase(cfg)
+    reports.update(wf_reports)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    def wavefront_counts(got):
+        return got["wavefront_assigned"] >= 2 and \
+            got["wavefront_assigned"] == got["wavefront_schedule"]
+
+    b_totals, b_frames, b_peak = path_phase(
+        cuda_lib, colonnade_83k,
+        lambda f: {"dense_trace": 0, "dense_trace_multi": 2, "temporal_accum": 1,
+                   "wavelet_iter": 5, "coef_fetch": 1 if f > 0 else 0,
+                   "wavefront_schedule": wavefront_counts, "wavefront_assigned": wavefront_counts})
+    report_path("colonnade-83k", b_frames, b_peak, b_totals)
+    totals["dense_trace_multi"] += b_totals["dense_trace_multi"]
+    for name in ("wavefront_schedule", "wavefront_assigned"):
+        totals[name] = b_totals[name]
+
+    psnrs = reference_phase(colonnade_83k, SPONZA_REF_FRAMES)
+    log(f"reference colonnade-83k: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
+        + " ".join(f"{p:.2f}" for p in psnrs))
+    log(f"colonnade-83k K1b: {json.dumps(k1b_big)}")
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
     if "--profile" in argv:
         profile_frame("flagship", cornell_box_scene)
         profile_frame("sponza", sponza_like_scene)
+        profile_frame("colonnade-83k", colonnade_83k)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():

@@ -122,6 +122,9 @@ class RenderConfig:
     # the per-ray wavefront; 'tile' never does
     incoherent_impl: str = "wavefront"
     wavefront_min_tris: int = 16384
+    # the wavefront's scheduling form: 'auto' resolves to 'oneshot' (every
+    # (ray, candidate) pair one lane); 'rounds' is not ported
+    wavefront_mode: str = "auto"
     # fused in-kernel shadow phase on single-chunk scenes
     di_fuse: str = "auto"
     # dense chunk epilogue: 'auto' = 'reduce5' (exact winner); 'pack'
@@ -137,6 +140,7 @@ class RenderConfig:
             raise ValueError("max_bounces counts the primary shade round")
         for name, allowed in (("incoherent_sort", ("anchor", "beam", "origin", "none")),
                               ("incoherent_impl", ("tile", "wavefront")),
+                              ("wavefront_mode", ("auto", "rounds", "oneshot")),
                               ("di_fuse", ("auto", "off")),
                               ("dense_epilogue", ("auto", "reduce5", "pack"))):
             if getattr(self, name) not in allowed:
@@ -177,6 +181,10 @@ def check_supported(cfg: RenderConfig) -> None:
         raise NotImplementedError(
             "dense_epilogue='pack': the packed winner epilogue waits "
             "(ROADMAP queue 1 item 8a)")
+    if cfg.wavefront_mode == "rounds":
+        raise NotImplementedError(
+            "wavefront_mode='rounds': only the oneshot pair pass is ported "
+            "(ROADMAP queue 1 item 10a)")
     if cfg.incoherent_sort in ("beam", "origin"):
         raise NotImplementedError(
             f"incoherent_sort={cfg.incoherent_sort!r}: only the 'anchor' key "

@@ -26,7 +26,7 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("dense_trace", "dense_multi", "svgf")
+SOURCES = ("dense_trace", "dense_multi", "svgf", "wavefront")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no contraction into FMA: the kernels round like their plain versions
@@ -48,6 +48,10 @@ SIGNATURES = {
         "lprt_temporal": [P, P, P, I, I, F, F, F, I, F, P, P, P, P],
         "lprt_wavelet": [P, P, I, I, I, I, F, F, F, P, P],
     },
+    "wavefront": {
+        "lprt_wavefront_schedule": [P] * 5 + [I] * 4 + [P] * 2 + [P],
+        "lprt_wavefront_assigned": [P] * 6 + [I, I] + [P, P] + [I] * 4 + [P] * 3 + [P],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -55,7 +59,8 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 # launches per kernel wrapper, counted where the wrapper launches its
 # kernel (never on the CPU path); a run resets them to read its own counts
 LAUNCHES = {"dense_trace": 0, "dense_trace_multi": 0, "coef_fetch": 0,
-            "temporal_accum": 0, "wavelet_iter": 0}
+            "temporal_accum": 0, "wavelet_iter": 0, "wavefront_schedule": 0,
+            "wavefront_assigned": 0}
 
 
 def reset_launches() -> None:

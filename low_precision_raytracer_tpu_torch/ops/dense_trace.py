@@ -24,6 +24,9 @@ Around K1b: `ray_aabb_entry` (the conservative slab-entry bound both the
 kernel's chunk walk and the sort key use), `anchor_key` and
 `dense_trace_multi_sorted`, the coherence-recovering launch for incoherent
 rays (`trace_rays_dense_pallas_sorted`: key, stable sort, trace, unsort).
+`m_shift_test` (the test's arithmetic, shared by the plain versions),
+`coef_table` (the kernels' table layout) and `scene_exit_cap` (the
+per-ray reach cap of the wavefront) sit here too.
 """
 
 from __future__ import annotations
@@ -43,9 +46,16 @@ BOX_SLOP = 0.02  # scene-level slab-test slop of the JAX package
 def tri_quantities(coef, o, d):
     """(R, TI) t, u, v, accept_geom for rays o, d (R, 3) against the
     table rows; the sums run in the kernel's order."""
-    n = [coef[:, i][None, :] for i in range(12)]
-    ox, oy, oz = (o[:, i : i + 1] for i in range(3))
-    dx, dy, dz = (d[:, i : i + 1] for i in range(3))
+    return m_shift_test([coef[:, i][None, :] for i in range(12)], o[:, :, None], d[:, :, None])
+
+
+def m_shift_test(n, o, d):
+    """The M-shift test of rays o, d (R, 3, 1) against coefficient rows n
+    (12 tensors broadcasting against (R, 1): the table's columns, or each
+    ray's own rows); -> t, u, v, accept_geom, the sums in the kernels'
+    order."""
+    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     Oz = n[6] * ox + n[7] * oy + n[8] * oz + n[11]
     Dz = n[6] * dx + n[7] * dy + n[8] * dz
     Ox = n[0] * ox + n[1] * oy + n[2] * oz + n[9]
@@ -184,11 +194,12 @@ def dense_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
 
 def dense_trace_multi_plain(origins, directions, skip, mind, maxd, coef, tri_ids,
                             obj_ids, chunk_lo=None, chunk_hi=None, find_any=False,
-                            slab_elems: int = 1 << 24):
+                            slab_elems: int = 1 << 22):
     """Plain PyTorch version of K1b: every ray against every row (the
     chunk AABBs only prune, so they are not read), as a global (t, tri)
     minimum or an any-accept, in slabs of rays of about `slab_elems`
-    (ray, row) pairs to bound memory."""
+    (ray, row) pairs to bound memory: each f32 temporary of the test is
+    4 * slab_elems bytes, whatever the table's size."""
     R, TI = origins.shape[0], coef.shape[0]
     dev = origins.device
     outs = []
@@ -273,6 +284,31 @@ def ray_aabb_entry(lo, hi, o, d, maxd):
     ok = (fin.any(dim=-1) & (tmin <= tmax + BOX_SLOP) & (tmax + BOX_SLOP >= 0)
           & (entry < maxd[:, None]))
     return entry, ok
+
+
+def coef_table(frame):
+    """(TI, 12) f32 rows n[0..8] | e[0..2] of the frame's dense table: the
+    layout every trace kernel reads."""
+    TI = frame.dense_n_f32.shape[0]
+    return torch.cat([frame.dense_n_f32.reshape(TI, 9), frame.dense_e], dim=1).contiguous()
+
+
+def scene_exit_cap(frame, o, d, max_dist):
+    """Cap every lane's reach at its exit from the scene AABB (the union of
+    the object boxes), with the JAX package's slop: no hit lies beyond it,
+    and the wavefront's resolution test needs a finite reach.  o, d (R, 3)
+    f32 world-space rays, max_dist (R,) f32 -> (R,) f32."""
+    lo = frame.obj_aabb_lo.amin(dim=0)
+    hi = frame.obj_aabb_hi.amax(dim=0)
+    inv = 1.0 / d
+    t1 = (lo[None, :] - o) * inv
+    t2 = (hi[None, :] - o) * inv
+    far = torch.maximum(t1, t2)
+    far = torch.where(torch.isfinite(far), far, torch.full_like(far, 3e38))
+    texit = far.amin(dim=-1)
+    ext = hi - lo
+    slop = 1e-3 * torch.sqrt(torch.sum(ext * ext)) + 0.05
+    return torch.minimum(max_dist, torch.clamp(texit, min=0.0) * 1.01 + slop)
 
 
 def anchor_key(lo, hi, origins, directions, max_dist, live, slab_elems: int = 1 << 24):

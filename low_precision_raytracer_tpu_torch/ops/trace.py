@@ -14,8 +14,11 @@ prepares them outside its kernel, then dispatches as the JAX package does:
   more than 4 chunks' worth of triangles -> the anchor-sorted K1b launch
   (`dense_trace_multi_sorted`), unless `incoherent_sort='none'`;
 - incoherent launches the JAX package sends to the per-ray wavefront
-  (above `wavefront_min_tris`) -> NotImplementedError (K5, ROADMAP queue 1
-  item 10).
+  (bf16, above `wavefront_min_tris` instance triangles) ->
+  `trace_rays_wavefront` (K5 and its schedule kernel, `ops/wavefront.py`),
+  after the `lane_k` transposes;
+- scenes above `packet_bvh_min_tris` under `traversal_impl='auto'` ->
+  NotImplementedError (the packet BVH, K6, ROADMAP queue 1 item 10).
 
 `resolve_fallback`, `incoherent_reorders`, `di_fusible` and
 `moveforward_eps` answer as the JAX package does for the dense route.
@@ -35,10 +38,12 @@ from low_precision_raytracer_tpu_torch.models.scene import (
     instance_tris,
 )
 from low_precision_raytracer_tpu_torch.ops.dense_trace import (
+    coef_table,
     dense_trace,
     dense_trace_multi,
     dense_trace_multi_sorted,
 )
+from low_precision_raytracer_tpu_torch.ops.wavefront import trace_rays_wavefront
 
 TC = DENSE_CHUNK_TRIS
 
@@ -47,7 +52,7 @@ class Hit(NamedTuple):
     t: torch.Tensor  # (R,) f32, 1e5 on a miss
     u: torch.Tensor  # (R,) f32
     v: torch.Tensor  # (R,) f32
-    tri: torch.Tensor  # (R,) i32, -1 on a miss (any hit: 0 / -1 marker)
+    tri: torch.Tensor  # (R,) i32, -1 on a miss (any hit: >= 0 if blocked)
     obj: torch.Tensor  # (R,) i32, -1 on a miss
 
 
@@ -111,11 +116,6 @@ def check_scene(frame: FrameInput, cfg: RenderConfig) -> None:
         raise NotImplementedError(
             f"{ti} instance triangles: 'auto' routes to the packet BVH (K6), "
             "which waits (ROADMAP queue 1 item 10)")
-    if cfg.gi_on and cfg.max_bounces > 1 and _wavefront_route(frame, cfg, cfg.prec):
-        raise NotImplementedError(
-            f"{ti} instance triangles > wavefront_min_tris: incoherent "
-            "launches go to the per-ray wavefront (K5), which waits "
-            "(ROADMAP queue 1 item 10)")
 
 
 def di_light_rows(frame: FrameInput, di_lights: dict) -> torch.Tensor:
@@ -166,23 +166,21 @@ def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
                     max_dist=t1(max_dist), coherent=coherent)
         return Hit(*(x.reshape(K, R0).T.reshape(R) for x in hit))
 
-    TI = frame.dense_n_f32.shape[0]
+    if di_lights is not None and (find_any or instance_tris(frame) > TC):
+        raise ValueError("the fused shadow phase rides single-chunk closest-hit launches")
+    if not coherent and _wavefront_route(frame, cfg, prec):
+        return Hit(*trace_rays_wavefront(
+            frame, origins, directions, prec=prec, skip_tri=skip_tri, min_dist=min_dist,
+            max_dist=max_dist, find_any=find_any))
     c = frame.dense_center
     o = (origins.to(f32) - c[None, :]).contiguous()
     d = directions.to(f32).contiguous()
-    coef = torch.cat([frame.dense_n_f32.reshape(TI, 9), frame.dense_e], dim=1).contiguous()
     rays = (o, d, skip_tri.to(torch.int32).contiguous(), min_dist.contiguous(),
-            max_dist.contiguous(), coef, frame.dense_tri, frame.dense_obj)
-    if di_lights is not None and (find_any or instance_tris(frame) > TC):
-        raise ValueError("the fused shadow phase rides single-chunk closest-hit launches")
+            max_dist.contiguous(), coef_table(frame), frame.dense_tri, frame.dense_obj)
     if instance_tris(frame) <= TC and not find_any:
         lights = None if di_lights is None else di_light_rows(frame, di_lights)
         *h, vis = dense_trace(*rays, lights, d_mov=prec.ray_moveforward_t_exact)
         return (Hit(*h), vis) if di_lights is not None else Hit(*h)
-    if not coherent and _wavefront_route(frame, cfg, prec):
-        raise NotImplementedError(
-            "incoherent launches above wavefront_min_tris go to the per-ray "
-            "wavefront (K5), which waits (ROADMAP queue 1 item 10)")
     boxes = ((frame.dense_chunk_lo - c[None, :]).contiguous(),
              (frame.dense_chunk_hi - c[None, :]).contiguous())
     launch = (dense_trace_multi_sorted if not coherent and _sorted_route(frame, cfg)

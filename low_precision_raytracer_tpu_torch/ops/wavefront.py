@@ -1,0 +1,402 @@
+"""Per-ray wavefront for incoherent launches (port of
+`low_precision_raytracer_tpu/ops/wavefront.py:trace_rays_wavefront`, mode
+'oneshot', the mode 'auto' resolves to).
+
+Each ray gets an exact candidate list instead of sharing a tile's union of
+chunks.  One launch:
+
+1. cap each ray's reach at its scene exit (`scene_exit_cap`); live rays
+   have maxd > min_dist;
+2. SCHEDULE (`schedule`, CUDA `lprt_wavefront_schedule`): every live ray's
+   k nearest chunk groups by slab-entry bound, as packed words
+   (entry_bits & ~id_mask) | group id, plus the (k+1)-th word `tcut`;
+3. PAIR PASS: every live (ray, candidate) pair becomes one lane (dead
+   rays and empty list slots get none); the lane's ray is rounded to the
+   render dtype and then recentred in f32; the lanes are
+   sorted by group id (`torch.sort(stable=True)`, the payload gathered
+   through the permutation) and each is tested against its group's rows
+   (`assigned_test`, K5, CUDA `lprt_wavefront_assigned`); the results go
+   back to pair order, and per ray the winner is the first minimum t over
+   its candidates;
+4. MERGE: the running best is replaced only by a strictly smaller t; a ray
+   is resolved once min(best t, maxd) <= the entry bound of its first
+   untested candidate (or, for any hit, once it has a hit);
+5. TAIL: the unresolved rays are compacted to their exact count and get
+   deeper lists from their cursor (the first untested word), pass after
+   pass until none is left.  Each pass tests at least the next candidate of
+   every such ray and a ray without one retires, so the loop ends; it
+   raises past a cap it cannot reach rather than return a partial result;
+6. DECODE: tri and obj from the winning table row; u and v from the packed
+   15-bit fixed point (2^-14 steps); t exact.  An any-hit launch returns the
+   tri id of a blocker (consumers read only tri >= 0).
+
+The TPU version's per-tile distinct-group lists, tile widths, HBM streaming
+of the table, static tail tiers and tile-path sweep have no counterpart:
+every lane is tested in its pass and the tail runs to completion.  The JAX
+sweep traces its few straggler rays unquantised through the tile path; here
+they stay quantised like every other lane.  'rounds' mode is not ported
+(`config.check_supported` refuses it, ROADMAP queue 1 item 10a).
+
+Wrappers launch their kernel on CUDA tensors (or raise) and run the plain
+PyTorch version on CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from low_precision_raytracer_tpu_torch.ops import cuda_lib
+from low_precision_raytracer_tpu_torch.ops.dense_trace import (
+    CHUNK,
+    T_MISS,
+    _check_args,
+    coef_table,
+    m_shift_test,
+    ray_aabb_entry,
+    scene_exit_cap,
+)
+
+ONESHOT_K = 8  # candidates per ray in the first, full-width pass
+# tail passes: (unresolved share of the launch above which, candidates)
+TAIL_TIERS = ((1 / 4, 8), (1 / 16, 16), (1 / 64, 32), (1 / 256, 64), (0.0, 128))
+GROUP_WIDTH = 2048  # the schedule's boxes: s_group = ceil(chunks / this)
+SENT_BITS = int(np.float32(3e38).view(np.int32))
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+
+
+def _n_groups(TI: int, s_group: int) -> int:
+    n_chunks = -(-TI // CHUNK)
+    return -(-n_chunks // s_group)
+
+
+def _sentinel(id_bits: int) -> int:
+    id_mask = (1 << id_bits) - 1
+    return (SENT_BITS & ~id_mask) | id_mask
+
+
+# ---------------------------------------------------------------------------
+# the schedule
+
+
+def schedule_plain(lo, hi, o, d, maxd, wmin, id_bits: int, k: int,
+                   slab_elems: int = 1 << 24):
+    """Plain PyTorch version of the schedule (port of `_schedule`): per ray
+    the k least packed words >= wmin, ascending, and the (k+1)-th (tcut);
+    the sentinel where fewer exist.  lo/hi (NG, 3) f32 group boxes, o/d
+    (R, 3) f32 world-space rays, maxd (R,) f32 (0 for a dead ray), wmin
+    (R,) i32.  A word at or above the sentinel (an entry >= 3e38) counts as
+    the sentinel.  -> cand (R, k) i32, tcut (R,) i32."""
+    R, NG = o.shape[0], lo.shape[0]
+    id_mask = (1 << id_bits) - 1
+    sent = _sentinel(id_bits)
+    ids = torch.arange(NG, dtype=torch.int32, device=o.device)[None, :]
+    cand = torch.empty((R, k), dtype=torch.int32, device=o.device)
+    tcut = torch.empty((R,), dtype=torch.int32, device=o.device)
+    rs = max(1024, slab_elems // max(3 * NG, 1))
+    for r0 in range(0, R, rs):
+        sl = slice(r0, r0 + rs)
+        entry, ok = ray_aabb_entry(lo, hi, o[sl], d[sl], maxd[sl])
+        words = (entry.view(torch.int32) & ~id_mask) | ids
+        words = torch.where(ok & (words < sent) & (words >= wmin[sl, None]), words, sent)
+        if NG <= k:
+            words = torch.nn.functional.pad(words, (0, k + 1 - NG), value=sent)
+        least = torch.topk(words, k + 1, dim=1, largest=False, sorted=True).values
+        cand[sl] = least[:, :k]
+        tcut[sl] = least[:, k]
+    return cand, tcut
+
+
+def schedule(lo, hi, o, d, maxd, wmin, id_bits: int, k: int):
+    """Schedule wrapper (see `schedule_plain`)."""
+    R, NG = o.shape[0], lo.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    _check_args("wavefront schedule", [o, d, maxd, wmin, lo, hi],
+                [(f32, (R, 3)), (f32, (R, 3)), (f32, (R,)), (i32, (R,)), (f32, (NG, 3)),
+                 (f32, (NG, 3))])
+    if NG > GROUP_WIDTH or (1 << id_bits) <= NG:
+        raise ValueError(f"wavefront schedule: {NG} groups, id_bits {id_bits}")
+    dev = o.device
+    if dev.type == "cpu":
+        return schedule_plain(lo, hi, o, d, maxd, wmin, id_bits, k)
+    cand = torch.empty((R, k), dtype=i32, device=dev)
+    tcut = torch.empty((R,), dtype=i32, device=dev)
+    boxes = torch.cat([lo, hi], dim=1).contiguous()
+    code = cuda_lib.library("wavefront").lprt_wavefront_schedule(
+        o.data_ptr(), d.data_ptr(), maxd.data_ptr(), wmin.data_ptr(), boxes.data_ptr(),
+        R, NG, id_bits, k, cand.data_ptr(), tcut.data_ptr(), cuda_lib.stream_ptr(dev))
+    cuda_lib.check(code, "wavefront schedule")
+    cuda_lib.LAUNCHES["wavefront_schedule"] += 1
+    return cand, tcut
+
+
+# ---------------------------------------------------------------------------
+# K5: the assigned-group lane test
+
+
+def assigned_test_plain(o, d, skip, mind, maxd, gid, coef, tri_ids, s_group: int,
+                        find_any: bool = False, slab_lanes: int = 8192):
+    """Plain PyTorch version of K5: each lane against the rows of its
+    assigned groups' chunks, in order (groups, then chunks, then rows).
+    Within a chunk the least key (t_bits & ~127) | local row wins (any hit:
+    the first accepted row); across chunks the strictly smaller t.  o/d
+    (P, 3) f32 (recentred, quantised), skip (P,) i32, mind/maxd (P,) f32,
+    gid (P, q) i32 (ids outside [0, NG) test nothing), coef (TI, 12) f32,
+    tri_ids (TI,) i32.  -> t (P,) f32 (1e5 where nothing is accepted), row
+    and pk (P,) i32 (-1)."""
+    P, q = gid.shape
+    TI = coef.shape[0]
+    NG = _n_groups(TI, s_group)
+    dev = o.device
+    lmask = CHUNK - 1
+    local = torch.arange(CHUNK, device=dev)
+    outs = []
+    for p0 in range(0, max(P, 1), slab_lanes):
+        sl = slice(p0, p0 + slab_lanes)
+        n = gid[sl].shape[0]
+        oo, dd = o[sl][:, :, None], d[sl][:, :, None]
+        bt = torch.full((n,), T_MISS, dtype=torch.float32, device=dev)
+        brow = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        bpk = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        for j in range(q):
+            g = gid[sl, j].to(torch.int64)
+            for s in range(s_group):
+                k0 = (g * s_group + s) * CHUNK
+                rows = k0[:, None] + local[None, :]
+                valid = ((g >= 0) & (g < NG))[:, None] & (rows < TI)
+                rows_c = torch.where(valid, rows, 0)
+                cr = coef[rows_c]  # (n, 128, 12)
+                t, u, v, geom = m_shift_test([cr[..., i] for i in range(12)], oo, dd)
+                acc = (valid & geom & (t > mind[sl, None]) & (t < maxd[sl, None]) & (t > 0)
+                       & (tri_ids[rows_c] != skip[sl, None]) & torch.isfinite(t))
+                if find_any:
+                    win = torch.argmax(acc.to(torch.int8), dim=1)  # the first accepted row
+                else:
+                    key = torch.where(acc, (t.view(torch.int32) & ~lmask) | local.to(torch.int32),
+                                      INT32_MAX)
+                    win = torch.argmin(key, dim=1)
+                got = acc.any(dim=1)
+                take = lambda x: x.gather(1, win[:, None])[:, 0]
+                tw = take(t)
+                better = got & (tw < bt)
+                if find_any:
+                    better &= brow < 0
+                qu = torch.clamp((take(u) + 0.5) * 16384.0, 0.0, 32767.0).to(torch.int32)
+                qv = torch.clamp((take(v) + 0.5) * 16384.0, 0.0, 32767.0).to(torch.int32)
+                bt = torch.where(better, tw, bt)
+                brow = torch.where(better, (k0 + win).to(torch.int32), brow)
+                bpk = torch.where(better, (qu << 15) | qv, bpk)
+        outs.append((bt, brow, bpk))
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def assigned_test(o, d, skip, mind, maxd, gid, coef, tri_ids, s_group: int,
+                  find_any: bool = False):
+    """K5 wrapper (see `assigned_test_plain`)."""
+    P, q = gid.shape
+    TI = coef.shape[0]
+    NG = _n_groups(TI, s_group)
+    f32, i32 = torch.float32, torch.int32
+    _check_args("wavefront assigned_test",
+                [o, d, skip, mind, maxd, gid, coef, tri_ids],
+                [(f32, (P, 3)), (f32, (P, 3)), (i32, (P,)), (f32, (P,)), (f32, (P,)),
+                 (i32, (P, q)), (f32, (TI, 12)), (i32, (TI,))])
+    dev = o.device
+    if dev.type == "cpu":
+        return assigned_test_plain(o, d, skip, mind, maxd, gid, coef, tri_ids, s_group,
+                                   find_any)
+    if coef.data_ptr() % 16:
+        raise ValueError("wavefront assigned_test: the coefficient table must be 16-byte aligned")
+    t = torch.empty((P,), dtype=f32, device=dev)
+    row = torch.empty((P,), dtype=i32, device=dev)
+    pk = torch.empty_like(row)
+    code = cuda_lib.library("wavefront").lprt_wavefront_assigned(
+        o.data_ptr(), d.data_ptr(), skip.data_ptr(), mind.data_ptr(), maxd.data_ptr(),
+        gid.data_ptr(), P, q, coef.data_ptr(), tri_ids.data_ptr(), TI, NG, s_group,
+        int(find_any), t.data_ptr(), row.data_ptr(), pk.data_ptr(), cuda_lib.stream_ptr(dev))
+    cuda_lib.check(code, "wavefront assigned_test")
+    cuda_lib.LAUNCHES["wavefront_assigned"] += 1
+    return t, row, pk
+
+
+# ---------------------------------------------------------------------------
+# the launch
+
+
+class Launch(NamedTuple):
+    """One wavefront launch's per-ray state and tables."""
+
+    o: torch.Tensor  # (R, 3) f32 world-space rays: the schedule's
+    d: torch.Tensor
+    o_q: torch.Tensor  # (R, 3) f32: rounded to the render dtype, recentred
+    d_q: torch.Tensor  # (R, 3) f32: rounded to the render dtype
+    skip: torch.Tensor  # (R,) i32
+    mind: torch.Tensor  # (R,) f32
+    maxd: torch.Tensor  # (R,) f32, capped at the scene exit
+    live: torch.Tensor  # (R,) bool
+    lo: torch.Tensor  # (NG, 3) f32 world group boxes
+    hi: torch.Tensor
+    coef: torch.Tensor  # (TI, 12) f32
+    tri: torch.Tensor  # (TI,) i32
+    obj: torch.Tensor  # (TI,) i32
+    s_group: int
+    id_bits: int
+    find_any: bool
+
+
+def setup(frame, origins, directions, prec, skip_tri, min_dist, max_dist,
+          find_any: bool) -> Launch:
+    f32 = torch.float32
+    dev = origins.device
+    R = origins.shape[0]
+    skip = (torch.full((R,), -1, dtype=torch.int32, device=dev) if skip_tri is None
+            else skip_tri.to(torch.int32))
+    mind = torch.broadcast_to(torch.as_tensor(min_dist, dtype=f32, device=dev), (R,))
+    max_dist = torch.broadcast_to(torch.as_tensor(max_dist, dtype=f32, device=dev), (R,))
+    o = origins.to(f32).contiguous()
+    d = directions.to(f32).contiguous()
+    maxd = scene_exit_cap(frame, o, d, max_dist).contiguous()
+    c = frame.dense_center
+    o_q = (o.to(prec.dtype).to(f32) - c[None, :]).contiguous()
+    d_q = d.to(prec.dtype).to(f32).contiguous()
+
+    lo, hi = frame.dense_chunk_lo, frame.dense_chunk_hi
+    n_chunks = lo.shape[0]
+    s_group = max(1, -(-n_chunks // GROUP_WIDTH))
+    pad = (-n_chunks) % s_group
+    if s_group > 1:
+        lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=3e38)
+        hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-3e38)
+        lo = lo.reshape(-1, s_group, 3).amin(dim=1)
+        hi = hi.reshape(-1, s_group, 3).amax(dim=1)
+    n_groups = lo.shape[0]
+    # one extra bit so the sentinel id (all ones) exceeds every real id
+    id_bits = max(2, n_groups.bit_length())
+    return Launch(o, d, o_q, d_q, skip.contiguous(), mind.contiguous(), maxd,
+                  maxd > mind, lo.contiguous(), hi.contiguous(), coef_table(frame), frame.dense_tri,
+                  frame.dense_obj, s_group, id_bits, find_any)
+
+
+def pair_lanes(L: Launch, sel, cand, live):
+    """Expand the live (ray, candidate) pairs into lanes sorted by group
+    id; a pair of a dead ray, or past the end of its ray's list, gets no
+    lane (one host sync for the count).  `sel` (n,) i64 ray indices (None:
+    all rays), cand (n, kk) i32 words, live (n,) bool.  -> (pair (P,) i64:
+    each lane's index in pair order, the lanes' (o, d, skip, mind, maxd,
+    gid (P, 1)))."""
+    id_mask = (1 << L.id_bits) - 1
+    kk = cand.shape[1]
+    pid = cand & id_mask
+    pair = torch.nonzero(((pid < id_mask) & live[:, None]).reshape(-1)).flatten()
+    key_s, order = torch.sort(pid.reshape(-1)[pair], stable=True)
+    pair = pair[order]
+    ray_s = pair // kk
+    if sel is not None:
+        ray_s = sel[ray_s]
+    return pair, (L.o_q[ray_s], L.d_q[ray_s], L.skip[ray_s], L.mind[ray_s], L.maxd[ray_s],
+                  key_s[:, None].contiguous())
+
+
+def combine(pair, out, cand, tcut, id_bits: int):
+    """Back to pair order (a pair without a lane: no hit), then per ray the
+    first minimum t over its candidates with a hit.  -> (t_b, row_b, pk_b,
+    e_next, w_next): the entry bound and word of the first untested
+    candidate (tcut: every listed candidate was tested)."""
+    n, kk = cand.shape
+    back = []
+    for x, miss in zip(out, (T_MISS, -1, -1)):
+        y = torch.full((n * kk,), miss, dtype=x.dtype, device=x.device)
+        y[pair] = x
+        back.append(y.reshape(n, kk))
+    t_r, row_r, pk_r = back
+    t_m = torch.where(row_r >= 0, t_r, float("inf"))
+    j = torch.argmin(t_m, dim=1, keepdim=True)
+    t_b = t_m.gather(1, j)[:, 0]
+    row_b = row_r.gather(1, j)[:, 0]
+    pk_b = pk_r.gather(1, j)[:, 0]
+    id_mask = (1 << id_bits) - 1
+    e_next = (tcut & ~id_mask).view(torch.float32)
+    return t_b, row_b, pk_b, e_next, tcut
+
+
+def pair_pass(L: Launch, sel, emin, kk: int):
+    """Schedule, pair expansion, K5 and the per-ray combine for the rays
+    `sel` (None: all) from their cursors `emin` (n,) i32 with kk
+    candidates each."""
+    take = (lambda x: x) if sel is None else (lambda x: x[sel])
+    live = take(L.live)
+    cand, tcut = schedule(L.lo, L.hi, take(L.o), take(L.d),
+                          torch.where(live, take(L.maxd), 0.0).contiguous(), emin,
+                          L.id_bits, kk)
+    pair, lanes = pair_lanes(L, sel, cand, live)
+    out = assigned_test(*lanes, L.coef, L.tri, L.s_group, L.find_any)
+    return combine(pair, out, cand, tcut, L.id_bits)
+
+
+def _tail_k(n: int, R: int, n_groups: int) -> int:
+    for share, k in TAIL_TIERS:
+        if n > share * R:
+            return min(k, n_groups)
+    return min(TAIL_TIERS[-1][1], n_groups)
+
+
+def trace_rays_wavefront(frame, origins, directions, *, prec, skip_tri=None, min_dist=0.0,
+                         max_dist=1e5, find_any: bool = False):
+    """One wavefront launch in 'oneshot' mode (see the module docstring).
+    origins/directions (R, 3), skip_tri (R,) i32 or None, min_dist/max_dist
+    scalars or (R,).  -> (t, u, v, tri, obj): t = 1e5, u = v = 0 and ids -1
+    on a miss."""
+    if prec.is_f32:
+        raise ValueError("the wavefront launch is for bf16/fp16 (the mxu3 test)")
+    L = setup(frame, origins, directions, prec, skip_tri, min_dist, max_dist, find_any)
+    R, dev = L.o.shape[0], L.o.device
+    n_groups = L.lo.shape[0]
+    best_t = torch.full((R,), T_MISS, dtype=torch.float32, device=dev)
+    best_row = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    best_pk = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    resolved = ~L.live
+    emin = torch.full((R,), INT32_MIN, dtype=torch.int32, device=dev)
+
+    sel = None
+    k = min(ONESHOT_K, n_groups)
+    # every pass tests >= 8 (or all remaining) candidates of each ray in it
+    max_passes = 2 + -(-n_groups // min(8, n_groups))
+    for n_pass in range(max_passes + 1):
+        if n_pass == max_passes:
+            raise RuntimeError(f"wavefront: rays unresolved after {max_passes} passes")
+        t_b, row_b, pk_b, e_next, w_next = pair_pass(
+            L, sel, emin if sel is None else emin[sel], k)
+        take = (lambda x: x) if sel is None else (lambda x: x[sel])
+        bt, br, bp = take(best_t), take(best_row), take(best_pk)
+        better = (row_b >= 0) & (t_b < bt)
+        bt = torch.where(better, t_b, bt)
+        br = torch.where(better, row_b, br)
+        bp = torch.where(better, pk_b, bp)
+        res = torch.minimum(bt, take(L.maxd)) <= e_next
+        if find_any:
+            res |= br >= 0
+        if sel is None:
+            best_t, best_row, best_pk = bt, br, bp
+            resolved = resolved | res
+            emin = w_next
+        else:
+            best_t[sel], best_row[sel], best_pk[sel] = bt, br, bp
+            resolved[sel] = res
+            emin[sel] = w_next
+        # the unresolved rays, compacted (one host sync per pass)
+        sel = torch.nonzero(~resolved).flatten()
+        if sel.numel() == 0:
+            break
+        k = _tail_k(sel.numel(), R, n_groups)
+
+    valid = best_row >= 0
+    rc = best_row.clamp(min=0).long()
+    neg = torch.full_like(best_row, -1)
+    tri = torch.where(valid, L.tri[rc], neg)
+    obj = torch.where(valid, L.obj[rc], neg)
+    inv_q = 1.0 / 16384.0
+    u = torch.where(valid, (best_pk >> 15).to(torch.float32) * inv_q - 0.5, 0.0)
+    v = torch.where(valid, (best_pk & 0x7FFF).to(torch.float32) * inv_q - 0.5, 0.0)
+    return best_t, u, v, tri, obj

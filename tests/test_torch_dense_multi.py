@@ -4,7 +4,8 @@ multi-chunk mode, `trace_rays_dense_pallas` / `_sorted(...,
 interpret=True)` through the JAX package's own `trace`, on the same bf16
 tables of `sponza_like_scene(3, 1)` without sky: 830 instance triangles
 in 7 chunks and 19 objects, so incoherent launches take the anchor-sorted
-path.  The four launch forms of the Sponza-class frame run at a 16 x 128
+path (colonnade-83k's route, the wavefront, is checked here too; its
+launches are tests/test_torch_wavefront.py's).  The four launch forms of the Sponza-class frame run at a 16 x 128
 grid: primary closest hit (coherent), round-0 shadows (any hit, lane_k=2,
 coherent), the GI bounce (closest, sorted) and round-1 shadows (any hit,
 lane_k=2, sorted).
@@ -34,6 +35,7 @@ from low_precision_raytracer_tpu.models.procedural import sponza_like_scene as j
 from low_precision_raytracer_tpu.models.scene import build_scene_arrays, flatten_frame
 from low_precision_raytracer_tpu.ops.camera import primary_ray_grid
 from low_precision_raytracer_tpu.ops.trace import incoherent_reorders as jax_reorders
+from low_precision_raytracer_tpu.ops.trace import moveforward_eps as jax_moveforward_eps
 from low_precision_raytracer_tpu.ops.trace import trace as jax_trace
 from low_precision_raytracer_tpu_torch.config import RenderConfig
 from low_precision_raytracer_tpu_torch.models import scene as tscene
@@ -45,7 +47,12 @@ from low_precision_raytracer_tpu_torch.ops.dense_trace import (
     dense_trace_plain,
     ray_aabb_entry,
 )
-from low_precision_raytracer_tpu_torch.ops.trace import incoherent_reorders, trace
+from low_precision_raytracer_tpu_torch.ops.trace import (
+    _wavefront_route,
+    incoherent_reorders,
+    moveforward_eps,
+    trace,
+)
 
 H, W = 16, 128
 R = H * W
@@ -154,13 +161,35 @@ def _gi_rays(c, rng):
     return p, d, skip, maxd
 
 
+def _check_routes(prec, scene, frame, tframe, jcfg, cfg, ti, nc, wavefront):
+    assert frame.dense_n.shape[0] == ti and frame.dense_chunk_lo.shape[0] == nc
+    assert jax_reorders(scene, frame, jcfg, prec)
+    assert incoherent_reorders(tframe, cfg, cfg.prec)
+    assert _wavefront_route(tframe, cfg, cfg.prec) == wavefront
+    for coherent in (True, False):
+        eps = moveforward_eps(tframe, cfg, cfg.prec, coherent)
+        assert eps == jax_moveforward_eps(scene, frame, jcfg, prec, coherent)
+        want = prec.ray_moveforward_t if (wavefront and not coherent) \
+            else prec.ray_moveforward_t_exact
+        assert eps == want
+
+
 def test_routes_match_jax(sponza):
     """The Sponza-class launch forms: multi-chunk, and incoherent launches
     reorder (the sorted path) in both packages."""
     c = sponza
-    assert c["frame"].dense_n.shape[0] == 830 and c["frame"].dense_chunk_lo.shape[0] == 7
-    assert jax_reorders(c["scene"], c["frame"], c["jcfg"], c["prec"])
-    assert incoherent_reorders(c["tframe"], c["cfg"], c["cfg"].prec)
+    _check_routes(c["prec"], c["scene"], c["frame"], c["tframe"], c["jcfg"], c["cfg"],
+                  830, 7, wavefront=False)
+
+
+def test_routes_match_jax_colonnade_83k():
+    """colonnade-83k: above wavefront_min_tris, incoherent launches go to
+    the per-ray wavefront (with the dtype epsilon) in both packages;
+    coherent ones keep K1b and the exact epsilon."""
+    prec, scene, frame, tframe = _tables(jax_sponza(8, 3, with_skybox=False))
+    jcfg = JaxConfig(width=W, height=H, precision="bf16", traversal_impl="dense_pallas")
+    cfg = RenderConfig(width=W, height=H, precision="bf16")
+    _check_routes(prec, scene, frame, tframe, jcfg, cfg, 82690, 647, wavefront=True)
 
 
 def test_primary_closest(sponza):

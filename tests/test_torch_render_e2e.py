@@ -3,7 +3,9 @@ Renderer, bf16, GI with max_bounces=2, SVGF on, TAA at mix weight 1, at
 64 x 64 — the flagship Cornell frame over 5 frames (frame 5 is the first
 whose SVGF moments come from the temporal branch), and the Sponza-class
 frame (`sponza_like_scene(3, 1)`, skybox on: multi-chunk, unfused
-shadows, sorted incoherent launches) over 4.  The JAX side runs the TPU route
+shadows, sorted incoherent launches) over 4 — and colonnade-83k
+(`sponza_like_scene(8, 3)`: incoherent launches on the per-ray wavefront)
+at 32 x 32 over 4.  The JAX side runs the TPU route
 (dense Pallas trace, fused Pallas SVGF) in interpret mode; the port is fed
 the JAX package's own GI uniforms, `jax.random.uniform(k_shade0, (7R,))`
 from the key splits of `render_frame`.
@@ -30,7 +32,12 @@ from low_precision_raytracer_tpu_torch.models.procedural import (
     cornell_box_scene,
     sponza_like_scene,
 )
-from low_precision_raytracer_tpu_torch.ops.trace import di_fusible, incoherent_reorders
+from low_precision_raytracer_tpu_torch.models.scene import instance_tris
+from low_precision_raytracer_tpu_torch.ops.trace import (
+    _wavefront_route,
+    di_fusible,
+    incoherent_reorders,
+)
 from low_precision_raytracer_tpu_torch.render.renderer import Renderer
 
 N = 64
@@ -42,13 +49,13 @@ def _psnr(a, b):
     return float("inf") if mse == 0 else float(10.0 * np.log10(1.0 / mse))
 
 
-def _run_both(jr, tr, frames):
-    """Render `frames` frames on both, the port fed the JAX draws; hold
-    every frame to the bars.  -> the port's last SVGF frame counts."""
+def _run_both(jr, tr, frames, n=N):
+    """Render `frames` frames of n x n on both, the port fed the JAX draws;
+    hold every frame to the bars.  -> the port's last SVGF frame counts."""
     import torch
 
     key = jr.key  # the JAX Renderer's own key chain, replayed for the draws
-    R = N * N
+    R = n * n
     for f in range(frames):
         key, sub = jax.random.split(key)
         _k_taa, k_shade0, _k1 = jax.random.split(sub, 3)
@@ -96,3 +103,33 @@ def test_sponza_frame_matches_jax():
     assert tr.scene.sky_valid
     ct = _run_both(jr, tr, 4)
     assert int(ct.max()) == 3
+
+
+def test_colonnade_83k_frame_matches_jax(monkeypatch):
+    """colonnade-83k (`sponza_like_scene(8, 3)`: 82,690 instance triangles
+    in 647 chunks, skybox) at 32 x 32 over 4 frames: primary and round-0
+    shadows on K1b, the GI bounce and round-1 shadows (any hit) on the
+    per-ray wavefront, two launches each per frame."""
+    from low_precision_raytracer_tpu_torch.ops import trace as ttrace
+
+    calls = []
+    for name in ("dense_trace_multi", "dense_trace_multi_sorted", "trace_rays_wavefront"):
+        fn = getattr(ttrace, name)
+        monkeypatch.setattr(ttrace, name, lambda *a, _n=name, _f=fn, **kw: (
+            calls.append((_n, kw.get("find_any", False))) or _f(*a, **kw)))
+    n = 32
+    jr = JaxRenderer(jax_sponza(8, 3), JaxConfig(
+        width=n, height=n, precision="bf16", traversal_impl="dense_pallas",
+        svgf=JaxSVGF(wavelet_impl="pallas")))
+    tr = Renderer(sponza_like_scene(8, 3), RenderConfig(width=n, height=n, precision="bf16"),
+                  device="cpu")
+    f0 = flatten_frame(jr.host, jr.prec, max_direct_lights=4, width=n, height=n)
+    assert not jax_di_fusible(jr.scene, f0, jr.cfg, jr.prec)
+    assert jax_reorders(jr.scene, f0, jr.cfg, jr.prec)
+    assert not di_fusible(tr.frame, tr.cfg)
+    assert _wavefront_route(tr.frame, tr.cfg, tr.cfg.prec)
+    assert instance_tris(tr.frame) == 82690 and tr.frame.dense_chunk_lo.shape[0] == 647
+    ct = _run_both(jr, tr, 4, n)
+    assert int(ct.max()) == 3
+    assert calls == [("dense_trace_multi", False), ("dense_trace_multi", True),
+                     ("trace_rays_wavefront", False), ("trace_rays_wavefront", True)] * 4

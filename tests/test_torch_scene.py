@@ -69,7 +69,8 @@ def test_host_copy_matches_jax_bitwise(precision):
     assert tscene.instance_tris(f) == 34
 
 
-@pytest.mark.parametrize("args", [(3, 1), (4, 2)], ids=["colonnade-830", "colonnade-5k"])
+@pytest.mark.parametrize("args", [(3, 1), (4, 2), (8, 3)],
+                         ids=["colonnade-830", "colonnade-5k", "colonnade-83k"])
 def test_sponza_tables_match_jax_bitwise(args):
     """Multi-chunk tables: morton-ordered rows, dense_tri / dense_obj, the
     per-chunk AABBs, the quad-packed sky in bf16 and the sky scalars."""
@@ -78,7 +79,7 @@ def test_sponza_tables_match_jax_bitwise(args):
     s = tscene.build_scene_arrays(host, "bf16", "cpu")
     f = tscene.flatten_frame(host, "bf16", "cpu", max_direct_lights=4, width=W, height=H)
     _assert_tables_equal(s, f, s_jax, f_jax)
-    ti = {(3, 1): 830, (4, 2): 5314}[args]
+    ti = {(3, 1): 830, (4, 2): 5314, (8, 3): 82690}[args]
     assert tscene.instance_tris(f) == ti and f.dense_chunk_lo.shape == (-(-ti // 128), 3)
     assert f.dense_morton and s.sky_valid and s.sky_quad.dtype == torch.bfloat16
 
@@ -146,18 +147,24 @@ def test_uncovered_configs_raise(kw):
 
 
 def test_uncovered_scenes_raise():
-    """Textured scenes, and scenes whose incoherent launches the JAX
-    package sends to the per-ray wavefront (K5), are refused; a two-chunk
-    scene (130 instance triangles), a skybox and di_fuse='off' are
-    covered."""
+    """Textured scenes, scenes that 'auto' sends to the packet BVH (K6) and
+    the wavefront's 'rounds' mode are refused; a two-chunk scene (130
+    instance triangles), a skybox, di_fuse='off' and the per-ray wavefront
+    (K5, here on colonnade-830 with its threshold lowered) are covered."""
     cfg = RenderConfig(width=8, height=8, precision="bf16")
     host = cornell_box_scene()
     host.textures = [np.zeros((2, 2, 4), np.uint8)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Renderer(host, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="wavefront.*ROADMAP queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="packet BVH.*ROADMAP queue 1 item 10"):
         Renderer(sponza_like_scene(3, 1), RenderConfig(
-            width=8, height=8, precision="bf16", wavefront_min_tris=600), device="cpu")
+            width=8, height=8, precision="bf16", packet_bvh_min_tris=600), device="cpu")
+    with pytest.raises(NotImplementedError, match="rounds.*ROADMAP queue 1 item 10a"):
+        Renderer(sponza_like_scene(3, 1), RenderConfig(
+            width=8, height=8, precision="bf16", wavefront_mode="rounds"), device="cpu")
+    img, _aux = Renderer(sponza_like_scene(3, 1), RenderConfig(
+        width=8, height=8, precision="bf16", wavefront_min_tris=600), device="cpu").render()
+    assert bool(torch.isfinite(img).all())
     host = cornell_box_scene()
     for i in range(8):  # 34 + 8 x 12 = 130 instance triangles: two chunks
         host.root.add(_mesh_node(host, 1, 0, f"extra{i}", t=[0.1 * i, 0, 0],
