@@ -53,14 +53,34 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
     temporal kernel 1, the a-trous kernel 5, the history fetch 1 from
     frame 1;
 11. colonnade-83k reference phase: a 64x64 render on the card against the
-    plain versions on the CPU, 4 frames.
+    plain versions on the CPU, 4 frames;
+12. colonnade-2M kernel phase: two warm-up frames of `sponza_like_scene(10,
+    5)` (2,049,202 instance triangles, 64,040 leaves, bf16, 1920x1080;
+    'auto' resolves to the packet BVH) record its four packet-walk (K6)
+    launches: primary, round-0 shadows, the GI bounce (sorted) and round-1
+    shadows (sorted).  K6 is timed on each full launch and held against its
+    plain version (K1b's, an all-pairs test) on a strided slice of 2^12
+    rays of each launch: tri, obj, t, u, v exact on closest hit, the
+    occlusion marker exact on any hit; the plain version is timed on that
+    slice.  The sorted launches are also timed unsorted, and their key and
+    sort + unsort on their own.  In phase 9, K6 also runs on K1b's two
+    colonnade-83k launches, timed and held equal to K1b's result;
+13. colonnade-2M path phase: counts zeroed, 8 frames; per frame K6 4, K1a
+    0, K1b 0, the wavefront 0, the temporal kernel 1, the a-trous kernel
+    5, the history fetch 1 from frame 1;
+14. packet-route reference phase: a 64x64 render of colonnade-5k
+    (`sponza_like_scene()`) with traversal_impl='pallas' (K6 on all four
+    launches, the last two sorted) on the card against the plain versions
+    on the CPU, 4 frames.  At 2M rows the CPU plain path (an all-pairs
+    test) would take hours, so the reference runs on the smaller scene.
 
 Before the last line it prints a `kernels` JSON line (per kernel: launches
 on its paths' runs, max error against the plain version, time, plain time,
 the least time the work could take on the card and what bounds it; K1b's
 times are those of its Sponza-class launches, its colonnade-83k launches
-are on their own lines) and the nvidia-smi line; the last line is
-{"ok": true, "device": {...}}.
+are on their own lines; K6's are the mean of its four colonnade-2M
+launches) and the nvidia-smi line; the last line is
+{"ok": true, "device": {...}}.  About 4 minutes on an H100.
 """
 
 from __future__ import annotations
@@ -78,6 +98,7 @@ REF_SIZE, REF_FRAMES = 64, 5
 SPONZA_REF_FRAMES = 4
 CHECK_RAYS = 1 << 18  # K1b: rays per launch held against the plain version
 BIG_CHECK = 1 << 16  # colonnade-83k: rays or lanes held against the plain versions
+HUGE_CHECK = 1 << 12  # colonnade-2M: rays per K6 launch held against the plain version
 # H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s
 # outside the tensor cores (exp/sqrt/div counted as one operation each)
 HBM_BPS = 3.35e12
@@ -99,6 +120,8 @@ KERNELS = {  # wrapper name -> (source, TPU kernel it replaces)
     # XLA code in the JAX package (`_schedule`), not a Pallas kernel
     "wavefront_schedule": ("low_precision_raytracer_tpu_torch/csrc/wavefront.cu",
                            TPU + "wavefront.py:211"),
+    "packet_trace": ("low_precision_raytracer_tpu_torch/csrc/packet_trace.cu",
+                     TPU + "traversal_pallas.py:69"),
 }
 
 
@@ -412,7 +435,7 @@ def report_path(name, frames, peak_gib, totals):
         f"peak memory {peak_gib:.3f} GiB  launches {json.dumps(totals)}")
 
 
-def reference_phase(scene_fn, frames):
+def reference_phase(scene_fn, frames, **cfg_kw):
     """A small frame on the card against the plain versions on the CPU,
     same uniforms: PSNR >= 35 dB and validity agreement >= 0.999 on every
     frame (the port-vs-JAX bars of tests/test_torch_render_e2e.py)."""
@@ -421,7 +444,7 @@ def reference_phase(scene_fn, frames):
     from low_precision_raytracer_tpu_torch.config import RenderConfig
     from low_precision_raytracer_tpu_torch.render.renderer import Renderer
 
-    cfg = RenderConfig(width=REF_SIZE, height=REF_SIZE, precision="bf16")
+    cfg = RenderConfig(width=REF_SIZE, height=REF_SIZE, precision="bf16", **cfg_kw)
     gpu = Renderer(scene_fn(), cfg)
     cpu = Renderer(scene_fn(), cfg, device="cpu")
     gen = torch.Generator().manual_seed(1)
@@ -781,6 +804,209 @@ def wavefront_phase(kind, args, kw):
     return rep
 
 
+def k6_beside_k1b(kind, args, kw, leaves):
+    """K6 on one of K1b's colonnade-83k launches (the JAX package sends
+    them to K1b): equal to K1b's result (every output), both timed."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import dense_trace_multi
+    from low_precision_raytracer_tpu_torch.ops.packet_trace import packet_trace
+
+    lo, hi, tree = leaves
+    find_any = kw.get("find_any", False)
+    k6 = lambda: packet_trace(*args[:8], lo, hi, find_any=find_any, tree=tree)
+    want = dense_trace_multi(*args, **kw)
+    got = k6()
+    torch.cuda.synchronize()
+    for name, a, b in zip(("t", "u", "v", "tri", "obj"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"packet_trace colonnade-83k {kind}: {name} differs from K1b "
+                                 f"on {int((a != b).sum())} of {a.numel()} rays")
+    rec = dict(kind=kind, rays=int(args[0].shape[0]), k6_ms=cuda_ms(k6, 3),
+               k1b_ms=cuda_ms(lambda: dense_trace_multi(*args, **kw), 3), equal=True)
+    log(f"kernel packet_trace colonnade-83k beside K1b: {json.dumps(rec)}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# colonnade-2M: the packet BVH walk (K6)
+
+
+def colonnade_2m():
+    from low_precision_raytracer_tpu_torch.models.procedural import sponza_like_scene
+
+    return sponza_like_scene(10, 5)
+
+
+def capture_packet_launches(renderer, frames):
+    """Render `frames` frames; -> the last frame's K6 launches, in order
+    [(kind, args, kwargs, unsorted_args | None)]: primary, round-0
+    shadows, GI bounce (sorted), round-1 shadows (sorted).  For a sorted
+    launch `args` are the kernel's (sorted) inputs and `unsorted_args` the
+    rays as the sorted launch received them."""
+    from low_precision_raytracer_tpu_torch.ops import packet_trace as PT
+    from low_precision_raytracer_tpu_torch.ops import trace
+
+    calls, sorted_calls = [], []
+    orig, orig_sorted = PT.packet_trace, trace.packet_trace_sorted
+
+    def rec(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+
+    def rec_sorted(*args, **kw):
+        sorted_calls.append((args, kw))
+        return orig_sorted(*args, **kw)
+
+    try:
+        PT.packet_trace = trace.packet_trace = rec
+        trace.packet_trace_sorted = rec_sorted
+        for _ in range(frames):
+            calls.clear()
+            sorted_calls.clear()
+            renderer.render()
+    finally:
+        PT.packet_trace = trace.packet_trace = orig
+        trace.packet_trace_sorted = orig_sorted
+    kinds = ("primary", "shadow0", "gi_sorted", "shadow1_sorted")
+    got = [kw.get("find_any", False) for _a, kw in calls]
+    if got != [False, True, False, True] or len(sorted_calls) != 2:
+        raise AssertionError(f"colonnade-2M frame: K6 launches (find_any) {got}, "
+                             f"{len(sorted_calls)} sorted; want 4, 2 sorted")
+    unsorted = [None, None, sorted_calls[0][0], sorted_calls[1][0]]
+    return [(k, a, kw, u) for k, (a, kw), u in zip(kinds, calls, unsorted)]
+
+
+def _pair_entry(b, o, d, maxd):
+    """The kernels' slab test of rays (n, 3) against one box each (n, 6):
+    -> (entry, ok) (n,)."""
+    import torch
+
+    inv = 1.0 / d
+    t1 = (b[:, :3] - o) * inv
+    t2 = (b[:, 3:] - o) * inv
+    fin = torch.isfinite(t1) & torch.isfinite(t2)
+    tmin = torch.where(fin, torch.minimum(t1, t2), -3e38).amax(dim=1)
+    tmax = torch.where(fin, torch.maximum(t1, t2), 3e38).amin(dim=1)
+    e = torch.clamp(tmin - 0.02, min=0.0)
+    return e, fin.any(1) & (tmin <= tmax + 0.02) & (tmax + 0.02 >= 0) & (e < maxd)
+
+
+def packet_ops(args, t_final, tree):
+    """K6 operations this run's data needs: per live ray, one slab test per
+    tree box (internal node or leaf) it enters no later than `t_final` (its
+    closest hit, or 1e5), through ancestors it also enters so, and 40 ops
+    per row of each such leaf.  Counted level by level from the root, in
+    blocks of rays.  -> (ops, boxes entered, rows tested, leaves entered
+    per live ray (n_live,))."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops.packet_trace import FAN, LEAF
+
+    o, d, _skip, mind, maxd, coef = args[:6]
+    TI = coef.shape[0]
+    L = len(tree.sizes)
+    offs = tree.levels[:L].tolist()
+    live = torch.nonzero(maxd > mind)[:, 0]
+    per_ray = torch.zeros(o.shape[0], dtype=torch.float32, device=o.device)
+    n_boxes = n_rows = 0
+    for r0 in range(0, live.numel(), 1 << 17):
+        ray = live[r0:r0 + (1 << 17)]
+        node = torch.zeros_like(ray)
+        for lvl in range(L - 1, -1, -1):
+            if lvl < L - 1:
+                ch = node[:, None] * FAN + torch.arange(FAN, device=ray.device)[None, :]
+                ok = ch < tree.sizes[lvl]
+                ray, node = ray[:, None].expand(-1, FAN)[ok], ch[ok]
+            e, ok = _pair_entry(tree.boxes[offs[lvl] + node], o[ray], d[ray], maxd[ray])
+            keep = ok & (e <= t_final[ray])
+            ray, node = ray[keep], node[keep]
+            n_boxes += int(keep.sum())
+        n_rows += int(torch.clamp(TI - node * LEAF, max=LEAF).sum())
+        per_ray.index_add_(0, ray, torch.ones_like(ray, dtype=torch.float32))
+    return (float(n_boxes) * BOX_TEST_OPS + float(n_rows) * TRI_TEST_OPS, n_boxes, n_rows,
+            per_ray[live])
+
+
+def k6_phase(launches, leaves):
+    """K6 on each recorded colonnade-2M launch: timed on the full launch,
+    held against the plain version on a strided slice of HUGE_CHECK rays
+    (every output exact), its bound from the data; the sorted launches also
+    unsorted, and their key and sort + unsort on their own.  -> report."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import dense_trace_multi_plain
+    from low_precision_raytracer_tpu_torch.ops.packet_trace import (
+        morton_key,
+        packet_trace,
+        packet_trace_sorted,
+    )
+
+    _lo, _hi, tree = leaves
+    per = []
+    for kind, args, kw, unsorted in launches:
+        R = args[0].shape[0]
+        find_any = kw.get("find_any", False)
+        out = packet_trace(*args, **kw)
+        torch.cuda.synchronize()
+        sel = torch.arange(0, R, max(1, R // HUGE_CHECK), device=args[0].device)[:HUGE_CHECK]
+        sub = [a[sel].contiguous() for a in args[:5]] + list(args[5:8])
+        ref = dense_trace_multi_plain(*sub, find_any=find_any, slab_elems=1 << 26)
+        err = 0.0
+        for name, a, b in zip(("t", "u", "v", "tri", "obj"), out, ref):
+            a = a[sel]
+            if not torch.equal(a, b):
+                raise AssertionError(f"packet_trace {kind}: {name} differs from the plain "
+                                     f"version on {int((a != b).sum())} of {sel.numel()} rays")
+            if a.dtype == torch.float32:
+                err = max(err, float((a - b).abs().max()))
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        dense_trace_multi_plain(*sub, find_any=find_any, slab_elems=1 << 26)
+        t1.record()
+        t1.synchronize()
+        plain_ms = t0.elapsed_time(t1)
+        # the bound: any-hit rays need the boxes up to their closest blocker
+        t_final = out[0] if not find_any else torch.where(
+            out[3] >= 0, packet_trace(*args, **dict(kw, find_any=False))[0], 1e5)
+        n_ops, n_boxes, n_rows, leaves_per_ray = packet_ops(args, t_final, tree)
+        q = torch.tensor([0.5, 0.9, 0.99], device=leaves_per_ray.device)
+        leaf_q = [float(x) for x in torch.quantile(leaves_per_ray, q)] if n_boxes else []
+        n_bytes = nbytes(*args[:10], tree.boxes) + nbytes(*out)
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        ms = cuda_ms(lambda: packet_trace(*args, **kw), 5)
+        rec = dict(kind=kind, rays=R, live=int((args[4] > args[3]).sum()),
+                   hits=int((out[3] >= 0).sum()), ms=ms, plain_ms=plain_ms,
+                   plain_ms_on="slice", slice_ms=cuda_ms(
+                       lambda: packet_trace(*sub, *args[8:10], **kw), 5),
+                   bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                   checked_rays=int(sel.numel()), bytes=n_bytes, ops=n_ops,
+                   boxes_entered=n_boxes, rows_tested=n_rows,
+                   leaves_per_live_ray_p50_p90_p99=leaf_q,
+                   leaves_per_live_ray_max=float(leaves_per_ray.max()) if n_boxes else 0.0)
+        if unsorted is not None:
+            srt = packet_trace_sorted(*unsorted, **kw)
+            direct = packet_trace(*unsorted, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(srt, direct)):
+                raise AssertionError(f"packet_trace {kind}: sorted launch differs from the "
+                                     "unsorted one")
+            o, d, mn, mx = unsorted[0], unsorted[1], unsorted[3], unsorted[4]
+            key = morton_key(o, d, live=mx > mn)
+            rec["unsorted_ms"] = cuda_ms(lambda: packet_trace(*unsorted, **kw), 5)
+            rec["sorted_total_ms"] = cuda_ms(lambda: packet_trace_sorted(*unsorted, **kw), 5)
+            rec["key_ms"] = cuda_ms(lambda: morton_key(o, d, live=mx > mn), 5)
+            rec["sort_ms"] = cuda_ms(lambda: torch.sort(key, stable=True), 5)
+            rec["sort_unsort_ms"] = rec["sorted_total_ms"] - ms
+        per.append(rec)
+        log(f"kernel packet_trace colonnade-2M: {json.dumps(rec)}")
+    mean = lambda k: statistics.fmean(p[k] for p in per)
+    return dict(max_abs_err=max(p["max_abs_err"] for p in per), ms=mean("ms"),
+                plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+                bound_by=max(per, key=lambda p: p["bound_ms"])["bound_by"], launches=per)
+
+
 def colonnade_kernel_phase(cfg):
     """Phase 9.  -> (K1b report, {wavefront_assigned, wavefront_schedule}
     reports)."""
@@ -788,13 +1014,18 @@ def colonnade_kernel_phase(cfg):
 
     from low_precision_raytracer_tpu_torch.render.renderer import Renderer
 
+    from low_precision_raytracer_tpu_torch.ops import trace as T
+
     warm = Renderer(colonnade_83k(), cfg)
     calls = capture_big_launches(warm, 2)
+    leaves = T._packet_tables(warm.frame)
     del warm
     k1b = k1b_phase([(kind, a, kw, None) for kind, (_n, a, kw)
                                in zip(("primary", "shadow0"), calls[:2])],
                               check_rays=BIG_CHECK, reps=3, plain_on_slice=True,
                               scene="colonnade-83k")
+    k1b["k6_beside_k1b"] = [k6_beside_k1b(kind, a, kw, leaves) for kind, (_n, a, kw)
+                            in zip(("primary", "shadow0"), calls[:2])]
     wf = [wavefront_phase(kind, a, kw) for kind, (_n, a, kw) in zip(("gi", "shadow1"), calls[2:])]
     del calls
     torch.cuda.empty_cache()
@@ -847,7 +1078,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
-    no_wavefront = {"wavefront_schedule": 0, "wavefront_assigned": 0}
+    no_wavefront = {"wavefront_schedule": 0, "wavefront_assigned": 0, "packet_trace": 0}
     totals, frames, peak_gib = path_phase(
         cuda_lib, cornell_box_scene,
         lambda f: {"dense_trace": 2, "dense_trace_multi": 0, "temporal_accum": 1,
@@ -898,7 +1129,8 @@ def main(argv) -> int:
         cuda_lib, colonnade_83k,
         lambda f: {"dense_trace": 0, "dense_trace_multi": 2, "temporal_accum": 1,
                    "wavelet_iter": 5, "coef_fetch": 1 if f > 0 else 0,
-                   "wavefront_schedule": wavefront_counts, "wavefront_assigned": wavefront_counts})
+                   "wavefront_schedule": wavefront_counts, "wavefront_assigned": wavefront_counts,
+                   "packet_trace": 0})
     report_path("colonnade-83k", b_frames, b_peak, b_totals)
     totals["dense_trace_multi"] += b_totals["dense_trace_multi"]
     for name in ("wavefront_schedule", "wavefront_assigned"):
@@ -910,10 +1142,46 @@ def main(argv) -> int:
     log(f"colonnade-83k K1b: {json.dumps(k1b_big)}")
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
 
+    # ---- colonnade-2M: the packet BVH walk (K6)
+    from low_precision_raytracer_tpu_torch.ops import trace as T
+
+    warm = Renderer(colonnade_2m(), cfg)
+    if warm.cfg.traversal_impl != "pallas":
+        raise AssertionError(f"colonnade-2M resolved to {warm.cfg.traversal_impl!r}")
+    launches = capture_packet_launches(warm, 2)
+    leaves = T._packet_tables(warm.frame)
+    n0 = leaves[2].sizes[0]
+    ext = (warm.frame.dense_leaf_hi - warm.frame.dense_leaf_lo)[:n0].amax(dim=1)
+    ext_q = torch.quantile(ext, torch.tensor([0.5, 0.9, 0.99], device=ext.device)).tolist()
+    log(f"colonnade-2M: {T.instance_tris(warm.frame)} instance triangles, "
+        f"{warm.frame.dense_leaf_lo.shape[0]} leaves, tree levels {leaves[2].sizes}; "
+        f"leaf box extent (largest axis) p50/p90/p99 {ext_q}, max {float(ext.max())}, "
+        f"{int((ext > 1.0).sum())} leaves wider than 1")
+    del warm
+    reports["packet_trace"] = k6_phase(launches, leaves)
+    del launches, leaves
+    torch.cuda.empty_cache()
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    p_totals, p_frames, p_peak = path_phase(
+        cuda_lib, colonnade_2m,
+        lambda f: {"dense_trace": 0, "dense_trace_multi": 0, "temporal_accum": 1,
+                   "wavelet_iter": 5, "coef_fetch": 1 if f > 0 else 0, **no_wavefront,
+                   "packet_trace": 4})
+    report_path("colonnade-2M", p_frames, p_peak, p_totals)
+    totals["packet_trace"] = p_totals["packet_trace"]
+    torch.cuda.empty_cache()
+
+    psnrs = reference_phase(sponza_like_scene, SPONZA_REF_FRAMES, traversal_impl="pallas")
+    log(f"reference packet route (colonnade-5k): {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU "
+        "PSNR dB " + " ".join(f"{p:.2f}" for p in psnrs))
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
     if "--profile" in argv:
         profile_frame("flagship", cornell_box_scene)
         profile_frame("sponza", sponza_like_scene)
         profile_frame("colonnade-83k", colonnade_83k)
+        profile_frame("colonnade-2M", colonnade_2m)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():

@@ -108,15 +108,18 @@ class RenderConfig:
     # 'auto' resolves to 'mxu3' (f32-grade u/v, strict acceptance) for
     # bf16 on the dense route
     triangle_fallback: str = "auto"
+    # 'auto' resolves per scene as the JAX package does on the TPU: the
+    # dense route ('dense_pallas') up to packet_bvh_min_tris instance
+    # triangles, the packet BVH ('pallas') up to packet_bvh_max_tris, the
+    # XLA walk ('jax', not ported) above
     traversal_impl: str = "auto"
-    # above packet_bvh_min_tris 'auto' leaves the dense route for the
-    # packet BVH; the wavefront takes incoherent launches up to
-    # packet_bvh_max_tris
     packet_bvh_min_tris: int = 1 << 20
     packet_bvh_max_tris: int = 4 << 20
     # incoherent launches (GI bounces, bounce shadows) on multi-chunk
-    # scenes: 'anchor' sorts rays by their nearest chunk's entry bound +
-    # direction bits before the trace; 'none' keeps pixel order
+    # scenes of the dense route: 'anchor' sorts rays by their nearest
+    # chunk's entry bound + direction bits before the trace, 'beam' /
+    # 'origin' by a morton code of origin and direction / origin; 'none'
+    # keeps pixel order
     incoherent_sort: str = "anchor"
     # 'wavefront' sends incoherent launches above wavefront_min_tris to
     # the per-ray wavefront; 'tile' never does
@@ -169,10 +172,11 @@ def check_supported(cfg: RenderConfig) -> None:
     if cfg.mesh is not None:
         raise NotImplementedError(
             "cfg.mesh: multiple GPUs wait (ROADMAP queue 1 item 12)")
-    if cfg.traversal_impl not in ("auto", "dense_pallas"):
+    if cfg.traversal_impl not in ("auto", "dense_pallas", "pallas"):
         raise NotImplementedError(
-            f"traversal_impl={cfg.traversal_impl!r}: only the dense route is "
-            "ported (ROADMAP queue 1 item 10)")
+            f"traversal_impl={cfg.traversal_impl!r}: only the dense route and the "
+            "packet BVH are ported; the XLA BVH walk ('jax') and the XLA "
+            "all-pairs path ('dense') wait (ROADMAP queue 1 item 10a)")
     if cfg.triangle_fallback not in ("auto", "mxu3"):
         raise NotImplementedError(
             f"triangle_fallback={cfg.triangle_fallback!r}: only the mxu3 "
@@ -185,10 +189,6 @@ def check_supported(cfg: RenderConfig) -> None:
         raise NotImplementedError(
             "wavefront_mode='rounds': only the oneshot pair pass is ported "
             "(ROADMAP queue 1 item 10a)")
-    if cfg.incoherent_sort in ("beam", "origin"):
-        raise NotImplementedError(
-            f"incoherent_sort={cfg.incoherent_sort!r}: only the 'anchor' key "
-            "(and 'none') is ported; the morton keys wait (ROADMAP queue 1 item 8a)")
     if not cfg.shade_f32 or not cfg.svgf.state_f32:
         raise NotImplementedError(
             "shade_f32=False / state_f32=False ablations wait (ROADMAP queue 1 item 8a)")

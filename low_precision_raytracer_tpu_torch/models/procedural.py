@@ -175,7 +175,8 @@ def sponza_like_scene(pillar_grid: int = 4, sphere_subdiv: int = 2, with_skybox:
     one of three PBR materials, a directional sun and a point fill light,
     and an equirectangular HDR sky.  The (4, 2) default is 5,314 instance
     triangles in 33 objects ("colonnade-5k"); (8, 3) is 82,690 in 129
-    ("colonnade-83k")."""
+    ("colonnade-83k"); (10, 5) is 2,049,202 in 201 ("colonnade-2M", the
+    packet-BVH band)."""
     scene = HostScene()
     floor = scene.add_mesh(quad_mesh(2.0))
     pillar = scene.add_mesh(cube_mesh(1.0))

@@ -7,13 +7,14 @@
   G-buffer and shade read (per-triangle attribute rows, material table,
   the quad-packed skybox);
 - :class:`FrameInput` — per-frame device tensors: object transforms and
-  world AABBs, lights, camera, sky scalars, and the dense route's
-  world-space coefficient table with its per-chunk AABBs (morton-ordered
-  above one chunk, as in the JAX package).
+  world AABBs, lights, camera, sky scalars, and the world-space
+  coefficient table with its per-chunk and per-leaf AABBs (morton-ordered
+  above one chunk, as in the JAX package): the dense route reads the
+  chunks, the packet BVH (K6) the leaves.
 
-The BLAS/TLAS, per-leaf AABB and texture-atlas fields of the JAX package
-are not here: the dense route reads no BVH (the BVH backends are ROADMAP
-queue 1 item 10), and scenes with textures are refused (item 9a).
+The BLAS/TLAS and texture-atlas fields of the JAX package are not here:
+the port's traces read no per-mesh BVH (the XLA walk is ROADMAP queue 1
+item 10a), and scenes with textures are refused (item 9a).
 
 `scene_from_numpy` carries the JAX package's leaves across (as numpy
 arrays), so a test can run both packages on exactly the same tables.
@@ -45,6 +46,12 @@ from low_precision_raytracer_tpu_torch.models.materials import pack_materials
 DENSE_CHUNK_TRIS = 128
 # spatial (morton) dense-table order above one chunk
 DENSE_MORTON = True
+# triangles per packet-BVH leaf (DENSE_CHUNK_TRIS % BVH_LEAF_TRIS == 0, so
+# chunks and leaves share the table's padding)
+BVH_LEAF_TRIS = 32
+# the coefficient table's instance-triangle cap (covers packet_bvh_max_tris);
+# above it the JAX package builds no table and walks its XLA BVH
+DENSE_COEFF_MAX_TRIS = 4 << 20
 
 
 @dataclass
@@ -174,6 +181,9 @@ class FrameInput:
     # to stay conservative under f32 rounding
     dense_chunk_lo: torch.Tensor  # (NC, 3) f32
     dense_chunk_hi: torch.Tensor  # (NC, 3) f32
+    # the same per BVH_LEAF_TRIS rows: the packet BVH's leaves (NL = 4 NC)
+    dense_leaf_lo: torch.Tensor  # (NL, 3) f32
+    dense_leaf_hi: torch.Tensor  # (NL, 3) f32
     # static: ((mesh_id, tri_start, tri_end), ...) per object
     obj_layout: tuple = ()
     # static: active light count (<= max_direct_lights)
@@ -244,17 +254,18 @@ def _morton_order(lo_raw, hi_raw):
     return np.argsort(code, kind="stable")
 
 
-def _chunk_aabbs(lo_raw, hi_raw):
-    """World AABBs of each DENSE_CHUNK_TRIS consecutive rows, widened by
-    1e-3 of their extent + 1e-4; an all-padding chunk parks far away."""
+def _group_aabbs(lo_raw, hi_raw, n_per_group: int):
+    """World AABBs of each `n_per_group` consecutive rows, the rows padded
+    to a DENSE_CHUNK_TRIS multiple, widened by 1e-3 of their extent + 1e-4;
+    an all-padding group parks far away."""
     ti = lo_raw.shape[0]
     pad = (-ti) % DENSE_CHUNK_TRIS
     big = np.float32(1e30)
     lo_t = np.pad(lo_raw, ((0, pad), (0, 0)), constant_values=big)
     hi_t = np.pad(hi_raw, ((0, pad), (0, 0)), constant_values=-big)
-    ng = (ti + pad) // DENSE_CHUNK_TRIS
-    g_lo = lo_t.reshape(ng, DENSE_CHUNK_TRIS, 3).min(axis=1)
-    g_hi = hi_t.reshape(ng, DENSE_CHUNK_TRIS, 3).max(axis=1)
+    ng = (ti + pad) // n_per_group
+    g_lo = lo_t.reshape(ng, n_per_group, 3).min(axis=1)
+    g_hi = hi_t.reshape(ng, n_per_group, 3).max(axis=1)
     ext = np.maximum(g_hi - g_lo, 0.0)
     g_lo = g_lo - ext * 1e-3 - 1e-4
     g_hi = g_hi + ext * 1e-3 + 1e-4
@@ -271,10 +282,15 @@ def _dense_coefficients(host: HostScene, flat: FlatScene, t_off):
     e = m.(b - v2) + n.c (recentred at the scene centre c).
 
     -> numpy dict (dense_n_f32, dense_e, dense_tri, dense_obj,
-    dense_center, dense_chunk_lo, dense_chunk_hi, dense_morton).  Above
+    dense_center, dense_chunk_lo/hi, dense_leaf_lo/hi, dense_morton).  Above
     one chunk the rows are sorted by the morton code of their world
     centroids, so each 128-row chunk is a compact blob with a tight AABB;
     single-chunk scenes keep object order."""
+    ti = int(sum(t_off[m + 1] - t_off[m] for m in flat.obj_mesh.tolist()))
+    if ti > DENSE_COEFF_MAX_TRIS:
+        raise NotImplementedError(
+            f"{ti} instance triangles: above DENSE_COEFF_MAX_TRIS the JAX package "
+            "walks its XLA BVH, which is not ported (ROADMAP queue 1 item 10a)")
     m_f32, v2_f32, verts_f32 = _host_m_cache(host)
     center = (
         (flat.obj_aabb_lo.min(axis=0) + flat.obj_aabb_hi.max(axis=0)) / 2
@@ -310,7 +326,8 @@ def _dense_coefficients(host: HostScene, flat: FlatScene, t_off):
         order = _morton_order(lo_raw, hi_raw)
         n_all, e_all, tri_all, obj_all = n_all[order], e_all[order], tri_all[order], obj_all[order]
         lo_raw, hi_raw = lo_raw[order], hi_raw[order]
-    chunk_lo, chunk_hi = _chunk_aabbs(lo_raw, hi_raw)
+    chunk_lo, chunk_hi = _group_aabbs(lo_raw, hi_raw, DENSE_CHUNK_TRIS)
+    leaf_lo, leaf_hi = _group_aabbs(lo_raw, hi_raw, BVH_LEAF_TRIS)
     return dict(
         dense_n_f32=n_all,
         dense_e=e_all,
@@ -319,6 +336,8 @@ def _dense_coefficients(host: HostScene, flat: FlatScene, t_off):
         dense_center=center.astype(np.float32),
         dense_chunk_lo=chunk_lo,
         dense_chunk_hi=chunk_hi,
+        dense_leaf_lo=leaf_lo,
+        dense_leaf_hi=leaf_hi,
         dense_morton=morton,
     )
 
@@ -448,6 +467,8 @@ def flatten_frame(
         dense_center=f32(dense["dense_center"]),
         dense_chunk_lo=f32(dense["dense_chunk_lo"]),
         dense_chunk_hi=f32(dense["dense_chunk_hi"]),
+        dense_leaf_lo=f32(dense["dense_leaf_lo"]),
+        dense_leaf_hi=f32(dense["dense_leaf_hi"]),
         obj_layout=obj_layout,
         n_lights=int(k),
         dense_morton=dense["dense_morton"],

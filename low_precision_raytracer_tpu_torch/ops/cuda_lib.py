@@ -26,7 +26,7 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("dense_trace", "dense_multi", "svgf", "wavefront")
+SOURCES = ("dense_trace", "dense_multi", "svgf", "wavefront", "packet_trace")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no contraction into FMA: the kernels round like their plain versions
@@ -52,6 +52,9 @@ SIGNATURES = {
         "lprt_wavefront_schedule": [P] * 5 + [I] * 4 + [P] * 2 + [P],
         "lprt_wavefront_assigned": [P] * 6 + [I, I] + [P, P] + [I] * 4 + [P] * 3 + [P],
     },
+    "packet_trace": {
+        "lprt_packet_trace": [P] * 10 + [I] * 4 + [P] * 6 + [P],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -60,7 +63,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 # kernel (never on the CPU path); a run resets them to read its own counts
 LAUNCHES = {"dense_trace": 0, "dense_trace_multi": 0, "coef_fetch": 0,
             "temporal_accum": 0, "wavelet_iter": 0, "wavefront_schedule": 0,
-            "wavefront_assigned": 0}
+            "wavefront_assigned": 0, "packet_trace": 0}
 
 
 def reset_launches() -> None:

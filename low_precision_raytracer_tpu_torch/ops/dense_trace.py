@@ -21,9 +21,10 @@ the result does not depend on the order in which triangles are tested.
 Any hit: tri is a 0 (occluded) / -1 marker, t = 1e5, u = v = 0, obj = -1.
 
 Around K1b: `ray_aabb_entry` (the conservative slab-entry bound both the
-kernel's chunk walk and the sort key use), `anchor_key` and
-`dense_trace_multi_sorted`, the coherence-recovering launch for incoherent
-rays (`trace_rays_dense_pallas_sorted`: key, stable sort, trace, unsort).
+kernel's chunk walk and the sort key use), the sort keys `anchor_key` and
+`morton_key`, and `dense_trace_multi_sorted`, the coherence-recovering
+launch for incoherent rays (`trace_rays_dense_pallas_sorted`: key, stable
+sort, trace, unsort; `sorted_launch` also serves the packet BVH's).
 `m_shift_test` (the test's arithmetic, shared by the plain versions),
 `coef_table` (the kernels' table layout) and `scene_exit_cap` (the
 per-ray reach cap of the wavefront) sit here too.
@@ -343,21 +344,79 @@ def anchor_key(lo, hi, origins, directions, max_dist, live, slab_elems: int = 1 
     return key | torch.where(live, 0, 1 << 28).to(torch.int32)
 
 
-def dense_trace_multi_sorted(origins, directions, skip, mind, maxd, coef, tri_ids,
-                             obj_ids, chunk_lo, chunk_hi, find_any: bool = False):
-    """K1b on incoherent rays, coherence recovered: sort the rays by
-    `anchor_key`, trace them in that order, scatter the results back to
-    the caller's order.  Same arguments and results as
-    `dense_trace_multi`; equal to it bit for bit (its result does not
-    depend on ray order)."""
-    key = anchor_key(chunk_lo, chunk_hi, origins, directions, maxd, live=maxd > mind)
-    order = torch.sort(key, stable=True).indices  # stable: a fixed permutation
-    outs = dense_trace_multi(origins[order], directions[order], skip[order],
-                             mind[order], maxd[order], coef, tri_ids, obj_ids,
-                             chunk_lo, chunk_hi, find_any=find_any)
+def _spread3(x):
+    """7 bits -> every 3rd bit."""
+    x = (x | (x << 8)) & 0x0100F00F
+    x = (x | (x << 4)) & 0x010C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def _spread6(x):
+    """4 bits -> bits 0, 6, 12, 18."""
+    x = (x | (x << 10)) & 0x00003003
+    x = (x | (x << 5)) & 0x00041041
+    return x
+
+
+def morton_key(origins, directions, live=None, mode: str = "beam"):
+    """The JAX package's `_morton_key` (`ops/dense_pallas.py`): liveness
+    (bit 28: dead lanes sort last), the direction octant, then 'origin': a
+    21-bit morton code of the origin (7 bits per axis) or 'beam': origin
+    and |direction| interleaved, 4 bits per axis each, origin-major.  The
+    origin grid spans the launch's own origins.  -> (R,) i32."""
+    of = origins.to(torch.float32)
+    df = directions.to(torch.float32)
+    lo = of.amin(dim=0)
+    hi = of.amax(dim=0)
+    i32 = torch.int32
+    octant = ((df[:, 0] > 0).to(i32) | ((df[:, 1] > 0).to(i32) << 1)
+              | ((df[:, 2] > 0).to(i32) << 2))
+    span = torch.clamp(hi - lo, min=1e-6)
+    if mode == "origin":
+        q = torch.clamp((of - lo) / span * 127, 0, 127).to(i32)
+        m = _spread3(q[:, 0]) | (_spread3(q[:, 1]) << 1) | (_spread3(q[:, 2]) << 2)
+        key = (octant << 21) | m
+    elif mode == "beam":
+        qo = torch.clamp((of - lo) / span * 15, 0, 15).to(i32)
+        qd = torch.clamp(df.abs() * 15, 0, 15).to(i32)
+        m = ((_spread6(qo[:, 0]) << 5) | (_spread6(qo[:, 1]) << 4) | (_spread6(qo[:, 2]) << 3)
+             | (_spread6(qd[:, 0]) << 2) | (_spread6(qd[:, 1]) << 1) | _spread6(qd[:, 2]))
+        key = (octant << 24) | m
+    else:
+        raise ValueError(f"morton_key: unknown mode {mode!r}")
+    if live is not None:
+        key = key | torch.where(live, 0, 1 << 28).to(i32)
+    return key
+
+
+def sorted_launch(launch, key, origins, directions, skip, mind, maxd, *table, **kw):
+    """`launch` on the rays in `key` order (a stable sort: a fixed
+    permutation), its results scattered back to the caller's order."""
+    order = torch.sort(key, stable=True).indices
+    outs = launch(origins[order], directions[order], skip[order], mind[order], maxd[order],
+                  *table, **kw)
     back = []
     for x in outs:
         y = torch.empty_like(x)
         y[order] = x
         back.append(y)
     return tuple(back)
+
+
+def dense_trace_multi_sorted(origins, directions, skip, mind, maxd, coef, tri_ids,
+                             obj_ids, chunk_lo, chunk_hi, find_any: bool = False,
+                             key_mode: str = "anchor"):
+    """K1b on incoherent rays, coherence recovered
+    (`trace_rays_dense_pallas_sorted`): sort the rays by `anchor_key`, or
+    by `morton_key` in mode `key_mode` ('beam' / 'origin'), trace them in
+    that order, scatter the results back to the caller's order.  Same
+    arguments and results as `dense_trace_multi`; equal to it bit for bit
+    (its result does not depend on ray order)."""
+    live = maxd > mind
+    if key_mode == "anchor":
+        key = anchor_key(chunk_lo, chunk_hi, origins, directions, maxd, live=live)
+    else:
+        key = morton_key(origins, directions, live=live, mode=key_mode)
+    return sorted_launch(dense_trace_multi, key, origins, directions, skip, mind, maxd,
+                         coef, tri_ids, obj_ids, chunk_lo, chunk_hi, find_any=find_any)

@@ -1,31 +1,42 @@
-"""Trace dispatch for the dense route (port of the pieces of
-`low_precision_raytracer_tpu/ops/trace.py` the dense route needs).
+"""Trace dispatch (port of `low_precision_raytracer_tpu/ops/trace.py` for
+the dense route and the packet BVH).
 
-`trace` prepares the kernels' inputs (recentred rays, the coefficient
-table, the chunk AABBs, the light rows) the way `trace_rays_dense_pallas`
-prepares them outside its kernel, then dispatches as the JAX package does:
+`resolve_impl` resolves `traversal_impl='auto'` as the JAX package does
+on the TPU: the dense route ('dense_pallas') up to `packet_bvh_min_tris`
+instance triangles, the packet BVH ('pallas') up to `packet_bvh_max_tris`,
+the XLA walk ('jax', refused: ROADMAP queue 1 item 10a) above.  `trace`
+prepares the kernels' inputs (recentred rays, the coefficient table, the
+chunk or leaf AABBs, the light rows) the way the JAX wrappers prepare them
+outside their kernels, then dispatches as the JAX package does.
 
+The dense route:
 - closest-hit launches on single-chunk scenes (<= 128 instance
   triangles) -> K1a `dense_trace`, with the fused shadow phase when
   `di_lights` is given;
 - other coherent launches (multi-chunk, or any hit) -> K1b
   `dense_trace_multi`;
-- multi-chunk, incoherent launches on scenes with several objects and
-  more than 4 chunks' worth of triangles -> the anchor-sorted K1b launch
-  (`dense_trace_multi_sorted`), unless `incoherent_sort='none'`;
 - incoherent launches the JAX package sends to the per-ray wavefront
   (bf16, above `wavefront_min_tris` instance triangles) ->
   `trace_rays_wavefront` (K5 and its schedule kernel, `ops/wavefront.py`),
   after the `lane_k` transposes;
-- scenes above `packet_bvh_min_tris` under `traversal_impl='auto'` ->
-  NotImplementedError (the packet BVH, K6, ROADMAP queue 1 item 10).
+- other multi-chunk, incoherent launches on scenes with several objects
+  and more than 4 chunks' worth of triangles -> the sorted K1b launch
+  (`dense_trace_multi_sorted`, keyed by `incoherent_sort`), unless
+  `incoherent_sort='none'`.
+
+The packet BVH (K6, `ops/packet_trace.py`): coherent launches ->
+`packet_trace`; incoherent launches on scenes with several objects and
+more than 4096 instance triangles -> `packet_trace_sorted` (the morton
+'beam' key); the tree over the leaf AABBs is built once per frame table.
 
 `resolve_fallback`, `incoherent_reorders`, `di_fusible` and
-`moveforward_eps` answer as the JAX package does for the dense route.
+`moveforward_eps` answer as the JAX package does for the resolved route.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -43,9 +54,17 @@ from low_precision_raytracer_tpu_torch.ops.dense_trace import (
     dense_trace_multi,
     dense_trace_multi_sorted,
 )
+from low_precision_raytracer_tpu_torch.ops.packet_trace import (
+    build_tree,
+    packet_trace,
+    packet_trace_sorted,
+)
 from low_precision_raytracer_tpu_torch.ops.wavefront import trace_rays_wavefront
 
 TC = DENSE_CHUNK_TRIS
+# the packet walk sorts incoherent launches above this many instance
+# triangles (`ops/trace.py:414` of the JAX package)
+PACKET_SORT_MIN_TRIS = 4096
 
 
 class Hit(NamedTuple):
@@ -66,19 +85,45 @@ def resolve_fallback(fb: str, prec: Precision) -> str:
     return fb
 
 
+def resolve_impl(frame: FrameInput, cfg: RenderConfig) -> str:
+    """The trace route: `cfg.traversal_impl`, or for 'auto' the JAX
+    package's TPU resolution from the instance-triangle count."""
+    impl = cfg.traversal_impl
+    if impl != "auto":
+        return impl
+    ti = instance_tris(frame)
+    if ti > 0:
+        if ti <= cfg.packet_bvh_min_tris and len(frame.obj_layout) > 0:
+            return "dense_pallas"
+        if ti <= cfg.packet_bvh_max_tris:
+            return "pallas"
+    return "jax"
+
+
+def resolve_cfg(frame: FrameInput, cfg: RenderConfig) -> RenderConfig:
+    """`cfg` with 'auto' replaced by the scene's route (the JAX `Renderer`
+    bakes it in at construction)."""
+    return dataclasses.replace(cfg, traversal_impl=resolve_impl(frame, cfg))
+
+
 def _wavefront_route(frame: FrameInput, cfg: RenderConfig, prec: Precision) -> bool:
     """Would the JAX package send this scene's incoherent launches to the
-    per-ray wavefront (`ops/trace.py:299-326`)?"""
+    per-ray wavefront (`ops/trace.py:299-326`, inside the dense route)?"""
     ti = instance_tris(frame)
-    return (cfg.incoherent_impl == "wavefront" and not prec.is_f32
+    return (resolve_impl(frame, cfg) == "dense_pallas"
+            and cfg.incoherent_impl == "wavefront" and not prec.is_f32
             and resolve_fallback(cfg.triangle_fallback, prec) == "mxu3"
             and ti > max(4 * TC, cfg.wavefront_min_tris)
             and ti <= cfg.packet_bvh_max_tris)
 
 
 def _sorted_route(frame: FrameInput, cfg: RenderConfig) -> bool:
-    return (len(frame.obj_layout) > 1 and instance_tris(frame) > 4 * TC
-            and cfg.incoherent_sort != "none")
+    """Would an incoherent launch that does not go to the wavefront be
+    sorted (the dense route's sorted K1b, the packet walk's sorted launch)?"""
+    n_obj, ti = len(frame.obj_layout), instance_tris(frame)
+    if resolve_impl(frame, cfg) == "pallas":
+        return n_obj > 1 and ti > PACKET_SORT_MIN_TRIS
+    return n_obj > 1 and ti > 4 * TC and cfg.incoherent_sort != "none"
 
 
 def incoherent_reorders(frame: FrameInput, cfg: RenderConfig, prec: Precision) -> bool:
@@ -89,8 +134,8 @@ def incoherent_reorders(frame: FrameInput, cfg: RenderConfig, prec: Precision) -
 
 def di_fusible(frame: FrameInput, cfg: RenderConfig) -> bool:
     """Can closest-hit launches carry the fused shadow phase?  True for
-    single-chunk scenes with at least one light."""
-    if cfg.di_fuse == "off":
+    single-chunk scenes of the dense route with at least one light."""
+    if cfg.di_fuse == "off" or resolve_impl(frame, cfg) != "dense_pallas":
         return False
     return 0 < instance_tris(frame) <= TC and frame.n_lights > 0
 
@@ -100,8 +145,10 @@ def moveforward_eps(frame: FrameInput, cfg: RenderConfig, prec: Precision,
     """Self-intersection epsilon of a secondary launch: origins ride
     exactly on the mxu3 dense route, so only the test's own t error needs
     clearing (`ray_moveforward_t_exact`); the wavefront re-quantizes its
-    origins and keeps the dtype epsilon."""
-    if prec.is_f32 or resolve_fallback(cfg.triangle_fallback, prec) != "mxu3":
+    origins and keeps the dtype epsilon, and so does every launch of the
+    packet BVH (as in the JAX package, `ops/trace.py:135-136`)."""
+    if (prec.is_f32 or resolve_impl(frame, cfg) != "dense_pallas"
+            or resolve_fallback(cfg.triangle_fallback, prec) != "mxu3"):
         return prec.ray_moveforward_t
     if not coherent and _wavefront_route(frame, cfg, prec):
         return prec.ray_moveforward_t
@@ -109,13 +156,35 @@ def moveforward_eps(frame: FrameInput, cfg: RenderConfig, prec: Precision,
 
 
 def check_scene(frame: FrameInput, cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for scenes whose launches leave the dense
-    route the port covers."""
-    ti = instance_tris(frame)
-    if cfg.traversal_impl == "auto" and ti > cfg.packet_bvh_min_tris:
+    """Raise NotImplementedError for scenes whose route the port does not
+    cover: above `packet_bvh_max_tris`, 'auto' resolves to the XLA walk."""
+    impl = resolve_impl(frame, cfg)
+    if impl not in ("dense_pallas", "pallas"):
         raise NotImplementedError(
-            f"{ti} instance triangles: 'auto' routes to the packet BVH (K6), "
-            "which waits (ROADMAP queue 1 item 10)")
+            f"{instance_tris(frame)} instance triangles: 'auto' resolves to "
+            f"traversal_impl={impl!r}, the XLA BVH walk, which is not ported "
+            "(ROADMAP queue 1 item 10a)")
+
+
+_TREES: dict = {}
+
+
+def _packet_tables(frame: FrameInput):
+    """The packet route's leaf AABBs recentred like the rays and the tree
+    over them, built once per frame table (keyed on the leaf tensor, held
+    weakly)."""
+    key = id(frame.dense_leaf_lo)
+    hit = _TREES.get(key)
+    if hit is not None and hit[0]() is frame.dense_leaf_lo:
+        return hit[1]
+    for k in [k for k, (ref, _) in _TREES.items() if ref() is None]:
+        del _TREES[k]
+    c = frame.dense_center
+    lo = (frame.dense_leaf_lo - c[None, :]).contiguous()
+    hi = (frame.dense_leaf_hi - c[None, :]).contiguous()
+    tables = (lo, hi, build_tree(lo, hi, frame.dense_n_f32.shape[0]))
+    _TREES[key] = (weakref.ref(frame.dense_leaf_lo), tables)
+    return tables
 
 
 def di_light_rows(frame: FrameInput, di_lights: dict) -> torch.Tensor:
@@ -135,8 +204,8 @@ def di_light_rows(frame: FrameInput, di_lights: dict) -> torch.Tensor:
 def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
           prec: Precision, find_any: bool = False, skip_tri=None, min_dist=0.0,
           max_dist=1e5, coherent: bool = True, lane_k: int = 1, di_lights=None):
-    """One trace launch on the dense route.  -> Hit, or (Hit, vis (R,) i32)
-    when `di_lights` asks for the fused shadow phase (single-chunk only).
+    """One trace launch.  -> Hit, or (Hit, vis (R,) i32) when `di_lights`
+    asks for the fused shadow phase (single-chunk dense route only).
 
     `coherent=False` marks rays not in screen order (GI bounces, bounce
     shadows).  `lane_k=K`: the caller packed K command lanes per pixel,
@@ -166,7 +235,9 @@ def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
                     max_dist=t1(max_dist), coherent=coherent)
         return Hit(*(x.reshape(K, R0).T.reshape(R) for x in hit))
 
-    if di_lights is not None and (find_any or instance_tris(frame) > TC):
+    impl = resolve_impl(frame, cfg)
+    if di_lights is not None and (find_any or instance_tris(frame) > TC
+                                  or impl != "dense_pallas"):
         raise ValueError("the fused shadow phase rides single-chunk closest-hit launches")
     if not coherent and _wavefront_route(frame, cfg, prec):
         return Hit(*trace_rays_wavefront(
@@ -177,12 +248,21 @@ def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
     d = directions.to(f32).contiguous()
     rays = (o, d, skip_tri.to(torch.int32).contiguous(), min_dist.contiguous(),
             max_dist.contiguous(), coef_table(frame), frame.dense_tri, frame.dense_obj)
+    if impl == "pallas":
+        lo, hi, tree = _packet_tables(frame)
+        launch = (packet_trace_sorted if not coherent and _sorted_route(frame, cfg)
+                  else packet_trace)
+        return Hit(*launch(*rays, lo, hi, find_any=find_any, tree=tree))
+    if impl != "dense_pallas":
+        raise NotImplementedError(
+            f"traversal_impl={impl!r} is not ported (ROADMAP queue 1 item 10a)")
     if instance_tris(frame) <= TC and not find_any:
         lights = None if di_lights is None else di_light_rows(frame, di_lights)
         *h, vis = dense_trace(*rays, lights, d_mov=prec.ray_moveforward_t_exact)
         return (Hit(*h), vis) if di_lights is not None else Hit(*h)
     boxes = ((frame.dense_chunk_lo - c[None, :]).contiguous(),
              (frame.dense_chunk_hi - c[None, :]).contiguous())
-    launch = (dense_trace_multi_sorted if not coherent and _sorted_route(frame, cfg)
-              else dense_trace_multi)
-    return Hit(*launch(*rays, *boxes, find_any=find_any))
+    if not coherent and _sorted_route(frame, cfg):
+        return Hit(*dense_trace_multi_sorted(*rays, *boxes, find_any=find_any,
+                                             key_mode=cfg.incoherent_sort))
+    return Hit(*dense_trace_multi(*rays, *boxes, find_any=find_any))

@@ -10,10 +10,12 @@ compose and tonemap.  TAA at mix weight 1 is the identity and is not run.
 Single-chunk scenes with lights (Cornell) take the fused route: the
 primary launch carries round 0's shadow phase and the GI launch round 1's
 (K1a x 2).  Other scenes take the unfused route (`_trace_di_gi`): on a
-multi-chunk, multi-object scene (Sponza-class) that is four K1b launches,
-the primary, round 0's shadows (coherent), round 0's GI bounce and round
-1's shadows (both sorted by `anchor_key`).  Sky radiance (`di_sky`) joins
-both rounds' intensity.
+multi-chunk, multi-object scene that is four launches, the primary, round
+0's shadows (coherent), round 0's GI bounce and round 1's shadows (both
+incoherent): on K1b, the last two sorted by `anchor_key` (Sponza-class),
+or on the per-ray wavefront (colonnade-83k); on the packet BVH K6, the
+last two sorted by `morton_key` (colonnade-2M, above 2^20 instance
+triangles).  Sky radiance (`di_sky`) joins both rounds' intensity.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from low_precision_raytracer_tpu_torch.ops.trace import (
     di_fusible,
     incoherent_reorders,
     moveforward_eps,
+    resolve_cfg,
     trace,
 )
 from low_precision_raytracer_tpu_torch.render.framestate import (
@@ -331,7 +334,6 @@ class Renderer:
         if host_scene.animated:
             raise NotImplementedError("animated scenes wait (ROADMAP queue 1 item 11)")
         self.device = resolve_device(device)
-        self.cfg = cfg
         self.scene = build_scene_arrays(host_scene, cfg.prec, self.device)
         self.frame = flatten_frame(
             host_scene, cfg.prec, self.device,
@@ -339,6 +341,8 @@ class Renderer:
             width=cfg.width, height=cfg.height,
         )
         check_scene(self.frame, cfg)
+        # bake the scene's route into the config, as the JAX Renderer does
+        self.cfg = resolve_cfg(self.frame, cfg)
         self.state = init_frame_state(cfg, len(self.frame.obj_layout), self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 

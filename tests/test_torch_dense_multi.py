@@ -329,6 +329,20 @@ def test_walk_and_sort_equal_plain(sponza, find_any):
     assert (plain[3] >= 0).any() and (plain[3] < 0).any()
 
 
+@pytest.mark.parametrize("key_mode", ["anchor", "beam", "origin"])
+def test_sorted_launch_keys_equal_unsorted(sponza, key_mode):
+    """The sorted K1b launch under each `incoherent_sort` key equals the
+    unsorted launch bit for bit (closest and any hit)."""
+    c = sponza
+    p, d, skip, maxd = _gi_rays(c, np.random.default_rng(6))
+    args = _launch_args(c["tframe"], p, d, skip, np.full(p.shape[0], 1e-2, np.float32), maxd)
+    for find_any in (False, True):
+        want = dense_trace_multi(*args, find_any=find_any)
+        got = dense_trace_multi_sorted(*args, find_any=find_any, key_mode=key_mode)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
 def test_multi_equals_single_on_cornell():
     """On a one-chunk table K1b's plain version is K1a's (no lights), and
     its any-hit marker is K1a's hit / miss."""

@@ -5,8 +5,11 @@ whose SVGF moments come from the temporal branch), and the Sponza-class
 frame (`sponza_like_scene(3, 1)`, skybox on: multi-chunk, unfused
 shadows, sorted incoherent launches) over 4 — and colonnade-83k
 (`sponza_like_scene(8, 3)`: incoherent launches on the per-ray wavefront)
-at 32 x 32 over 4.  The JAX side runs the TPU route
-(dense Pallas trace, fused Pallas SVGF) in interpret mode; the port is fed
+at 32 x 32 over 4, and the packet-BVH route (`traversal_impl='pallas'` on
+colonnade-5k, the route 'auto' takes above 2^20 instance triangles) at
+32 x 32 over 4.  The JAX side runs the TPU route
+(dense Pallas trace or the packet BVH kernel, fused Pallas SVGF) in
+interpret mode; the port is fed
 the JAX package's own GI uniforms, `jax.random.uniform(k_shade0, (7R,))`
 from the key splits of `render_frame`.
 
@@ -133,3 +136,36 @@ def test_colonnade_83k_frame_matches_jax(monkeypatch):
     assert int(ct.max()) == 3
     assert calls == [("dense_trace_multi", False), ("dense_trace_multi", True),
                      ("trace_rays_wavefront", False), ("trace_rays_wavefront", True)] * 4
+
+
+def test_packet_frame_matches_jax(monkeypatch):
+    """The packet BVH route (K6) on colonnade-5k (`sponza_like_scene()`,
+    5,314 instance triangles, skybox) with traversal_impl='pallas' on both
+    sides, 32 x 32 over 4 frames: per frame the primary and round-0 shadows
+    on the packet walk, the GI bounce and round-1 shadows on the sorted
+    packet walk (above 4096 instance triangles, several objects)."""
+    from low_precision_raytracer_tpu_torch.ops import trace as ttrace
+
+    calls = []
+    for name in ("dense_trace", "dense_trace_multi", "dense_trace_multi_sorted",
+                 "trace_rays_wavefront", "packet_trace", "packet_trace_sorted"):
+        fn = getattr(ttrace, name)
+        monkeypatch.setattr(ttrace, name, lambda *a, _n=name, _f=fn, **kw: (
+            calls.append((_n, kw.get("find_any", False))) or _f(*a, **kw)))
+    n = 32
+    jr = JaxRenderer(jax_sponza(), JaxConfig(
+        width=n, height=n, precision="bf16", traversal_impl="pallas",
+        svgf=JaxSVGF(wavelet_impl="pallas")))
+    tr = Renderer(sponza_like_scene(), RenderConfig(width=n, height=n, precision="bf16",
+                                                    traversal_impl="pallas"), device="cpu")
+    f0 = flatten_frame(jr.host, jr.prec, max_direct_lights=4, width=n, height=n)
+    assert not jax_di_fusible(jr.scene, f0, jr.cfg, jr.prec)
+    assert jax_reorders(jr.scene, f0, jr.cfg, jr.prec)
+    assert not di_fusible(tr.frame, tr.cfg)
+    assert incoherent_reorders(tr.frame, tr.cfg, tr.cfg.prec)
+    assert not _wavefront_route(tr.frame, tr.cfg, tr.cfg.prec)
+    assert instance_tris(tr.frame) == 5314
+    ct = _run_both(jr, tr, 4, n)
+    assert int(ct.max()) == 3
+    assert calls == [("packet_trace", False), ("packet_trace", True),
+                     ("packet_trace_sorted", False), ("packet_trace_sorted", True)] * 4

@@ -1,6 +1,6 @@
 """PyTorch port, host side: the port's own Cornell and Sponza-class builds
 equal the JAX package's tables leaf for leaf, bit for bit (morton order,
-chunk AABBs, the quad-packed sky); `scene_from_numpy` carries the JAX
+chunk and leaf AABBs, the quad-packed sky); `scene_from_numpy` carries the JAX
 leaves across unchanged; the port imports no JAX; the entry points refuse
 what they do not cover."""
 
@@ -84,6 +84,30 @@ def test_sponza_tables_match_jax_bitwise(args):
     assert f.dense_morton and s.sky_valid and s.sky_quad.dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("args", [(4, 2), (8, 3)], ids=["colonnade-5k", "colonnade-83k"])
+def test_leaf_aabbs_match_jax_bitwise(args):
+    """The packet BVH's per-leaf AABBs (32 rows each, the rows padded to a
+    128 multiple, widened, the all-padding leaves parked far away)."""
+    _s, f_jax = _jax_tables("bf16", jax_sponza(*args))
+    f = tscene.flatten_frame(sponza_like_scene(*args), "bf16", "cpu", max_direct_lights=4,
+                             width=W, height=H)
+    nc = f.dense_chunk_lo.shape[0]
+    assert f.dense_leaf_lo.shape == f.dense_leaf_hi.shape == (4 * nc, 3)
+    for name in ("dense_leaf_lo", "dense_leaf_hi"):
+        np.testing.assert_array_equal(getattr(f, name).numpy(), np.asarray(getattr(f_jax, name)),
+                                      err_msg=name)
+    ti = tscene.instance_tris(f)
+    assert bool((f.dense_leaf_lo[:-(-ti // 32)] <= f.dense_leaf_hi[:-(-ti // 32)]).all())
+
+
+def test_coefficient_table_cap(monkeypatch):
+    """Above DENSE_COEFF_MAX_TRIS the JAX package builds no table (its XLA
+    walk takes over); the port refuses the scene instead."""
+    monkeypatch.setattr(tscene, "DENSE_COEFF_MAX_TRIS", 100)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10a"):
+        tscene.flatten_frame(sponza_like_scene(2, 1), "bf16", "cpu")
+
+
 def test_scene_from_numpy_carries_jax_leaves():
     s_jax, f_jax = _jax_tables("bf16")
     scene_np = {k: np.asarray(getattr(s_jax, k)) for k in tscene.tensor_fields(tscene.SceneArrays)}
@@ -138,7 +162,7 @@ def test_renderer_without_cuda_raises(monkeypatch):
     dict(traversal_impl="jax"),
     dict(triangle_fallback="both"),
     dict(dense_epilogue="pack"),
-    dict(incoherent_sort="beam"),
+    dict(traversal_impl="dense"),
 ])
 def test_uncovered_configs_raise(kw):
     cfg = RenderConfig(width=8, height=8, **{"precision": "bf16", **kw})
@@ -147,18 +171,26 @@ def test_uncovered_configs_raise(kw):
 
 
 def test_uncovered_scenes_raise():
-    """Textured scenes, scenes that 'auto' sends to the packet BVH (K6) and
-    the wavefront's 'rounds' mode are refused; a two-chunk scene (130
-    instance triangles), a skybox, di_fuse='off' and the per-ray wavefront
-    (K5, here on colonnade-830 with its threshold lowered) are covered."""
+    """Textured scenes, scenes that 'auto' sends to the XLA BVH walk (above
+    packet_bvh_max_tris) and the wavefront's 'rounds' mode are refused; a
+    two-chunk scene (130 instance triangles), a skybox, di_fuse='off', the
+    per-ray wavefront (K5, here on colonnade-830 with its threshold
+    lowered), the morton sort keys and the packet BVH (K6, with
+    packet_bvh_min_tris lowered) are covered."""
     cfg = RenderConfig(width=8, height=8, precision="bf16")
     host = cornell_box_scene()
     host.textures = [np.zeros((2, 2, 4), np.uint8)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Renderer(host, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="packet BVH.*ROADMAP queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="XLA BVH walk.*ROADMAP queue 1 item 10a"):
         Renderer(sponza_like_scene(3, 1), RenderConfig(
-            width=8, height=8, precision="bf16", packet_bvh_min_tris=600), device="cpu")
+            width=8, height=8, precision="bf16", packet_bvh_min_tris=600,
+            packet_bvh_max_tris=700), device="cpu")
+    for kw in (dict(packet_bvh_min_tris=600), dict(incoherent_sort="beam"),
+               dict(incoherent_sort="origin")):
+        img, _aux = Renderer(sponza_like_scene(3, 1), RenderConfig(
+            width=8, height=8, precision="bf16", **kw), device="cpu").render()
+        assert bool(torch.isfinite(img).all())
     with pytest.raises(NotImplementedError, match="rounds.*ROADMAP queue 1 item 10a"):
         Renderer(sponza_like_scene(3, 1), RenderConfig(
             width=8, height=8, precision="bf16", wavefront_mode="rounds"), device="cpu")
