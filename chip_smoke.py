@@ -11,9 +11,10 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
 3. flagship kernel phase: two warm-up frames of the flagship (Cornell,
    bf16, 1920x1080) record the inputs each kernel wrapper gets on the main
    path; each kernel is then held against its plain PyTorch version on
-   those inputs on the card, and both are timed with CUDA events;
+   those inputs on the card (K1a exact, the SVGF kernels to rtol 1e-4 /
+   atol 1e-5), and both are timed with CUDA events;
 4. flagship path phase: all launch counts are zeroed, a fresh Renderer
-   renders 8 flagship frames, the counts are read; per frame the
+   (seed 0) renders 8 flagship frames, the counts are read; per frame the
    single-chunk trace K1a runs 2 times, the temporal kernel once, the
    a-trous kernel 5 times, and the history fetch once on the fast path
    (frame 0 has no history: like the JAX package it takes the plain 2x2
@@ -72,15 +73,40 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
     (`sponza_like_scene()`) with traversal_impl='pallas' (K6 on all four
     launches, the last two sorted) on the card against the plain versions
     on the CPU, 4 frames.  At 2M rows the CPU plain path (an all-pairs
-    test) would take hours, so the reference runs on the smaller scene.
+    test) would take hours, so the reference runs on the smaller scene;
+15. fp32 flagship kernel phase: K1a with the f32 'both' band (and its
+    fused shadow phase) on the two 1080p launches of the fp32 flagship,
+    held against its plain version on every ray (t, u, v, tri, obj, vis
+    exact; the bf16 launches of phase 3 are held the same way) and timed;
+16. fp32 flagship path phase: 8 frames; per frame K1a 2, K1b 0, K6 0, the
+    wavefront 0, the temporal kernel 1, the a-trous kernel 5, the history
+    fetch 1 from frame 1.  Then the parity line: PSNR and SSIM
+    (`utils/image.py`) between the 8th frame of this run and of phase 4's
+    bf16 run, same seed; and a 64x64 fp32 render on the card against the
+    plain versions on the CPU, 5 frames;
+17. fp32 Sponza-class: K1b with the f32 band on the four 1080p launches,
+    exact against the plain version on 2^18-ray slices (the plain version
+    timed on the slice), then 8 frames with K1b 4 per frame;
+18. fp32 packet route: the Sponza-class frame with traversal_impl='pallas':
+    K6 with its own f32 band on the four launches, exact against the plain
+    version on 2^12-ray slices, timed; then 4 frames with K6 4 per frame;
+19. colonnade-328k kernel phase: `sponza_like_scene(8, 4)` (328,450
+    instance triangles in 2,567 chunks, bf16, 1920x1080; 'auto' resolves
+    to the dense route): K1b (its walk of a tree over the chunk boxes) on
+    the primary and round-0 shadow launches, exact against the plain
+    version on 2^16-ray slices, timed with its bound;
+20. colonnade-328k path phase: 8 frames; per frame K1b 2, the wavefront's
+    K5 >= 2 and equal to its schedule kernel, K6 0, K1a 0.
 
-Before the last line it prints a `kernels` JSON line (per kernel: launches
-on its paths' runs, max error against the plain version, time, plain time,
-the least time the work could take on the card and what bounds it; K1b's
-times are those of its Sponza-class launches, its colonnade-83k launches
-are on their own lines; K6's are the mean of its four colonnade-2M
-launches) and the nvidia-smi line; the last line is
-{"ok": true, "device": {...}}.  About 4 minutes on an H100.
+Before the last line it prints a `kernels_fp32` JSON line (K1a, K1b, K6 in
+fp32: launches on the fp32 path phases, the fp32 kernel phases' times), a
+`kernels` JSON line (per kernel: launches over every path phase, max error
+against the plain version, time, plain time, the least time the work
+could take on the card and what bounds it; K1b's times are those of its
+bf16 Sponza-class launches, its colonnade-83k and -328k launches are on
+their own lines; K6's are the mean of its four colonnade-2M launches) and
+the nvidia-smi line; the last line is {"ok": true, "device": {...}}.
+About 6 minutes on an H100.
 """
 
 from __future__ import annotations
@@ -158,10 +184,19 @@ def nbytes(*ts):
 # operation counts (f32 arithmetic, from the kernels' code)
 
 TRI_TEST_OPS = 40  # 6 dot rows (28) + t = -Oz/Dz (2) + u, v (4) + u+v (1) + 5 compares
+# the f32 'both' band on top, per (ray, row): the four S rows (22), the two
+# error bounds (16), w and the sum of the bounds (3), the three band tests
+# (11), the widened test (7), the select (2); the kernels also scale |n|, |e|
+# per row (16 more), work the JAX package does once per table, not counted
+BAND_OPS = 61
 SHADOW_SETUP_OPS = 14  # to-light vector 3, length 6, 1/max 2, direction 3
-# K1b slab test per chunk: 6 subtracts, 6 multiplies, 6 min/max, 6
+# slab test per tree box: 6 subtracts, 6 multiplies, 6 min/max, 6
 # finiteness tests, 4 running min/max, entry 2, acceptance 4
 BOX_TEST_OPS = 34
+
+
+def row_ops(band):
+    return TRI_TEST_OPS + (BAND_OPS if band is not None and band.form else 0)
 
 
 def dense_trace_ops(args, kw, out):
@@ -170,11 +205,12 @@ def dense_trace_ops(args, kw, out):
     occluder (the kernel's any-hit loop stops there)."""
     import torch
 
-    from low_precision_raytracer_tpu_torch.ops.dense_trace import tri_quantities
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import STRICT, tri_quantities
 
     o, d, skip, mind, maxd, coef, tri_ids = args[:7]
     lights = args[8] if len(args) > 8 else kw.get("lights")
     d_mov = kw.get("d_mov", 0.0)
+    band = kw.get("band", STRICT)
     TI = coef.shape[0]
     tests = int((maxd > mind).sum()) * TI
     t, tri = out[0], out[3]
@@ -191,36 +227,13 @@ def dense_trace_ops(args, kw, out):
         inv = 1.0 / dist.clamp(min=1e-20)
         sdir = torch.where(isdir, a[None, :].expand_as(dvec), dvec * inv[:, None])
         maxd_l = torch.where(isdir, torch.full_like(dist, 1000.0), dist)
-        t2, _, _, geom = tri_quantities(coef, p, sdir)
+        t2, _, _, geom = tri_quantities(coef, p, sdir, band)
         blk = geom & (t2 > d_mov) & (t2 < maxd_l[:, None]) & (tri_ids[None] != wtri[:, None]) \
             & torch.isfinite(t2)
         first = torch.where(blk.any(1), blk.to(torch.int8).argmax(1) + 1, TI)
         tests += int(first.sum())
     n_lights = 0 if lights is None else lights.shape[0]
-    return tests * TRI_TEST_OPS + n_got * n_lights * SHADOW_SETUP_OPS
-
-
-def dense_multi_ops(args, t_final):
-    """K1b operations this run's data needs: per live ray, one slab test
-    per chunk, and the tests of every triangle of each chunk whose box
-    its segment enters before `t_final` (its closest hit, or 1e5)."""
-    import torch
-
-    from low_precision_raytracer_tpu_torch.ops.dense_trace import CHUNK, ray_aabb_entry
-
-    o, d, _skip, mind, maxd, coef, _tri, _obj, lo, hi = args
-    TI, NC = coef.shape[0], lo.shape[0]
-    sizes = torch.full((NC,), float(CHUNK), dtype=torch.float64, device=o.device)
-    sizes[-1] = TI - CHUNK * (NC - 1)
-    live = maxd > mind
-    tests = 0.0
-    step = max(1, (1 << 26) // (3 * NC))
-    for r0 in range(0, o.shape[0], step):
-        sl = slice(r0, r0 + step)
-        entry, ok = ray_aabb_entry(lo, hi, o[sl], d[sl], maxd[sl])
-        need = ok & (entry <= t_final[sl, None]) & live[sl, None]
-        tests += float((need.to(torch.float64) * sizes).sum())
-    return tests * TRI_TEST_OPS + int(live.sum()) * NC * BOX_TEST_OPS
+    return tests * row_ops(band) + n_got * n_lights * SHADOW_SETUP_OPS
 
 
 def coef_fetch_ops(C, HW):
@@ -299,32 +312,21 @@ def check_svgf(name, k, p):
 
 
 def check_dense(k, p):
-    """tri agreement > 0.999, obj equal and t/u/v within 2e-3 where it
-    agrees, visibility agreement > 0.999.  -> (max abs err, agreement)."""
-    t, u, v, tri, obj, vis = k
-    pt, pu, pv, ptri, pobj, pvis = p
-    same = tri == ptri
-    agree = float(same.float().mean())
-    if agree <= 0.999:
-        raise AssertionError(f"dense_trace: tri agreement {agree}")
-    if not bool((obj[same] == pobj[same]).all()):
-        raise AssertionError("dense_trace: obj differs where tri agrees")
-    hit = same & (tri >= 0)
-    err = 0.0
-    for a, b in ((t, pt), (u, pu), (v, pv)):
-        d = (a[hit] - b[hit]).abs()
-        if not bool((d <= 2e-3 + 2e-3 * b[hit].abs()).all()):
-            raise AssertionError(f"dense_trace: t/u/v beyond rtol/atol 2e-3 ({d.max().item()})")
-        err = max(err, float(d.max()))
-    vis_agree = float((vis == pvis).float().mean())
-    if vis_agree <= 0.999:
-        raise AssertionError(f"dense_trace: visibility agreement {vis_agree}")
-    return err, agree
+    """K1a against its plain version: t, u, v, tri, obj, vis all equal on
+    every ray.  -> max abs error (0)."""
+    import torch
+
+    for name, a, b in zip(("t", "u", "v", "tri", "obj", "vis"), k, p):
+        if not torch.equal(a, b):
+            raise AssertionError(f"dense_trace: {name} differs from the plain version on "
+                                 f"{int((a != b).sum())} of {a.numel()} rays")
+    return 0.0
 
 
-def kernel_phase(calls):
-    """Hold every kernel against its plain version on the recorded inputs;
-    time both.  -> {name: report}."""
+def kernel_phase(calls, names=("dense_trace", "coef_fetch", "temporal_accum", "wavelet_iter"),
+                 tag=""):
+    """Hold each kernel of `names` against its plain version on the
+    recorded inputs; time both.  -> {name: report}."""
     import torch
 
     from low_precision_raytracer_tpu_torch.ops.dense_trace import dense_trace, dense_trace_plain
@@ -344,7 +346,8 @@ def kernel_phase(calls):
         "wavelet_iter": (wavelet_iter, wavelet_iter_plain),
     }
     reports = {}
-    for name, (kern, plain) in pairs.items():
+    for name in names:
+        kern, plain = pairs[name]
         if name not in calls:
             raise AssertionError(f"{name}: the main path made no call to record")
         per = []
@@ -355,11 +358,11 @@ def kernel_phase(calls):
             torch.cuda.synchronize()
             HW = H * W
             if name == "dense_trace":
-                err, agree = check_dense(out_k, out_p)
+                err = check_dense(out_k, out_p)
                 b_in = nbytes(*args[:8], args[8] if len(args) > 8 else kw.get("lights"))
                 n_bytes = b_in + nbytes(*out_k)
                 n_ops = dense_trace_ops(args, kw, out_p)
-                extra = {"tri_agreement": agree}
+                extra = {"band": list(kw.get("band", ()))}
             else:
                 err = check_svgf(name, out_k, out_p)
                 tensors = [a for a in args if isinstance(a, torch.Tensor)]
@@ -374,7 +377,7 @@ def kernel_phase(calls):
             b_ms, b_by = bound_ms(n_bytes, n_ops)
             per.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                             max_abs_err=err, bytes=n_bytes, ops=n_ops, **extra))
-            log(f"kernel {name}: {json.dumps(per[-1])}")
+            log(f"kernel {name}{tag}: {json.dumps(per[-1])}")
         mean = lambda k: statistics.fmean(p[k] for p in per)
         reports[name] = dict(
             max_abs_err=max(p["max_abs_err"] for p in per), ms=mean("ms"),
@@ -383,22 +386,24 @@ def kernel_phase(calls):
     return reports
 
 
-def path_phase(cuda_lib, scene_fn, want_fn):
-    """8 frames at 1920x1080 through a fresh Renderer with the counts
-    zeroed just before; `want_fn(frame)` gives the launches each frame
-    must make.  -> (launch totals, per-frame records, peak GiB)."""
+def path_phase(cuda_lib, scene_fn, want_fn, precision="bf16", frames_n=PATH_FRAMES, **cfg_kw):
+    """`frames_n` frames at 1920x1080 through a fresh Renderer (seed 0)
+    with the counts zeroed just before; `want_fn(frame)` gives the
+    launches each frame must make.  -> (launch totals, per-frame records,
+    peak GiB, the last image)."""
     import torch
 
     from low_precision_raytracer_tpu_torch.config import RenderConfig
     from low_precision_raytracer_tpu_torch.render.renderer import Renderer
 
-    renderer = Renderer(scene_fn(), RenderConfig(width=W, height=H, precision="bf16"))
+    renderer = Renderer(scene_fn(), RenderConfig(width=W, height=H, precision=precision,
+                                                 **cfg_kw))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
     frames = []
     img = None
-    for f in range(PATH_FRAMES):
+    for f in range(frames_n):
         before = dict(cuda_lib.LAUNCHES)
         t0 = time.perf_counter()
         img, aux = renderer.render()
@@ -423,19 +428,19 @@ def path_phase(cuda_lib, scene_fn, want_fn):
         raise AssertionError("image is not a finite (H, W, 3) array")
     if float(img.min()) < 0 or float(img.max()) > 1 or float(img.std()) < 1e-3:
         raise AssertionError("image is outside [0, 1] or constant")
-    return totals, frames, peak_gib
+    return totals, frames, peak_gib, img
 
 
 def report_path(name, frames, peak_gib, totals):
     steady = frames[2:]
     frame_ms = statistics.median(f["ms"] for f in steady)
     n_rays = statistics.median(f["n_rays"] for f in steady)
-    log(f"path {name}: frame_ms(median of frames 3-{PATH_FRAMES}) {frame_ms:.3f}  "
+    log(f"path {name}: frame_ms(median of frames 3-{len(frames)}) {frame_ms:.3f}  "
         f"Mrays/s {n_rays / frame_ms / 1e3:.3f}  n_rays {n_rays}  "
         f"peak memory {peak_gib:.3f} GiB  launches {json.dumps(totals)}")
 
 
-def reference_phase(scene_fn, frames, **cfg_kw):
+def reference_phase(scene_fn, frames, precision="bf16", **cfg_kw):
     """A small frame on the card against the plain versions on the CPU,
     same uniforms: PSNR >= 35 dB and validity agreement >= 0.999 on every
     frame (the port-vs-JAX bars of tests/test_torch_render_e2e.py)."""
@@ -444,7 +449,7 @@ def reference_phase(scene_fn, frames, **cfg_kw):
     from low_precision_raytracer_tpu_torch.config import RenderConfig
     from low_precision_raytracer_tpu_torch.render.renderer import Renderer
 
-    cfg = RenderConfig(width=REF_SIZE, height=REF_SIZE, precision="bf16", **cfg_kw)
+    cfg = RenderConfig(width=REF_SIZE, height=REF_SIZE, precision=precision, **cfg_kw)
     gpu = Renderer(scene_fn(), cfg)
     cpu = Renderer(scene_fn(), cfg, device="cpu")
     gen = torch.Generator().manual_seed(1)
@@ -462,14 +467,14 @@ def reference_phase(scene_fn, frames, **cfg_kw):
     return psnrs
 
 
-def profile_frame(name, scene_fn):
+def profile_frame(name, scene_fn, precision="bf16"):
     """Device time by kernel over one steady 1080p frame."""
     import torch
 
     from low_precision_raytracer_tpu_torch.config import RenderConfig
     from low_precision_raytracer_tpu_torch.render.renderer import Renderer
 
-    r = Renderer(scene_fn(), RenderConfig(width=W, height=H, precision="bf16"))
+    r = Renderer(scene_fn(), RenderConfig(width=W, height=H, precision=precision))
     for _ in range(3):
         r.render()
     torch.cuda.synchronize()
@@ -529,13 +534,14 @@ def capture_sponza_launches(renderer, frames):
 
 
 def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
-                        scene="sponza"):
+              scene="sponza"):
     """K1b on each recorded launch: timed on the full launch, held against
     the plain version on a strided slice of `check_rays` rays (every output
-    exact), its bound from the data; the sorted launches also unsorted and
-    with their sort.  `plain_on_slice`: the plain version (an all-pairs
-    test) is timed on the slice, beside the kernel on the same slice,
-    instead of on the full launch.  -> report dict."""
+    exact), its bound from the data (`walk_ops` on the launch's chunk
+    tree); the sorted launches also unsorted and with their sort.
+    `plain_on_slice`: the plain version (an all-pairs test) is timed on the
+    slice, beside the kernel on the same slice, instead of on the full
+    launch.  -> report dict."""
     import torch
 
     from low_precision_raytracer_tpu_torch.ops.dense_trace import (
@@ -551,7 +557,13 @@ def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
         torch.cuda.synchronize()
         sel = torch.arange(0, R, max(1, R // check_rays), device=args[0].device)[:check_rays]
         sub = [a[sel].contiguous() if a.shape[0] == R else a for a in args]
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
         ref = dense_trace_multi_plain(*sub, **kw)
+        t1.record()
+        t1.synchronize()
+        plain_ms = t0.elapsed_time(t1)
         err = 0.0
         for name, a, b in zip(("t", "u", "v", "tri", "obj"), out, ref):
             a = a[sel]
@@ -560,26 +572,24 @@ def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
                                      f"version on {int((a != b).sum())} of {sel.numel()} rays")
             if a.dtype == torch.float32:
                 err = max(err, float((a - b).abs().max()))
-        # the bound: any-hit rays need the chunks up to their first blocker
+        # the bound: any-hit rays need the boxes up to their closest blocker
         t_final = out[0] if not kw.get("find_any") else torch.where(
-            out[3] >= 0, dense_trace_multi(*args)[0], 1e5)
-        n_ops = dense_multi_ops(args, t_final)
-        n_bytes = nbytes(*args) + nbytes(*out)
+            out[3] >= 0, dense_trace_multi(*args, **dict(kw, find_any=False))[0], 1e5)
+        n_ops, n_boxes, n_rows, _per_ray = walk_ops(args, t_final, kw["tree"], kw.get("band"))
+        n_bytes = nbytes(*args, kw["tree"].boxes) + nbytes(*out)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         ms = cuda_ms(lambda: dense_trace_multi(*args, **kw), reps)
-        torch.cuda.synchronize()
-        plain_args = sub if plain_on_slice else args
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        dense_trace_multi_plain(*plain_args, **kw)
-        t1.record()
-        t1.synchronize()
-        plain_ms = t0.elapsed_time(t1)
+        if not plain_on_slice:
+            torch.cuda.synchronize()
+            t0.record()
+            dense_trace_multi_plain(*args, **kw)
+            t1.record()
+            t1.synchronize()
+            plain_ms = t0.elapsed_time(t1)
         rec = dict(kind=kind, rays=R, live=int((args[4] > args[3]).sum()),
                    hits=int((out[3] >= 0).sum()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                    bound_by=b_by, max_abs_err=err, checked_rays=int(sel.numel()),
-                   bytes=n_bytes, ops=n_ops)
+                   bytes=n_bytes, ops=n_ops, boxes_entered=n_boxes, rows_tested=n_rows)
         if plain_on_slice:
             rec["plain_ms_on"] = "slice"
             rec["slice_ms"] = cuda_ms(lambda: dense_trace_multi(*sub, **kw), reps)
@@ -612,7 +622,8 @@ def colonnade_83k():
 
 
 def capture_big_launches(renderer, frames):
-    """Render `frames` frames; -> the last frame's trace launches in order
+    """Render `frames` frames of a bf16 colonnade on the dense route
+    (colonnade-83k, -328k); -> the last frame's trace launches in order
     [(route, args, kwargs)]: primary and round-0 shadows on K1b, the GI
     bounce and round-1 shadows on the wavefront."""
     from low_precision_raytracer_tpu_torch.ops import trace
@@ -640,7 +651,7 @@ def capture_big_launches(renderer, frames):
     want = [("dense_trace_multi", False), ("dense_trace_multi", True),
             ("trace_rays_wavefront", False), ("trace_rays_wavefront", True)]
     if got != want:
-        raise AssertionError(f"colonnade-83k frame: launches {got}, want {want}")
+        raise AssertionError(f"colonnade frame: launches {got}, want {want}")
     return calls
 
 
@@ -666,6 +677,7 @@ def wavefront_phase(kind, args, kw):
     whole and by part.  -> report dict."""
     import torch
 
+    from low_precision_raytracer_tpu_torch.ops import trace as T
     from low_precision_raytracer_tpu_torch.ops import wavefront as WF
     from low_precision_raytracer_tpu_torch.ops.dense_trace import (
         dense_trace_multi,
@@ -794,10 +806,12 @@ def wavefront_phase(kind, args, kw):
                 kw["max_dist"].contiguous(), L.coef, frame.dense_tri, frame.dense_obj,
                 (frame.dense_chunk_lo - c[None, :]).contiguous(),
                 (frame.dense_chunk_hi - c[None, :]).contiguous())
-    ref = dense_trace_multi(*k1b_args, find_any=find_any)
-    rep["k1b_unsorted_ms"] = cuda_ms(lambda: dense_trace_multi(*k1b_args, find_any=find_any), 1)
+    tree = T._chunk_tables(frame)[2]
+    ref = dense_trace_multi(*k1b_args, find_any=find_any, tree=tree)
+    rep["k1b_unsorted_ms"] = cuda_ms(
+        lambda: dense_trace_multi(*k1b_args, find_any=find_any, tree=tree), 1)
     rep["k1b_sorted_ms"] = cuda_ms(
-        lambda: dense_trace_multi_sorted(*k1b_args, find_any=find_any), 1)
+        lambda: dense_trace_multi_sorted(*k1b_args, find_any=find_any, tree=tree), 1)
     rep["agreement_with_k1b"] = float(((out[3] >= 0) == (ref[3] >= 0)).float().mean()
                                       if find_any else (out[3] == ref[3]).float().mean())
     log(f"wavefront {kind}: {json.dumps(rep)}")
@@ -892,16 +906,17 @@ def _pair_entry(b, o, d, maxd):
     return e, fin.any(1) & (tmin <= tmax + 0.02) & (tmax + 0.02 >= 0) & (e < maxd)
 
 
-def packet_ops(args, t_final, tree):
-    """K6 operations this run's data needs: per live ray, one slab test per
-    tree box (internal node or leaf) it enters no later than `t_final` (its
-    closest hit, or 1e5), through ancestors it also enters so, and 40 ops
-    per row of each such leaf.  Counted level by level from the root, in
-    blocks of rays.  -> (ops, boxes entered, rows tested, leaves entered
-    per live ray (n_live,))."""
+def walk_ops(args, t_final, tree, band=None):
+    """Tree-walk operations (K1b, K6) this run's data needs: per live ray,
+    one slab test per tree box (internal node or leaf) it enters no later
+    than `t_final` (its closest hit, or 1e5), through ancestors it also
+    enters so, and the row test (with the band's when there is one) per row
+    of each such leaf.  Counted level by level from the root, in blocks of
+    rays.  -> (ops, boxes entered, rows tested, leaves entered per live ray
+    (n_live,))."""
     import torch
 
-    from low_precision_raytracer_tpu_torch.ops.packet_trace import FAN, LEAF
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import FAN
 
     o, d, _skip, mind, maxd, coef = args[:6]
     TI = coef.shape[0]
@@ -922,17 +937,18 @@ def packet_ops(args, t_final, tree):
             keep = ok & (e <= t_final[ray])
             ray, node = ray[keep], node[keep]
             n_boxes += int(keep.sum())
-        n_rows += int(torch.clamp(TI - node * LEAF, max=LEAF).sum())
+        n_rows += int(torch.clamp(TI - node * tree.leaf, max=tree.leaf).sum())
         per_ray.index_add_(0, ray, torch.ones_like(ray, dtype=torch.float32))
-    return (float(n_boxes) * BOX_TEST_OPS + float(n_rows) * TRI_TEST_OPS, n_boxes, n_rows,
+    return (float(n_boxes) * BOX_TEST_OPS + float(n_rows) * row_ops(band), n_boxes, n_rows,
             per_ray[live])
 
 
-def k6_phase(launches, leaves):
-    """K6 on each recorded colonnade-2M launch: timed on the full launch,
-    held against the plain version on a strided slice of HUGE_CHECK rays
-    (every output exact), its bound from the data; the sorted launches also
-    unsorted, and their key and sort + unsort on their own.  -> report."""
+def k6_phase(launches, leaves, scene="colonnade-2M"):
+    """K6 on each recorded launch: timed on the full launch, held against
+    the plain version on a strided slice of HUGE_CHECK rays (every output
+    exact; that call timed as the plain version), its bound from the data;
+    the sorted launches also unsorted, and their key and sort + unsort on
+    their own.  -> report."""
     import torch
 
     from low_precision_raytracer_tpu_torch.ops.dense_trace import dense_trace_multi_plain
@@ -951,7 +967,13 @@ def k6_phase(launches, leaves):
         torch.cuda.synchronize()
         sel = torch.arange(0, R, max(1, R // HUGE_CHECK), device=args[0].device)[:HUGE_CHECK]
         sub = [a[sel].contiguous() for a in args[:5]] + list(args[5:8])
-        ref = dense_trace_multi_plain(*sub, find_any=find_any, slab_elems=1 << 26)
+        band = kw["band"]
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        ref = dense_trace_multi_plain(*sub, find_any=find_any, band=band, slab_elems=1 << 26)
+        t1.record()
+        t1.synchronize()
+        plain_ms = t0.elapsed_time(t1)
         err = 0.0
         for name, a, b in zip(("t", "u", "v", "tri", "obj"), out, ref):
             a = a[sel]
@@ -960,17 +982,10 @@ def k6_phase(launches, leaves):
                                      f"version on {int((a != b).sum())} of {sel.numel()} rays")
             if a.dtype == torch.float32:
                 err = max(err, float((a - b).abs().max()))
-        torch.cuda.synchronize()
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
-        dense_trace_multi_plain(*sub, find_any=find_any, slab_elems=1 << 26)
-        t1.record()
-        t1.synchronize()
-        plain_ms = t0.elapsed_time(t1)
         # the bound: any-hit rays need the boxes up to their closest blocker
         t_final = out[0] if not find_any else torch.where(
             out[3] >= 0, packet_trace(*args, **dict(kw, find_any=False))[0], 1e5)
-        n_ops, n_boxes, n_rows, leaves_per_ray = packet_ops(args, t_final, tree)
+        n_ops, n_boxes, n_rows, leaves_per_ray = walk_ops(args, t_final, tree, kw.get("band"))
         q = torch.tensor([0.5, 0.9, 0.99], device=leaves_per_ray.device)
         leaf_q = [float(x) for x in torch.quantile(leaves_per_ray, q)] if n_boxes else []
         n_bytes = nbytes(*args[:10], tree.boxes) + nbytes(*out)
@@ -1000,11 +1015,42 @@ def k6_phase(launches, leaves):
             rec["sort_ms"] = cuda_ms(lambda: torch.sort(key, stable=True), 5)
             rec["sort_unsort_ms"] = rec["sorted_total_ms"] - ms
         per.append(rec)
-        log(f"kernel packet_trace colonnade-2M: {json.dumps(rec)}")
+        log(f"kernel packet_trace {scene}: {json.dumps(rec)}")
     mean = lambda k: statistics.fmean(p[k] for p in per)
     return dict(max_abs_err=max(p["max_abs_err"] for p in per), ms=mean("ms"),
                 plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
                 bound_by=max(per, key=lambda p: p["bound_ms"])["bound_by"], launches=per)
+
+
+def colonnade_328k():
+    from low_precision_raytracer_tpu_torch.models.procedural import sponza_like_scene
+
+    return sponza_like_scene(8, 4)
+
+
+def colonnade_328k_kernel_phase(cfg):
+    """K1b on colonnade-328k's primary and round-0 shadow launches (2,567
+    chunks), each held to the plain version on a strided slice of BIG_CHECK
+    rays.  -> K1b report."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops import trace as T
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    warm = Renderer(colonnade_328k(), cfg)
+    if warm.cfg.traversal_impl != "dense_pallas":
+        raise AssertionError(f"colonnade-328k resolved to {warm.cfg.traversal_impl!r}")
+    calls = capture_big_launches(warm, 2)
+    tree = T._chunk_tables(warm.frame)[2]
+    log(f"colonnade-328k: {T.instance_tris(warm.frame)} instance triangles, "
+        f"{warm.frame.dense_chunk_lo.shape[0]} chunks, chunk tree levels {tree.sizes}")
+    del warm
+    rep = k1b_phase([(kind, a, kw, None) for kind, (_n, a, kw)
+                     in zip(("primary", "shadow0"), calls[:2])],
+                    check_rays=BIG_CHECK, reps=3, plain_on_slice=True, scene="colonnade-328k")
+    del calls
+    torch.cuda.empty_cache()
+    return rep
 
 
 def colonnade_kernel_phase(cfg):
@@ -1068,6 +1114,28 @@ def main(argv) -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
     cfg = RenderConfig(width=W, height=H, precision="bf16")
+    totals = dict.fromkeys(cuda_lib.LAUNCHES, 0)  # launches over every path phase
+    fp32_totals = dict.fromkeys(cuda_lib.LAUNCHES, 0)  # ... over the fp32 ones
+
+    def run_path(name, scene_fn, want_fn, precision="bf16", **kw):
+        p_totals, p_frames, p_peak, img = path_phase(cuda_lib, scene_fn, want_fn, precision,
+                                                     **kw)
+        report_path(name, p_frames, p_peak, p_totals)
+        for k, n in p_totals.items():
+            totals[k] += n
+            if precision == "fp32":
+                fp32_totals[k] += n
+        torch.cuda.empty_cache()
+        return p_totals, img
+
+    def elapsed():
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+
+    def counts(**kw):  # per-frame launches: K3 1, K4 5, K2 from frame 1, the rest 0
+        base = {"dense_trace": 0, "dense_trace_multi": 0, "temporal_accum": 1,
+                "wavelet_iter": 5, "wavefront_schedule": 0, "wavefront_assigned": 0,
+                "packet_trace": 0}
+        return lambda f: {**base, "coef_fetch": 1 if f > 0 else 0, **kw}
 
     # ---- the flagship (Cornell): K1a, K2, K3, K4
     warm = Renderer(cornell_box_scene(), cfg)
@@ -1076,23 +1144,18 @@ def main(argv) -> int:
     reports = kernel_phase(calls)
     del calls
     torch.cuda.empty_cache()
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    elapsed()
 
-    no_wavefront = {"wavefront_schedule": 0, "wavefront_assigned": 0, "packet_trace": 0}
-    totals, frames, peak_gib = path_phase(
-        cuda_lib, cornell_box_scene,
-        lambda f: {"dense_trace": 2, "dense_trace_multi": 0, "temporal_accum": 1,
-                   "wavelet_iter": 5, "coef_fetch": 1 if f > 0 else 0, **no_wavefront})
-    report_path("flagship", frames, peak_gib, totals)
+    flag_totals, flag_img = run_path("flagship", cornell_box_scene, counts(dense_trace=2))
     for name in ("dense_trace", "coef_fetch", "temporal_accum", "wavelet_iter"):
-        if totals[name] == 0:
+        if flag_totals[name] == 0:
             raise AssertionError(f"{name}: no launch on the flagship path")
 
     psnrs = reference_phase(cornell_box_scene, REF_FRAMES)
     log(f"reference flagship: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
         + " ".join(f"{p:.2f}" for p in psnrs))
     torch.cuda.empty_cache()
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    elapsed()
 
     # ---- the Sponza-class frame: K1b (with K2, K3, K4)
     warm = Renderer(sponza_like_scene(), cfg)
@@ -1101,46 +1164,32 @@ def main(argv) -> int:
     reports["dense_trace_multi"] = k1b_phase(launches)
     del launches
     torch.cuda.empty_cache()
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    elapsed()
 
-    s_totals, s_frames, s_peak = path_phase(
-        cuda_lib, sponza_like_scene,
-        lambda f: {"dense_trace": 0, "dense_trace_multi": 4, "temporal_accum": 1,
-                   "wavelet_iter": 5, "coef_fetch": 1 if f > 0 else 0, **no_wavefront})
-    report_path("sponza", s_frames, s_peak, s_totals)
-    totals["dense_trace_multi"] = s_totals["dense_trace_multi"]
-
+    run_path("sponza", sponza_like_scene, counts(dense_trace_multi=4))
     psnrs = reference_phase(sponza_like_scene, SPONZA_REF_FRAMES)
     log(f"reference sponza: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
         + " ".join(f"{p:.2f}" for p in psnrs))
     torch.cuda.empty_cache()
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    elapsed()
 
     # ---- colonnade-83k: K1b at 647 chunks, the wavefront (K5, schedule)
     k1b_big, wf_reports = colonnade_kernel_phase(cfg)
     reports.update(wf_reports)
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    elapsed()
 
     def wavefront_counts(got):
         return got["wavefront_assigned"] >= 2 and \
             got["wavefront_assigned"] == got["wavefront_schedule"]
 
-    b_totals, b_frames, b_peak = path_phase(
-        cuda_lib, colonnade_83k,
-        lambda f: {"dense_trace": 0, "dense_trace_multi": 2, "temporal_accum": 1,
-                   "wavelet_iter": 5, "coef_fetch": 1 if f > 0 else 0,
-                   "wavefront_schedule": wavefront_counts, "wavefront_assigned": wavefront_counts,
-                   "packet_trace": 0})
-    report_path("colonnade-83k", b_frames, b_peak, b_totals)
-    totals["dense_trace_multi"] += b_totals["dense_trace_multi"]
-    for name in ("wavefront_schedule", "wavefront_assigned"):
-        totals[name] = b_totals[name]
-
+    big = counts(dense_trace_multi=2, wavefront_schedule=wavefront_counts,
+                 wavefront_assigned=wavefront_counts)
+    run_path("colonnade-83k", colonnade_83k, big)
     psnrs = reference_phase(colonnade_83k, SPONZA_REF_FRAMES)
     log(f"reference colonnade-83k: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
         + " ".join(f"{p:.2f}" for p in psnrs))
     log(f"colonnade-83k K1b: {json.dumps(k1b_big)}")
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    elapsed()
 
     # ---- colonnade-2M: the packet BVH walk (K6)
     from low_precision_raytracer_tpu_torch.ops import trace as T
@@ -1161,37 +1210,85 @@ def main(argv) -> int:
     reports["packet_trace"] = k6_phase(launches, leaves)
     del launches, leaves
     torch.cuda.empty_cache()
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    elapsed()
 
-    p_totals, p_frames, p_peak = path_phase(
-        cuda_lib, colonnade_2m,
-        lambda f: {"dense_trace": 0, "dense_trace_multi": 0, "temporal_accum": 1,
-                   "wavelet_iter": 5, "coef_fetch": 1 if f > 0 else 0, **no_wavefront,
-                   "packet_trace": 4})
-    report_path("colonnade-2M", p_frames, p_peak, p_totals)
-    totals["packet_trace"] = p_totals["packet_trace"]
-    torch.cuda.empty_cache()
-
+    run_path("colonnade-2M", colonnade_2m, counts(packet_trace=4))
     psnrs = reference_phase(sponza_like_scene, SPONZA_REF_FRAMES, traversal_impl="pallas")
     log(f"reference packet route (colonnade-5k): {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU "
         "PSNR dB " + " ".join(f"{p:.2f}" for p in psnrs))
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    elapsed()
+
+    # ---- fp32 (the f32 'both' band): the flagship's K1a
+    cfg32 = RenderConfig(width=W, height=H, precision="fp32")
+    warm = Renderer(cornell_box_scene(), cfg32)
+    calls = capture_inputs(warm, 2)
+    del warm
+    reports32 = kernel_phase(calls, names=("dense_trace",), tag=" fp32")
+    del calls
+    torch.cuda.empty_cache()
+    elapsed()
+
+    _t, flag32_img = run_path("flagship-fp32", cornell_box_scene, counts(dense_trace=2), "fp32")
+    from low_precision_raytracer_tpu_torch.utils.image import psnr, ssim
+
+    a, b = flag_img.float().cpu().numpy(), flag32_img.float().cpu().numpy()
+    log(f"parity flagship 1080p frame {PATH_FRAMES} (seed 0), bf16 vs fp32: "
+        f"PSNR {psnr(a, b):.3f} dB, SSIM {ssim(a, b):.5f}")
+    del flag_img, flag32_img, a, b
+    psnrs = reference_phase(cornell_box_scene, REF_FRAMES, "fp32")
+    log(f"reference flagship-fp32: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
+        + " ".join(f"{p:.2f}" for p in psnrs))
+    elapsed()
+
+    # ---- fp32 Sponza-class: K1b; the fp32 packet route on it: K6
+    warm = Renderer(sponza_like_scene(), cfg32)
+    launches = capture_sponza_launches(warm, 2)
+    del warm
+    reports32["dense_trace_multi"] = k1b_phase(launches, reps=5, plain_on_slice=True,
+                                               scene="sponza-fp32")
+    del launches
+    torch.cuda.empty_cache()
+    run_path("sponza-fp32", sponza_like_scene, counts(dense_trace_multi=4), "fp32")
+    elapsed()
+
+    warm = Renderer(sponza_like_scene(), RenderConfig(width=W, height=H, precision="fp32",
+                                                      traversal_impl="pallas"))
+    launches = capture_packet_launches(warm, 2)
+    leaves = T._packet_tables(warm.frame)
+    del warm
+    reports32["packet_trace"] = k6_phase(launches, leaves, scene="sponza-fp32 packet route")
+    del launches, leaves
+    torch.cuda.empty_cache()
+    run_path("sponza-fp32-packet", sponza_like_scene, counts(packet_trace=4), "fp32",
+             frames_n=4, traversal_impl="pallas")
+    elapsed()
+
+    # ---- colonnade-328k (bf16): K1b at 2,567 chunks, the wavefront
+    k1b_328k = colonnade_328k_kernel_phase(cfg)
+    log(f"colonnade-328k K1b: {json.dumps(k1b_328k)}")
+    run_path("colonnade-328k", colonnade_328k, big)
+    elapsed()
 
     if "--profile" in argv:
         profile_frame("flagship", cornell_box_scene)
         profile_frame("sponza", sponza_like_scene)
         profile_frame("colonnade-83k", colonnade_83k)
         profile_frame("colonnade-2M", colonnade_2m)
+        profile_frame("flagship-fp32", cornell_box_scene, "fp32")
+        profile_frame("colonnade-328k", colonnade_328k)
 
-    kernels = []
-    for name, (src, replaces) in KERNELS.items():
-        rep = reports[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=totals[name], max_abs_err=rep["max_abs_err"], ms=rep["ms"],
-            plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
-            library_ms=None))
-    log(json.dumps({"kernels": kernels}))
+    def kernel_line(names, reps, launches):
+        return [dict(name=name, route="cuda", source=KERNELS[name][0],
+                     replaces=KERNELS[name][1], launches=launches[name],
+                     max_abs_err=reps[name]["max_abs_err"], ms=reps[name]["ms"],
+                     plain_ms=reps[name]["plain_ms"], bound_ms=reps[name]["bound_ms"],
+                     bound_by=reps[name]["bound_by"], library_ms=None) for name in names]
+
+    for name in KERNELS:
+        if totals[name] == 0:
+            raise AssertionError(f"{name}: no launch on any path phase")
+    log(json.dumps({"kernels_fp32": kernel_line(reports32, reports32, fp32_totals)}))
+    log(json.dumps({"kernels": kernel_line(KERNELS, reports, totals)}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

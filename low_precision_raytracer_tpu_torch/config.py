@@ -106,7 +106,8 @@ class RenderConfig:
     # shading computes in f32 even in bf16 mode
     shade_f32: bool = True
     # 'auto' resolves to 'mxu3' (f32-grade u/v, strict acceptance) for
-    # bf16 on the dense route
+    # bf16, and to 'both' (the f32 error band with the strict test inside
+    # it) for fp32
     triangle_fallback: str = "auto"
     # 'auto' resolves per scene as the JAX package does on the TPU: the
     # dense route ('dense_pallas') up to packet_bvh_min_tris instance
@@ -161,41 +162,41 @@ SKYBOX_COLOR = (0.0, 0.0, 0.0)
 def check_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError for configurations the port does not
     cover yet; each message names the ROADMAP queue-1 item that adds it."""
-    if cfg.precision != "bf16":
+    if cfg.precision == "fp16":
         raise NotImplementedError(
-            f"precision={cfg.precision!r}: only bf16 is ported "
-            "(fp32 and fp16 renders wait, ROADMAP queue 1 item 8a)")
+            "precision='fp16': fp16 renders wait (ROADMAP queue 1 item 3)")
     if cfg.taa_on and (cfg.taa_force_full or float(cfg.taa_mix_weight) != 1.0):
         raise NotImplementedError(
             "TAA at mix weight != 1 (or taa_force_full): the TAA half waits "
-            "(ROADMAP queue 1 item 8a)")
+            "(ROADMAP queue 1 item 6)")
     if cfg.mesh is not None:
         raise NotImplementedError(
-            "cfg.mesh: multiple GPUs wait (ROADMAP queue 1 item 12)")
+            "cfg.mesh: multiple GPUs wait (ROADMAP queue 1 item 10)")
     if cfg.traversal_impl not in ("auto", "dense_pallas", "pallas"):
         raise NotImplementedError(
             f"traversal_impl={cfg.traversal_impl!r}: only the dense route and the "
             "packet BVH are ported; the XLA BVH walk ('jax') and the XLA "
-            "all-pairs path ('dense') wait (ROADMAP queue 1 item 10a)")
-    if cfg.triangle_fallback not in ("auto", "mxu3"):
+            "all-pairs path ('dense') wait (ROADMAP queue 1 item 7)")
+    if cfg.triangle_fallback not in ("auto", "mxu3") and not (
+            cfg.triangle_fallback == "both" and cfg.precision == "fp32"):
         raise NotImplementedError(
-            f"triangle_fallback={cfg.triangle_fallback!r}: only the mxu3 "
-            "acceptance is ported (ROADMAP queue 1 item 8a)")
+            f"triangle_fallback={cfg.triangle_fallback!r} in {cfg.precision}: only the "
+            "mxu3 test and the fp32 'both' test are ported (ROADMAP queue 1 item 9)")
     if cfg.dense_epilogue == "pack":
         raise NotImplementedError(
             "dense_epilogue='pack': the packed winner epilogue waits "
-            "(ROADMAP queue 1 item 8a)")
+            "(ROADMAP queue 1 item 9)")
     if cfg.wavefront_mode == "rounds":
         raise NotImplementedError(
             "wavefront_mode='rounds': only the oneshot pair pass is ported "
-            "(ROADMAP queue 1 item 10a)")
+            "(ROADMAP queue 1 item 8)")
     if not cfg.shade_f32 or not cfg.svgf.state_f32:
         raise NotImplementedError(
-            "shade_f32=False / state_f32=False ablations wait (ROADMAP queue 1 item 8a)")
+            "shade_f32=False / state_f32=False ablations wait (ROADMAP queue 1 item 9)")
     if not float(cfg.svgf.sigma_n).is_integer() or max(cfg.svgf.strides) > 16:
         raise NotImplementedError(
             "non-integer svgf.sigma_n / a-trous strides above 16 wait "
-            "(ROADMAP queue 1 item 8a)")
+            "(ROADMAP queue 1 item 9)")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,72 +1,55 @@
 // Dense closest-hit trace with the fused shadow (DI) phase, one chunk.
 //
 // Replaces the TPU kernel ops/dense_pallas.py:_kernel in its single-chunk
-// mode (single=True, fallback='mxu3', di_lights=L), reached through
-// trace_rays_dense_pallas.  Plain version: ops/dense_trace.py:dense_trace_plain.
+// mode (single=True, di_lights=L; fallback='mxu3', and in fp32 'both' with
+// the dense error band, chunk_quants :374-418, its DI phase :445-503
+// re-running the same test), reached through trace_rays_dense_pallas.
+// Plain version: ops/dense_trace.py:dense_trace_plain.
 //
 // What it computes, per ray: the closest hit among the TI <= 128 instance
 // triangles of the one chunk, from the world-space coefficient rows
 // (Oz = n[6:9].o + e[2], Dz = n[6:9].d, Ox/Oy/Dx/Dy likewise), t = -Oz/Dz,
-// strict u > 0, v > 0, u + v < 1, gated by mind < t < maxd, tri != skip and
-// finite t; ties in t go to the smallest tri id; a miss keeps t = 1e5,
-// u = v = 0, ids -1.  Then, from the winner's point o + t d, one shadow ray
-// per light (point: toward the recentred position, range = distance;
-// directional: along -normalize(dir), range 1000), any-hit against the same
-// triangles with t > d_mov and the winner's tri skipped; bit l of vis is set
-// where the light is unoccluded and a winner exists.
+// accepted by the band (trace_common.cuh:tri_test: strict u > 0, v > 0,
+// u + v < 1 under 'mxu3', the f32 'both' band in fp32), gated by
+// mind < t < maxd, tri != skip and finite t; ties in t go to the smallest
+// tri id; a miss keeps t = 1e5, u = v = 0, ids -1.  Then, from the winner's
+// point o + t d, one shadow ray per light (point: toward the recentred
+// position, range = distance; directional: along -normalize(dir), range
+// 1000), any-hit against the same triangles with the same acceptance,
+// t > d_mov and the winner's tri skipped; bit l of vis is set where the
+// light is unoccluded and a winner exists.
 //
-// The TPU computes u/v through a manual bf16x3 MXU product (~2^-16
-// relative); here u/v/t are plain f32 from the f32 coefficient table, so
-// the two agree to that accuracy, not bitwise.
+// Under 'mxu3' the TPU computes u/v through a manual bf16x3 MXU product
+// (~2^-16 relative), in fp32 through an f32 dot that sums in another
+// order; here u/v/t are plain f32 from the f32 coefficient table, so the
+// two agree to that accuracy, not bitwise.
 //
 // What bounds it on the H100: neither bytes nor operations at this size.
 // Per ray it reads 36 bytes and writes 24, and runs ~25 f32 operations per
-// triangle, twice with the shadow phase: at 2.07M rays x 34 triangles that
-// is ~3.5 GFLOP against 67 TFLOP/s, and ~125 MB against 3.35 TB/s, both
-// tens of microseconds.  The design keeps the triangle table and the light
-// rows in shared memory (one 6 KB copy per block, read as broadcasts), one
-// thread per ray with coalesced ray loads, and no atomics.  Lanes with
-// maxd <= mind keep the miss values without testing (the TPU's dead-tile
-// guard, per lane).
+// triangle (~20 more in the f32 band), twice with the shadow phase: at
+// 2.07M rays x 34 triangles that is ~3.5 GFLOP against 67 TFLOP/s, and
+// ~125 MB against 3.35 TB/s, both tens of microseconds.  The design keeps
+// the triangle table and the light rows in shared memory (one 6 KB copy per
+// block, read as broadcasts), one thread per ray with coalesced ray loads,
+// and no atomics.  Lanes with maxd <= mind keep the miss values without
+// testing (the TPU's dead-tile guard, per lane).  Built with --fmad=false
+// so the test rounds like its plain version.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "trace_common.cuh"
 
 #define LPRT_MAX_TRIS 128
 #define LPRT_MAX_LIGHTS 32
 
 namespace {
 
-struct TriTest {
-  float t, u, v;
-  bool accept_geom;
-};
-
-__device__ __forceinline__ TriTest test_tri(const float* c, float ox, float oy,
-                                            float oz, float dx, float dy,
-                                            float dz) {
-  // c: n[0..8] row-major then e[0..2]
-  float Oz = c[6] * ox + c[7] * oy + c[8] * oz + c[11];
-  float Dz = c[6] * dx + c[7] * dy + c[8] * dz;
-  float Ox = c[0] * ox + c[1] * oy + c[2] * oz + c[9];
-  float Oy = c[3] * ox + c[4] * oy + c[5] * oz + c[10];
-  float Dx = c[0] * dx + c[1] * dy + c[2] * dz;
-  float Dy = c[3] * dx + c[4] * dy + c[5] * dz;
-  TriTest r;
-  r.t = -Oz / Dz;
-  r.u = Ox + r.t * Dx;
-  r.v = Oy + r.t * Dy;
-  r.accept_geom = (r.u > 0.f) && (r.v > 0.f) && (r.u + r.v < 1.f);
-  return r;
-}
-
+template <int FORM>
 __global__ void dense_trace_kernel(
     const float* __restrict__ orig, const float* __restrict__ dir,
     const int* __restrict__ skip, const float* __restrict__ mind,
     const float* __restrict__ maxd, const float* __restrict__ coef,
     const int* __restrict__ tri_id, const int* __restrict__ obj_id,
     const float* __restrict__ lights, int R, int TI, int L, float d_mov,
-    float* __restrict__ t_out, float* __restrict__ u_out,
+    lprt::Band band, float* __restrict__ t_out, float* __restrict__ u_out,
     float* __restrict__ v_out, int* __restrict__ tri_out,
     int* __restrict__ obj_out, int* __restrict__ vis_out) {
   __shared__ float s_coef[LPRT_MAX_TRIS * 12];
@@ -92,14 +75,15 @@ __global__ void dense_trace_kernel(
   int btri = -1, bobj = -1;
   if (mx > mn) {
     for (int k = 0; k < TI; ++k) {
-      TriTest h = test_tri(s_coef + 12 * k, ox, oy, oz, dx, dy, dz);
+      float t, u, v;
+      bool geom = lprt::tri_test<FORM>(s_coef + 12 * k, ox, oy, oz, dx, dy, dz, band,
+                                       t, u, v);
       int tri = s_tri[k];
-      bool acc = h.accept_geom && (h.t > mn) && (h.t < mx) && (tri != sk) &&
-                 isfinite(h.t);
-      if (acc && (h.t < bt || (h.t == bt && tri < btri))) {
-        bt = h.t;
-        bu = h.u;
-        bv = h.v;
+      bool acc = geom && (t > mn) && (t < mx) && (tri != sk) && isfinite(t);
+      if (acc && (t < bt || (t == bt && tri < btri))) {
+        bt = t;
+        bu = u;
+        bv = v;
         btri = tri;
         bobj = s_obj[k];
       }
@@ -127,9 +111,11 @@ __global__ void dense_trace_kernel(
       float maxd_l = isdir ? 1000.f : dist;
       bool blocked = false;
       for (int k = 0; k < TI && !blocked; ++k) {
-        TriTest h = test_tri(s_coef + 12 * k, px, py, pz, sx, sy, sz);
-        blocked = h.accept_geom && (h.t > d_mov) && (h.t < maxd_l) &&
-                  (s_tri[k] != btri) && isfinite(h.t);
+        float t, u, v;
+        bool geom = lprt::tri_test<FORM>(s_coef + 12 * k, px, py, pz, sx, sy, sz,
+                                         band, t, u, v);
+        blocked = geom && (t > d_mov) && (t < maxd_l) && (s_tri[k] != btri) &&
+                  isfinite(t);
       }
       if (!blocked) vis |= 1 << l;
     }
@@ -144,16 +130,26 @@ extern "C" int lprt_dense_trace(const float* orig, const float* dir,
                                 const float* maxd, const float* coef,
                                 const int* tri_id, const int* obj_id,
                                 const float* lights, int R, int TI, int L,
-                                float d_mov, float* t_out, float* u_out,
+                                float d_mov, int form, float k0, float k1,
+                                float k2, float* t_out, float* u_out,
                                 float* v_out, int* tri_out, int* obj_out,
                                 int* vis_out, void* stream) {
-  if (TI > LPRT_MAX_TRIS || L > LPRT_MAX_LIGHTS) return (int)cudaErrorInvalidValue;
+  if (TI > LPRT_MAX_TRIS || L > LPRT_MAX_LIGHTS || form < 0 || form > 2)
+    return (int)cudaErrorInvalidValue;
   const int block = 256;
   const int grid = (R + block - 1) / block;
-  if (grid > 0) {
-    dense_trace_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        orig, dir, skip, mind, maxd, coef, tri_id, obj_id, lights, R, TI, L,
-        d_mov, t_out, u_out, v_out, tri_out, obj_out, vis_out);
-  }
+  if (grid == 0) return (int)cudaGetLastError();
+  const lprt::Band band = {k0, k1, k2};
+  cudaStream_t s = (cudaStream_t)stream;
+#define LPRT_DENSE_ARGS                                                       \
+  orig, dir, skip, mind, maxd, coef, tri_id, obj_id, lights, R, TI, L, d_mov, \
+      band, t_out, u_out, v_out, tri_out, obj_out, vis_out
+  if (form == LPRT_FORM_STRICT)
+    dense_trace_kernel<LPRT_FORM_STRICT><<<grid, block, 0, s>>>(LPRT_DENSE_ARGS);
+  else if (form == LPRT_FORM_DENSE)
+    dense_trace_kernel<LPRT_FORM_DENSE><<<grid, block, 0, s>>>(LPRT_DENSE_ARGS);
+  else
+    dense_trace_kernel<LPRT_FORM_PACKET><<<grid, block, 0, s>>>(LPRT_DENSE_ARGS);
+#undef LPRT_DENSE_ARGS
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 """Scene hierarchy, static part: a copy of
 `low_precision_raytracer_tpu/models/hierarchy.py` without the animation
-samplers (animated scenes wait, ROADMAP queue 1 item 11).
+samplers (animated scenes wait, ROADMAP queue 1 item 4).
 
 Host-side object tree with TRS + quaternion transforms and the per-frame
 flatten to render arrays.

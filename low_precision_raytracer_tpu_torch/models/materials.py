@@ -2,7 +2,7 @@
 
 A host-side Material dataclass plus the packed SoA numpy table shipped to
 the device.  Texture references wait with textures (ROADMAP queue 1
-item 9).
+item 5).
 """
 
 from __future__ import annotations

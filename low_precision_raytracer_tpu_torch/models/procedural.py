@@ -1,6 +1,6 @@
-"""Procedural scenes: `cornell_box_scene`, `sponza_like_scene` and the
-unit meshes and sky panorama they use, copied from
-`low_precision_raytracer_tpu/models/procedural.py`."""
+"""Procedural scenes: `single_triangle_scene`, `single_mesh_scene`,
+`cornell_box_scene`, `sponza_like_scene` and the unit meshes and sky
+panorama they use, copied from `low_precision_raytracer_tpu/models/procedural.py`."""
 
 from __future__ import annotations
 
@@ -122,6 +122,52 @@ def _mesh_node(scene: HostScene, mesh_id: int, material_id: int, name: str, t=No
     if s is not None:
         node.scale = np.asarray(s, np.float32)
     return node
+
+
+def single_triangle_scene():
+    """One triangle, a directional light and a camera: the smallest
+    traceable scene."""
+    scene = HostScene()
+    tri = Mesh(
+        np.array([[-1, -1, 0], [1, -1, 0], [0, 1, 0]], np.float32),
+        np.array([[0, 1, 2]], np.int32),
+        normals=np.tile([0, 0, 1], (3, 1)).astype(np.float32),
+    )
+    mid = scene.add_mesh(tri)
+    mat = scene.add_material(Material(color=np.array([0.8, 0.2, 0.2], np.float32)))
+    scene.root = Object(name="root")
+    scene.root.add(_mesh_node(scene, mid, mat, "tri"))
+    light = LightObject(name="sun", light_type=LIGHT_DIRECTIONAL,
+                        intensity=np.array([1.0, 1.0, 1.0], np.float32))
+    light.rotation = np.array([0, 0, 0, 1], np.float32)
+    scene.root.add(light)
+    cam = CameraObject(name="cam", fov_y=np.pi / 3)
+    cam.translation = np.array([0, 0, 3], np.float32)
+    scene.root.add(cam)
+    scene.active_camera = cam
+    return scene
+
+
+def single_mesh_scene(mesh: Mesh | None = None):
+    """One mesh (an icosphere by default), a point light and a camera: the
+    JAX package's BASELINE config 1 (golden config 1)."""
+    scene = HostScene()
+    mid = scene.add_mesh(mesh if mesh is not None else icosphere_mesh(2))
+    mat = scene.add_material(
+        Material(color=np.array([0.7, 0.7, 0.75], np.float32), metallic=0.0, roughness=0.4)
+    )
+    scene.root = Object(name="root")
+    scene.root.add(_mesh_node(scene, mid, mat, "mesh"))
+    key = LightObject(
+        name="key", light_type=LIGHT_POINT, intensity=np.array([60.0, 60.0, 55.0], np.float32)
+    )
+    key.translation = np.array([2.0, 2.5, 2.0], np.float32)
+    scene.root.add(key)
+    cam = CameraObject(name="cam", fov_y=np.pi / 3)
+    cam.translation = np.array([0, 0.4, 3.0], np.float32)
+    scene.root.add(cam)
+    scene.active_camera = cam
+    return scene
 
 
 def cornell_box_scene(light_intensity=30.0):

@@ -14,7 +14,7 @@
 
 The BLAS/TLAS and texture-atlas fields of the JAX package are not here:
 the port's traces read no per-mesh BVH (the XLA walk is ROADMAP queue 1
-item 10a), and scenes with textures are refused (item 9a).
+item 7), and scenes with textures are refused (item 5).
 
 `scene_from_numpy` carries the JAX package's leaves across (as numpy
 arrays), so a test can run both packages on exactly the same tables.
@@ -290,7 +290,7 @@ def _dense_coefficients(host: HostScene, flat: FlatScene, t_off):
     if ti > DENSE_COEFF_MAX_TRIS:
         raise NotImplementedError(
             f"{ti} instance triangles: above DENSE_COEFF_MAX_TRIS the JAX package "
-            "walks its XLA BVH, which is not ported (ROADMAP queue 1 item 10a)")
+            "walks its XLA BVH, which is not ported (ROADMAP queue 1 item 7)")
     m_f32, v2_f32, verts_f32 = _host_m_cache(host)
     center = (
         (flat.obj_aabb_lo.min(axis=0) + flat.obj_aabb_hi.max(axis=0)) / 2

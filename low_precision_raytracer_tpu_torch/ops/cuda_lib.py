@@ -3,9 +3,9 @@
 Each source under `csrc/` is compiled by `nvcc` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds) and loaded with `ctypes`.  Libraries are cached in
-`_build/` beside the package under a name keyed by the source bytes and
-the flags, so a changed source rebuilds and an unchanged one loads at
-once.  Nothing is built or loaded at import time: the CPU tests import
+`_build/` beside the package under a name keyed by the source bytes, the
+bytes of the shared headers (`csrc/*.cuh`) and the flags, so a changed
+source or header rebuilds and an unchanged one loads at once.  Nothing is built or loaded at import time: the CPU tests import
 every module on a machine with no `nvcc`.
 
 Every C entry point launches on the stream it is given and returns its
@@ -38,10 +38,10 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of each C entry point, by library
 SIGNATURES = {
     "dense_trace": {
-        "lprt_dense_trace": [P] * 9 + [I, I, I, F] + [P] * 6 + [P],
+        "lprt_dense_trace": [P] * 9 + [I, I, I, F] + [I, F, F, F] + [P] * 6 + [P],
     },
     "dense_multi": {
-        "lprt_dense_trace_multi": [P] * 9 + [I, I, I, I] + [P] * 5 + [P],
+        "lprt_dense_multi": [P] * 10 + [I] * 4 + [I, F, F, F] + [P] * 6 + [P],
     },
     "svgf": {
         "lprt_coef_fetch": [P, P, I, I, I, I, I, P, P],
@@ -53,7 +53,7 @@ SIGNATURES = {
         "lprt_wavefront_assigned": [P] * 6 + [I, I] + [P, P] + [I] * 4 + [P] * 3 + [P],
     },
     "packet_trace": {
-        "lprt_packet_trace": [P] * 10 + [I] * 4 + [P] * 6 + [P],
+        "lprt_packet_trace": [P] * 10 + [I] * 4 + [I, F, F, F] + [P] * 6 + [P],
     },
 }
 
@@ -83,6 +83,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -1,6 +1,6 @@
 """Dense traces (port of `low_precision_raytracer_tpu/ops/dense_pallas.py`,
-`fallback='mxu3'`): the M-shift test of every ray against world-space
-per-instance-triangle coefficient rows, strict f32 acceptance.
+`fallback='mxu3'` and, in fp32, `fallback='both'`): the M-shift test of
+every ray against world-space per-instance-triangle coefficient rows.
 
 Two kernels, each with a wrapper and its plain PyTorch version (the
 wrapper launches the kernel on CUDA tensors, or raises; on CPU tensors it
@@ -11,27 +11,33 @@ runs the plain version):
   Returns (t, u, v, tri, obj, vis), vis the per-ray bitmask of lights
   unoccluded from the winner's point (zeros when `lights` is None).
 - `dense_trace_multi` (K1b, `csrc/dense_multi.cu`): any table size, the
-  rows grouped in chunks of 128 with one world AABB each; closest hit or
-  any hit.  Returns (t, u, v, tri, obj).
+  rows grouped in chunks of 128 with one world AABB each, walked through
+  a 4-ary tree over the chunk boxes (`build_tree`); closest hit or any
+  hit.  Returns (t, u, v, tri, obj).
 
-Both take the rays recentred by the scene centre and the coefficient
-table as (TI, 12) f32 rows [n (3x3 row-major) | e (3)].  Closest hit: t =
-1e5, u = v = 0, ids -1 on a miss; ties in t go to the smallest tri id, so
-the result does not depend on the order in which triangles are tested.
-Any hit: tri is a 0 (occluded) / -1 marker, t = 1e5, u = v = 0, obj = -1.
+Both take the rays recentred by the scene centre, the coefficient table
+as (TI, 12) f32 rows [n (3x3 row-major) | e (3)] and the acceptance
+(`Band`).  Closest hit: t = 1e5, u = v = 0, ids -1 on a miss; ties in t go
+to the smallest tri id, so the result does not depend on the order in
+which triangles are tested.  Any hit: tri is a 0 (occluded) / -1 marker,
+t = 1e5, u = v = 0, obj = -1.
 
 Around K1b: `ray_aabb_entry` (the conservative slab-entry bound both the
-kernel's chunk walk and the sort key use), the sort keys `anchor_key` and
+kernels' walks and the sort key use), the sort keys `anchor_key` and
 `morton_key`, and `dense_trace_multi_sorted`, the coherence-recovering
 launch for incoherent rays (`trace_rays_dense_pallas_sorted`: key, stable
 sort, trace, unsort; `sorted_launch` also serves the packet BVH's).
-`m_shift_test` (the test's arithmetic, shared by the plain versions),
-`coef_table` (the kernels' table layout) and `scene_exit_cap` (the
-per-ray reach cap of the wavefront) sit here too.
+`m_shift_test` and `band_accept` (the test's arithmetic, shared by the
+plain versions), `coef_table` (the kernels' table layout), `build_tree` and
+`tree_launch` (the box tree and the launch K1b and K6 share) and
+`scene_exit_cap` (the per-ray reach cap of the wavefront) sit here too.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from low_precision_raytracer_tpu_torch.ops import cuda_lib
@@ -40,21 +46,57 @@ T_MISS = 1e5
 MAX_TRIS = 128  # the kernel's shared-memory table
 MAX_LIGHTS = 32  # bits of the visibility mask
 CHUNK = 128  # K1b: table rows per chunk AABB
-MAX_CHUNKS = 2048  # K1b: chunk AABBs in the kernel's 48 KB of shared memory
 BOX_SLOP = 0.02  # scene-level slab-test slop of the JAX package
+FAN = 4  # children per box-tree node
+MAX_LEVELS = 16  # the tree kernels' stack covers 3 (MAX_LEVELS - 1) + 1 entries
 
 
-def tri_quantities(coef, o, d):
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+class Band(NamedTuple):
+    """The acceptance of the triangle test, as the kernels take it.
+
+    form 0 ('mxu3', `STRICT`): u > 0, v > 0, u + v < 1.  Forms 1 and 2:
+    the f32 'both' test, an error band with the strict test inside it
+    (`dense_band`: the dense kernel's, `dense_pallas.py:_kernel` :393-418;
+    `packet_band`: the packet kernel's, `traversal_pallas.py:_kernel`
+    :369-394, whose constants and rounding differ).  k0-k2 are f32 values."""
+
+    form: int = 0
+    k0: float = 0.0
+    k1: float = 0.0
+    k2: float = 0.0
+
+
+STRICT = Band()
+
+
+def dense_band(prec) -> Band:
+    """K1's f32 'both' band for `prec`: (sband = 0.2 (d1 + d2), the factor
+    folded into the S rows; c1 = 0.2 d1; c3 = 0.6 d1)."""
+    d1, d2 = prec.delta1, prec.delta2
+    return Band(1, _f32(0.2 * (d1 + d2)), _f32(0.2 * d1), _f32(0.6 * d1))
+
+
+def packet_band(prec) -> Band:
+    """K6's f32 'both' band for `prec`: (d12 = d1 + d2, d1)."""
+    return Band(2, _f32(prec.delta1 + prec.delta2), _f32(prec.delta1))
+
+
+def tri_quantities(coef, o, d, band: Band = STRICT):
     """(R, TI) t, u, v, accept_geom for rays o, d (R, 3) against the
     table rows; the sums run in the kernel's order."""
-    return m_shift_test([coef[:, i][None, :] for i in range(12)], o[:, :, None], d[:, :, None])
+    return m_shift_test([coef[:, i][None, :] for i in range(12)], o[:, :, None], d[:, :, None],
+                        band)
 
 
-def m_shift_test(n, o, d):
+def m_shift_test(n, o, d, band: Band = STRICT):
     """The M-shift test of rays o, d (R, 3, 1) against coefficient rows n
     (12 tensors broadcasting against (R, 1): the table's columns, or each
     ray's own rows); -> t, u, v, accept_geom, the sums in the kernels'
-    order."""
+    order, accepted by `band`."""
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     Oz = n[6] * ox + n[7] * oy + n[8] * oz + n[11]
@@ -64,9 +106,45 @@ def m_shift_test(n, o, d):
     Dx = n[0] * dx + n[1] * dy + n[2] * dz
     Dy = n[3] * dx + n[4] * dy + n[5] * dz
     t = -Oz / Dz
-    u = Ox + t * Dx
-    v = Oy + t * Dy
-    return t, u, v, (u > 0) & (v > 0) & (u + v < 1)
+    t_dx = t * Dx
+    t_dy = t * Dy
+    u = Ox + t_dx
+    v = Oy + t_dy
+    if band.form == 0:
+        return t, u, v, (u > 0) & (v > 0) & (u + v < 1)
+    # the S rows |n| . |o| + |e| and |n| . |d|
+    a = [n[i].abs() for i in (0, 1, 2, 3, 4, 5, 9, 10)]
+    if band.form == 1:  # K1 folds sband into |n| and |e| (`_mxu_tables`)
+        a = [x * band.k0 for x in a]
+    aox, aoy, aoz = ox.abs(), oy.abs(), oz.abs()
+    adx, ady, adz = dx.abs(), dy.abs(), dz.abs()
+    s_ox = a[0] * aox + a[1] * aoy + a[2] * aoz + a[6]
+    s_oy = a[3] * aox + a[4] * aoy + a[5] * aoz + a[7]
+    s_dx = a[0] * adx + a[1] * ady + a[2] * adz
+    s_dy = a[3] * adx + a[4] * ady + a[5] * adz
+    return t, u, v, band_accept(band, t, u, v, Ox, Oy, t_dx, t_dy, s_ox, s_oy, s_dx, s_dy)
+
+
+def band_accept(band: Band, t, u, v, Ox, Oy, t_dx, t_dy, s_ox, s_oy, s_dx, s_dy):
+    """The f32 'both' acceptance: strict inside the error band (a lane is
+    ambiguous where u, v or w = 1 - u - v lies in [-err, 0]), the
+    band-widened test outside it; the JAX expressions term for term."""
+    if band.form == 1:
+        c1, c3 = band.k1, band.k2
+        eu = s_ox + t * s_dx + c1 * Ox.abs() + c3 * t_dx.abs()
+        ev = s_oy + t * s_dy + c1 * Oy.abs() + c3 * t_dy.abs()
+    elif band.form == 2:
+        d12, d1f = band.k0, band.k1
+        eu = (d12 * s_ox + t * d12 * s_dx + d1f * (Ox.abs() + 3 * t_dx.abs())) * 0.2
+        ev = (d12 * s_oy + t * d12 * s_dy + d1f * (Oy.abs() + 3 * t_dy.abs())) * 0.2
+    else:
+        raise ValueError(f"band_accept: no error band in form {band.form}")
+    w = 1.0 - u - v
+    in_band = lambda x, err: (x >= -err) & (x <= 0)
+    ambiguous = in_band(u, eu) | in_band(v, ev) | in_band(w, eu + ev)
+    dtype_accept = (u > -eu) & (v > -ev) & (u + v < 1 + eu + ev)
+    strict = (u > 0) & (v > 0) & (u + v < 1)
+    return (ambiguous & strict) | (~ambiguous & dtype_accept)
 
 
 def _closest(t, u, v, accept, tri_ids, obj_ids):
@@ -99,11 +177,11 @@ def _accept(t, geom, skip, mind, maxd, tri_ids):
 
 
 def dense_trace_plain(origins, directions, skip, mind, maxd, coef, tri_ids,
-                      obj_ids, lights=None, d_mov: float = 0.0):
+                      obj_ids, lights=None, d_mov: float = 0.0, band: Band = STRICT):
     """Plain PyTorch version of the kernel: a dense (R, TI) broadcast test,
     then the shadow phase as a loop over the lights."""
     R = origins.shape[0]
-    t, u, v, geom = tri_quantities(coef, origins, directions)
+    t, u, v, geom = tri_quantities(coef, origins, directions, band)
     accept = _accept(t, geom, skip, mind, maxd, tri_ids)
     t_out, u_out, v_out, tri_out, obj_out = _closest(t, u, v, accept, tri_ids, obj_ids)
     tri = tri_ids[None, :]
@@ -121,7 +199,7 @@ def dense_trace_plain(origins, directions, skip, mind, maxd, coef, tri_ids,
         inv = 1.0 / torch.clamp(dist, min=1e-20)
         sdir = torch.where(isdir, a[None, :].expand(R, 3), dvec * inv[:, None])
         maxd_l = torch.where(isdir, torch.full_like(dist, 1000.0), dist)
-        t2, _u2, _v2, geom2 = tri_quantities(coef, p, sdir)
+        t2, _u2, _v2, geom2 = tri_quantities(coef, p, sdir, band)
         blocked = (geom2 & (t2 > d_mov) & (t2 < maxd_l[:, None])
                    & (tri != tri_out[:, None]) & torch.isfinite(t2)).any(dim=1)
         vis = vis | torch.where((tri_out >= 0) & ~blocked, 1 << l, 0).to(torch.int32)
@@ -143,11 +221,11 @@ def _check_args(what, args, want):
 
 
 def dense_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
-                lights=None, d_mov: float = 0.0):
+                lights=None, d_mov: float = 0.0, band: Band = STRICT):
     """Kernel wrapper: see the module docstring.  origins/directions (R, 3)
     f32, skip (R,) i32, mind/maxd (R,) f32, coef (TI, 12) f32, tri_ids /
     obj_ids (TI,) i32, lights (L, 4) f32 [is_directional, ax, ay, az] or
-    None."""
+    None; `band` the acceptance of both phases."""
     R = origins.shape[0]
     TI = coef.shape[0]
     L = 0 if lights is None else lights.shape[0]
@@ -167,7 +245,7 @@ def dense_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
             "(multi-chunk scenes go to dense_trace_multi)")
     if dev.type == "cpu":
         return dense_trace_plain(origins, directions, skip, mind, maxd, coef,
-                                 tri_ids, obj_ids, lights, d_mov)
+                                 tri_ids, obj_ids, lights, d_mov, band)
     t = torch.empty((R,), dtype=f32, device=dev)
     u, v = torch.empty_like(t), torch.empty_like(t)
     tri = torch.empty((R,), dtype=i32, device=dev)
@@ -177,7 +255,7 @@ def dense_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
         origins.data_ptr(), directions.data_ptr(), skip.data_ptr(),
         mind.data_ptr(), maxd.data_ptr(), coef.data_ptr(), tri_ids.data_ptr(),
         obj_ids.data_ptr(), None if lights is None else lights.data_ptr(),
-        R, TI, L, float(d_mov), t.data_ptr(), u.data_ptr(), v.data_ptr(),
+        R, TI, L, float(d_mov), *band, t.data_ptr(), u.data_ptr(), v.data_ptr(),
         tri.data_ptr(), obj.data_ptr(),
         None if lights is None else vis.data_ptr(), cuda_lib.stream_ptr(dev),
     )
@@ -188,26 +266,25 @@ def dense_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
     return t, u, v, tri, obj, vis
 
 
-
 # ---------------------------------------------------------------------------
-# K1b: multi-chunk dense trace
+# K1b: multi-chunk dense trace, and the box tree it shares with K6
 
 
 def dense_trace_multi_plain(origins, directions, skip, mind, maxd, coef, tri_ids,
                             obj_ids, chunk_lo=None, chunk_hi=None, find_any=False,
-                            slab_elems: int = 1 << 22):
+                            band: Band = STRICT, tree=None, slab_elems: int = 1 << 22):
     """Plain PyTorch version of K1b: every ray against every row (the
-    chunk AABBs only prune, so they are not read), as a global (t, tri)
-    minimum or an any-accept, in slabs of rays of about `slab_elems`
-    (ray, row) pairs to bound memory: each f32 temporary of the test is
-    4 * slab_elems bytes, whatever the table's size."""
+    chunk AABBs and their tree only prune, so they are not read), as a
+    global (t, tri) minimum or an any-accept, in slabs of rays of about
+    `slab_elems` (ray, row) pairs to bound memory: each f32 temporary of
+    the test is 4 * slab_elems bytes, whatever the table's size."""
     R, TI = origins.shape[0], coef.shape[0]
     dev = origins.device
     outs = []
     rs = max(1, slab_elems // TI)
     for r0 in range(0, max(R, 1), rs):
         sl = slice(r0, r0 + rs)
-        t, u, v, geom = tri_quantities(coef, origins[sl], directions[sl])
+        t, u, v, geom = tri_quantities(coef, origins[sl], directions[sl], band)
         acc = _accept(t, geom, skip[sl], mind[sl], maxd[sl], tri_ids)
         if find_any:
             n = t.shape[0]
@@ -222,13 +299,86 @@ def dense_trace_multi_plain(origins, directions, skip, mind, maxd, coef, tri_ids
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
+class BoxTree(NamedTuple):
+    """An implicit FAN-ary tree over boxes that each hold `leaf`
+    consecutive table rows, in the rays' frame."""
+
+    boxes: torch.Tensor  # (N, 6) f32 [lo3 | hi3], root level first, leaves last
+    levels: torch.Tensor  # (2 L,) i32 [offset of level 0..L-1 | size of level 0..L-1]
+    sizes: tuple  # static: nodes per level, level 0 (the leaves) first
+    leaf: int  # table rows per leaf box
+
+
+def build_tree(leaf_lo, leaf_hi, n_rows: int, leaf: int) -> BoxTree:
+    """The tree the K1b and K6 kernels walk: level 0 is the boxes that hold
+    rows (ceil(n_rows / leaf) of them; all-padding boxes are left out), and
+    node i of level l + 1 is the union of nodes 4i .. 4i + 3 of level l, up
+    to a single root.  The unions are exact min / max of the children's
+    boxes, so a node contains every box below it."""
+    n0 = -(-n_rows // leaf)
+    los, his = [leaf_lo[:n0]], [leaf_hi[:n0]]
+    while los[-1].shape[0] > 1:
+        lo, hi = los[-1], his[-1]
+        pad = (-lo.shape[0]) % FAN
+        inf = float("inf")
+        lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=inf)
+        hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-inf)
+        los.append(lo.reshape(-1, FAN, 3).amin(dim=1))
+        his.append(hi.reshape(-1, FAN, 3).amax(dim=1))
+    sizes = tuple(x.shape[0] for x in los)
+    if len(sizes) > MAX_LEVELS:
+        raise NotImplementedError(
+            f"build_tree: {len(sizes)} tree levels, the kernels' stack covers "
+            f"{MAX_LEVELS} ({FAN ** (MAX_LEVELS - 1)} leaf boxes)")
+    offsets, at = [], 0
+    for n in reversed(sizes):  # root level first
+        offsets.append(at)
+        at += n
+    offsets.reverse()
+    boxes = torch.cat([torch.cat([lo, hi], dim=1) for lo, hi in zip(reversed(los),
+                                                                     reversed(his))])
+    levels = torch.tensor(offsets + list(sizes), dtype=torch.int32, device=leaf_lo.device)
+    return BoxTree(boxes.contiguous(), levels, sizes, leaf)
+
+
+def tree_launch(name, origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
+                tree: BoxTree, find_any: bool, band: Band):
+    """Launch the tree walk of csrc/<name>.cu (K1b 'dense_multi', K6
+    'packet_trace') on CUDA tensors checked by the caller.  A push past a
+    walk's stack sets a status word, on which this raises (one host sync
+    per launch).  -> (t, u, v, tri, obj)."""
+    dev = origins.device
+    if coef.data_ptr() % 16:
+        raise ValueError(f"{name}: the coefficient table must be 16-byte aligned")
+    R, TI = origins.shape[0], coef.shape[0]
+    t = torch.empty((R,), dtype=torch.float32, device=dev)
+    u, v = torch.empty_like(t), torch.empty_like(t)
+    tri = torch.empty((R,), dtype=torch.int32, device=dev)
+    obj = torch.empty_like(tri)
+    status = torch.zeros((1,), dtype=torch.int32, device=dev)
+    lib = cuda_lib.library(name)
+    code = getattr(lib, f"lprt_{name}")(
+        origins.data_ptr(), directions.data_ptr(), skip.data_ptr(), mind.data_ptr(),
+        maxd.data_ptr(), coef.data_ptr(), tri_ids.data_ptr(), obj_ids.data_ptr(),
+        tree.boxes.data_ptr(), tree.levels.data_ptr(), len(tree.sizes), R, TI,
+        int(find_any), *band, t.data_ptr(), u.data_ptr(), v.data_ptr(), tri.data_ptr(),
+        obj.data_ptr(), status.data_ptr(), cuda_lib.stream_ptr(dev),
+    )
+    cuda_lib.check(code, name)
+    if int(status.item()):
+        raise RuntimeError(f"{name}: a ray's walk overflowed the kernel's stack")
+    return t, u, v, tri, obj
+
+
 def dense_trace_multi(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
-                      chunk_lo, chunk_hi, find_any: bool = False):
+                      chunk_lo, chunk_hi, find_any: bool = False, band: Band = STRICT,
+                      tree: BoxTree | None = None):
     """K1b wrapper: see the module docstring.  origins/directions (R, 3)
     f32, skip (R,) i32, mind/maxd (R,) f32, coef (TI, 12) f32, tri_ids /
     obj_ids (TI,) i32, chunk_lo/chunk_hi (NC, 3) f32 with NC =
     ceil(TI / 128): the AABB of rows [128 c, 128 c + 128), in the rays'
-    (recentred) frame.  -> (t, u, v, tri, obj)."""
+    (recentred) frame; `tree`: `build_tree(chunk_lo, chunk_hi, TI, 128)`
+    when the caller keeps one.  -> (t, u, v, tri, obj)."""
     R = origins.shape[0]
     TI = coef.shape[0]
     NC = -(-TI // CHUNK)
@@ -239,32 +389,18 @@ def dense_trace_multi(origins, directions, skip, mind, maxd, coef, tri_ids, obj_
                 [(f32, (R, 3)), (f32, (R, 3)), (i32, (R,)), (f32, (R,)), (f32, (R,)),
                  (f32, (TI, 12)), (i32, (TI,)), (i32, (TI,)), (f32, (NC, 3)),
                  (f32, (NC, 3))])
-    if NC > MAX_CHUNKS:
-        raise NotImplementedError(
-            f"dense_trace_multi holds <= {MAX_CHUNKS} chunk AABBs in shared "
-            f"memory; got {NC} ({TI} instance triangles: the packet BVH, "
-            "ROADMAP queue 1 item 10)")
-    dev = origins.device
-    if dev.type == "cpu":
+    if origins.device.type == "cpu":
         return dense_trace_multi_plain(origins, directions, skip, mind, maxd, coef,
-                                       tri_ids, obj_ids, chunk_lo, chunk_hi, find_any)
-    if coef.data_ptr() % 16:
-        raise ValueError("dense_trace_multi: the coefficient table must be 16-byte aligned")
-    t = torch.empty((R,), dtype=f32, device=dev)
-    u, v = torch.empty_like(t), torch.empty_like(t)
-    tri = torch.empty((R,), dtype=i32, device=dev)
-    obj = torch.empty_like(tri)
-    boxes = torch.cat([chunk_lo, chunk_hi], dim=1).contiguous()  # (NC, 6)
-    lib = cuda_lib.library("dense_multi")
-    code = lib.lprt_dense_trace_multi(
-        origins.data_ptr(), directions.data_ptr(), skip.data_ptr(), mind.data_ptr(),
-        maxd.data_ptr(), coef.data_ptr(), tri_ids.data_ptr(), obj_ids.data_ptr(),
-        boxes.data_ptr(), R, TI, NC, int(find_any), t.data_ptr(), u.data_ptr(),
-        v.data_ptr(), tri.data_ptr(), obj.data_ptr(), cuda_lib.stream_ptr(dev),
-    )
-    cuda_lib.check(code, "dense_trace_multi")
+                                       tri_ids, obj_ids, find_any=find_any, band=band)
+    if tree is None:
+        tree = build_tree(chunk_lo, chunk_hi, TI, CHUNK)
+    if tree.leaf != CHUNK:
+        raise ValueError(f"dense_trace_multi: the tree's leaf boxes hold {tree.leaf} rows, "
+                         f"not {CHUNK}")
+    out = tree_launch("dense_multi", origins, directions, skip, mind, maxd, coef, tri_ids,
+                      obj_ids, tree, find_any, band)
     cuda_lib.LAUNCHES["dense_trace_multi"] += 1
-    return t, u, v, tri, obj
+    return out
 
 
 def ray_aabb_entry(lo, hi, o, d, maxd):
@@ -406,7 +542,8 @@ def sorted_launch(launch, key, origins, directions, skip, mind, maxd, *table, **
 
 def dense_trace_multi_sorted(origins, directions, skip, mind, maxd, coef, tri_ids,
                              obj_ids, chunk_lo, chunk_hi, find_any: bool = False,
-                             key_mode: str = "anchor"):
+                             key_mode: str = "anchor", band: Band = STRICT,
+                             tree: BoxTree | None = None):
     """K1b on incoherent rays, coherence recovered
     (`trace_rays_dense_pallas_sorted`): sort the rays by `anchor_key`, or
     by `morton_key` in mode `key_mode` ('beam' / 'origin'), trace them in
@@ -419,4 +556,5 @@ def dense_trace_multi_sorted(origins, directions, skip, mind, maxd, coef, tri_id
     else:
         key = morton_key(origins, directions, live=live, mode=key_mode)
     return sorted_launch(dense_trace_multi, key, origins, directions, skip, mind, maxd,
-                         coef, tri_ids, obj_ids, chunk_lo, chunk_hi, find_any=find_any)
+                         coef, tri_ids, obj_ids, chunk_lo, chunk_hi, find_any=find_any,
+                         band=band, tree=tree)

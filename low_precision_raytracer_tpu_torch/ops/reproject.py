@@ -11,7 +11,7 @@ takes the fast shifted path (K2, ops/svgf_kernels.coef_fetch) when every
 caring anchor sits within one pixel of pixel + one global motion, else
 the general 2x2 take in plain PyTorch, as the JAX package runs it in XLA.
 Choosing the branch reads one flag from the device (a host sync per
-frame).  The TAA half waits (ROADMAP queue 1 item 8a).
+frame).  The TAA half waits (ROADMAP queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -102,7 +102,9 @@ def generate_svgf_map(g, frame, state, width: int, height: int, dtype,
                       position_f32, svgf_payload):
     """The SVGF temporal map and its packed history fetch.
     g: G-buffer dict of (H, W, ...) tensors; state: FrameState;
-    svgf_payload: (10, H, W) f32 history in ctr order or None.
+    position_f32: (H, W, 3) f32 hit positions to reproject, or None for
+    the G-buffer's position (fp32); svgf_payload: (10, H, W) f32 history in
+    ctr order or None.
     -> (svgf_map dict(frame_count, weights, base_y, base_x),
         ctr (11, H, W) or None, fast_path (bool or None))."""
     dt = dtype
@@ -113,8 +115,9 @@ def generate_svgf_map(g, frame, state, width: int, height: int, dtype,
     mesh_p = frame.obj_mesh[obj]
     comp = state.last_w2c[None] @ state.last_l2w @ frame.obj_w2l_f32  # (O, 4, 4)
     comp_px = comp[obj]  # (H, W, 4, 4)
-    p4 = torch.cat([position_f32.to(f32), torch.ones((H, W, 1), dtype=f32,
-                                                     device=valid.device)], dim=-1)
+    pos = position_f32 if position_f32 is not None else g["position"]
+    p4 = torch.cat([pos.to(f32), torch.ones((H, W, 1), dtype=f32, device=valid.device)],
+                   dim=-1)
     clip = (comp_px @ p4[..., None])[..., 0]
     g_fx = (1 + clip[..., 0] / clip[..., 3]) / 2 * W
     g_fy = (1 + clip[..., 1] / clip[..., 3]) / 2 * H

@@ -1,6 +1,6 @@
 """Skybox sampling (port of `low_precision_raytracer_tpu/ops/texture.py:
 sample_skybox`).  `sample_texture` waits with textured scenes (ROADMAP
-queue 1 item 9a)."""
+queue 1 item 5)."""
 
 from __future__ import annotations
 

@@ -4,7 +4,7 @@ the dense route and the packet BVH).
 `resolve_impl` resolves `traversal_impl='auto'` as the JAX package does
 on the TPU: the dense route ('dense_pallas') up to `packet_bvh_min_tris`
 instance triangles, the packet BVH ('pallas') up to `packet_bvh_max_tris`,
-the XLA walk ('jax', refused: ROADMAP queue 1 item 10a) above.  `trace`
+the XLA walk ('jax', refused: ROADMAP queue 1 item 7) above.  `trace`
 prepares the kernels' inputs (recentred rays, the coefficient table, the
 chunk or leaf AABBs, the light rows) the way the JAX wrappers prepare them
 outside their kernels, then dispatches as the JAX package does.
@@ -14,7 +14,8 @@ The dense route:
   triangles) -> K1a `dense_trace`, with the fused shadow phase when
   `di_lights` is given;
 - other coherent launches (multi-chunk, or any hit) -> K1b
-  `dense_trace_multi`;
+  `dense_trace_multi`, any chunk count (the tree over the chunk boxes is
+  built once per frame table);
 - incoherent launches the JAX package sends to the per-ray wavefront
   (bf16, above `wavefront_min_tris` instance triangles) ->
   `trace_rays_wavefront` (K5 and its schedule kernel, `ops/wavefront.py`),
@@ -31,6 +32,10 @@ more than 4096 instance triangles -> `packet_trace_sorted` (the morton
 
 `resolve_fallback`, `incoherent_reorders`, `di_fusible` and
 `moveforward_eps` answer as the JAX package does for the resolved route.
+Every kernel gets the acceptance the JAX package resolves
+(`acceptance_band`): the strict 'mxu3' test in bf16, the f32 'both' error
+band in fp32 (the dense kernels' form on the dense route, the packet
+kernel's on the packet BVH).
 """
 
 from __future__ import annotations
@@ -49,13 +54,19 @@ from low_precision_raytracer_tpu_torch.models.scene import (
     instance_tris,
 )
 from low_precision_raytracer_tpu_torch.ops.dense_trace import (
+    CHUNK,
+    STRICT,
+    Band,
     coef_table,
+    dense_band,
     dense_trace,
     dense_trace_multi,
     dense_trace_multi_sorted,
+    packet_band,
 )
+from low_precision_raytracer_tpu_torch.ops.dense_trace import build_tree
 from low_precision_raytracer_tpu_torch.ops.packet_trace import (
-    build_tree,
+    LEAF,
     packet_trace,
     packet_trace_sorted,
 )
@@ -83,6 +94,21 @@ def resolve_fallback(fb: str, prec: Precision) -> str:
     if fb == "mxu3" and prec.is_f32:
         return "both"
     return fb
+
+
+def acceptance_band(frame: FrameInput, cfg: RenderConfig, prec: Precision) -> Band:
+    """The acceptance every kernel of this route runs: the strict test for
+    'mxu3', the f32 'both' band of the resolved route in fp32; other
+    acceptances are not ported (the bf16 / fp16 'both' and 'dtype' tests,
+    ROADMAP queue 1 items 3 and 9)."""
+    fb = resolve_fallback(cfg.triangle_fallback, prec)
+    if fb == "mxu3":
+        return STRICT
+    if fb == "both" and prec.is_f32:
+        return packet_band(prec) if resolve_impl(frame, cfg) == "pallas" else dense_band(prec)
+    raise NotImplementedError(
+        f"triangle_fallback={fb!r} in {prec.name}: only the mxu3 test and the fp32 'both' "
+        "test are ported (the sub-f32 'both' / 'dtype' tests: ROADMAP queue 1 items 3 and 9)")
 
 
 def resolve_impl(frame: FrameInput, cfg: RenderConfig) -> str:
@@ -163,28 +189,37 @@ def check_scene(frame: FrameInput, cfg: RenderConfig) -> None:
         raise NotImplementedError(
             f"{instance_tris(frame)} instance triangles: 'auto' resolves to "
             f"traversal_impl={impl!r}, the XLA BVH walk, which is not ported "
-            "(ROADMAP queue 1 item 10a)")
+            "(ROADMAP queue 1 item 7)")
 
 
 _TREES: dict = {}
 
 
-def _packet_tables(frame: FrameInput):
-    """The packet route's leaf AABBs recentred like the rays and the tree
-    over them, built once per frame table (keyed on the leaf tensor, held
-    weakly)."""
-    key = id(frame.dense_leaf_lo)
+def _box_tables(boxes_lo, boxes_hi, frame: FrameInput, leaf: int):
+    """Boxes of `leaf` rows each, recentred like the rays, and the tree over
+    them, once per frame table (keyed on `boxes_lo`, held weakly)."""
+    key = id(boxes_lo)
     hit = _TREES.get(key)
-    if hit is not None and hit[0]() is frame.dense_leaf_lo:
+    if hit is not None and hit[0]() is boxes_lo:
         return hit[1]
     for k in [k for k, (ref, _) in _TREES.items() if ref() is None]:
         del _TREES[k]
     c = frame.dense_center
-    lo = (frame.dense_leaf_lo - c[None, :]).contiguous()
-    hi = (frame.dense_leaf_hi - c[None, :]).contiguous()
-    tables = (lo, hi, build_tree(lo, hi, frame.dense_n_f32.shape[0]))
-    _TREES[key] = (weakref.ref(frame.dense_leaf_lo), tables)
+    lo = (boxes_lo - c[None, :]).contiguous()
+    hi = (boxes_hi - c[None, :]).contiguous()
+    tables = (lo, hi, build_tree(lo, hi, frame.dense_n_f32.shape[0], leaf))
+    _TREES[key] = (weakref.ref(boxes_lo), tables)
     return tables
+
+
+def _packet_tables(frame: FrameInput):
+    """The packet route's leaf AABBs and the tree over them."""
+    return _box_tables(frame.dense_leaf_lo, frame.dense_leaf_hi, frame, LEAF)
+
+
+def _chunk_tables(frame: FrameInput):
+    """K1b's chunk AABBs and the tree over them."""
+    return _box_tables(frame.dense_chunk_lo, frame.dense_chunk_hi, frame, CHUNK)
 
 
 def di_light_rows(frame: FrameInput, di_lights: dict) -> torch.Tensor:
@@ -212,10 +247,7 @@ def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
     pixel-major (row i*K + l = pixel i's lane l); the launch runs them
     lane-major (K blocks of pixel-ordered rays, so the dead lanes of one
     light cluster) and returns them pixel-major."""
-    if resolve_fallback(cfg.triangle_fallback, prec) != "mxu3":
-        raise NotImplementedError(
-            "only the mxu3 acceptance is ported (fp32 'both' / bf16 'dtype': "
-            "ROADMAP queue 1 item 8a)")
+    acc = acceptance_band(frame, cfg, prec)
     f32 = torch.float32
     dev = origins.device
     R = origins.shape[0]
@@ -252,17 +284,17 @@ def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
         lo, hi, tree = _packet_tables(frame)
         launch = (packet_trace_sorted if not coherent and _sorted_route(frame, cfg)
                   else packet_trace)
-        return Hit(*launch(*rays, lo, hi, find_any=find_any, tree=tree))
+        return Hit(*launch(*rays, lo, hi, find_any=find_any, band=acc, tree=tree))
     if impl != "dense_pallas":
         raise NotImplementedError(
-            f"traversal_impl={impl!r} is not ported (ROADMAP queue 1 item 10a)")
+            f"traversal_impl={impl!r} is not ported (ROADMAP queue 1 item 7)")
     if instance_tris(frame) <= TC and not find_any:
         lights = None if di_lights is None else di_light_rows(frame, di_lights)
-        *h, vis = dense_trace(*rays, lights, d_mov=prec.ray_moveforward_t_exact)
+        *h, vis = dense_trace(*rays, lights, d_mov=prec.ray_moveforward_t_exact, band=acc)
         return (Hit(*h), vis) if di_lights is not None else Hit(*h)
-    boxes = ((frame.dense_chunk_lo - c[None, :]).contiguous(),
-             (frame.dense_chunk_hi - c[None, :]).contiguous())
+    lo, hi, tree = _chunk_tables(frame)
     if not coherent and _sorted_route(frame, cfg):
-        return Hit(*dense_trace_multi_sorted(*rays, *boxes, find_any=find_any,
-                                             key_mode=cfg.incoherent_sort))
-    return Hit(*dense_trace_multi(*rays, *boxes, find_any=find_any))
+        return Hit(*dense_trace_multi_sorted(*rays, lo, hi, find_any=find_any,
+                                             key_mode=cfg.incoherent_sort, band=acc,
+                                             tree=tree))
+    return Hit(*dense_trace_multi(*rays, lo, hi, find_any=find_any, band=acc, tree=tree))

@@ -35,7 +35,7 @@ of the table, static tail tiers and tile-path sweep have no counterpart:
 every lane is tested in its pass and the tail runs to completion.  The JAX
 sweep traces its few straggler rays unquantised through the tile path; here
 they stay quantised like every other lane.  'rounds' mode is not ported
-(`config.check_supported` refuses it, ROADMAP queue 1 item 10a).
+(`config.check_supported` refuses it, ROADMAP queue 1 item 8).
 
 Wrappers launch their kernel on CUDA tensors (or raise) and run the plain
 PyTorch version on CPU tensors.

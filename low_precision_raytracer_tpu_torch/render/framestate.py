@@ -1,7 +1,7 @@
 """The carried frame state (port of
 `low_precision_raytracer_tpu/render/framestate.py`): everything frame N
 hands to frame N + 1.  The TAA history joins it with the TAA half
-(ROADMAP queue 1 item 8a); at mix weight 1 nothing reads it."""
+(ROADMAP queue 1 item 6); at mix weight 1 nothing reads it."""
 
 from __future__ import annotations
 

@@ -224,7 +224,10 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
     g_flat, _ = fill_gbuffer(scene, frame, o32g.reshape(R, 3), d32, cfg=cfg,
                              prec=prec, di_lights=di_spec)
     g2d = {k: v.reshape((H, W) + tuple(v.shape[1:])) for k, v in g_flat.items()}
-    pos32 = o32g + g2d["t"][..., None] * d32g
+    # f32 hit positions o32 + t d32 anchor the reprojection and round 0's
+    # light geometry in low-precision modes; fp32 uses the G-buffer's
+    # interpolated position, as the JAX package does
+    pos32 = None if prec.is_f32 else o32g + g2d["t"][..., None] * d32g
 
     # ---- SVGF temporal map + packed history fetch (K2)
     svgf_payload = None
@@ -239,7 +242,8 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
         g2d, frame, state, W, H, dt, pos32, svgf_payload)
 
     # ---- shade round 0, then the GI launch carrying round 1's shadows
-    sin0 = gbuffer_to_shade_input(g_flat, position_f32=pos32.reshape(R, 3))
+    sin0 = gbuffer_to_shade_input(
+        g_flat, position_f32=None if pos32 is None else pos32.reshape(R, 3))
     out0 = shade(scene, frame, sin0, view_dir=-d32, cfg=cfg, first_round=True,
                  no_gi=gi_rounds == 0, uniforms=uniforms[0] if gi_rounds else None)
     sin_next = vis_next = None
@@ -330,9 +334,9 @@ class Renderer:
                  seed: int = 0):
         check_supported(cfg)
         if host_scene.textures:
-            raise NotImplementedError("textured scenes wait (ROADMAP queue 1 item 9a)")
+            raise NotImplementedError("textured scenes wait (ROADMAP queue 1 item 5)")
         if host_scene.animated:
-            raise NotImplementedError("animated scenes wait (ROADMAP queue 1 item 11)")
+            raise NotImplementedError("animated scenes wait (ROADMAP queue 1 item 4)")
         self.device = resolve_device(device)
         self.scene = build_scene_arrays(host_scene, cfg.prec, self.device)
         self.frame = flatten_frame(

@@ -18,10 +18,11 @@ lanes with t/u/v within rtol/atol 2e-3 and equal ids where they agree
 of lanes and dead lanes (maxd = 0) are exactly -1 on both sides.
 
 Within the port: the sorted launch equals the unsorted one bit for bit;
-K1b's plain version equals K1a's on Cornell; and the kernel's walk (chunks
-nearest entry first, closest hit stopping past its best t, any hit at its
-first blocker), emulated here in PyTorch, equals the plain version's
-global minimum bit for bit: its chunk boxes never cut a hit."""
+K1b's plain version equals K1a's on Cornell; and the kernel's walk (a
+4-ary tree over the chunk boxes, nearest entry first, closest hit skipping
+boxes past its best t, any hit stopping at its first blocker; emulated by
+tests/test_torch_packet.py:_walk) equals the plain version's global
+minimum bit for bit: its boxes never cut a hit."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -44,8 +45,8 @@ from low_precision_raytracer_tpu_torch.ops.dense_trace import (
     dense_trace_multi,
     dense_trace_multi_plain,
     dense_trace_multi_sorted,
+    build_tree,
     dense_trace_plain,
-    ray_aabb_entry,
 )
 from low_precision_raytracer_tpu_torch.ops.trace import (
     _wavefront_route,
@@ -53,6 +54,7 @@ from low_precision_raytracer_tpu_torch.ops.trace import (
     moveforward_eps,
     trace,
 )
+from test_torch_packet import _walk as tree_walk
 
 H, W = 16, 128
 R = H * W
@@ -247,70 +249,6 @@ def _launch_args(tf, o, d, skip, mind, maxd):
             (tf.dense_chunk_hi - c).contiguous())
 
 
-def _walk(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, lo, hi, find_any):
-    """The kernel's chunk walk in PyTorch: per ray, the chunks its segment
-    enters in (entry, chunk) order; closest hit stops once the next entry
-    exceeds its best t, any hit at its first accepted triangle."""
-    n, NC = o.shape[0], lo.shape[0]
-    entry, ok = ray_aabb_entry(lo, hi, o, d, maxd)
-    # a stable sort keeps equal entries in chunk order: (entry, chunk)
-    order = torch.sort(torch.where(ok, entry, float("inf")), dim=1, stable=True).indices
-    live = maxd > mind
-    bt = torch.full((n,), 1e5)
-    bu, bv = torch.zeros(n), torch.zeros(n)
-    btri = torch.full((n,), -1, dtype=torch.int32)
-    brow = torch.full((n,), -1, dtype=torch.int64)
-    done = ~live
-    rows = torch.arange(CHUNK)
-    for j in range(NC):
-        ch = order[:, j]
-        e = entry.gather(1, ch[:, None])[:, 0]
-        active = ~done & ok.gather(1, ch[:, None])[:, 0]
-        if not find_any:
-            active &= ~(e > bt)
-        done |= ~active
-        if not bool(active.any()):
-            break
-        idx = (ch[:, None] * CHUNK + rows[None, :]).clamp(max=coef.shape[0] - 1)
-        valid_row = ch[:, None] * CHUNK + rows[None, :] < coef.shape[0]
-        cr = coef[idx]  # (n, 128, 12)
-        tq = [cr[..., i] for i in range(12)]
-        ox, oy, oz = (o[:, i : i + 1] for i in range(3))
-        dx, dy, dz = (d[:, i : i + 1] for i in range(3))
-        Oz = tq[6] * ox + tq[7] * oy + tq[8] * oz + tq[11]
-        Dz = tq[6] * dx + tq[7] * dy + tq[8] * dz
-        Ox = tq[0] * ox + tq[1] * oy + tq[2] * oz + tq[9]
-        Oy = tq[3] * ox + tq[4] * oy + tq[5] * oz + tq[10]
-        Dx = tq[0] * dx + tq[1] * dy + tq[2] * dz
-        Dy = tq[3] * dx + tq[4] * dy + tq[5] * dz
-        t = -Oz / Dz
-        u = Ox + t * Dx
-        v = Oy + t * Dy
-        tri = tri_ids[idx]
-        acc = (valid_row & (u > 0) & (v > 0) & (u + v < 1) & (t > mind[:, None])
-               & (t < maxd[:, None]) & (tri != skip[:, None]) & torch.isfinite(t)
-               & active[:, None])
-        if find_any:
-            hit = acc.any(1)
-            btri = torch.where(hit, 0, btri).to(torch.int32)
-            done |= hit
-            continue
-        for k in range(CHUNK):  # rows in order, the kernel's update rule
-            tk, trk, rk = t[:, k], tri[:, k], idx[:, k]
-            better = acc[:, k] & ((tk < bt) | ((tk == bt) & ((trk < btri)
-                                  | ((trk == btri) & (rk < brow)))))
-            bt = torch.where(better, tk, bt)
-            bu = torch.where(better, u[:, k], bu)
-            bv = torch.where(better, v[:, k], bv)
-            btri = torch.where(better, trk, btri)
-            brow = torch.where(better, rk, brow)
-    if find_any:
-        return (torch.full((n,), 1e5), torch.zeros(n), torch.zeros(n), btri,
-                torch.full((n,), -1, dtype=torch.int32))
-    obj = torch.where(brow >= 0, obj_ids[brow.clamp(min=0)], -1).to(torch.int32)
-    return bt, bu, bv, btri, obj
-
-
 @pytest.mark.parametrize("find_any", [False, True], ids=["closest", "any"])
 def test_walk_and_sort_equal_plain(sponza, find_any):
     """Bit for bit on the GI-shaped launch: the kernel's walk (emulated)
@@ -322,7 +260,8 @@ def test_walk_and_sort_equal_plain(sponza, find_any):
         p, skip = o, np.repeat(skip, 2)
     args = _launch_args(c["tframe"], p, d, skip, np.full(p.shape[0], 1e-2, np.float32), maxd)
     plain = dense_trace_multi_plain(*args, find_any=find_any)
-    for got in (_walk(*args, find_any=find_any), dense_trace_multi(*args, find_any=find_any),
+    tree = build_tree(args[8], args[9], args[5].shape[0], CHUNK)
+    for got in (tree_walk(*args[:8], tree, find_any), dense_trace_multi(*args, find_any=find_any),
                 dense_trace_multi_sorted(*args, find_any=find_any)):
         for a, b in zip(got, plain):
             assert torch.equal(a, b)

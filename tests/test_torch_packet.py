@@ -19,8 +19,9 @@ marker); dead lanes exactly -1 on both sides; skip_tri honoured.
 
 Within the port: the sorted launch equals the unsorted one bit for bit;
 `morton_key` equals the JAX `_morton_key` bit for bit in both modes; and
-the kernel's walk (`csrc/packet_trace.cu`: an ordered depth-first walk of
-the 4-ary tree with a stack, children pushed farthest first, a node
+the kernel's walk (`csrc/trace_common.cuh`, which `csrc/packet_trace.cu`
+runs over the 32-row leaves and `csrc/dense_multi.cu` over the 128-row
+chunks: an ordered depth-first walk of the 4-ary tree with a stack, children pushed farthest first, a node
 skipped when its entry exceeds the best t, any hit stopping at its first
 accepted row), emulated here in PyTorch, equals the plain version's global
 (t, tri, row) minimum bit for bit, on a constructed equal-t tie across two
@@ -47,11 +48,16 @@ from low_precision_raytracer_tpu_torch.config import RenderConfig
 from low_precision_raytracer_tpu_torch.models import scene as tscene
 from low_precision_raytracer_tpu_torch.models.procedural import sponza_like_scene
 from low_precision_raytracer_tpu_torch.ops.camera import primary_ray_grid as torch_ray_grid
-from low_precision_raytracer_tpu_torch.ops.dense_trace import coef_table, dense_trace_multi_plain
-from low_precision_raytracer_tpu_torch.ops.packet_trace import (
+from low_precision_raytracer_tpu_torch.ops.dense_trace import (
     FAN,
-    LEAF,
+    STRICT,
     build_tree,
+    coef_table,
+    dense_trace_multi_plain,
+    m_shift_test,
+)
+from low_precision_raytracer_tpu_torch.ops.packet_trace import (
+    LEAF,
     morton_key,
     packet_trace_sorted,
 )
@@ -273,13 +279,15 @@ def _entry(tree, gidx, o, inv, maxd):
     return e, ok
 
 
-def _walk(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, tree, find_any):
-    """The kernel's walk in PyTorch, vectorised over rays: per ray a stack
-    of (level, index, entry); pop, skip a node whose entry exceeds the best
-    t (closest hit), test a leaf's rows in order (the kernel's update rule)
-    or push an internal node's entered children farthest first (equal
-    entries: the lower index on top)."""
+def _walk(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, tree, find_any, band=STRICT):
+    """The kernels' tree walk in PyTorch, vectorised over rays: per ray a
+    stack of (level, index, entry); pop, skip a node whose entry exceeds
+    the best t (closest hit), test a leaf's `tree.leaf` rows in order (the
+    kernel's update rule, the test accepted by `band`) or push an internal
+    node's entered children farthest first (equal entries: the lower index
+    on top)."""
     n, TI = o.shape[0], coef.shape[0]
+    leaf = tree.leaf
     L = len(tree.sizes)
     offs = tree.levels[:L].long()
     sizes = torch.tensor(tree.sizes)
@@ -307,29 +315,19 @@ def _walk(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, tree, find_any):
         go = torch.ones_like(lvl, dtype=torch.bool) if find_any else ~(ent > bt[act])
         lf, li = act[go & (lvl == 0)], idx[go & (lvl == 0)]
         if lf.numel():
-            rows = li[:, None] * LEAF + torch.arange(LEAF)[None, :]
+            rows = li[:, None] * leaf + torch.arange(leaf)[None, :]
             cr = coef[rows.clamp(max=TI - 1)]
-            q = [cr[..., i] for i in range(12)]
-            ox, oy, oz = (o[lf, i : i + 1] for i in range(3))
-            dx, dy, dz = (d[lf, i : i + 1] for i in range(3))
-            Oz = q[6] * ox + q[7] * oy + q[8] * oz + q[11]
-            Dz = q[6] * dx + q[7] * dy + q[8] * dz
-            Ox = q[0] * ox + q[1] * oy + q[2] * oz + q[9]
-            Oy = q[3] * ox + q[4] * oy + q[5] * oz + q[10]
-            Dx = q[0] * dx + q[1] * dy + q[2] * dz
-            Dy = q[3] * dx + q[4] * dy + q[5] * dz
-            t = -Oz / Dz
-            u = Ox + t * Dx
-            v = Oy + t * Dy
+            t, u, v, geom = m_shift_test([cr[..., i] for i in range(12)], o[lf][:, :, None],
+                                         d[lf][:, :, None], band)
             tri = tri_ids[rows.clamp(max=TI - 1)]
-            acc = ((rows < TI) & (u > 0) & (v > 0) & (u + v < 1) & (t > mind[lf, None])
+            acc = ((rows < TI) & geom & (t > mind[lf, None])
                    & (t < maxd[lf, None]) & (tri != skip[lf, None]) & torch.isfinite(t))
             if find_any:
                 hit = lf[acc.any(1)]
                 btri[hit] = 0
                 sp[hit] = 0
             else:
-                for k in range(LEAF):
+                for k in range(leaf):
                     tk, trk, rk = t[:, k], tri[:, k], rows[:, k]
                     b_t, b_tri, b_row = bt[lf], btri[lf], brow[lf]
                     better = acc[:, k] & ((tk < b_t) | ((tk == b_t) & (
@@ -376,7 +374,7 @@ def test_walk_and_sort_equal_plain(setup, find_any):
     if find_any:
         p, d, skip, maxd, _dead, _L = _shadows(c, p, maxd > 0, skip, np.random.default_rng(3))
     args = _launch_args(c["tframe"], p, d, skip, np.full(p.shape[0], 0.1, np.float32), maxd)
-    tree = build_tree(args[8], args[9], args[5].shape[0])
+    tree = build_tree(args[8], args[9], args[5].shape[0], LEAF)
     plain = dense_trace_multi_plain(*args[:8], find_any=find_any)
     for a, b in zip(packet_trace_sorted(*args, find_any=find_any), plain):
         assert torch.equal(a, b)
@@ -417,7 +415,7 @@ def test_walk_breaks_cross_leaf_tie_like_plain():
     plain = dense_trace_multi_plain(*args[:8])
     tied = base[3] == tri_ids[j]
     assert int(tied.sum()) > 10 and bool((plain[3][tied] == tri_ids[j]).all())
-    tree = build_tree(lo, hi, TI)
+    tree = build_tree(lo, hi, TI, LEAF)
     for a, b in zip(_walk(*args[:8], tree, False), plain):
         assert torch.equal(a, b)
 
@@ -445,7 +443,7 @@ def test_tree_levels(setup):
     (up to) four children, one root, the leaf boxes unchanged."""
     tf = setup["tframe"]
     TI = tf.dense_n_f32.shape[0]
-    tree = build_tree(tf.dense_leaf_lo, tf.dense_leaf_hi, TI)
+    tree = build_tree(tf.dense_leaf_lo, tf.dense_leaf_hi, TI, LEAF)
     n0 = -(-TI // LEAF)
     assert tree.sizes[0] == n0 and tree.sizes[-1] == 1
     assert setup["name"] != "colonnade-46k" or n0 > L1_MIN_LEAVES
@@ -501,5 +499,5 @@ def test_auto_resolution():
     xla = RenderConfig(width=8, height=8, precision="bf16", packet_bvh_min_tris=4000,
                        packet_bvh_max_tris=5000)
     assert resolve_impl(tf, xla) == "jax"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10a"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 7\)"):
         check_scene(tf, xla)

@@ -17,7 +17,12 @@ Bars, every frame: image PSNR >= 35 dB (the bar the ROADMAP set for the
 port's frame); the G-buffer validity mask agrees on >= 99.9% of pixels;
 the SVGF frame counts are equal where the validity agrees.  The two sides
 differ by the trace's bf16x3-vs-f32 u/v/t (~2^-16), bf16 rounding points
-in the bounce attributes, and ~1 ulp transcendentals."""
+in the bounce attributes, and ~1 ulp transcendentals.
+
+fp32 (the default precision; the kernels' f32 'both' acceptance): the
+flagship at 64 x 64 over 5 frames and the Sponza-class frame at 32 x 32
+over 4, at the same bars.  The golden configs and the other bf16 frame
+variants are in tests/test_torch_render_variants.py."""
 
 import jax
 import numpy as np
@@ -52,19 +57,29 @@ def _psnr(a, b):
     return float("inf") if mse == 0 else float(10.0 * np.log10(1.0 / mse))
 
 
+def _jax_uniforms(key, cfg):
+    """The JAX `Renderer.render` key chain for one frame: -> (next key, the
+    GI shade rounds' uniforms `render_frame` draws, as CPU tensors)."""
+    import torch
+
+    key, sub = jax.random.split(key)
+    gi_rounds = cfg.max_bounces - 1 if cfg.gi_on else 0
+    _k_taa, k_shade0, *k_rounds = jax.random.split(sub, 2 + max(gi_rounds, 1))
+    keys = [k_shade0, *k_rounds][:gi_rounds]
+    R = cfg.width * cfg.height
+    return key, [torch.from_numpy(np.array(jax.random.uniform(k, (7 * R,), jax.numpy.float32)))
+                 for k in keys]
+
+
 def _run_both(jr, tr, frames, n=N):
     """Render `frames` frames of n x n on both, the port fed the JAX draws;
     hold every frame to the bars.  -> the port's last SVGF frame counts."""
-    import torch
-
     key = jr.key  # the JAX Renderer's own key chain, replayed for the draws
     R = n * n
     for f in range(frames):
-        key, sub = jax.random.split(key)
-        _k_taa, k_shade0, _k1 = jax.random.split(sub, 3)
-        us = np.array(jax.random.uniform(k_shade0, (7 * R,), jax.numpy.float32))
+        key, us = _jax_uniforms(key, tr.cfg)
         img_j, aux_j = jr.render()
-        img_t, aux_t = tr.render(uniforms=[torch.from_numpy(us)])
+        img_t, aux_t = tr.render(uniforms=us)
         img_j, img_t = np.asarray(img_j), img_t.numpy()
         assert img_t.shape == img_j.shape and np.isfinite(img_t).all()
         p = _psnr(img_t, img_j)
@@ -76,7 +91,8 @@ def _run_both(jr, tr, frames, n=N):
         ct = tr.state.svgf_frame_count.numpy()
         np.testing.assert_array_equal(ct[agree], cj[agree], err_msg=f"frame {f}")
         assert int(aux_t["n_rays"]) > R
-        assert aux_t["svgf_fast_path"] == (f > 0)  # frame 0 has no history
+        # frame 0 has no history; without the denoiser there is no fetch
+        assert aux_t["svgf_fast_path"] == ((f > 0) if tr.cfg.demo.svgf else None)
     return ct
 
 
@@ -169,3 +185,30 @@ def test_packet_frame_matches_jax(monkeypatch):
     assert int(ct.max()) == 3
     assert calls == [("packet_trace", False), ("packet_trace", True),
                      ("packet_trace_sorted", False), ("packet_trace_sorted", True)] * 4
+
+
+def _jax_pallas_cfg(**kw):
+    return JaxConfig(traversal_impl="dense_pallas", svgf=JaxSVGF(wavelet_impl="pallas"), **kw)
+
+
+def test_flagship_frame_matches_jax_fp32():
+    """The fp32 flagship (K1a with the f32 'both' band and its fused shadow
+    phase, the temporal map reprojecting the G-buffer position)."""
+    jr = JaxRenderer(jax_cornell(), _jax_pallas_cfg(width=N, height=N, precision="fp32"))
+    tr = Renderer(cornell_box_scene(), RenderConfig(width=N, height=N, precision="fp32"),
+                  device="cpu")
+    ct = _run_both(jr, tr, FRAMES)
+    assert int(ct.max()) == FRAMES - 1
+
+
+def test_sponza_frame_matches_jax_fp32():
+    """The fp32 Sponza-class route: K1b with the f32 band, the incoherent
+    launches on the sorted K1b."""
+    n = 32
+    jr = JaxRenderer(jax_sponza(3, 1), _jax_pallas_cfg(width=n, height=n, precision="fp32"))
+    tr = Renderer(sponza_like_scene(3, 1), RenderConfig(width=n, height=n, precision="fp32"),
+                  device="cpu")
+    assert not _wavefront_route(tr.frame, tr.cfg, tr.cfg.prec)
+    assert incoherent_reorders(tr.frame, tr.cfg, tr.cfg.prec)
+    ct = _run_both(jr, tr, 4, n)
+    assert int(ct.max()) == 3

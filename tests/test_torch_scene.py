@@ -104,7 +104,7 @@ def test_coefficient_table_cap(monkeypatch):
     """Above DENSE_COEFF_MAX_TRIS the JAX package builds no table (its XLA
     walk takes over); the port refuses the scene instead."""
     monkeypatch.setattr(tscene, "DENSE_COEFF_MAX_TRIS", 100)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10a"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 7\)"):
         tscene.flatten_frame(sponza_like_scene(2, 1), "bf16", "cpu")
 
 
@@ -155,7 +155,7 @@ def test_renderer_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(precision="fp32"),
+    dict(triangle_fallback="dtype"),
     dict(precision="fp16"),
     dict(taa_mix_weight=0.5),
     dict(taa_force_full=True),
@@ -182,7 +182,7 @@ def test_uncovered_scenes_raise():
     host.textures = [np.zeros((2, 2, 4), np.uint8)]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Renderer(host, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="XLA BVH walk.*ROADMAP queue 1 item 10a"):
+    with pytest.raises(NotImplementedError, match=r"XLA BVH walk.*ROADMAP queue 1 item 7\)"):
         Renderer(sponza_like_scene(3, 1), RenderConfig(
             width=8, height=8, precision="bf16", packet_bvh_min_tris=600,
             packet_bvh_max_tris=700), device="cpu")
@@ -191,7 +191,7 @@ def test_uncovered_scenes_raise():
         img, _aux = Renderer(sponza_like_scene(3, 1), RenderConfig(
             width=8, height=8, precision="bf16", **kw), device="cpu").render()
         assert bool(torch.isfinite(img).all())
-    with pytest.raises(NotImplementedError, match="rounds.*ROADMAP queue 1 item 10a"):
+    with pytest.raises(NotImplementedError, match=r"rounds.*ROADMAP queue 1 item 8\)"):
         Renderer(sponza_like_scene(3, 1), RenderConfig(
             width=8, height=8, precision="bf16", wavefront_mode="rounds"), device="cpu")
     img, _aux = Renderer(sponza_like_scene(3, 1), RenderConfig(
