@@ -98,15 +98,46 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
 20. colonnade-328k path phase: 8 frames; per frame K1b 2, the wavefront's
     K5 >= 2 and equal to its schedule kernel, K6 0, K1a 0.
 
+fp16 ('mxu3', the kernel routes 'auto' takes) runs between phases 16 and
+17:
+
+16a. fp16 flagship kernel phase: K1a (fused shadow phase) on the two 1080p
+     launches of the fp16 flagship's second frame, exact against its plain
+     version on every ray, timed;
+16b. fp16 flagship path phase: 8 frames, per frame K1a 2, K1b 0, K6 0, the
+     wavefront 0, K3 1, K4 5, K2 1 from frame 1; then the fp16-vs-fp32
+     parity line (PSNR, SSIM of the 8th frames, same seed) beside the bf16
+     one; a 64x64 fp16 render on the card against the CPU plain path, 5
+     frames;
+
+and after phase 20:
+
+21. fp16 colonnade-83k path phase: 4 frames, K1b 2 and the wavefront per
+    frame as in bf16;
+22. band kernel phases, for 'both' and 'dtype' in bf16 and in fp16, and
+    for fp32 'dtype' (`band_kernel_phase`): K1a on the flagship's two launches (every ray),
+    K1b on the Sponza-class frame's four (2^18-ray slices) and K6 on its
+    packet route's four (colonnade-5k with traversal_impl='pallas',
+    4,096-ray slices), each exact against its plain version, timed, with
+    its bound, from one warm-up frame each (an any-hit launch's bound counts
+    each blocked ray's rows up to its first accepted row);
+23. band path phases, 4 frames each: the Sponza-class frame in fp16 'both'
+    (K1b 4 per frame), the flagship in bf16 'dtype' (K1a 2), the packet
+    route on colonnade-5k in fp16 'both' (K6 4); then the fp32-fallback
+    rate of Cornell's primary launch at 256x256 in fp16 and bf16.
+
 Before the last line it prints a `kernels_fp32` JSON line (K1a, K1b, K6 in
 fp32: launches on the fp32 path phases, the fp32 kernel phases' times), a
-`kernels` JSON line (per kernel: launches over every path phase, max error
-against the plain version, time, plain time, the least time the work
-could take on the card and what bounds it; K1b's times are those of its
-bf16 Sponza-class launches, its colonnade-83k and -328k launches are on
-their own lines; K6's are the mean of its four colonnade-2M launches) and
-the nvidia-smi line; the last line is {"ok": true, "device": {...}}.
-About 6 minutes on an H100.
+`kernels_fp16` line (K1a in fp16, launches on the fp16 'mxu3' path
+phases), a `kernels_band` line (per acceptance, K1a, K1b and K6: times of
+that acceptance's kernel phase, launches over the band path phases of
+that acceptance, null where none ran it), a `kernels` JSON line (per kernel: launches over every path
+phase, max error against the plain version, time, plain time, the least
+time the work could take on the card and what bounds it; K1b's times are
+those of its bf16 Sponza-class launches, its colonnade-83k and -328k
+launches are on their own lines; K6's are the mean of its four
+colonnade-2M launches) and the nvidia-smi line; the last line is
+{"ok": true, "device": {...}}.  About 4 minutes on an H100.
 """
 
 from __future__ import annotations
@@ -189,6 +220,11 @@ TRI_TEST_OPS = 40  # 6 dot rows (28) + t = -Oz/Dz (2) + u, v (4) + u+v (1) + 5 c
 # (11), the widened test (7), the select (2); the kernels also scale |n|, |e|
 # per row (16 more), work the JAX package does once per table, not counted
 BAND_OPS = 61
+# a sub-f32 form on top of that: its dtype rows Ox, Oy (12) and Dx, Dy (10)
+# from the band rows and the rounded ray, and t Dx, t Dy, u, v on them (4);
+# the f32 rows' u32, v32 are the strict test's u, v (counted above); the
+# ray's rounding is per ray (6), not counted per row
+SUB_BAND_OPS = 26
 SHADOW_SETUP_OPS = 14  # to-light vector 3, length 6, 1/max 2, direction 3
 # slab test per tree box: 6 subtracts, 6 multiplies, 6 min/max, 6
 # finiteness tests, 4 running min/max, entry 2, acceptance 4
@@ -196,7 +232,9 @@ BOX_TEST_OPS = 34
 
 
 def row_ops(band):
-    return TRI_TEST_OPS + (BAND_OPS if band is not None and band.form else 0)
+    if band is None or not band.form:
+        return TRI_TEST_OPS
+    return TRI_TEST_OPS + BAND_OPS + (SUB_BAND_OPS if band.operand is not None else 0)
 
 
 def dense_trace_ops(args, kw, out):
@@ -575,7 +613,9 @@ def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
         # the bound: any-hit rays need the boxes up to their closest blocker
         t_final = out[0] if not kw.get("find_any") else torch.where(
             out[3] >= 0, dense_trace_multi(*args, **dict(kw, find_any=False))[0], 1e5)
-        n_ops, n_boxes, n_rows, _per_ray = walk_ops(args, t_final, kw["tree"], kw.get("band"))
+        n_ops, n_boxes, n_rows, _per_ray = walk_ops(
+            args, t_final, kw["tree"], kw.get("band"),
+            blocked=out[3] >= 0 if kw.get("find_any") else None)
         n_bytes = nbytes(*args, kw["tree"].boxes) + nbytes(*out)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         ms = cuda_ms(lambda: dense_trace_multi(*args, **kw), reps)
@@ -906,23 +946,63 @@ def _pair_entry(b, o, d, maxd):
     return e, fin.any(1) & (tmin <= tmax + 0.02) & (tmax + 0.02 >= 0) & (e < maxd)
 
 
-def walk_ops(args, t_final, tree, band=None):
+def first_accepts(args, band, rays, step=256, slab_elems=1 << 24):
+    """Index of the first table row that accepts each of `rays` (n,) under
+    `band`, -1 where none: the plain version's per-row accept, in blocks
+    of `step` rows, a ray dropping out at its first accepted row."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import _accept, tri_quantities
+
+    o, d, skip, mind, maxd, coef, tri_ids = args[:7]
+    TI = coef.shape[0]
+    first = torch.full((rays.numel(),), -1, dtype=torch.int64, device=o.device)
+    todo = torch.arange(rays.numel(), device=o.device)
+    for k0 in range(0, TI, step):
+        k1 = min(TI, k0 + step)
+        for s0 in range(0, todo.numel(), max(1, slab_elems // (k1 - k0))):
+            idx = todo[s0:s0 + max(1, slab_elems // (k1 - k0))]
+            r = rays[idx]
+            t, _u, _v, geom = tri_quantities(coef[k0:k1], o[r], d[r], band)
+            acc = _accept(t, geom, skip[r], mind[r], maxd[r], tri_ids[k0:k1])
+            hit = acc.any(1)
+            first[idx[hit]] = k0 + acc[hit].to(torch.int8).argmax(1)
+        todo = todo[first[todo] < 0]
+        if todo.numel() == 0:
+            break
+    return first
+
+
+def walk_ops(args, t_final, tree, band=None, blocked=None):
     """Tree-walk operations (K1b, K6) this run's data needs: per live ray,
     one slab test per tree box (internal node or leaf) it enters no later
     than `t_final` (its closest hit, or 1e5), through ancestors it also
     enters so, and the row test (with the band's when there is one) per row
     of each such leaf.  Counted level by level from the root, in blocks of
-    rays.  -> (ops, boxes entered, rows tested, leaves entered per live ray
-    (n_live,))."""
+    rays.  Under a widened band the kernels walk no tree: each live ray
+    tests the rows in order, all of them, or in an any-hit launch
+    (`blocked`, the kernel's result (R,)) a blocked ray up to and including
+    its first accepted row.  -> (ops, boxes entered, rows tested, leaves
+    entered per live ray (n_live,))."""
     import torch
 
     from low_precision_raytracer_tpu_torch.ops.dense_trace import FAN
 
     o, d, _skip, mind, maxd, coef = args[:6]
     TI = coef.shape[0]
+    live = torch.nonzero(maxd > mind)[:, 0]
+    if band is not None and band.widened:
+        n_rows = live.numel() * TI
+        if blocked is not None:
+            hit = torch.nonzero(blocked)[:, 0]
+            first = first_accepts(args, band, hit)
+            if bool((first < 0).any()):
+                raise AssertionError(f"{int((first < 0).sum())} blocked rays accept no row "
+                                     "in the plain per-row test")
+            n_rows -= int((TI - 1 - first).sum())
+        return float(n_rows) * row_ops(band), 0, n_rows, torch.zeros(0, device=o.device)
     L = len(tree.sizes)
     offs = tree.levels[:L].tolist()
-    live = torch.nonzero(maxd > mind)[:, 0]
     per_ray = torch.zeros(o.shape[0], dtype=torch.float32, device=o.device)
     n_boxes = n_rows = 0
     for r0 in range(0, live.numel(), 1 << 17):
@@ -985,7 +1065,8 @@ def k6_phase(launches, leaves, scene="colonnade-2M"):
         # the bound: any-hit rays need the boxes up to their closest blocker
         t_final = out[0] if not find_any else torch.where(
             out[3] >= 0, packet_trace(*args, **dict(kw, find_any=False))[0], 1e5)
-        n_ops, n_boxes, n_rows, leaves_per_ray = walk_ops(args, t_final, tree, kw.get("band"))
+        n_ops, n_boxes, n_rows, leaves_per_ray = walk_ops(
+            args, t_final, tree, kw.get("band"), blocked=out[3] >= 0 if find_any else None)
         q = torch.tensor([0.5, 0.9, 0.99], device=leaves_per_ray.device)
         leaf_q = [float(x) for x in torch.quantile(leaves_per_ray, q)] if n_boxes else []
         n_bytes = nbytes(*args[:10], tree.boxes) + nbytes(*out)
@@ -1085,6 +1166,71 @@ def colonnade_kernel_phase(cfg):
     return k1b, reports
 
 
+BAND_ACCS = (("bf16", "both"), ("bf16", "dtype"), ("fp16", "both"), ("fp16", "dtype"),
+             ("fp32", "dtype"))
+
+
+def band_kernel_phase(precision, fallback):
+    """K1a, K1b and K6 under one error-band acceptance (a sub-f32 form, or
+    fp32 'dtype'): each held bit for bit
+    against its plain version and timed, on the launches of one warm-up
+    1080p frame of the flagship (K1a, every ray), of the Sponza-class frame
+    (K1b, 2^18-ray slices) and of its packet route (K6 on colonnade-5k with
+    traversal_impl='pallas', 4,096-ray slices).  -> {name: report}."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.models.procedural import (
+        cornell_box_scene,
+        sponza_like_scene,
+    )
+    from low_precision_raytracer_tpu_torch.ops import trace as T
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    tag = f" {precision}-{fallback}"
+    kw = dict(width=W, height=H, precision=precision, triangle_fallback=fallback)
+    warm = Renderer(cornell_box_scene(), RenderConfig(**kw))
+    calls = capture_inputs(warm, 1)
+    del warm
+    reports = kernel_phase(calls, names=("dense_trace",), tag=tag)
+    del calls
+    warm = Renderer(sponza_like_scene(), RenderConfig(**kw))
+    launches = capture_sponza_launches(warm, 1)
+    del warm
+    reports["dense_trace_multi"] = k1b_phase(launches, reps=3, plain_on_slice=True,
+                                             scene="sponza" + tag)
+    del launches
+    warm = Renderer(sponza_like_scene(), RenderConfig(traversal_impl="pallas", **kw))
+    launches = capture_packet_launches(warm, 1)
+    leaves = T._packet_tables(warm.frame)
+    del warm
+    reports["packet_trace"] = k6_phase(launches, leaves, scene="colonnade-5k packet route" + tag)
+    del launches, leaves
+    torch.cuda.empty_cache()
+    return reports
+
+
+def fallback_lines():
+    """The fp32-fallback rate of the band test on Cornell's primary launch
+    at 256 x 256 (`ops/diagnostics.py`, the form of `bench.py:fallback_rate`:
+    the camera grid in the render dtype), fp16 and bf16."""
+    from low_precision_raytracer_tpu_torch.config import get_precision
+    from low_precision_raytracer_tpu_torch.models.procedural import cornell_box_scene
+    from low_precision_raytracer_tpu_torch.models.scene import flatten_frame
+    from low_precision_raytracer_tpu_torch.ops.camera import primary_ray_grid
+    from low_precision_raytracer_tpu_torch.ops.diagnostics import fallback_rate
+
+    n = 256
+    for name in ("fp16", "bf16"):
+        prec = get_precision(name)
+        frame = flatten_frame(cornell_box_scene(), prec, "cuda", 4, n, n)
+        o, d = primary_ray_grid(frame.cam_l2w_f32, frame.cam_fov_y_f32, n, n, prec.dtype)
+        rate = fallback_rate(frame, o.reshape(-1, 3), d.reshape(-1, 3), prec)
+        if not 0 < rate["ambiguous"] < rate["tested"]:
+            raise AssertionError(f"fallback rate {name}: {rate}")
+        log(f"fallback_rate cornell primary {n}x{n} {name}: {json.dumps(rate)}")
+
+
 def main(argv) -> int:
     import torch
 
@@ -1115,16 +1261,19 @@ def main(argv) -> int:
                 log(f"ptxas {name}: {line.strip()}")
     cfg = RenderConfig(width=W, height=H, precision="bf16")
     totals = dict.fromkeys(cuda_lib.LAUNCHES, 0)  # launches over every path phase
-    fp32_totals = dict.fromkeys(cuda_lib.LAUNCHES, 0)  # ... over the fp32 ones
+    # ... by acceptance: "fp32", "fp16" ('auto'), "<precision>-<fallback>"
+    group_totals = {}
 
     def run_path(name, scene_fn, want_fn, precision="bf16", **kw):
         p_totals, p_frames, p_peak, img = path_phase(cuda_lib, scene_fn, want_fn, precision,
                                                      **kw)
         report_path(name, p_frames, p_peak, p_totals)
+        group = f"{precision}-{kw['triangle_fallback']}" if "triangle_fallback" in kw \
+            else precision
+        g_totals = group_totals.setdefault(group, dict.fromkeys(cuda_lib.LAUNCHES, 0))
         for k, n in p_totals.items():
             totals[k] += n
-            if precision == "fp32":
-                fp32_totals[k] += n
+            g_totals[k] += n
         torch.cuda.empty_cache()
         return p_totals, img
 
@@ -1234,9 +1383,27 @@ def main(argv) -> int:
     a, b = flag_img.float().cpu().numpy(), flag32_img.float().cpu().numpy()
     log(f"parity flagship 1080p frame {PATH_FRAMES} (seed 0), bf16 vs fp32: "
         f"PSNR {psnr(a, b):.3f} dB, SSIM {ssim(a, b):.5f}")
-    del flag_img, flag32_img, a, b
+    del flag_img, a
     psnrs = reference_phase(cornell_box_scene, REF_FRAMES, "fp32")
     log(f"reference flagship-fp32: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
+        + " ".join(f"{p:.2f}" for p in psnrs))
+    elapsed()
+
+    # ---- fp16 (the 'mxu3' test on the kernel routes): the flagship's K1a
+    cfg16 = RenderConfig(width=W, height=H, precision="fp16")
+    warm = Renderer(cornell_box_scene(), cfg16)
+    calls = capture_inputs(warm, 2)
+    del warm
+    reports16 = kernel_phase(calls, names=("dense_trace",), tag=" fp16")
+    del calls
+    torch.cuda.empty_cache()
+    _t, flag16_img = run_path("flagship-fp16", cornell_box_scene, counts(dense_trace=2), "fp16")
+    a = flag16_img.float().cpu().numpy()
+    log(f"parity flagship 1080p frame {PATH_FRAMES} (seed 0), fp16 vs fp32: "
+        f"PSNR {psnr(a, b):.3f} dB, SSIM {ssim(a, b):.5f}")
+    del flag16_img, flag32_img, a, b
+    psnrs = reference_phase(cornell_box_scene, REF_FRAMES, "fp16")
+    log(f"reference flagship-fp16: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
         + " ".join(f"{p:.2f}" for p in psnrs))
     elapsed()
 
@@ -1269,12 +1436,31 @@ def main(argv) -> int:
     run_path("colonnade-328k", colonnade_328k, big)
     elapsed()
 
+    # ---- fp16 colonnade-83k: K1b and the wavefront ('mxu3')
+    run_path("colonnade-83k-fp16", colonnade_83k, big, "fp16", frames_n=4)
+    elapsed()
+
+    # ---- the widened error bands: K1a, K1b and K6 under each acceptance
+    band_reports = {}
+    for precision, fallback in BAND_ACCS:
+        band_reports[f"{precision}-{fallback}"] = band_kernel_phase(precision, fallback)
+        elapsed()
+    run_path("sponza-fp16-both", sponza_like_scene, counts(dense_trace_multi=4), "fp16",
+             frames_n=4, triangle_fallback="both")
+    run_path("flagship-bf16-dtype", cornell_box_scene, counts(dense_trace=2), "bf16",
+             frames_n=4, triangle_fallback="dtype")
+    run_path("colonnade-5k-packet-fp16-both", sponza_like_scene, counts(packet_trace=4),
+             "fp16", frames_n=4, traversal_impl="pallas", triangle_fallback="both")
+    fallback_lines()
+    elapsed()
+
     if "--profile" in argv:
         profile_frame("flagship", cornell_box_scene)
         profile_frame("sponza", sponza_like_scene)
         profile_frame("colonnade-83k", colonnade_83k)
         profile_frame("colonnade-2M", colonnade_2m)
         profile_frame("flagship-fp32", cornell_box_scene, "fp32")
+        profile_frame("flagship-fp16", cornell_box_scene, "fp16")
         profile_frame("colonnade-328k", colonnade_328k)
 
     def kernel_line(names, reps, launches):
@@ -1287,7 +1473,12 @@ def main(argv) -> int:
     for name in KERNELS:
         if totals[name] == 0:
             raise AssertionError(f"{name}: no launch on any path phase")
-    log(json.dumps({"kernels_fp32": kernel_line(reports32, reports32, fp32_totals)}))
+    log(json.dumps({"kernels_fp32": kernel_line(reports32, reports32, group_totals["fp32"])}))
+    log(json.dumps({"kernels_fp16": kernel_line(reports16, reports16, group_totals["fp16"])}))
+    # launches under each acceptance: null where no path phase ran it
+    none = dict.fromkeys(cuda_lib.LAUNCHES)
+    log(json.dumps({"kernels_band": {acc: kernel_line(r, r, group_totals.get(acc, none))
+                                     for acc, r in band_reports.items()}}))
     log(json.dumps({"kernels": kernel_line(KERNELS, reports, totals)}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

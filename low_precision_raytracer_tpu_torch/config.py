@@ -103,11 +103,12 @@ class RenderConfig:
     taa_mix_weight: float = 1.0
     taa_on: bool = True
     taa_force_full: bool = False
-    # shading computes in f32 even in bf16 mode
+    # shading computes in f32 even in bf16 / fp16 mode
     shade_f32: bool = True
     # 'auto' resolves to 'mxu3' (f32-grade u/v, strict acceptance) for
-    # bf16, and to 'both' (the f32 error band with the strict test inside
-    # it) for fp32
+    # bf16 and fp16, and to 'both' for fp32.  'both': the dtype test with
+    # an error band, lanes inside the band re-tested in f32 (fp32: the
+    # strict test inside the band); 'dtype': the band-widened dtype test
     triangle_fallback: str = "auto"
     # 'auto' resolves per scene as the JAX package does on the TPU: the
     # dense route ('dense_pallas') up to packet_bvh_min_tris instance
@@ -142,7 +143,8 @@ class RenderConfig:
             raise ValueError(f"unknown precision {self.precision!r}")
         if self.max_bounces < 1:
             raise ValueError("max_bounces counts the primary shade round")
-        for name, allowed in (("incoherent_sort", ("anchor", "beam", "origin", "none")),
+        for name, allowed in (("triangle_fallback", ("auto", "both", "dtype", "mxu3")),
+                              ("incoherent_sort", ("anchor", "beam", "origin", "none")),
                               ("incoherent_impl", ("tile", "wavefront")),
                               ("wavefront_mode", ("auto", "rounds", "oneshot")),
                               ("di_fuse", ("auto", "off")),
@@ -162,9 +164,6 @@ SKYBOX_COLOR = (0.0, 0.0, 0.0)
 def check_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError for configurations the port does not
     cover yet; each message names the ROADMAP queue-1 item that adds it."""
-    if cfg.precision == "fp16":
-        raise NotImplementedError(
-            "precision='fp16': fp16 renders wait (ROADMAP queue 1 item 3)")
     if cfg.taa_on and (cfg.taa_force_full or float(cfg.taa_mix_weight) != 1.0):
         raise NotImplementedError(
             "TAA at mix weight != 1 (or taa_force_full): the TAA half waits "
@@ -177,11 +176,6 @@ def check_supported(cfg: RenderConfig) -> None:
             f"traversal_impl={cfg.traversal_impl!r}: only the dense route and the "
             "packet BVH are ported; the XLA BVH walk ('jax') and the XLA "
             "all-pairs path ('dense') wait (ROADMAP queue 1 item 7)")
-    if cfg.triangle_fallback not in ("auto", "mxu3") and not (
-            cfg.triangle_fallback == "both" and cfg.precision == "fp32"):
-        raise NotImplementedError(
-            f"triangle_fallback={cfg.triangle_fallback!r} in {cfg.precision}: only the "
-            "mxu3 test and the fp32 'both' test are ported (ROADMAP queue 1 item 9)")
     if cfg.dense_epilogue == "pack":
         raise NotImplementedError(
             "dense_epilogue='pack': the packed winner epilogue waits "

@@ -1,15 +1,15 @@
 // Dense trace over a multi-chunk table (K1b): closest hit or any hit.
 //
 // Replaces the TPU kernel ops/dense_pallas.py:_kernel in its multi-chunk
-// mode (fallback='mxu3', and in fp32 'both' with the dense error band: the
-// w_cond/w_body walk at :526-610 with the epilogues _finish_chunk :60-101
+// mode (every fallback: 'mxu3', and 'both' / 'dtype' with the dense error
+// band in fp32, bf16 and fp16, :369-421: the w_cond/w_body walk at :526-610 with the epilogues _finish_chunk :60-101
 // and _finish_chunk_any :104-127), reached through trace_rays_dense_pallas
 // and trace_rays_dense_pallas_sorted.  Plain version:
 // ops/dense_trace.py:dense_trace_multi_plain.
 //
 // What it computes, per ray: the M-shift test against the instance
 // triangles of the coefficient table, accepted by the band (strict under
-// 'mxu3', the dense kernel's f32 'both' band in fp32), a hit also needing
+// 'mxu3', else the dense kernel's error band), a hit also needing
 // mind < t < maxd, tri != skip and a finite t.  Closest hit: the (t, tri,
 // row)-lexicographic minimum, t = 1e5 / ids -1 on a miss.  Any hit: tri = 0
 // if some triangle accepts, else -1; t = 1e5, u = v = 0, obj = -1 either
@@ -35,8 +35,8 @@
 //
 // What bounds it on the H100: operations, by the data.  Per live ray one
 // slab test (34 ops) per tree box it enters before its hit, and ~40 f32
-// operations per row of every chunk it tests (~20 more in the f32 band);
-// the table (48 B/row) is read through the read-only cache.  Built with
+// operations per row of every chunk it tests (~60 more in a band); the
+// table (48 B/row, 112 with a sub-f32 form's band rows) is read through the read-only cache.  Built with
 // --fmad=false so the test rounds like its plain version.
 
 #include "trace_common.cuh"

@@ -1,16 +1,18 @@
 // Dense closest-hit trace with the fused shadow (DI) phase, one chunk.
 //
 // Replaces the TPU kernel ops/dense_pallas.py:_kernel in its single-chunk
-// mode (single=True, di_lights=L; fallback='mxu3', and in fp32 'both' with
-// the dense error band, chunk_quants :374-418, its DI phase :445-503
-// re-running the same test), reached through trace_rays_dense_pallas.
+// mode (single=True, di_lights=L; every fallback: 'mxu3', and 'both' /
+// 'dtype' with the dense error band in fp32, bf16 and fp16, chunk_quants
+// :369-421, its DI phase :445-503 re-running the same test on shadow rays
+// whose operand it rounds from their f32 components, :483-491), reached
+// through trace_rays_dense_pallas.
 // Plain version: ops/dense_trace.py:dense_trace_plain.
 //
 // What it computes, per ray: the closest hit among the TI <= 128 instance
 // triangles of the one chunk, from the world-space coefficient rows
 // (Oz = n[6:9].o + e[2], Dz = n[6:9].d, Ox/Oy/Dx/Dy likewise), t = -Oz/Dz,
 // accepted by the band (trace_common.cuh:tri_test: strict u > 0, v > 0,
-// u + v < 1 under 'mxu3', the f32 'both' band in fp32), gated by
+// u + v < 1 under 'mxu3', else the dense error band), gated by
 // mind < t < maxd, tri != skip and finite t; ties in t go to the smallest
 // tri id; a miss keeps t = 1e5, u = v = 0, ids -1.  Then, from the winner's
 // point o + t d, one shadow ray per light (point: toward the recentred
@@ -21,16 +23,19 @@
 //
 // Under 'mxu3' the TPU computes u/v through a manual bf16x3 MXU product
 // (~2^-16 relative), in fp32 through an f32 dot that sums in another
-// order; here u/v/t are plain f32 from the f32 coefficient table, so the
-// two agree to that accuracy, not bitwise.
+// order, and its sub-f32 band rows through a bf16 dot whose f32 sums may
+// also run in another order; here t and the f32 rows are plain f32 from
+// the f32 coefficient table, so the two agree to that accuracy, not
+// bitwise.
 //
 // What bounds it on the H100: neither bytes nor operations at this size.
-// Per ray it reads 36 bytes and writes 24, and runs ~25 f32 operations per
-// triangle (~20 more in the f32 band), twice with the shadow phase: at
+// Per ray it reads 36 bytes and writes 24, and runs ~40 f32 operations per
+// triangle (~60 more in a band), twice with the shadow phase: at
 // 2.07M rays x 34 triangles that is ~3.5 GFLOP against 67 TFLOP/s, and
 // ~125 MB against 3.35 TB/s, both tens of microseconds.  The design keeps
 // the triangle table and the light rows in shared memory (one 6 KB copy per
-// block, read as broadcasts), one thread per ray with coalesced ray loads,
+// block, 14 KB with a sub-f32 form's band rows, read as broadcasts), one
+// thread per ray with coalesced ray loads,
 // and no atomics.  Lanes with maxd <= mind keep the miss values without
 // testing (the TPU's dead-tile guard, per lane).  Built with --fmad=false
 // so the test rounds like its plain version.
@@ -52,11 +57,12 @@ __global__ void dense_trace_kernel(
     lprt::Band band, float* __restrict__ t_out, float* __restrict__ u_out,
     float* __restrict__ v_out, int* __restrict__ tri_out,
     int* __restrict__ obj_out, int* __restrict__ vis_out) {
-  __shared__ float s_coef[LPRT_MAX_TRIS * 12];
+  constexpr int ROW = LPRT_ROW(FORM);
+  __shared__ float s_coef[LPRT_MAX_TRIS * ROW];
   __shared__ int s_tri[LPRT_MAX_TRIS];
   __shared__ int s_obj[LPRT_MAX_TRIS];
   __shared__ float s_light[LPRT_MAX_LIGHTS * 4];
-  for (int i = threadIdx.x; i < TI * 12; i += blockDim.x) s_coef[i] = coef[i];
+  for (int i = threadIdx.x; i < TI * ROW; i += blockDim.x) s_coef[i] = coef[i];
   for (int i = threadIdx.x; i < TI; i += blockDim.x) {
     s_tri[i] = tri_id[i];
     s_obj[i] = obj_id[i];
@@ -74,10 +80,12 @@ __global__ void dense_trace_kernel(
   float bt = 1e5f, bu = 0.f, bv = 0.f;
   int btri = -1, bobj = -1;
   if (mx > mn) {
+    float q[6];
+    if (LPRT_OPERAND(FORM)) lprt::make_operand<FORM>(ox, oy, oz, dx, dy, dz, q);
     for (int k = 0; k < TI; ++k) {
       float t, u, v;
-      bool geom = lprt::tri_test<FORM>(s_coef + 12 * k, ox, oy, oz, dx, dy, dz, band,
-                                       t, u, v);
+      bool geom = lprt::tri_test<FORM>(s_coef + ROW * k, ox, oy, oz, dx, dy, dz, q,
+                                       band, t, u, v);
       int tri = s_tri[k];
       bool acc = geom && (t > mn) && (t < mx) && (tri != sk) && isfinite(t);
       if (acc && (t < bt || (t == bt && tri < btri))) {
@@ -109,10 +117,13 @@ __global__ void dense_trace_kernel(
       float sy = isdir ? a[2] : ly * inv;
       float sz = isdir ? a[3] : lz * inv;
       float maxd_l = isdir ? 1000.f : dist;
+      // the shadow ray's operand is rounded from its f32 components
+      float sq[6];
+      if (LPRT_OPERAND(FORM)) lprt::make_operand<FORM>(px, py, pz, sx, sy, sz, sq);
       bool blocked = false;
       for (int k = 0; k < TI && !blocked; ++k) {
         float t, u, v;
-        bool geom = lprt::tri_test<FORM>(s_coef + 12 * k, px, py, pz, sx, sy, sz,
+        bool geom = lprt::tri_test<FORM>(s_coef + ROW * k, px, py, pz, sx, sy, sz, sq,
                                          band, t, u, v);
         blocked = geom && (t > d_mov) && (t < maxd_l) && (s_tri[k] != btri) &&
                   isfinite(t);
@@ -134,7 +145,7 @@ extern "C" int lprt_dense_trace(const float* orig, const float* dir,
                                 float k2, float* t_out, float* u_out,
                                 float* v_out, int* tri_out, int* obj_out,
                                 int* vis_out, void* stream) {
-  if (TI > LPRT_MAX_TRIS || L > LPRT_MAX_LIGHTS || form < 0 || form > 2)
+  if (TI > LPRT_MAX_TRIS || L > LPRT_MAX_LIGHTS || !lprt::valid_form(form))
     return (int)cudaErrorInvalidValue;
   const int block = 256;
   const int grid = (R + block - 1) / block;
@@ -144,12 +155,10 @@ extern "C" int lprt_dense_trace(const float* orig, const float* dir,
 #define LPRT_DENSE_ARGS                                                       \
   orig, dir, skip, mind, maxd, coef, tri_id, obj_id, lights, R, TI, L, d_mov, \
       band, t_out, u_out, v_out, tri_out, obj_out, vis_out
-  if (form == LPRT_FORM_STRICT)
-    dense_trace_kernel<LPRT_FORM_STRICT><<<grid, block, 0, s>>>(LPRT_DENSE_ARGS);
-  else if (form == LPRT_FORM_DENSE)
-    dense_trace_kernel<LPRT_FORM_DENSE><<<grid, block, 0, s>>>(LPRT_DENSE_ARGS);
-  else
-    dense_trace_kernel<LPRT_FORM_PACKET><<<grid, block, 0, s>>>(LPRT_DENSE_ARGS);
+#define LPRT_DENSE_FORM(f) \
+  if (form == (f)) dense_trace_kernel<(f)><<<grid, block, 0, s>>>(LPRT_DENSE_ARGS);
+  LPRT_FORMS(LPRT_DENSE_FORM)
+#undef LPRT_DENSE_FORM
 #undef LPRT_DENSE_ARGS
   return (int)cudaGetLastError();
 }

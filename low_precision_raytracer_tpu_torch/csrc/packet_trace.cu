@@ -1,8 +1,9 @@
 // Packet BVH trace (K6): closest hit or any hit over a table of any size.
 //
-// Replaces the TPU kernel ops/traversal_pallas.py:_kernel (fallback='mxu3',
-// and in fp32 'both' with the packet kernel's own error band, :369-394;
-// the leaf walk at :188-426), reached through trace_rays_packet and
+// Replaces the TPU kernel ops/traversal_pallas.py:_kernel (every fallback:
+// 'mxu3', and 'both' / 'dtype' with the packet kernel's own error band in
+// fp32, bf16 and fp16, :256-311 and :365-397, whose sub-f32 rows and ray
+// operand are in the render dtype; the leaf walk at :188-426), reached through trace_rays_packet and
 // trace_rays_packet_sorted.  Plain version: ops/dense_trace.py:
 // dense_trace_multi_plain with the packet band (the leaves only prune, so
 // the function is K1b's; see ops/packet_trace.py).
@@ -25,8 +26,8 @@
 //
 // What bounds it on the H100: operations, by the data — per live ray a slab
 // test (34 ops) per box it enters before its hit and ~40 f32 operations per
-// row of each leaf it tests (~20 more in the f32 band).  The table (48 B/row,
-// 98 MB at 2M rows) is read through the read-only cache; neighbouring rays
+// row of each leaf it tests (~60 more in a band).  The table (48 B/row,
+// 98 MB at 2M rows; 112 B/row with a sub-f32 form's band rows) is read through the read-only cache; neighbouring rays
 // (screen order, or the morton sort of incoherent launches) share leaves.
 // None of the TPU kernel's packet scheduling (512-ray packets sharing a leaf
 // list, the list rows and their SMEM pipeline, 7-bit quantised bounds, the

@@ -3,14 +3,22 @@
 //
 // - tri_test: the M-shift test of one ray against one coefficient row
 //   (n[0..8] row-major | e[0..2]): Oz = n[6:9].o + e[2], Dz = n[6:9].d,
-//   Ox/Oy/Dx/Dy likewise, t = -Oz/Dz, u = Ox + t Dx, v = Oy + t Dy, accepted
-//   by the band form FORM (ops/dense_trace.py:Band): strict u > 0, v > 0,
-//   u + v < 1 ('mxu3'), or the f32 'both' test, strict inside an error band
-//   and band-widened outside it, in the dense kernel's form
-//   (dense_pallas.py:_kernel :393-418, the S rows scaled by sband as
-//   _mxu_tables :888-900 builds them) or the packet kernel's
-//   (traversal_pallas.py:_kernel :369-394).  Plain version:
-//   ops/dense_trace.py:m_shift_test and band_accept.
+//   t = -Oz/Dz, then u = Ox + t Dx, v = Oy + t Dy, accepted by the band form
+//   FORM (ops/dense_trace.py:Band; kind | flags):
+//   - kind 0 ('mxu3'): strict u > 0, v > 0, u + v < 1 on the f32 rows;
+//   - kinds 1 and 2: an error band, in the dense kernel's form
+//     (dense_pallas.py:_kernel :369-421, the S rows scaled by sband as
+//     _mxu_tables :888-910 builds them) or the packet kernel's
+//     (traversal_pallas.py:_kernel :365-397).  Without an operand flag
+//     (fp32) Ox/Oy/Dx/Dy and the S rows come from the f32 rows and ray;
+//     with one (bf16, fp16) from the row's 16 band rows (values exact in
+//     that type, ops/dense_trace.py:band_rows) against the ray rounded to
+//     that type once per ray (make_operand), every product exact in f32.
+//     'both': a lane inside the band takes the strict test, in the sub-f32
+//     forms on the f32 rows (u32 = Ox32 + t Dx32, v32 likewise, which then
+//     are its u and v); outside it the band-widened test.  'dtype'
+//     (LPRT_FLAG_DTYPE): the band-widened test alone.
+//   Plain version: ops/dense_trace.py:m_shift_test and band_accept.
 // - box_entry: the conservative slab test of ops/dense_trace.py:
 //   ray_aabb_entry (0.02 of slop, axes with non-finite slab distances
 //   skipped).
@@ -25,12 +33,28 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
-#define LPRT_FORM_STRICT 0  // 'mxu3'
-#define LPRT_FORM_DENSE 1   // K1's f32 'both': k = (sband, c1, c3)
-#define LPRT_FORM_PACKET 2  // K6's f32 'both': k = (d12, d1, -)
+#define LPRT_KIND_STRICT 0  // 'mxu3'
+#define LPRT_KIND_DENSE 1   // K1's band: k = (sband, c1, c3)
+#define LPRT_KIND_PACKET 2  // K6's band: k = (d12, d1, -)
+#define LPRT_FLAG_DTYPE 4   // 'dtype': the band-widened test alone
+#define LPRT_OPERAND_BF16 8
+#define LPRT_OPERAND_FP16 16
+#define LPRT_KIND(f) ((f) & 3)
+#define LPRT_OPERAND(f) ((f) & (LPRT_OPERAND_BF16 | LPRT_OPERAND_FP16))
+// a widened acceptance (sub-f32, or 'dtype') can accept points outside the
+// triangle's box: the tree walk then tests every row
+#define LPRT_WIDENED(f) (LPRT_OPERAND(f) || ((f) & LPRT_FLAG_DTYPE))
+// floats per table row: 12 f32 columns, then 16 band rows in sub-f32 forms
+#define LPRT_ROW(f) (LPRT_OPERAND(f) ? 28 : 12)
+
+// Every form a kernel is built for: X(form) per form.
+#define LPRT_FORMS(X)                                                        \
+  X(0) X(1) X(2) X(5) X(6) X(9) X(10) X(13) X(14) X(18) X(22)
 
 #define LPRT_FAN 4
 #define LPRT_MAX_LEVELS 16
@@ -43,13 +67,42 @@ struct Band {
   float k0, k1, k2;
 };
 
-// c: the row n[0..8] | e[0..2].  -> the acceptance before the distance,
-// skip and finiteness gates; t, u, v through the references.
+__host__ __device__ constexpr bool valid_form(int f) {
+#define LPRT_IS_FORM(x) f == (x) ||
+  return LPRT_FORMS(LPRT_IS_FORM) false;
+#undef LPRT_IS_FORM
+}
+
+// The sub-f32 forms' ray operand: the ray's components rounded to the
+// form's type, once per ray, q = [ox oy oz dx dy dz].
+template <int FORM>
+__device__ __forceinline__ float round_operand(float x) {
+  if (LPRT_OPERAND(FORM) == LPRT_OPERAND_BF16)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  return __half2float(__float2half_rn(x));
+}
+
+template <int FORM>
+__device__ __forceinline__ void make_operand(float ox, float oy, float oz,
+                                             float dx, float dy, float dz,
+                                             float* q) {
+  q[0] = round_operand<FORM>(ox);
+  q[1] = round_operand<FORM>(oy);
+  q[2] = round_operand<FORM>(oz);
+  q[3] = round_operand<FORM>(dx);
+  q[4] = round_operand<FORM>(dy);
+  q[5] = round_operand<FORM>(dz);
+}
+
+// c: the row (LPRT_ROW(FORM) floats); q: the ray operand of a sub-f32 form
+// (make_operand; not read otherwise).  -> the acceptance before the
+// distance, skip and finiteness gates; t, u, v through the references.
 template <int FORM>
 __device__ __forceinline__ bool tri_test(const float* c, float ox, float oy,
                                          float oz, float dx, float dy,
-                                         float dz, const Band& b, float& t,
-                                         float& u, float& v) {
+                                         float dz, const float* q,
+                                         const Band& b, float& t, float& u,
+                                         float& v) {
   float Oz = c[6] * ox + c[7] * oy + c[8] * oz + c[11];
   float Dz = c[6] * dx + c[7] * dy + c[8] * dz;
   float Ox = c[0] * ox + c[1] * oy + c[2] * oz + c[9];
@@ -57,27 +110,46 @@ __device__ __forceinline__ bool tri_test(const float* c, float ox, float oy,
   float Dx = c[0] * dx + c[1] * dy + c[2] * dz;
   float Dy = c[3] * dx + c[4] * dy + c[5] * dz;
   t = -Oz / Dz;
+  if (LPRT_KIND(FORM) == LPRT_KIND_STRICT) {
+    u = Ox + t * Dx;
+    v = Oy + t * Dy;
+    return (u > 0.f) && (v > 0.f) && (u + v < 1.f);
+  }
+  // a: the S rows' coefficients [|n0| |n1| |n2| |e0| | |n3| |n4| |n5| |e1|]
+  float a[8];
+  float u32 = 0.f, v32 = 0.f;
+  // the operand the dtype rows and S rows read: the f32 ray, or q
+  const float r[6] = {ox, oy, oz, dx, dy, dz};
+  const float* p = LPRT_OPERAND(FORM) ? q : r;
+  if (!LPRT_OPERAND(FORM)) {
+    const int col[8] = {0, 1, 2, 9, 3, 4, 5, 10};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      a[i] = fabsf(c[col[i]]);
+      if (LPRT_KIND(FORM) == LPRT_KIND_DENSE) a[i] = a[i] * b.k0;
+    }
+  } else {
+    const float* br = c + 12;
+    u32 = Ox + t * Dx;
+    v32 = Oy + t * Dy;
+    Ox = br[0] * p[0] + br[1] * p[1] + br[2] * p[2] + br[3];
+    Oy = br[4] * p[0] + br[5] * p[1] + br[6] * p[2] + br[7];
+    Dx = br[0] * p[3] + br[1] * p[4] + br[2] * p[5];
+    Dy = br[4] * p[3] + br[5] * p[4] + br[6] * p[5];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a[i] = br[8 + i];
+  }
+  float aox = fabsf(p[0]), aoy = fabsf(p[1]), aoz = fabsf(p[2]);
+  float adx = fabsf(p[3]), ady = fabsf(p[4]), adz = fabsf(p[5]);
+  float s_ox = a[0] * aox + a[1] * aoy + a[2] * aoz + a[3];
+  float s_oy = a[4] * aox + a[5] * aoy + a[6] * aoz + a[7];
+  float s_dx = a[0] * adx + a[1] * ady + a[2] * adz;
+  float s_dy = a[4] * adx + a[5] * ady + a[6] * adz;
   float t_dx = t * Dx, t_dy = t * Dy;
   u = Ox + t_dx;
   v = Oy + t_dy;
-  bool strict = (u > 0.f) && (v > 0.f) && (u + v < 1.f);
-  if (FORM == LPRT_FORM_STRICT) return strict;
-  // the S rows |n| . |o| + |e| and |n| . |d| (K1 folds sband into |n|, |e|)
-  float a[8];
-  const int col[8] = {0, 1, 2, 3, 4, 5, 9, 10};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    a[i] = fabsf(c[col[i]]);
-    if (FORM == LPRT_FORM_DENSE) a[i] = a[i] * b.k0;
-  }
-  float aox = fabsf(ox), aoy = fabsf(oy), aoz = fabsf(oz);
-  float adx = fabsf(dx), ady = fabsf(dy), adz = fabsf(dz);
-  float s_ox = a[0] * aox + a[1] * aoy + a[2] * aoz + a[6];
-  float s_oy = a[3] * aox + a[4] * aoy + a[5] * aoz + a[7];
-  float s_dx = a[0] * adx + a[1] * ady + a[2] * adz;
-  float s_dy = a[3] * adx + a[4] * ady + a[5] * adz;
   float eu, ev;
-  if (FORM == LPRT_FORM_DENSE) {
+  if (LPRT_KIND(FORM) == LPRT_KIND_DENSE) {
     eu = s_ox + t * s_dx + b.k1 * fabsf(Ox) + b.k2 * fabsf(t_dx);
     ev = s_oy + t * s_dy + b.k1 * fabsf(Oy) + b.k2 * fabsf(t_dy);
   } else {
@@ -89,7 +161,12 @@ __device__ __forceinline__ bool tri_test(const float* c, float ox, float oy,
   bool ambiguous = (u >= -eu && u <= 0.f) || (v >= -ev && v <= 0.f) ||
                    (w >= -ew && w <= 0.f);
   bool dtype_accept = (u > -eu) && (v > -ev) && (u + v < 1.f + eu + ev);
-  return ambiguous ? strict : dtype_accept;
+  if ((FORM & LPRT_FLAG_DTYPE) || !ambiguous) return dtype_accept;
+  if (LPRT_OPERAND(FORM)) {  // the f32 re-test, and its u, v
+    u = u32;
+    v = v32;
+  }
+  return (u > 0.f) && (v > 0.f) && (u + v < 1.f);
 }
 
 // Slab-entry bound of the ray against box b = [lo3 | hi3]; false when the
@@ -137,6 +214,15 @@ __device__ __forceinline__ bool box_entry(const float* __restrict__ b, float ox,
 // equals the plain version's global minimum bit for bit.  Dead lanes
 // (maxd <= mind) walk nothing.
 //
+// Under a widened acceptance (LPRT_WIDENED: the sub-f32 forms and 'dtype')
+// a row can accept a point well outside its triangle (a bf16 'dtype' band
+// reaches tens of percent of the barycentric range on distant hits), so
+// outside every box of the tree: there the kernel walks no tree and tests
+// every row, and the result is again the plain version's global minimum.
+// (The TPU kernels cull such hits by their tiles' boxes, which bound no
+// single ray; the JAX package's all-pairs XLA route, ops/dense.py, keeps
+// them, as this does.)
+//
 // The stack holds at most 3 entries per internal level + 1, which
 // LPRT_MAX_STACK covers for up to LPRT_MAX_LEVELS levels; the entry points
 // refuse a deeper tree, and a push past the stack sets *status (the
@@ -159,6 +245,9 @@ __global__ void tree_trace_kernel(
   }
   __syncthreads();
 
+  constexpr int ROW = LPRT_ROW(FORM);
+  constexpr bool ORDERED = !LPRT_WIDENED(FORM);
+  static_assert(!ORDERED || ROW == 12, "the walk reads 12-float rows");
   int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   float ox = orig[3 * r], oy = orig[3 * r + 1], oz = orig[3 * r + 2];
@@ -168,7 +257,37 @@ __global__ void tree_trace_kernel(
 
   float bt = 1e5f, bu = 0.f, bv = 0.f;
   int btri = -1, brow = -1;
-  if (mx > mn) {
+  if (mx > mn && !ORDERED) {  // a widened acceptance: every row, in order
+    float q[6];
+    if (LPRT_OPERAND(FORM)) make_operand<FORM>(ox, oy, oz, dx, dy, dz, q);
+    for (int k = 0; k < TI; ++k) {
+      float c[ROW];
+#pragma unroll
+      for (int j = 0; j < ROW / 4; ++j) {
+        float4 w = __ldg(coef + (ROW / 4) * k + j);
+        c[4 * j] = w.x;
+        c[4 * j + 1] = w.y;
+        c[4 * j + 2] = w.z;
+        c[4 * j + 3] = w.w;
+      }
+      float t, u, v;
+      bool geom = tri_test<FORM>(c, ox, oy, oz, dx, dy, dz, q, band, t, u, v);
+      int tri = __ldg(tri_id + k);
+      bool acc = geom && (t > mn) && (t < mx) && (tri != sk) && isfinite(t);
+      if (!acc) continue;
+      if (find_any) {
+        btri = 0;
+        break;
+      }
+      if (t < bt || (t == bt && (tri < btri || (tri == btri && k < brow)))) {
+        bt = t;
+        bu = u;
+        bv = v;
+        btri = tri;
+        brow = k;
+      }
+    }
+  } else if (mx > mn) {  // the walk (the forms with 12-float rows)
     float ix = 1.f / dx, iy = 1.f / dy, iz = 1.f / dz;
     int st_node[LPRT_MAX_STACK];  // (level << LPRT_IDX_BITS) | index
     float st_ent[LPRT_MAX_STACK];
@@ -195,7 +314,7 @@ __global__ void tree_trace_kernel(
           const float c[12] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y,
                                q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
           float t, u, v;
-          bool geom = tri_test<FORM>(c, ox, oy, oz, dx, dy, dz, band, t, u, v);
+          bool geom = tri_test<FORM>(c, ox, oy, oz, dx, dy, dz, nullptr, band, t, u, v);
           int tri = __ldg(tri_id + k);
           bool acc = geom && (t > mn) && (t < mx) && (tri != sk) && isfinite(t);
           if (!acc) continue;
@@ -270,7 +389,7 @@ int launch_tree_trace(const float* orig, const float* dir, const int* skip,
                       int find_any, int form, float k0, float k1, float k2,
                       float* t_out, float* u_out, float* v_out, int* tri_out,
                       int* obj_out, int* status, void* stream) {
-  if (n_levels < 1 || n_levels > LPRT_MAX_LEVELS || form < 0 || form > 2 ||
+  if (n_levels < 1 || n_levels > LPRT_MAX_LEVELS || !valid_form(form) ||
       (long long)TI > ((long long)LEAF << LPRT_IDX_BITS))
     return (int)cudaErrorInvalidValue;
   const int block = 128;
@@ -282,12 +401,10 @@ int launch_tree_trace(const float* orig, const float* dir, const int* skip,
 #define LPRT_TREE_ARGS                                                          \
   orig, dir, skip, mind, maxd, c4, tri_id, obj_id, boxes, levels, n_levels, R, \
       TI, find_any, band, t_out, u_out, v_out, tri_out, obj_out, status
-  if (form == LPRT_FORM_STRICT)
-    tree_trace_kernel<LEAF, LPRT_FORM_STRICT><<<grid, block, 0, s>>>(LPRT_TREE_ARGS);
-  else if (form == LPRT_FORM_DENSE)
-    tree_trace_kernel<LEAF, LPRT_FORM_DENSE><<<grid, block, 0, s>>>(LPRT_TREE_ARGS);
-  else
-    tree_trace_kernel<LEAF, LPRT_FORM_PACKET><<<grid, block, 0, s>>>(LPRT_TREE_ARGS);
+#define LPRT_TREE_FORM(f) \
+  if (form == (f)) tree_trace_kernel<LEAF, (f)><<<grid, block, 0, s>>>(LPRT_TREE_ARGS);
+  LPRT_FORMS(LPRT_TREE_FORM)
+#undef LPRT_TREE_FORM
 #undef LPRT_TREE_ARGS
   return (int)cudaGetLastError();
 }

@@ -171,7 +171,9 @@ class FrameInput:
     sky_exposure: torch.Tensor  # () f32
     # dense route: per-instance-triangle world-space test coefficients,
     # rows n = m @ A (A = W2L linear part), offsets e = m.(b - v2) + n.c,
-    # recentred at the scene centre c
+    # recentred at the scene centre c; the rows also rounded to the render
+    # dtype (the sub-f32 error-band tests' dtype rows)
+    dense_n: torch.Tensor  # (TI, 3, 3) dtype
     dense_n_f32: torch.Tensor  # (TI, 3, 3) f32
     dense_e: torch.Tensor  # (TI, 3) f32
     dense_tri: torch.Tensor  # (TI,) i32 global triangle id
@@ -460,6 +462,7 @@ def flatten_frame(
         sky_delta_x=f32(sky.delta_x if sky else 0.0),
         sky_delta_y=f32(sky.delta_y if sky else 0.0),
         sky_exposure=f32(sky.exposure if sky else 1.0),
+        dense_n=as_dt(dense["dense_n_f32"]),
         dense_n_f32=f32(dense["dense_n_f32"]),
         dense_e=f32(dense["dense_e"]),
         dense_tri=i32(dense["dense_tri"]),

@@ -1,6 +1,7 @@
 """Dense traces (port of `low_precision_raytracer_tpu/ops/dense_pallas.py`,
-`fallback='mxu3'` and, in fp32, `fallback='both'`): the M-shift test of
-every ray against world-space per-instance-triangle coefficient rows.
+every `fallback`: 'mxu3', and the error-band tests 'both' and 'dtype' in
+fp32, bf16 and fp16): the M-shift test of every ray against world-space
+per-instance-triangle coefficient rows.
 
 Two kernels, each with a wrapper and its plain PyTorch version (the
 wrapper launches the kernel on CUDA tensors, or raises; on CPU tensors it
@@ -16,7 +17,8 @@ runs the plain version):
   hit.  Returns (t, u, v, tri, obj).
 
 Both take the rays recentred by the scene centre, the coefficient table
-as (TI, 12) f32 rows [n (3x3 row-major) | e (3)] and the acceptance
+as (TI, 12) f32 rows [n (3x3 row-major) | e (3)] (a sub-f32 error-band
+form adds its 16 band rows, (TI, 28): `coef_table`) and the acceptance
 (`Band`).  Closest hit: t = 1e5, u = v = 0, ids -1 on a miss; ties in t go
 to the smallest tri id, so the result does not depend on the order in
 which triangles are tested.  Any hit: tri is a 0 (occluded) / -1 marker,
@@ -28,9 +30,11 @@ kernels' walks and the sort key use), the sort keys `anchor_key` and
 launch for incoherent rays (`trace_rays_dense_pallas_sorted`: key, stable
 sort, trace, unsort; `sorted_launch` also serves the packet BVH's).
 `m_shift_test` and `band_accept` (the test's arithmetic, shared by the
-plain versions), `coef_table` (the kernels' table layout), `build_tree` and
+plain versions), the acceptances (`Band`, `dense_band`, `packet_band`),
+`coef_table` and `band_rows` (the kernels' table layout), `build_tree` and
 `tree_launch` (the box tree and the launch K1b and K6 share) and
-`scene_exit_cap` (the per-ray reach cap of the wavefront) sit here too.
+`scene_exit_cap` (the per-ray reach cap of the wavefront and of the
+multi-chunk dense launches) sit here too.
 """
 
 from __future__ import annotations
@@ -55,48 +59,127 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+# Band.form: the kind of acceptance in its low two bits, flags above
+KIND_STRICT = 0  # 'mxu3': u > 0, v > 0, u + v < 1
+KIND_DENSE = 1  # the dense kernels' error band (K1a, K1b)
+KIND_PACKET = 2  # the packet kernel's error band (K6)
+FLAG_DTYPE = 4  # 'dtype': the band-widened test alone
+OPERAND_BF16 = 8  # sub-f32: the dtype rows and the ray operand in bf16 ...
+OPERAND_FP16 = 16  # ... or in fp16 (K6's fp16 rows)
+BAND_COLS = 16  # the band rows a sub-f32 form reads after the 12 f32 columns
+
+
 class Band(NamedTuple):
     """The acceptance of the triangle test, as the kernels take it.
 
-    form 0 ('mxu3', `STRICT`): u > 0, v > 0, u + v < 1.  Forms 1 and 2:
-    the f32 'both' test, an error band with the strict test inside it
-    (`dense_band`: the dense kernel's, `dense_pallas.py:_kernel` :393-418;
-    `packet_band`: the packet kernel's, `traversal_pallas.py:_kernel`
-    :369-394, whose constants and rounding differ).  k0-k2 are f32 values."""
+    `form` = kind | flags.  Kind 0 (`STRICT`, 'mxu3'): u > 0, v > 0,
+    u + v < 1 on the f32 rows.  Kinds 1 and 2: an error band around the
+    dtype test, the dense kernels' (`dense_band`, `dense_pallas.py:_kernel`
+    :369-421) or the packet kernel's (`packet_band`,
+    `traversal_pallas.py:_kernel` :365-397), whose constants and rounding
+    differ.  Without an operand flag u and v come from the f32 rows (fp32);
+    with `OPERAND_BF16` / `OPERAND_FP16` (bf16, fp16) from the table's band
+    rows (`band_rows`) and the ray rounded to that type.  'both' (no
+    `FLAG_DTYPE`): strict inside the band, band-widened outside it; in
+    sub-f32 forms a lane inside the band is re-tested on the f32 rows and
+    takes its u, v from them.  'dtype' (`FLAG_DTYPE`): the band-widened
+    test alone.  k0-k2 are f32 values: (sband, c1, c3) for kind 1, (d12,
+    d1, -) for kind 2."""
 
     form: int = 0
     k0: float = 0.0
     k1: float = 0.0
     k2: float = 0.0
 
+    @property
+    def kind(self) -> int:
+        return self.form & 3
+
+    @property
+    def dtype_only(self) -> bool:
+        return bool(self.form & FLAG_DTYPE)
+
+    @property
+    def widened(self) -> bool:
+        """Can the test accept a point outside the triangle (by more than
+        the f32 rounding of u and v)?  The sub-f32 forms and 'dtype'."""
+        return self.operand is not None or self.dtype_only
+
+    @property
+    def operand(self):
+        """The type the sub-f32 forms round the ray to (None: f32 rows)."""
+        if self.form & OPERAND_BF16:
+            return torch.bfloat16
+        if self.form & OPERAND_FP16:
+            return torch.float16
+        return None
+
 
 STRICT = Band()
 
 
-def dense_band(prec) -> Band:
-    """K1's f32 'both' band for `prec`: (sband = 0.2 (d1 + d2), the factor
-    folded into the S rows; c1 = 0.2 d1; c3 = 0.6 d1)."""
+def _flags(fallback: str) -> int:
+    if fallback not in ("both", "dtype"):
+        raise ValueError(f"no error band for triangle_fallback={fallback!r}")
+    return FLAG_DTYPE if fallback == "dtype" else 0
+
+
+def dense_band(prec, fallback: str = "both") -> Band:
+    """K1's band for `prec` and `fallback` ('both' | 'dtype'): (sband =
+    0.2 (d1 + d2), folded into the S rows; c1 = 0.2 d1; c3 = 0.6 d1).  Its
+    sub-f32 dtype rows are bf16 in bf16 and in fp16 (`_mxu_tables` :910
+    rounds the fp16 rows to bf16 again), and so is the ray operand."""
     d1, d2 = prec.delta1, prec.delta2
-    return Band(1, _f32(0.2 * (d1 + d2)), _f32(0.2 * d1), _f32(0.6 * d1))
+    form = KIND_DENSE | _flags(fallback) | (0 if prec.is_f32 else OPERAND_BF16)
+    return Band(form, _f32(0.2 * (d1 + d2)), _f32(0.2 * d1), _f32(0.6 * d1))
 
 
-def packet_band(prec) -> Band:
-    """K6's f32 'both' band for `prec`: (d12 = d1 + d2, d1)."""
-    return Band(2, _f32(prec.delta1 + prec.delta2), _f32(prec.delta1))
+def packet_band(prec, fallback: str = "both") -> Band:
+    """K6's band for `prec` and `fallback`: (d12 = d1 + d2, d1).  Its
+    sub-f32 dtype rows and ray operand are in the render dtype itself
+    (`traversal_pallas.py:_kernel` :266-276)."""
+    operand = {"fp32": 0, "bf16": OPERAND_BF16, "fp16": OPERAND_FP16}[prec.name]
+    form = KIND_PACKET | _flags(fallback) | operand
+    return Band(form, _f32(prec.delta1 + prec.delta2), _f32(prec.delta1))
+
+
+def band_rows(n_dt, e, band: Band) -> torch.Tensor:
+    """(TI, 16) f32 band rows of a sub-f32 form, from the dtype-rounded
+    coefficients n_dt (TI, 9) and the f32 offsets e (TI, 3):
+    [Ox: n0 n1 n2 e0 | Oy: n3 n4 n5 e1 | S_x | S_y], each value rounded to
+    the form's operand type.  The dense form's S rows are |n|, |e| scaled
+    by sband before the rounding (`_mxu_tables` :895-910), the packet
+    form's |n|, |e| of the rounded rows (:266-276)."""
+    dt = band.operand
+    f32 = torch.float32
+    nd = n_dt.to(f32)
+    o_rows = torch.cat([nd[:, 0:3], e[:, 0:1], nd[:, 3:6], e[:, 1:2]], dim=1)
+    if band.kind == KIND_DENSE:
+        sband = torch.tensor(band.k0, dtype=f32, device=nd.device)
+        s_rows = o_rows.abs() * sband
+    else:
+        s_rows = o_rows.to(dt).to(f32).abs()
+    return torch.cat([o_rows, s_rows], dim=1).to(dt).to(f32).contiguous()
+
+
+def table_cols(band: Band) -> int:
+    """Columns of the coefficient table a kernel reads under `band`."""
+    return 12 + (BAND_COLS if band.operand is not None else 0)
 
 
 def tri_quantities(coef, o, d, band: Band = STRICT):
     """(R, TI) t, u, v, accept_geom for rays o, d (R, 3) against the
-    table rows; the sums run in the kernel's order."""
-    return m_shift_test([coef[:, i][None, :] for i in range(12)], o[:, :, None], d[:, :, None],
-                        band)
+    table rows (12 f32 columns, then the band rows of a sub-f32 form); the
+    sums run in the kernel's order."""
+    return m_shift_test([coef[:, i][None, :] for i in range(coef.shape[1])],
+                        o[:, :, None], d[:, :, None], band)
 
 
 def m_shift_test(n, o, d, band: Band = STRICT):
     """The M-shift test of rays o, d (R, 3, 1) against coefficient rows n
     (12 tensors broadcasting against (R, 1): the table's columns, or each
-    ray's own rows); -> t, u, v, accept_geom, the sums in the kernels'
-    order, accepted by `band`."""
+    ray's own rows; 28 with the band rows of a sub-f32 form); -> t, u, v,
+    accept_geom, the sums in the kernels' order, accepted by `band`."""
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     Oz = n[6] * ox + n[7] * oy + n[8] * oz + n[11]
@@ -106,34 +189,56 @@ def m_shift_test(n, o, d, band: Band = STRICT):
     Dx = n[0] * dx + n[1] * dy + n[2] * dz
     Dy = n[3] * dx + n[4] * dy + n[5] * dz
     t = -Oz / Dz
+    if band.kind == KIND_STRICT:
+        u, v = Ox + t * Dx, Oy + t * Dy
+        return t, u, v, (u > 0) & (v > 0) & (u + v < 1)
+    if band.operand is None:  # f32 rows; K1 folds sband into |n| and |e|
+        a = [n[i].abs() for i in (0, 1, 2, 9, 3, 4, 5, 10)]
+        if band.kind == KIND_DENSE:
+            a = [x * band.k0 for x in a]
+        bo, bd, uv32 = (ox, oy, oz), (dx, dy, dz), None
+    else:  # the band rows, the ray rounded to the operand type
+        b, a = n[12:20], n[20:28]
+        q = lambda x: x.to(band.operand).to(torch.float32)
+        bo, bd = (q(ox), q(oy), q(oz)), (q(dx), q(dy), q(dz))
+        uv32 = (Ox + t * Dx, Oy + t * Dy)
+        Ox = b[0] * bo[0] + b[1] * bo[1] + b[2] * bo[2] + b[3]
+        Oy = b[4] * bo[0] + b[5] * bo[1] + b[6] * bo[2] + b[7]
+        Dx = b[0] * bd[0] + b[1] * bd[1] + b[2] * bd[2]
+        Dy = b[4] * bd[0] + b[5] * bd[1] + b[6] * bd[2]
+    ao, ad = [x.abs() for x in bo], [x.abs() for x in bd]
+    s_ox = a[0] * ao[0] + a[1] * ao[1] + a[2] * ao[2] + a[3]
+    s_oy = a[4] * ao[0] + a[5] * ao[1] + a[6] * ao[2] + a[7]
+    s_dx = a[0] * ad[0] + a[1] * ad[1] + a[2] * ad[2]
+    s_dy = a[4] * ad[0] + a[5] * ad[1] + a[6] * ad[2]
     t_dx = t * Dx
     t_dy = t * Dy
     u = Ox + t_dx
     v = Oy + t_dy
-    if band.form == 0:
-        return t, u, v, (u > 0) & (v > 0) & (u + v < 1)
-    # the S rows |n| . |o| + |e| and |n| . |d|
-    a = [n[i].abs() for i in (0, 1, 2, 3, 4, 5, 9, 10)]
-    if band.form == 1:  # K1 folds sband into |n| and |e| (`_mxu_tables`)
-        a = [x * band.k0 for x in a]
-    aox, aoy, aoz = ox.abs(), oy.abs(), oz.abs()
-    adx, ady, adz = dx.abs(), dy.abs(), dz.abs()
-    s_ox = a[0] * aox + a[1] * aoy + a[2] * aoz + a[6]
-    s_oy = a[3] * aox + a[4] * aoy + a[5] * aoz + a[7]
-    s_dx = a[0] * adx + a[1] * ady + a[2] * adz
-    s_dy = a[3] * adx + a[4] * ady + a[5] * adz
-    return t, u, v, band_accept(band, t, u, v, Ox, Oy, t_dx, t_dy, s_ox, s_oy, s_dx, s_dy)
+    accept, ambiguous = _band(band, t, u, v, Ox, Oy, t_dx, t_dy, s_ox, s_oy, s_dx, s_dy,
+                              uv32)
+    if uv32 is not None and not band.dtype_only:
+        u = torch.where(ambiguous, uv32[0], u)
+        v = torch.where(ambiguous, uv32[1], v)
+    return t, u, v, accept
 
 
-def band_accept(band: Band, t, u, v, Ox, Oy, t_dx, t_dy, s_ox, s_oy, s_dx, s_dy):
-    """The f32 'both' acceptance: strict inside the error band (a lane is
-    ambiguous where u, v or w = 1 - u - v lies in [-err, 0]), the
-    band-widened test outside it; the JAX expressions term for term."""
-    if band.form == 1:
+def band_accept(band: Band, t, u, v, Ox, Oy, t_dx, t_dy, s_ox, s_oy, s_dx, s_dy, uv32=None):
+    """The acceptance of an error-band form (a lane is ambiguous where u, v
+    or w = 1 - u - v lies in [-err, 0]), the JAX expressions term for term:
+    under 'dtype' the band-widened test; under 'both' the strict test on
+    ambiguous lanes, on the f32 rows' u32, v32 (`uv32`) in a sub-f32 form,
+    and the band-widened test elsewhere."""
+    return _band(band, t, u, v, Ox, Oy, t_dx, t_dy, s_ox, s_oy, s_dx, s_dy, uv32)[0]
+
+
+def _band(band, t, u, v, Ox, Oy, t_dx, t_dy, s_ox, s_oy, s_dx, s_dy, uv32):
+    """-> (accept, ambiguous); see `band_accept`."""
+    if band.kind == KIND_DENSE:
         c1, c3 = band.k1, band.k2
         eu = s_ox + t * s_dx + c1 * Ox.abs() + c3 * t_dx.abs()
         ev = s_oy + t * s_dy + c1 * Oy.abs() + c3 * t_dy.abs()
-    elif band.form == 2:
+    elif band.kind == KIND_PACKET:
         d12, d1f = band.k0, band.k1
         eu = (d12 * s_ox + t * d12 * s_dx + d1f * (Ox.abs() + 3 * t_dx.abs())) * 0.2
         ev = (d12 * s_oy + t * d12 * s_dy + d1f * (Oy.abs() + 3 * t_dy.abs())) * 0.2
@@ -143,8 +248,14 @@ def band_accept(band: Band, t, u, v, Ox, Oy, t_dx, t_dy, s_ox, s_oy, s_dx, s_dy)
     in_band = lambda x, err: (x >= -err) & (x <= 0)
     ambiguous = in_band(u, eu) | in_band(v, ev) | in_band(w, eu + ev)
     dtype_accept = (u > -eu) & (v > -ev) & (u + v < 1 + eu + ev)
+    if band.dtype_only:
+        return dtype_accept, ambiguous
+    if band.operand is not None:
+        if uv32 is None:
+            raise ValueError("band_accept: a sub-f32 'both' form re-tests on the f32 rows (uv32)")
+        u, v = uv32
     strict = (u > 0) & (v > 0) & (u + v < 1)
-    return (ambiguous & strict) | (~ambiguous & dtype_accept)
+    return (ambiguous & strict) | (~ambiguous & dtype_accept), ambiguous
 
 
 def _closest(t, u, v, accept, tri_ids, obj_ids):
@@ -223,16 +334,17 @@ def _check_args(what, args, want):
 def dense_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
                 lights=None, d_mov: float = 0.0, band: Band = STRICT):
     """Kernel wrapper: see the module docstring.  origins/directions (R, 3)
-    f32, skip (R,) i32, mind/maxd (R,) f32, coef (TI, 12) f32, tri_ids /
-    obj_ids (TI,) i32, lights (L, 4) f32 [is_directional, ax, ay, az] or
-    None; `band` the acceptance of both phases."""
+    f32, skip (R,) i32, mind/maxd (R,) f32, coef (TI, table_cols(band))
+    f32, tri_ids / obj_ids (TI,) i32, lights (L, 4) f32 [is_directional,
+    ax, ay, az] or None; `band` the acceptance of both phases, `d_mov` the
+    shadow phase's min t."""
     R = origins.shape[0]
     TI = coef.shape[0]
     L = 0 if lights is None else lights.shape[0]
     f32, i32 = torch.float32, torch.int32
     args = [origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids]
     want = [(f32, (R, 3)), (f32, (R, 3)), (i32, (R,)), (f32, (R,)), (f32, (R,)),
-            (f32, (TI, 12)), (i32, (TI,)), (i32, (TI,))]
+            (f32, (TI, table_cols(band))), (i32, (TI,)), (i32, (TI,))]
     if lights is not None:
         args.append(lights)
         want.append((f32, (L, 4)))
@@ -374,8 +486,8 @@ def dense_trace_multi(origins, directions, skip, mind, maxd, coef, tri_ids, obj_
                       chunk_lo, chunk_hi, find_any: bool = False, band: Band = STRICT,
                       tree: BoxTree | None = None):
     """K1b wrapper: see the module docstring.  origins/directions (R, 3)
-    f32, skip (R,) i32, mind/maxd (R,) f32, coef (TI, 12) f32, tri_ids /
-    obj_ids (TI,) i32, chunk_lo/chunk_hi (NC, 3) f32 with NC =
+    f32, skip (R,) i32, mind/maxd (R,) f32, coef (TI, table_cols(band))
+    f32, tri_ids / obj_ids (TI,) i32, chunk_lo/chunk_hi (NC, 3) f32 with NC =
     ceil(TI / 128): the AABB of rows [128 c, 128 c + 128), in the rays'
     (recentred) frame; `tree`: `build_tree(chunk_lo, chunk_hi, TI, 128)`
     when the caller keeps one.  -> (t, u, v, tri, obj)."""
@@ -387,7 +499,7 @@ def dense_trace_multi(origins, directions, skip, mind, maxd, coef, tri_ids, obj_
                 [origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
                  chunk_lo, chunk_hi],
                 [(f32, (R, 3)), (f32, (R, 3)), (i32, (R,)), (f32, (R,)), (f32, (R,)),
-                 (f32, (TI, 12)), (i32, (TI,)), (i32, (TI,)), (f32, (NC, 3)),
+                 (f32, (TI, table_cols(band))), (i32, (TI,)), (i32, (TI,)), (f32, (NC, 3)),
                  (f32, (NC, 3))])
     if origins.device.type == "cpu":
         return dense_trace_multi_plain(origins, directions, skip, mind, maxd, coef,
@@ -423,11 +535,15 @@ def ray_aabb_entry(lo, hi, o, d, maxd):
     return entry, ok
 
 
-def coef_table(frame):
+def coef_table(frame, band: Band = STRICT):
     """(TI, 12) f32 rows n[0..8] | e[0..2] of the frame's dense table: the
-    layout every trace kernel reads."""
+    layout every trace kernel reads; a sub-f32 error-band form appends its
+    16 band rows (`band_rows`, from `frame.dense_n`), (TI, 28)."""
     TI = frame.dense_n_f32.shape[0]
-    return torch.cat([frame.dense_n_f32.reshape(TI, 9), frame.dense_e], dim=1).contiguous()
+    cols = [frame.dense_n_f32.reshape(TI, 9), frame.dense_e]
+    if band.operand is not None:
+        cols.append(band_rows(frame.dense_n.reshape(TI, 9), frame.dense_e, band))
+    return torch.cat(cols, dim=1).contiguous()
 
 
 def scene_exit_cap(frame, o, d, max_dist):

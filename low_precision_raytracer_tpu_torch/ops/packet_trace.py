@@ -1,11 +1,13 @@
 """Packet BVH trace, K6 (port of `low_precision_raytracer_tpu/ops/traversal_pallas.py`:
-`trace_rays_packet` and `trace_rays_packet_sorted`, `fallback='mxu3'`
-and, in fp32, `fallback='both'` with the packet kernel's own error band,
-`dense_trace.packet_band`).
+`trace_rays_packet` and `trace_rays_packet_sorted`, every `fallback`:
+'mxu3', and 'both' / 'dtype' with the packet kernel's own error band,
+`dense_trace.packet_band`, whose sub-f32 rows and ray operand are in the
+render dtype itself).
 
 What it computes, per ray: the closest accepted hit of the M-shift test
-over the rows of the coefficient table (the f32 rows, accepted by the
-band: strict u > 0, v > 0, u + v < 1 under 'mxu3'; then mind < t < maxd,
+over the rows of the coefficient table (t from the f32 rows, u and v
+accepted by the band: strict u > 0, v > 0, u + v < 1 under 'mxu3'; then
+mind < t < maxd,
 tri != skip, t finite) as (t, u, v, tri, obj), the miss record t = 1e5 /
 u = v = 0 / ids -1 where none; for any hit the occlusion marker (tri 0 if
 some row accepts, else -1; t = 1e5, u = v = 0, obj = -1).  The TPU kernel
@@ -50,6 +52,7 @@ from low_precision_raytracer_tpu_torch.ops.dense_trace import (
     dense_trace_multi_plain,
     morton_key,
     sorted_launch,
+    table_cols,
     tree_launch,
 )
 
@@ -60,10 +63,10 @@ def packet_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
                  leaf_lo, leaf_hi, find_any: bool = False, band: Band = STRICT,
                  tree: BoxTree | None = None):
     """K6 wrapper.  origins/directions (R, 3) f32 (recentred), skip (R,)
-    i32, mind/maxd (R,) f32, coef (TI, 12) f32, tri_ids / obj_ids (TI,)
-    i32, leaf_lo/leaf_hi (NL, 3) f32 with NL = 4 ceil(TI / 128): the
-    (widened) AABB of rows [32 l, 32 l + 32), in the rays' frame; `band`:
-    `STRICT` or `packet_band`; `tree`: `build_tree(leaf_lo, leaf_hi, TI,
+    i32, mind/maxd (R,) f32, coef (TI, table_cols(band)) f32, tri_ids /
+    obj_ids (TI,) i32, leaf_lo/leaf_hi (NL, 3) f32 with NL = 4 ceil(TI /
+    128): the (widened) AABB of rows [32 l, 32 l + 32), in the rays' frame; `band`:
+    `STRICT` or a `packet_band`; `tree`: `build_tree(leaf_lo, leaf_hi, TI,
     LEAF)` when the caller keeps one.  -> (t, u, v, tri, obj), see the module
     docstring.  On CPU tensors it runs the plain version; on CUDA tensors
     it launches the kernel or raises."""
@@ -74,8 +77,8 @@ def packet_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
                 [origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
                  leaf_lo, leaf_hi],
                 [(f32, (R, 3)), (f32, (R, 3)), (i32, (R,)), (f32, (R,)), (f32, (R,)),
-                 (f32, (TI, 12)), (i32, (TI,)), (i32, (TI,)), (f32, (NL, 3)),
-                 (f32, (NL, 3))])
+                 (f32, (TI, table_cols(band))), (i32, (TI,)), (i32, (TI,)),
+                 (f32, (NL, 3)), (f32, (NL, 3))])
     if origins.device.type == "cpu":
         return dense_trace_multi_plain(origins, directions, skip, mind, maxd, coef,
                                        tri_ids, obj_ids, find_any=find_any, band=band)

@@ -15,7 +15,8 @@ The dense route:
   `di_lights` is given;
 - other coherent launches (multi-chunk, or any hit) -> K1b
   `dense_trace_multi`, any chunk count (the tree over the chunk boxes is
-  built once per frame table);
+  built once per frame table), each ray capped at its scene exit on
+  multi-chunk scenes (`scene_exit_cap`, as `trace_rays_dense_pallas`);
 - incoherent launches the JAX package sends to the per-ray wavefront
   (bf16, above `wavefront_min_tris` instance triangles) ->
   `trace_rays_wavefront` (K5 and its schedule kernel, `ops/wavefront.py`),
@@ -33,9 +34,13 @@ more than 4096 instance triangles -> `packet_trace_sorted` (the morton
 `resolve_fallback`, `incoherent_reorders`, `di_fusible` and
 `moveforward_eps` answer as the JAX package does for the resolved route.
 Every kernel gets the acceptance the JAX package resolves
-(`acceptance_band`): the strict 'mxu3' test in bf16, the f32 'both' error
-band in fp32 (the dense kernels' form on the dense route, the packet
-kernel's on the packet BVH).
+(`acceptance_band`): under 'auto' the strict 'mxu3' test in bf16 and fp16
+and the f32 'both' error band in fp32; 'both' and 'dtype' given
+explicitly take the error band in any precision (the dense kernels' form
+on the dense route, the packet kernel's on the packet BVH), and then the
+wavefront is never used and every secondary launch takes the dtype
+epsilon, as in the JAX package.  The per-frame table (`frame_table`)
+carries the sub-f32 forms' band rows only when such a form is asked for.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from low_precision_raytracer_tpu_torch.models.scene import (
 )
 from low_precision_raytracer_tpu_torch.ops.dense_trace import (
     CHUNK,
+    KIND_STRICT,
     STRICT,
     Band,
     coef_table,
@@ -63,6 +69,7 @@ from low_precision_raytracer_tpu_torch.ops.dense_trace import (
     dense_trace_multi,
     dense_trace_multi_sorted,
     packet_band,
+    scene_exit_cap,
 )
 from low_precision_raytracer_tpu_torch.ops.dense_trace import build_tree
 from low_precision_raytracer_tpu_torch.ops.packet_trace import (
@@ -76,6 +83,10 @@ TC = DENSE_CHUNK_TRIS
 # the packet walk sorts incoherent launches above this many instance
 # triangles (`ops/trace.py:414` of the JAX package)
 PACKET_SORT_MIN_TRIS = 4096
+# under a widened acceptance (`Band.widened`) K1b and K6 walk no tree and
+# test every row for every ray, so their time grows with the row count;
+# `check_scene` refuses such a band above this many instance triangles
+BAND_SCAN_MAX_TRIS = 8192
 
 
 class Hit(NamedTuple):
@@ -98,22 +109,25 @@ def resolve_fallback(fb: str, prec: Precision) -> str:
 
 def acceptance_band(frame: FrameInput, cfg: RenderConfig, prec: Precision) -> Band:
     """The acceptance every kernel of this route runs: the strict test for
-    'mxu3', the f32 'both' band of the resolved route in fp32; other
-    acceptances are not ported (the bf16 / fp16 'both' and 'dtype' tests,
-    ROADMAP queue 1 items 3 and 9)."""
+    'mxu3'; for 'both' and 'dtype' the error band of the resolved route
+    (the dense kernels' or the packet kernel's) in `prec`."""
     fb = resolve_fallback(cfg.triangle_fallback, prec)
     if fb == "mxu3":
         return STRICT
-    if fb == "both" and prec.is_f32:
-        return packet_band(prec) if resolve_impl(frame, cfg) == "pallas" else dense_band(prec)
-    raise NotImplementedError(
-        f"triangle_fallback={fb!r} in {prec.name}: only the mxu3 test and the fp32 'both' "
-        "test are ported (the sub-f32 'both' / 'dtype' tests: ROADMAP queue 1 items 3 and 9)")
+    if resolve_impl(frame, cfg) == "pallas":
+        return packet_band(prec, fb)
+    return dense_band(prec, fb)
 
 
 def resolve_impl(frame: FrameInput, cfg: RenderConfig) -> str:
     """The trace route: `cfg.traversal_impl`, or for 'auto' the JAX
-    package's TPU resolution from the instance-triangle count."""
+    package's TPU resolution from the instance-triangle count, in every
+    precision.  fp16 too takes the kernel routes (and so 'mxu3' under
+    'auto'), where the JAX package on the TPU sends fp16 to its XLA routes
+    ('dense' / 'jax', `ops/trace.py:34-38`) only because Mosaic has no f16
+    type; the card has no such gap.  The port's fp16 computes what the JAX
+    package computes with the route named (`traversal_impl='dense_pallas'`
+    or `'pallas'`)."""
     impl = cfg.traversal_impl
     if impl != "auto":
         return impl
@@ -181,35 +195,71 @@ def moveforward_eps(frame: FrameInput, cfg: RenderConfig, prec: Precision,
     return prec.ray_moveforward_t_exact
 
 
+def fused_moveforward(prec: Precision, band: Band) -> float:
+    """The fused shadow phase's min t: its origins are the kernel's own f32
+    hit points, so the exact epsilon, unless a sub-f32 error-band test
+    re-quantizes them (`trace_rays_dense_pallas`'s `d_mov`)."""
+    if band.kind == KIND_STRICT or prec.is_f32:
+        return prec.ray_moveforward_t_exact
+    return prec.ray_moveforward_t
+
+
 def check_scene(frame: FrameInput, cfg: RenderConfig) -> None:
     """Raise NotImplementedError for scenes whose route the port does not
-    cover: above `packet_bvh_max_tris`, 'auto' resolves to the XLA walk."""
+    cover: above `packet_bvh_max_tris`, 'auto' resolves to the XLA walk;
+    above `BAND_SCAN_MAX_TRIS`, a widened acceptance would scan every row."""
     impl = resolve_impl(frame, cfg)
+    ti = instance_tris(frame)
     if impl not in ("dense_pallas", "pallas"):
         raise NotImplementedError(
-            f"{instance_tris(frame)} instance triangles: 'auto' resolves to "
+            f"{ti} instance triangles: 'auto' resolves to "
             f"traversal_impl={impl!r}, the XLA BVH walk, which is not ported "
             "(ROADMAP queue 1 item 7)")
+    if ti > BAND_SCAN_MAX_TRIS and acceptance_band(frame, cfg, cfg.prec).widened:
+        raise NotImplementedError(
+            f"triangle_fallback={cfg.triangle_fallback!r} in {cfg.precision} on {ti} "
+            f"instance triangles (more than {BAND_SCAN_MAX_TRIS}): under a widened "
+            "acceptance K1b and K6 test every row for every ray; culling that stays "
+            "exact under the band waits (ROADMAP queue 1 item 12)")
 
 
-_TREES: dict = {}
+_CACHE: dict = {}
+
+
+def _per_table(anchor: torch.Tensor, key, build):
+    """`build()`, once per frame table and `key`: the result is kept while
+    `anchor` (a tensor of that table) lives, and entries whose anchor died
+    are dropped."""
+    k = (id(anchor), key)
+    hit = _CACHE.get(k)
+    if hit is not None and hit[0]() is anchor:
+        return hit[1]
+    for dead in [d for d, (ref, _) in _CACHE.items() if ref() is None]:
+        del _CACHE[dead]
+    value = build()
+    _CACHE[k] = (weakref.ref(anchor), value)
+    return value
 
 
 def _box_tables(boxes_lo, boxes_hi, frame: FrameInput, leaf: int):
     """Boxes of `leaf` rows each, recentred like the rays, and the tree over
-    them, once per frame table (keyed on `boxes_lo`, held weakly)."""
-    key = id(boxes_lo)
-    hit = _TREES.get(key)
-    if hit is not None and hit[0]() is boxes_lo:
-        return hit[1]
-    for k in [k for k, (ref, _) in _TREES.items() if ref() is None]:
-        del _TREES[k]
-    c = frame.dense_center
-    lo = (boxes_lo - c[None, :]).contiguous()
-    hi = (boxes_hi - c[None, :]).contiguous()
-    tables = (lo, hi, build_tree(lo, hi, frame.dense_n_f32.shape[0], leaf))
-    _TREES[key] = (weakref.ref(boxes_lo), tables)
-    return tables
+    them, once per frame table (keyed on `boxes_lo`)."""
+
+    def build():
+        c = frame.dense_center
+        lo = (boxes_lo - c[None, :]).contiguous()
+        hi = (boxes_hi - c[None, :]).contiguous()
+        return lo, hi, build_tree(lo, hi, frame.dense_n_f32.shape[0], leaf)
+
+    return _per_table(boxes_lo, ("boxes", leaf), build)
+
+
+def frame_table(frame: FrameInput, band: Band) -> torch.Tensor:
+    """The frame's coefficient table for `band` (`coef_table`), built once
+    per frame table and form (keyed on `dense_n_f32`): the f32 (TI, 12)
+    rows, with the band rows only when a sub-f32 error-band acceptance asks
+    for them."""
+    return _per_table(frame.dense_n_f32, ("table", band), lambda: coef_table(frame, band))
 
 
 def _packet_tables(frame: FrameInput):
@@ -279,7 +329,7 @@ def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
     o = (origins.to(f32) - c[None, :]).contiguous()
     d = directions.to(f32).contiguous()
     rays = (o, d, skip_tri.to(torch.int32).contiguous(), min_dist.contiguous(),
-            max_dist.contiguous(), coef_table(frame), frame.dense_tri, frame.dense_obj)
+            max_dist.contiguous(), frame_table(frame, acc), frame.dense_tri, frame.dense_obj)
     if impl == "pallas":
         lo, hi, tree = _packet_tables(frame)
         launch = (packet_trace_sorted if not coherent and _sorted_route(frame, cfg)
@@ -290,8 +340,14 @@ def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
             f"traversal_impl={impl!r} is not ported (ROADMAP queue 1 item 7)")
     if instance_tris(frame) <= TC and not find_any:
         lights = None if di_lights is None else di_light_rows(frame, di_lights)
-        *h, vis = dense_trace(*rays, lights, d_mov=prec.ray_moveforward_t_exact, band=acc)
+        *h, vis = dense_trace(*rays, lights, d_mov=fused_moveforward(prec, acc), band=acc)
         return (Hit(*h), vis) if di_lights is not None else Hit(*h)
+    if instance_tris(frame) > TC:
+        # multi-chunk launches reach no further than the scene's exit, as in
+        # `trace_rays_dense_pallas`: under a band's widened acceptance a row
+        # can accept a point outside the scene box
+        cap = scene_exit_cap(frame, origins.to(f32), d, max_dist).contiguous()
+        rays = rays[:4] + (cap,) + rays[5:]
     lo, hi, tree = _chunk_tables(frame)
     if not coherent and _sorted_route(frame, cfg):
         return Hit(*dense_trace_multi_sorted(*rays, lo, hi, find_any=find_any,

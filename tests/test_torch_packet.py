@@ -279,13 +279,44 @@ def _entry(tree, gidx, o, inv, maxd):
     return e, ok
 
 
+def _row_loop(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, find_any, band):
+    """The kernels' loop over every row in order under a widened band, with
+    their update rule (any hit: the first accepted row blocks)."""
+    n, TI = o.shape[0], coef.shape[0]
+    t, u, v, geom = m_shift_test([coef[:, i][None, :] for i in range(coef.shape[1])],
+                                 o[:, :, None], d[:, :, None], band)
+    acc = (geom & (t > mind[:, None]) & (t < maxd[:, None])
+           & (tri_ids[None, :] != skip[:, None]) & torch.isfinite(t))
+    if find_any:
+        return (torch.full((n,), 1e5), torch.zeros(n), torch.zeros(n),
+                torch.where(acc.any(1), 0, -1).to(torch.int32),
+                torch.full((n,), -1, dtype=torch.int32))
+    bt = torch.full((n,), 1e5)
+    bu, bv = torch.zeros(n), torch.zeros(n)
+    btri = torch.full((n,), -1, dtype=torch.int32)
+    brow = torch.full((n,), -1, dtype=torch.int64)
+    for k in range(TI):
+        tk, trk = t[:, k], tri_ids[k]
+        better = acc[:, k] & ((tk < bt) | ((tk == bt) & ((trk < btri) | ((trk == btri) & (k < brow)))))
+        bt = torch.where(better, tk, bt)
+        bu = torch.where(better, u[:, k], bu)
+        bv = torch.where(better, v[:, k], bv)
+        btri = torch.where(better, trk, btri)
+        brow = torch.where(better, k, brow)
+    obj = torch.where(brow >= 0, obj_ids[brow.clamp(min=0)], -1).to(torch.int32)
+    return bt, bu, bv, btri, obj
+
+
 def _walk(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, tree, find_any, band=STRICT):
     """The kernels' tree walk in PyTorch, vectorised over rays: per ray a
     stack of (level, index, entry); pop, skip a node whose entry exceeds
     the best t (closest hit), test a leaf's `tree.leaf` rows in order (the
     kernel's update rule, the test accepted by `band`) or push an internal
     node's entered children farthest first (equal entries: the lower index
-    on top)."""
+    on top).  Under a widened band the kernels walk no tree: every row, in
+    order (`_row_loop`)."""
+    if band.widened:
+        return _row_loop(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, find_any, band)
     n, TI = o.shape[0], coef.shape[0]
     leaf = tree.leaf
     L = len(tree.sizes)
@@ -317,8 +348,8 @@ def _walk(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, tree, find_any, band=S
         if lf.numel():
             rows = li[:, None] * leaf + torch.arange(leaf)[None, :]
             cr = coef[rows.clamp(max=TI - 1)]
-            t, u, v, geom = m_shift_test([cr[..., i] for i in range(12)], o[lf][:, :, None],
-                                         d[lf][:, :, None], band)
+            t, u, v, geom = m_shift_test([cr[..., i] for i in range(coef.shape[1])],
+                                         o[lf][:, :, None], d[lf][:, :, None], band)
             tri = tri_ids[rows.clamp(max=TI - 1)]
             acc = ((rows < TI) & geom & (t > mind[lf, None])
                    & (t < maxd[lf, None]) & (tri != skip[lf, None]) & torch.isfinite(t))

@@ -16,7 +16,7 @@ from low_precision_raytracer_tpu.config import get_precision as jax_precision
 from low_precision_raytracer_tpu.models.procedural import cornell_box_scene as jax_cornell
 from low_precision_raytracer_tpu.models.procedural import sponza_like_scene as jax_sponza
 from low_precision_raytracer_tpu.models.scene import build_scene_arrays, flatten_frame
-from low_precision_raytracer_tpu_torch.config import RenderConfig
+from low_precision_raytracer_tpu_torch.config import RenderConfig, SVGFConfig
 from low_precision_raytracer_tpu_torch.models import scene as tscene
 from low_precision_raytracer_tpu_torch.models.procedural import (
     _mesh_node,
@@ -155,19 +155,47 @@ def test_renderer_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(triangle_fallback="dtype"),
-    dict(precision="fp16"),
+    dict(shade_f32=False),
+    dict(svgf=SVGFConfig(strides=(1, 2, 4, 8, 32))),
     dict(taa_mix_weight=0.5),
     dict(taa_force_full=True),
     dict(traversal_impl="jax"),
-    dict(triangle_fallback="both"),
+    dict(svgf=SVGFConfig(sigma_n=127.5)),
     dict(dense_epilogue="pack"),
     dict(traversal_impl="dense"),
 ])
 def test_uncovered_configs_raise(kw):
     cfg = RenderConfig(width=8, height=8, **{"precision": "bf16", **kw})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \d+\)"):
         Renderer(cornell_box_scene(), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("precision,fallback,impl,refused", [
+    ("bf16", "both", "auto", True),
+    ("fp16", "dtype", "pallas", True),
+    ("fp32", "dtype", "auto", True),
+    ("fp32", "both", "auto", False),
+    ("bf16", "mxu3", "pallas", False),
+])
+def test_widened_band_row_cap(precision, fallback, impl, refused):
+    """Under a widened acceptance (every sub-f32 band, and 'dtype') K1b and
+    K6 test every row, so scenes above BAND_SCAN_MAX_TRIS instance
+    triangles are refused on both routes, naming their ROADMAP item;
+    colonnade-8k (8,302) is just above the cap.  fp32 'both' and 'mxu3'
+    walk the tree and stay covered there."""
+    from low_precision_raytracer_tpu_torch.ops.trace import BAND_SCAN_MAX_TRIS
+
+    cfg = RenderConfig(width=8, height=8, precision=precision, triangle_fallback=fallback,
+                       traversal_impl=impl)
+    host = sponza_like_scene(5, 2)
+    if refused:
+        with pytest.raises(NotImplementedError,
+                           match=rf"more than {BAND_SCAN_MAX_TRIS}.*ROADMAP queue 1 item 12\)"):
+            Renderer(host, cfg, device="cpu")
+    else:
+        assert Renderer(host, cfg, device="cpu").frame.dense_n_f32.shape[0] == 8302
+    # at the measured size (colonnade-5k, 5,314) the band is covered
+    assert Renderer(sponza_like_scene(), cfg, device="cpu").frame.dense_n_f32.shape[0] == 5314
 
 
 def test_uncovered_scenes_raise():
