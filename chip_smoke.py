@@ -124,7 +124,28 @@ and after phase 20:
 23. band path phases, 4 frames each: the Sponza-class frame in fp16 'both'
     (K1b 4 per frame), the flagship in bf16 'dtype' (K1a 2), the packet
     route on colonnade-5k in fp16 'both' (K6 4); then the fp32-fallback
-    rate of Cornell's primary launch at 256x256 in fp16 and bf16.
+    rate of Cornell's primary launch at 256x256 in fp16 and bf16;
+24. the packed epilogue (bf16, `dense_epilogue='pack'`, `pack_phases`):
+    K1a's packed form on the flagship's two closest-hit launches (every
+    ray: t, row, pk exact) and K1b's on the Sponza-class frame's two
+    (primary, sorted GI bounce; 2^18-ray slices), each timed beside the
+    full epilogue on the same rays; 4 frames of each path, the launch
+    sequence held (flagship: K1a packed 2, K1b any hit 1, no fused shadow
+    phase; Sponza-class: K1b packed 2, K1b any hit 2);
+25. the wavefront's 'rounds' mode on colonnade-83k (`rounds_kernel_phase`):
+    each K5 launch of its two 1080p wavefront launches (q = 4 lanes, and
+    the tail passes' q = 1) exact against the plain version on lane slices,
+    timed with its bound; each launch on a slice of rays exact against its
+    plain route; rounds, cycles and tail rays; the launch timed against
+    'oneshot' on the same rays; 4 frames (the schedule >= 2 and K5 at
+    least as often per frame); a 64x64 'rounds' render on the card against
+    the CPU plain path, 2 frames;
+26. the Q2.4 tool (`tools/mxu_proto.py`, `tool_phase`) at TC = 48 on
+    2,073,600 rays, NCHUNK = 1 and 8: its own run with the counts zeroed
+    (both bodies timed, their agreement), then the VPU body exact and the
+    tensor-core body within its bar (hit agreement >= 0.9999, |x - plain|
+    <= 1e-5 |plain| + 1e-6) against their plain versions on 2^16-ray
+    slices, with their bounds.
 
 Before the last line it prints a `kernels_fp32` JSON line (K1a, K1b, K6 in
 fp32: launches on the fp32 path phases, the fp32 kernel phases' times), a
@@ -137,7 +158,9 @@ time the work could take on the card and what bounds it; K1b's times are
 those of its bf16 Sponza-class launches, its colonnade-83k and -328k
 launches are on their own lines; K6's are the mean of its four
 colonnade-2M launches) and the nvidia-smi line; the last line is
-{"ok": true, "device": {...}}.  About 4 minutes on an H100.
+{"ok": true, "device": {...}}.  The `kernels` line also has K1a's and
+K1b's packed forms (their times from phase 24) and the tool's two bodies
+(NCHUNK = 1; launches from phase 26).  About 5 minutes on an H100.
 """
 
 from __future__ import annotations
@@ -160,6 +183,7 @@ HUGE_CHECK = 1 << 12  # colonnade-2M: rays per K6 launch held against the plain 
 # outside the tensor cores (exp/sqrt/div counted as one operation each)
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12  # dense bf16 on the tensor cores
 TPU = "low_precision_raytracer_tpu/ops/"
 KERNELS = {  # wrapper name -> (source, TPU kernel it replaces)
     "dense_trace": ("low_precision_raytracer_tpu_torch/csrc/dense_trace.cu",
@@ -179,6 +203,16 @@ KERNELS = {  # wrapper name -> (source, TPU kernel it replaces)
                            TPU + "wavefront.py:211"),
     "packet_trace": ("low_precision_raytracer_tpu_torch/csrc/packet_trace.cu",
                      TPU + "traversal_pallas.py:69"),
+    # the packed winner epilogue of K1a and K1b (dense_epilogue='pack')
+    "dense_trace_pack": ("low_precision_raytracer_tpu_torch/csrc/dense_trace.cu",
+                         TPU + "dense_pallas.py:130"),
+    "dense_trace_multi_pack": ("low_precision_raytracer_tpu_torch/csrc/dense_multi.cu",
+                               TPU + "dense_pallas.py:130"),
+    # the Q2.4 measurement tool's two bodies
+    "mxu_proto_vpu": ("low_precision_raytracer_tpu_torch/csrc/mxu_proto.cu",
+                      "tools/bench_mxu_proto.py:31"),
+    "mxu_proto_mxu": ("low_precision_raytracer_tpu_torch/csrc/mxu_proto.cu",
+                      "tools/bench_mxu_proto.py:103"),
 }
 
 
@@ -251,6 +285,8 @@ def dense_trace_ops(args, kw, out):
     band = kw.get("band", STRICT)
     TI = coef.shape[0]
     tests = int((maxd > mind).sum()) * TI
+    if kw.get("pack"):  # no shadow phase
+        return tests * row_ops(band)
     t, tri = out[0], out[3]
     got = tri >= 0
     n_got = int(got.sum())
@@ -349,12 +385,18 @@ def check_svgf(name, k, p):
     return float((k[ok] - p[ok]).abs().max())
 
 
+def out_names(out):
+    """The names of a trace kernel's outputs: the packed epilogue's three
+    or the full record."""
+    return ("t", "row", "pk") if len(out) == 3 else ("t", "u", "v", "tri", "obj", "vis")
+
+
 def check_dense(k, p):
-    """K1a against its plain version: t, u, v, tri, obj, vis all equal on
-    every ray.  -> max abs error (0)."""
+    """K1a against its plain version: t, u, v, tri, obj, vis (the packed
+    epilogue: t, row, pk) all equal on every ray.  -> max abs error (0)."""
     import torch
 
-    for name, a, b in zip(("t", "u", "v", "tri", "obj", "vis"), k, p):
+    for name, a, b in zip(out_names(k), k, p):
         if not torch.equal(a, b):
             raise AssertionError(f"dense_trace: {name} differs from the plain version on "
                                  f"{int((a != b).sum())} of {a.numel()} rays")
@@ -401,6 +443,9 @@ def kernel_phase(calls, names=("dense_trace", "coef_fetch", "temporal_accum", "w
                 n_bytes = b_in + nbytes(*out_k)
                 n_ops = dense_trace_ops(args, kw, out_p)
                 extra = {"band": list(kw.get("band", ()))}
+                if kw.get("pack"):  # the full epilogue on the same rays, beside it
+                    extra.update(pack=True, reduce5_ms=cuda_ms(
+                        lambda: kern(*args, **dict(kw, pack=False)), 20))
             else:
                 err = check_svgf(name, out_k, out_p)
                 tensors = [a for a in args if isinstance(a, torch.Tensor)]
@@ -603,13 +648,14 @@ def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
         t1.synchronize()
         plain_ms = t0.elapsed_time(t1)
         err = 0.0
-        for name, a, b in zip(("t", "u", "v", "tri", "obj"), out, ref):
+        for name, a, b in zip(out_names(out), out, ref):
             a = a[sel]
             if not torch.equal(a, b):
                 raise AssertionError(f"dense_trace_multi {kind}: {name} differs from the plain "
                                      f"version on {int((a != b).sum())} of {sel.numel()} rays")
             if a.dtype == torch.float32:
                 err = max(err, float((a - b).abs().max()))
+        tri_out = out[1] if kw.get("pack") else out[3]  # the row, or tri
         # the bound: any-hit rays need the boxes up to their closest blocker
         t_final = out[0] if not kw.get("find_any") else torch.where(
             out[3] >= 0, dense_trace_multi(*args, **dict(kw, find_any=False))[0], 1e5)
@@ -627,9 +673,12 @@ def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
             t1.synchronize()
             plain_ms = t0.elapsed_time(t1)
         rec = dict(kind=kind, rays=R, live=int((args[4] > args[3]).sum()),
-                   hits=int((out[3] >= 0).sum()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   hits=int((tri_out >= 0).sum()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                    bound_by=b_by, max_abs_err=err, checked_rays=int(sel.numel()),
                    bytes=n_bytes, ops=n_ops, boxes_entered=n_boxes, rows_tested=n_rows)
+        if kw.get("pack"):  # the full epilogue on the same rays, beside it
+            rec["reduce5_ms"] = cuda_ms(lambda: dense_trace_multi(*args, **dict(kw, pack=False)),
+                                        reps)
         if plain_on_slice:
             rec["plain_ms_on"] = "slice"
             rec["slice_ms"] = cuda_ms(lambda: dense_trace_multi(*sub, **kw), reps)
@@ -1166,6 +1215,253 @@ def colonnade_kernel_phase(cfg):
     return k1b, reports
 
 
+# ---------------------------------------------------------------------------
+# the packed epilogue, the wavefront's 'rounds' mode, the Q2.4 tool
+
+
+def assigned_ops_q(lanes, out, TI, NG, s_group, find_any):
+    """K5 operations this run's data needs with q groups a lane: the rows
+    of each of its groups in order (ids outside [0, NG) test nothing); an
+    any-hit lane up to its first accepted row."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import CHUNK
+
+    gid = lanes[5].long()
+    span = s_group * CHUNK
+    valid = (gid >= 0) & (gid < NG)
+    rows = torch.where(valid, torch.clamp(TI - gid * span, min=0, max=span), 0)
+    if find_any:
+        row = out[1].long()
+        hit = row >= 0
+        at = valid & (gid == (row // span)[:, None]) & hit[:, None]
+        first = torch.where(at.any(1), at.to(torch.int8).argmax(1), gid.shape[1])
+        before = torch.arange(gid.shape[1], device=gid.device)[None, :] < first[:, None]
+        rows = torch.where(hit[:, None], torch.where(before, rows, 0), rows)
+        extra = torch.where(hit, row - (row // span) * span + 1, 0)
+        return float(rows.double().sum() + extra.double().sum()) * TRI_TEST_OPS
+    return float(rows.double().sum()) * TRI_TEST_OPS
+
+
+def rounds_phase(kind, args, kw):
+    """One recorded wavefront launch in 'rounds' mode: its K5 launches
+    (q = Q_RANKS lanes) held against the plain version on strided slices
+    of their lanes (t, row, pk exact) and timed with their bound; the whole
+    launch on a slice of rays against its plain route (exact); rounds,
+    cycles and tail rays; the launch timed against 'oneshot' on the same
+    rays.  -> report dict."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops import wavefront as WF
+
+    frame, origins, directions = args
+    find_any = kw["find_any"]
+    R = origins.shape[0]
+    dev = origins.device
+    calls = []
+    real = WF.assigned_test
+    WF.reset_stats()
+    WF.assigned_test = lambda *a, **k: calls.append(a) or real(*a, **k)
+    try:
+        out = WF.trace_rays_wavefront(*args, **kw)
+    finally:
+        WF.assigned_test = real
+    torch.cuda.synchronize()
+    rep = dict(kind=kind, rays=R, find_any=find_any, stats=dict(WF.STATS),
+               hits=int((out[3] >= 0).sum()))
+    TI = frame.dense_n_f32.shape[0]
+    k5 = []
+    for a in calls:
+        lanes, rest = a[:6], a[6:]
+        P, q = lanes[5].shape
+        got = real(*a)
+        lsel = torch.arange(0, P, max(1, P // BIG_CHECK), device=dev)[:BIG_CHECK]
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ref = WF.assigned_test_plain(*(x[lsel].contiguous() for x in lanes), *rest)
+        e1.record()
+        e1.synchronize()
+        for name, x, y in zip(("t", "row", "pk"), got, ref):
+            if not torch.equal(x[lsel], y):
+                raise AssertionError(f"wavefront_assigned rounds {kind}: {name} differs from "
+                                     f"the plain version on {int((x[lsel] != y).sum())} of "
+                                     f"{lsel.numel()} lanes")
+        NG = WF._n_groups(TI, rest[2])
+        n_bytes = nbytes(*lanes, rest[0], rest[1], *got)
+        b_ms, b_by = bound_ms(n_bytes, assigned_ops_q(lanes, got, TI, NG, rest[2], find_any))
+        k5.append(dict(lanes=P, q=q, ms=cuda_ms(lambda: real(*a), 3), bound_ms=b_ms,
+                       bound_by=b_by, plain_ms=e0.elapsed_time(e1), plain_ms_on="slice",
+                       checked_lanes=int(lsel.numel()),
+                       max_abs_err=float((got[0][lsel] - ref[0]).abs().max())))
+    if not any(r["q"] == WF.Q_RANKS for r in k5):
+        raise AssertionError(f"rounds {kind}: no K5 launch with q = {WF.Q_RANKS}")
+    rep["k5"] = k5
+    rep["rounds_ms"] = cuda_ms(lambda: WF.trace_rays_wavefront(*args, **kw), 3)
+    one = dict(kw, mode="oneshot")
+    rep["oneshot_ms"] = cuda_ms(lambda: WF.trace_rays_wavefront(*args, **one), 3)
+    ref1 = WF.trace_rays_wavefront(*args, **one)
+    rep["hit_agreement_with_oneshot"] = float(((out[3] >= 0) == (ref1[3] >= 0)).float().mean())
+
+    # the whole launch on a slice of rays against the plain route
+    rsel = torch.arange(0, R, max(1, R // BIG_CHECK), device=dev)[:BIG_CHECK]
+    sub_args = (frame, origins[rsel], directions[rsel])
+    sub_kw = dict(kw, skip_tri=kw["skip_tri"][rsel], min_dist=kw["min_dist"][rsel],
+                  max_dist=kw["max_dist"][rsel])
+    got = WF.trace_rays_wavefront(*sub_args, **sub_kw)
+    kern = WF.schedule, WF.assigned_test
+    WF.schedule, WF.assigned_test = WF.schedule_plain, WF.assigned_test_plain
+    try:
+        want = WF.trace_rays_wavefront(*sub_args, **sub_kw)
+    finally:
+        WF.schedule, WF.assigned_test = kern
+    for name, x, y in zip(("t", "u", "v", "tri", "obj"), got, want):
+        if not torch.equal(x, y):
+            raise AssertionError(f"wavefront rounds {kind}: the launch's {name} differs from "
+                                 f"its plain route on {int((x != y).sum())} of {rsel.numel()} rays")
+    log(f"wavefront rounds {kind}: {json.dumps(rep)}")
+    return rep
+
+
+def pack_phases(run_path, counts):
+    """The packed epilogue (dense_epilogue='pack', bf16): K1a on the
+    flagship's two closest-hit launches (every ray) and K1b on the
+    Sponza-class frame's two (2^18-ray slices), each held bit for bit and
+    timed beside the full epilogue on the same rays; then 4 frames of each
+    path with the launch sequence held.  -> {name: report}, the path
+    launch totals."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.models.procedural import (
+        cornell_box_scene,
+        sponza_like_scene,
+    )
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    cfg = RenderConfig(width=W, height=H, precision="bf16", dense_epilogue="pack")
+    warm = Renderer(cornell_box_scene(), cfg)
+    calls = capture_inputs(warm, 2)
+    del warm
+    if [kw.get("pack") for _a, kw, _o in calls.get("dense_trace", [])] != [True, True]:
+        raise AssertionError("flagship pack: want two closest-hit K1a launches in the packed "
+                             "form and no fused shadow phase")
+    reports = kernel_phase(calls, names=("dense_trace",), tag=" pack")
+    reports["dense_trace_pack"] = reports.pop("dense_trace")
+    del calls
+    # per frame: K1a packed twice (the primary; round 0's shadows and GI
+    # bounce in one launch), round 1's shadows on K1b's any hit, no fused DI
+    _t, _img = run_path("flagship-pack", cornell_box_scene,
+                        counts(dense_trace_pack=2, dense_trace_multi=1), frames_n=4,
+                        dense_epilogue="pack")
+    warm = Renderer(sponza_like_scene(), cfg)
+    launches = capture_sponza_launches(warm, 2)
+    del warm
+    closest = [x for x in launches if not x[2].get("find_any")]
+    if [x[2].get("pack") for x in closest] != [True, True]:
+        raise AssertionError("sponza pack: the closest-hit launches are not packed")
+    reports["dense_trace_multi_pack"] = k1b_phase(closest, reps=5, plain_on_slice=True,
+                                                  scene="sponza pack")
+    del launches, closest
+    torch.cuda.empty_cache()
+    run_path("sponza-pack", sponza_like_scene,
+             counts(dense_trace_multi_pack=2, dense_trace_multi=2), frames_n=4,
+             dense_epilogue="pack")
+    return reports
+
+
+def rounds_kernel_phase():
+    """colonnade-83k (bf16) with wavefront_mode='rounds': its two wavefront
+    launches of one warm-up frame through `rounds_phase`."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    warm = Renderer(colonnade_83k(), RenderConfig(width=W, height=H, precision="bf16",
+                                                  wavefront_mode="rounds"))
+    calls = capture_big_launches(warm, 2)
+    del warm
+    reps = []
+    for kind, (_n, a, kw) in zip(("gi", "shadow1"), calls[2:]):
+        if kw.get("mode") != "rounds":
+            raise AssertionError(f"colonnade-83k rounds {kind}: launched in {kw.get('mode')!r}")
+        reps.append(rounds_phase(kind, a, kw))
+    del calls
+    torch.cuda.empty_cache()
+    return reps
+
+
+def tool_phase(nchunk, tc=48):
+    """The Q2.4 tool (`tools/mxu_proto.py`) at 1080p, `nchunk` chunks of
+    `tc` rows: its own run (`measure`: both bodies timed, their agreement)
+    with the launch counts zeroed just before; then each body against its
+    plain version on a 2^16-ray slice (the VPU body bit for bit, the MXU
+    body to its bar), the plain versions timed there, the bounds from the
+    code's operation counts.  -> ({name: report}, launches)."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops import cuda_lib
+    from low_precision_raytracer_tpu_torch.tools import mxu_proto as MP
+
+    case = MP.make_case(nchunk, tc, MP.R_1080P, "cuda")
+    cuda_lib.reset_launches()
+    rep = MP.measure(nchunk, tc, case=case)
+    launches = {k: cuda_lib.LAUNCHES[k] for k in ("mxu_proto_vpu", "mxu_proto_mxu")}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"mxu_proto NCHUNK={nchunk}: launches {launches}")
+    R = case["o"].shape[1]
+    sel = torch.arange(0, R, max(1, R // BIG_CHECK), device="cuda")[:BIG_CHECK]
+    sub = dict(case, o=case["o"][:, sel].contiguous(), d=case["d"][:, sel].contiguous())
+    bodies = {
+        "mxu_proto_vpu": (MP.run_vpu, lambda c: MP.vpu_body_plain(
+            c["n_dt"], c["n_f32"], c["e"], c["o"], c["d"], c["tc"])),
+        "mxu_proto_mxu": (MP.run_mxu, lambda c: MP.mxu_body_plain(
+            c["a32t"], c["aabt"], c["o"], c["d"], c["tc"])),
+    }
+    pairs = R * nchunk * tc
+    in_bytes = nbytes(case["o"], case["d"])
+    reports = {}
+    for name, (kern, plain) in bodies.items():
+        got = kern(sub)
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        want = plain(sub)
+        e1.record()
+        e1.synchronize()
+        hit_k, hit_p = got[0] < 1e5, want[0] < 1e5
+        agree = float((hit_k == hit_p).float().mean())
+        both = hit_k & hit_p
+        dev_rel = max(float(((a - b).abs() / (1e-5 * b.abs() + 1e-6))[both].max())
+                      if bool(both.any()) else 0.0 for a, b in zip(got, want))
+        err = max(float((a - b)[both].abs().max()) if bool(both.any()) else 0.0
+                  for a, b in zip(got, want))
+        if name == "mxu_proto_vpu":
+            for n, a, b in zip("tuv", got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} NCHUNK={nchunk}: {n} differs from the plain "
+                                         f"version on {int((a != b).sum())} of {sel.numel()} rays")
+            t_ops = pairs * MP.VPU_OPS / F32_FLOPS
+            tab = nbytes(case["n_dt"], case["n_f32"], case["e"])
+        else:
+            # the tensor cores' accumulation order is not the plain version's:
+            # hit agreement >= 0.9999, |x - plain| <= 1e-5 |plain| + 1e-6 where both hit
+            if agree < 0.9999 or dev_rel > 1.0:
+                raise AssertionError(f"{name} NCHUNK={nchunk}: hit agreement {agree}, "
+                                     f"deviation {dev_rel} of the bar")
+            t_ops = pairs * (MP.MXU_OPS_F32 / F32_FLOPS + MP.MXU_OPS_BF16 / BF16_TC_FLOPS)
+            tab = nbytes(case["a32t"], case["aabt"])
+        t_bytes = (in_bytes + tab + 3 * R * 4) / HBM_BPS
+        key = "vpu_ms" if name == "mxu_proto_vpu" else "mxu_ms"
+        reports[name] = dict(ms=rep[key], plain_ms=e0.elapsed_time(e1), plain_ms_on="slice",
+                             bound_ms=max(t_ops, t_bytes) * 1e3,
+                             bound_by="operations" if t_ops >= t_bytes else "bytes",
+                             max_abs_err=err, hit_agreement=agree,
+                             deviation_of_bar=dev_rel, checked_rays=int(sel.numel()))
+    log(f"tool mxu_proto TC={tc} NCHUNK={nchunk}: {json.dumps(dict(run=rep, **reports))}")
+    return reports, launches
+
+
 BAND_ACCS = (("bf16", "both"), ("bf16", "dtype"), ("fp16", "both"), ("fp16", "dtype"),
              ("fp32", "dtype"))
 
@@ -1283,7 +1579,8 @@ def main(argv) -> int:
     def counts(**kw):  # per-frame launches: K3 1, K4 5, K2 from frame 1, the rest 0
         base = {"dense_trace": 0, "dense_trace_multi": 0, "temporal_accum": 1,
                 "wavelet_iter": 5, "wavefront_schedule": 0, "wavefront_assigned": 0,
-                "packet_trace": 0}
+                "packet_trace": 0, "dense_trace_pack": 0, "dense_trace_multi_pack": 0,
+                "mxu_proto_vpu": 0, "mxu_proto_mxu": 0}
         return lambda f: {**base, "coef_fetch": 1 if f > 0 else 0, **kw}
 
     # ---- the flagship (Cornell): K1a, K2, K3, K4
@@ -1452,6 +1749,35 @@ def main(argv) -> int:
     run_path("colonnade-5k-packet-fp16-both", sponza_like_scene, counts(packet_trace=4),
              "fp16", frames_n=4, traversal_impl="pallas", triangle_fallback="both")
     fallback_lines()
+    elapsed()
+
+    # ---- the packed epilogue (K1a, K1b), the wavefront's 'rounds' mode
+    reports.update(pack_phases(run_path, counts))
+    elapsed()
+    rounds_reports = rounds_kernel_phase()
+    # a 'rounds' cycle runs the schedule once and K5 once a round (and the
+    # tail passes one each)
+    rounds_counts = counts(
+        dense_trace_multi=2,
+        wavefront_schedule=lambda got: got["wavefront_schedule"] >= 2,
+        wavefront_assigned=lambda got: got["wavefront_assigned"] >= got["wavefront_schedule"])
+    run_path("colonnade-83k-rounds", colonnade_83k, rounds_counts, frames_n=4,
+             wavefront_mode="rounds")
+    psnrs = reference_phase(colonnade_83k, 2, wavefront_mode="rounds")
+    log(f"reference colonnade-83k rounds: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
+        + " ".join(f"{p:.2f}" for p in psnrs))
+    log("rounds vs oneshot, colonnade-83k 1080p wavefront launches (ms): " + json.dumps(
+        [dict(kind=r["kind"], rounds_ms=r["rounds_ms"], oneshot_ms=r["oneshot_ms"],
+              **r["stats"]) for r in rounds_reports]))
+    elapsed()
+
+    # ---- the Q2.4 tool: the VPU and the tensor-core chunk bodies
+    for nchunk in (1, 8):
+        tool_reports, tool_launches = tool_phase(nchunk)
+        for name, n in tool_launches.items():
+            totals[name] += n
+        if nchunk == 1:  # the kernels line takes NCHUNK = 1; NCHUNK = 8 is logged
+            reports.update(tool_reports)
     elapsed()
 
     if "--profile" in argv:

@@ -128,12 +128,14 @@ class RenderConfig:
     incoherent_impl: str = "wavefront"
     wavefront_min_tris: int = 16384
     # the wavefront's scheduling form: 'auto' resolves to 'oneshot' (every
-    # (ray, candidate) pair one lane); 'rounds' is not ported
+    # (ray, candidate) pair one lane); 'rounds': rank-major rounds of
+    # Q_RANKS candidates per lane (ops/wavefront.py)
     wavefront_mode: str = "auto"
     # fused in-kernel shadow phase on single-chunk scenes
     di_fuse: str = "auto"
-    # dense chunk epilogue: 'auto' = 'reduce5' (exact winner); 'pack'
-    # quantizes u/v
+    # dense chunk epilogue: 'auto' = 'reduce5' (exact winner); 'pack' (bf16
+    # and fp16 closest hit; fp32 ignores it) picks each chunk's winner by a
+    # packed (t bits | row) key and quantizes u/v to 2^-14
     dense_epilogue: str = "auto"
     # multi-device mesh (JAX: jax.sharding.Mesh); not ported
     mesh: object = None
@@ -176,14 +178,6 @@ def check_supported(cfg: RenderConfig) -> None:
             f"traversal_impl={cfg.traversal_impl!r}: only the dense route and the "
             "packet BVH are ported; the XLA BVH walk ('jax') and the XLA "
             "all-pairs path ('dense') wait (ROADMAP queue 1 item 7)")
-    if cfg.dense_epilogue == "pack":
-        raise NotImplementedError(
-            "dense_epilogue='pack': the packed winner epilogue waits "
-            "(ROADMAP queue 1 item 9)")
-    if cfg.wavefront_mode == "rounds":
-        raise NotImplementedError(
-            "wavefront_mode='rounds': only the oneshot pair pass is ported "
-            "(ROADMAP queue 1 item 8)")
     if not cfg.shade_f32 or not cfg.svgf.state_f32:
         raise NotImplementedError(
             "shade_f32=False / state_f32=False ablations wait (ROADMAP queue 1 item 9)")

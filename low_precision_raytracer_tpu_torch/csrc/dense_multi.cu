@@ -2,10 +2,17 @@
 //
 // Replaces the TPU kernel ops/dense_pallas.py:_kernel in its multi-chunk
 // mode (every fallback: 'mxu3', and 'both' / 'dtype' with the dense error
-// band in fp32, bf16 and fp16, :369-421: the w_cond/w_body walk at :526-610 with the epilogues _finish_chunk :60-101
-// and _finish_chunk_any :104-127), reached through trace_rays_dense_pallas
-// and trace_rays_dense_pallas_sorted.  Plain version:
-// ops/dense_trace.py:dense_trace_multi_plain.
+// band in fp32, bf16 and fp16, :369-421: the w_cond/w_body walk at :526-610
+// with the epilogues _finish_chunk :60-101, _finish_chunk_any :104-127 and,
+// under dense_epilogue='pack', _finish_chunk_packed :130-180), reached
+// through trace_rays_dense_pallas and trace_rays_dense_pallas_sorted.
+// Plain version: ops/dense_trace.py:dense_trace_multi_plain.
+//
+// Under pack (closest hit; built for 'mxu3' and the sub-f32 dense bands,
+// LPRT_PACK_FORMS) each 128-row leaf is a chunk of the packed epilogue:
+// the least key (bits(t) & ~127) | local row wins the chunk, across chunks
+// the least (t, row); out t, the winner's table row and its 15-bit u/v
+// (trace_common.cuh:PackedBest), written into t_out, tri_out, obj_out.
 //
 // What it computes, per ray: the M-shift test against the instance
 // triangles of the coefficient table, accepted by the band (strict under
@@ -49,12 +56,12 @@ extern "C" int lprt_dense_multi(const float* orig, const float* dir,
                                 const int* tri_id, const int* obj_id,
                                 const float* boxes, const int* levels,
                                 int n_levels, int R, int TI, int find_any,
-                                int form, float k0, float k1, float k2,
+                                int pack, int form, float k0, float k1, float k2,
                                 float* t_out, float* u_out, float* v_out,
                                 int* tri_out, int* obj_out, int* status,
                                 void* stream) {
-  return lprt::launch_tree_trace<LPRT_CHUNK>(
+  return lprt::launch_tree_trace<LPRT_CHUNK, true>(
       orig, dir, skip, mind, maxd, coef, tri_id, obj_id, boxes, levels,
-      n_levels, R, TI, find_any, form, k0, k1, k2, t_out, u_out, v_out,
+      n_levels, R, TI, find_any, pack, form, k0, k1, k2, t_out, u_out, v_out,
       tri_out, obj_out, status, stream);
 }

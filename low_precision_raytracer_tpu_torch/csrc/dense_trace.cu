@@ -21,6 +21,14 @@
 // t > d_mov and the winner's tri skipped; bit l of vis is set where the
 // light is unoccluded and a winner exists.
 //
+// Under pack (dense_epilogue='pack', _finish_chunk_packed :130-180; no
+// shadow phase, as in the reference; built for 'mxu3' and the sub-f32
+// dense bands, LPRT_PACK_FORMS) the table is one chunk: an accepted row
+// with t > 0 gets the key (bits(t) & ~(2^lb - 1)) | row, lb the wrapper's
+// ceil(log2 of the table rounded up to 16 rows), and the least key wins
+// with its exact t; out t, the winner's row and its 15-bit u/v
+// (trace_common.cuh:PackedBest) in t_out, tri_out, obj_out.
+//
 // Under 'mxu3' the TPU computes u/v through a manual bf16x3 MXU product
 // (~2^-16 relative), in fp32 through an f32 dot that sums in another
 // order, and its sub-f32 band rows through a bf16 dot whose f32 sums may
@@ -47,14 +55,14 @@
 
 namespace {
 
-template <int FORM>
+template <int FORM, bool PACK>
 __global__ void dense_trace_kernel(
     const float* __restrict__ orig, const float* __restrict__ dir,
     const int* __restrict__ skip, const float* __restrict__ mind,
     const float* __restrict__ maxd, const float* __restrict__ coef,
     const int* __restrict__ tri_id, const int* __restrict__ obj_id,
     const float* __restrict__ lights, int R, int TI, int L, float d_mov,
-    lprt::Band band, float* __restrict__ t_out, float* __restrict__ u_out,
+    lprt::Band band, int lmask, float* __restrict__ t_out, float* __restrict__ u_out,
     float* __restrict__ v_out, int* __restrict__ tri_out,
     int* __restrict__ obj_out, int* __restrict__ vis_out) {
   constexpr int ROW = LPRT_ROW(FORM);
@@ -79,6 +87,7 @@ __global__ void dense_trace_kernel(
 
   float bt = 1e5f, bu = 0.f, bv = 0.f;
   int btri = -1, bobj = -1;
+  lprt::PackedBest pb;
   if (mx > mn) {
     float q[6];
     if (LPRT_OPERAND(FORM)) lprt::make_operand<FORM>(ox, oy, oz, dx, dy, dz, q);
@@ -88,7 +97,9 @@ __global__ void dense_trace_kernel(
                                        band, t, u, v);
       int tri = s_tri[k];
       bool acc = geom && (t > mn) && (t < mx) && (tri != sk) && isfinite(t);
-      if (acc && (t < bt || (t == bt && tri < btri))) {
+      if (PACK) {
+        if (acc && t > 0.f) pb.row_test(t, u, v, k, lmask);
+      } else if (acc && (t < bt || (t == bt && tri < btri))) {
         bt = t;
         bu = u;
         bv = v;
@@ -96,6 +107,13 @@ __global__ void dense_trace_kernel(
         bobj = s_obj[k];
       }
     }
+  }
+  if (PACK) {  // (t, row, pk) into (t_out, tri_out, obj_out)
+    pb.end_chunk(0, lmask);
+    t_out[r] = pb.t;
+    tri_out[r] = pb.row;
+    obj_out[r] = pb.pk();
+    return;
   }
   t_out[r] = bt;
   u_out[r] = bu;
@@ -142,23 +160,32 @@ extern "C" int lprt_dense_trace(const float* orig, const float* dir,
                                 const int* tri_id, const int* obj_id,
                                 const float* lights, int R, int TI, int L,
                                 float d_mov, int form, float k0, float k1,
-                                float k2, float* t_out, float* u_out,
-                                float* v_out, int* tri_out, int* obj_out,
-                                int* vis_out, void* stream) {
-  if (TI > LPRT_MAX_TRIS || L > LPRT_MAX_LIGHTS || !lprt::valid_form(form))
+                                float k2, int pack, int lb, float* t_out,
+                                float* u_out, float* v_out, int* tri_out,
+                                int* obj_out, int* vis_out, void* stream) {
+  if (TI > LPRT_MAX_TRIS || L > LPRT_MAX_LIGHTS || !lprt::valid_form(form) ||
+      (pack && (vis_out != nullptr || !lprt::valid_pack_form(form) || lb < 1 ||
+                (1 << lb) < TI)))
     return (int)cudaErrorInvalidValue;
   const int block = 256;
   const int grid = (R + block - 1) / block;
   if (grid == 0) return (int)cudaGetLastError();
   const lprt::Band band = {k0, k1, k2};
   cudaStream_t s = (cudaStream_t)stream;
+  const int lmask = (1 << lb) - 1;
 #define LPRT_DENSE_ARGS                                                       \
   orig, dir, skip, mind, maxd, coef, tri_id, obj_id, lights, R, TI, L, d_mov, \
-      band, t_out, u_out, v_out, tri_out, obj_out, vis_out
-#define LPRT_DENSE_FORM(f) \
-  if (form == (f)) dense_trace_kernel<(f)><<<grid, block, 0, s>>>(LPRT_DENSE_ARGS);
+      band, lmask, t_out, u_out, v_out, tri_out, obj_out, vis_out
+#define LPRT_DENSE_FORM(f)  \
+  if (!pack && form == (f)) \
+    dense_trace_kernel<(f), false><<<grid, block, 0, s>>>(LPRT_DENSE_ARGS);
   LPRT_FORMS(LPRT_DENSE_FORM)
 #undef LPRT_DENSE_FORM
+#define LPRT_DENSE_PACK_FORM(f) \
+  if (pack && form == (f))      \
+    dense_trace_kernel<(f), true><<<grid, block, 0, s>>>(LPRT_DENSE_ARGS);
+  LPRT_PACK_FORMS(LPRT_DENSE_PACK_FORM)
+#undef LPRT_DENSE_PACK_FORM
 #undef LPRT_DENSE_ARGS
   return (int)cudaGetLastError();
 }

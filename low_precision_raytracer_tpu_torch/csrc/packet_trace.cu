@@ -45,12 +45,12 @@ extern "C" int lprt_packet_trace(const float* orig, const float* dir,
                                  const int* tri_id, const int* obj_id,
                                  const float* boxes, const int* levels,
                                  int n_levels, int R, int TI, int find_any,
-                                 int form, float k0, float k1, float k2,
+                                 int pack, int form, float k0, float k1, float k2,
                                  float* t_out, float* u_out, float* v_out,
                                  int* tri_out, int* obj_out, int* status,
                                  void* stream) {
-  return lprt::launch_tree_trace<LPRT_LEAF>(
+  return lprt::launch_tree_trace<LPRT_LEAF, false>(
       orig, dir, skip, mind, maxd, coef, tri_id, obj_id, boxes, levels,
-      n_levels, R, TI, find_any, form, k0, k1, k2, t_out, u_out, v_out,
+      n_levels, R, TI, find_any, pack, form, k0, k1, k2, t_out, u_out, v_out,
       tri_out, obj_out, status, stream);
 }

@@ -22,10 +22,11 @@
 // - box_entry: the conservative slab test of ops/dense_trace.py:
 //   ray_aabb_entry (0.02 of slop, axes with non-finite slab distances
 //   skipped).
-// - tree_trace_kernel<LEAF, FORM>: closest or any hit over a table of any
-//   size, one thread per ray walking an implicit 4-ary tree of boxes
+// - tree_trace_kernel<LEAF, FORM, PACK>: closest or any hit over a table of
+//   any size, one thread per ray walking an implicit 4-ary tree of boxes
 //   (ops/dense_trace.py:build_tree) whose leaves each hold LEAF consecutive
-//   rows: K1b walks its 128-row chunks, K6 its 32-row leaves.
+//   rows: K1b walks its 128-row chunks, K6 its 32-row leaves.  PACK (K1b
+//   only) takes the packed winner epilogue (PackedBest).
 //
 // Every expression keeps the plain versions' order of operations, and the
 // sources build with --fmad=false, so a kernel rounds like its plain
@@ -36,6 +37,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 
 #define LPRT_KIND_STRICT 0  // 'mxu3'
@@ -55,6 +57,10 @@
 // Every form a kernel is built for: X(form) per form.
 #define LPRT_FORMS(X)                                                        \
   X(0) X(1) X(2) X(5) X(6) X(9) X(10) X(13) X(14) X(18) X(22)
+
+// The forms K1a and K1b are built for under the packed epilogue: 'mxu3'
+// (bf16, fp16) and the dense band's sub-f32 forms; fp32 ignores 'pack'.
+#define LPRT_PACK_FORMS(X) X(0) X(9) X(13)
 
 #define LPRT_FAN 4
 #define LPRT_MAX_LEVELS 16
@@ -169,6 +175,57 @@ __device__ __forceinline__ bool tri_test(const float* c, float ox, float oy,
   return (u > 0.f) && (v > 0.f) && (u + v < 1.f);
 }
 
+__host__ __device__ constexpr bool valid_pack_form(int f) {
+#define LPRT_IS_PACK_FORM(x) f == (x) ||
+  return LPRT_PACK_FORMS(LPRT_IS_PACK_FORM) false;
+#undef LPRT_IS_PACK_FORM
+}
+
+// The packed winner epilogue (dense_pallas.py:_finish_chunk_packed
+// :130-180; plain version ops/dense_trace.py:_packed).  Per chunk, an
+// accepted row with t > 0 gets the key (bits(t) & ~lmask) | local row
+// (positive floats order like their bits, and the local row makes each
+// key unique), and the least key wins the chunk with its exact t; across
+// chunks the least (t, global row) wins, so the result does not depend on
+// the order in which chunks are visited.  Out: t, the winner's row, and
+// pk = (qu << 15) | qv, q = trunc(clip((x + 0.5) * 16384, 0, 32767)).
+struct PackedBest {
+  float t = 1e5f, u = 0.f, v = 0.f;
+  int row = -1;
+  // the current chunk
+  int kmin = INT_MAX;
+  float ct = 0.f, cu = 0.f, cv = 0.f;
+
+  __device__ __forceinline__ void row_test(float t_, float u_, float v_,
+                                           int local, int lmask) {
+    int key = (__float_as_int(t_) & ~lmask) | local;
+    if (key < kmin) {
+      kmin = key;
+      ct = t_;
+      cu = u_;
+      cv = v_;
+    }
+  }
+  // fold the current chunk (rows from `first`) into the best
+  __device__ __forceinline__ void end_chunk(int first, int lmask) {
+    if (kmin == INT_MAX) return;
+    int r = first + (kmin & lmask);
+    if (ct < t || (ct == t && r < row)) {
+      t = ct;
+      u = cu;
+      v = cv;
+      row = r;
+    }
+    kmin = INT_MAX;
+  }
+  __device__ __forceinline__ int pk() const {
+    if (row < 0) return -1;
+    int qu = (int)fminf(fmaxf((u + 0.5f) * 16384.f, 0.f), 32767.f);
+    int qv = (int)fminf(fmaxf((v + 0.5f) * 16384.f, 0.f), 32767.f);
+    return (qu << 15) | qv;
+  }
+};
+
 // Slab-entry bound of the ray against box b = [lo3 | hi3]; false when the
 // ray's segment [0, maxd) cannot enter it.
 __device__ __forceinline__ bool box_entry(const float* __restrict__ b, float ox,
@@ -223,11 +280,16 @@ __device__ __forceinline__ bool box_entry(const float* __restrict__ b, float ox,
 // single ray; the JAX package's all-pairs XLA route, ops/dense.py, keeps
 // them, as this does.)
 //
+// Under PACK (closest hit, K1b's 128-row leaves) each leaf is a chunk of
+// the packed epilogue (PackedBest), in the walk and in the all-row scan
+// alike (there the key resets every LEAF rows).  The pruning stays exact:
+// a chunk's winner lies at or beyond the chunk box's entry.
+//
 // The stack holds at most 3 entries per internal level + 1, which
 // LPRT_MAX_STACK covers for up to LPRT_MAX_LEVELS levels; the entry points
 // refuse a deeper tree, and a push past the stack sets *status (the
 // wrapper raises), so no walk is ever cut short silently.
-template <int LEAF, int FORM>
+template <int LEAF, int FORM, bool PACK>
 __global__ void tree_trace_kernel(
     const float* __restrict__ orig, const float* __restrict__ dir,
     const int* __restrict__ skip, const float* __restrict__ mind,
@@ -248,6 +310,8 @@ __global__ void tree_trace_kernel(
   constexpr int ROW = LPRT_ROW(FORM);
   constexpr bool ORDERED = !LPRT_WIDENED(FORM);
   static_assert(!ORDERED || ROW == 12, "the walk reads 12-float rows");
+  static_assert(!PACK || (LEAF & (LEAF - 1)) == 0, "a packed chunk is a power of 2");
+  constexpr int LMASK = LEAF - 1;  // the packed key's local-row bits
   int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   float ox = orig[3 * r], oy = orig[3 * r + 1], oz = orig[3 * r + 2];
@@ -257,35 +321,46 @@ __global__ void tree_trace_kernel(
 
   float bt = 1e5f, bu = 0.f, bv = 0.f;
   int btri = -1, brow = -1;
+  PackedBest pb;
   if (mx > mn && !ORDERED) {  // a widened acceptance: every row, in order
     float q[6];
     if (LPRT_OPERAND(FORM)) make_operand<FORM>(ox, oy, oz, dx, dy, dz, q);
-    for (int k = 0; k < TI; ++k) {
-      float c[ROW];
+    bool done = false;
+    for (int k0 = 0; k0 < TI && !done; k0 += LEAF) {
+      const int k1 = min(TI, k0 + LEAF);
+      for (int k = k0; k < k1; ++k) {
+        float c[ROW];
 #pragma unroll
-      for (int j = 0; j < ROW / 4; ++j) {
-        float4 w = __ldg(coef + (ROW / 4) * k + j);
-        c[4 * j] = w.x;
-        c[4 * j + 1] = w.y;
-        c[4 * j + 2] = w.z;
-        c[4 * j + 3] = w.w;
+        for (int j = 0; j < ROW / 4; ++j) {
+          float4 w = __ldg(coef + (ROW / 4) * k + j);
+          c[4 * j] = w.x;
+          c[4 * j + 1] = w.y;
+          c[4 * j + 2] = w.z;
+          c[4 * j + 3] = w.w;
+        }
+        float t, u, v;
+        bool geom = tri_test<FORM>(c, ox, oy, oz, dx, dy, dz, q, band, t, u, v);
+        int tri = __ldg(tri_id + k);
+        bool acc = geom && (t > mn) && (t < mx) && (tri != sk) && isfinite(t);
+        if (!acc) continue;
+        if (PACK) {
+          if (t > 0.f) pb.row_test(t, u, v, k - k0, LMASK);
+          continue;
+        }
+        if (find_any) {
+          btri = 0;
+          done = true;
+          break;
+        }
+        if (t < bt || (t == bt && (tri < btri || (tri == btri && k < brow)))) {
+          bt = t;
+          bu = u;
+          bv = v;
+          btri = tri;
+          brow = k;
+        }
       }
-      float t, u, v;
-      bool geom = tri_test<FORM>(c, ox, oy, oz, dx, dy, dz, q, band, t, u, v);
-      int tri = __ldg(tri_id + k);
-      bool acc = geom && (t > mn) && (t < mx) && (tri != sk) && isfinite(t);
-      if (!acc) continue;
-      if (find_any) {
-        btri = 0;
-        break;
-      }
-      if (t < bt || (t == bt && (tri < btri || (tri == btri && k < brow)))) {
-        bt = t;
-        bu = u;
-        bv = v;
-        btri = tri;
-        brow = k;
-      }
+      if (PACK) pb.end_chunk(k0, LMASK);
     }
   } else if (mx > mn) {  // the walk (the forms with 12-float rows)
     float ix = 1.f / dx, iy = 1.f / dy, iz = 1.f / dz;
@@ -303,7 +378,7 @@ __global__ void tree_trace_kernel(
     while (sp > 0) {
       --sp;
       const int node = st_node[sp];
-      if (!find_any && st_ent[sp] > bt) continue;
+      if (!find_any && st_ent[sp] > (PACK ? pb.t : bt)) continue;
       const int lvl = node >> LPRT_IDX_BITS;
       const int idx = node & ((1 << LPRT_IDX_BITS) - 1);
       if (lvl == 0) {
@@ -318,6 +393,10 @@ __global__ void tree_trace_kernel(
           int tri = __ldg(tri_id + k);
           bool acc = geom && (t > mn) && (t < mx) && (tri != sk) && isfinite(t);
           if (!acc) continue;
+          if (PACK) {
+            if (t > 0.f) pb.row_test(t, u, v, k - idx * LEAF, LMASK);
+            continue;
+          }
           if (find_any) {
             blocked = true;
             break;
@@ -330,6 +409,7 @@ __global__ void tree_trace_kernel(
             brow = k;
           }
         }
+        if (PACK) pb.end_chunk(idx * LEAF, LMASK);
         if (blocked) break;
         continue;
       }
@@ -343,7 +423,7 @@ __global__ void tree_trace_kernel(
       for (int ch = c0; ch < c1; ++ch) {
         if (!box_entry(boxes + 6 * (s_off[cl] + ch), ox, oy, oz, ix, iy, iz, mx, &e))
           continue;
-        if (!find_any && e > bt) continue;
+        if (!find_any && e > (PACK ? pb.t : bt)) continue;
         int j = n++;
         while (j > 0 && ce[j - 1] <= e) {  // equal entries: the lower index on top
           ce[j] = ce[j - 1];
@@ -365,6 +445,12 @@ __global__ void tree_trace_kernel(
     }
     if (blocked) btri = 0;
   }
+  if (PACK) {  // (t, row, pk) into (t_out, tri_out, obj_out)
+    t_out[r] = pb.t;
+    tri_out[r] = pb.row;
+    obj_out[r] = pb.pk();
+    return;
+  }
   if (find_any) {
     t_out[r] = 1e5f;
     u_out[r] = 0.f;
@@ -380,17 +466,19 @@ __global__ void tree_trace_kernel(
   obj_out[r] = brow >= 0 ? __ldg(obj_id + brow) : -1;
 }
 
-// Launch tree_trace_kernel<LEAF, form> on `stream`; -> cudaError_t.
-template <int LEAF>
+// Launch tree_trace_kernel<LEAF, form, pack> on `stream`; -> cudaError_t.
+// PACKABLE: the packed forms are built (K1b); elsewhere pack is refused.
+template <int LEAF, bool PACKABLE>
 int launch_tree_trace(const float* orig, const float* dir, const int* skip,
                       const float* mind, const float* maxd, const float* coef,
                       const int* tri_id, const int* obj_id, const float* boxes,
                       const int* levels, int n_levels, int R, int TI,
-                      int find_any, int form, float k0, float k1, float k2,
-                      float* t_out, float* u_out, float* v_out, int* tri_out,
-                      int* obj_out, int* status, void* stream) {
+                      int find_any, int pack, int form, float k0, float k1,
+                      float k2, float* t_out, float* u_out, float* v_out,
+                      int* tri_out, int* obj_out, int* status, void* stream) {
   if (n_levels < 1 || n_levels > LPRT_MAX_LEVELS || !valid_form(form) ||
-      (long long)TI > ((long long)LEAF << LPRT_IDX_BITS))
+      (long long)TI > ((long long)LEAF << LPRT_IDX_BITS) ||
+      (pack && (!PACKABLE || find_any || !valid_pack_form(form))))
     return (int)cudaErrorInvalidValue;
   const int block = 128;
   const int grid = (R + block - 1) / block;
@@ -401,10 +489,18 @@ int launch_tree_trace(const float* orig, const float* dir, const int* skip,
 #define LPRT_TREE_ARGS                                                          \
   orig, dir, skip, mind, maxd, c4, tri_id, obj_id, boxes, levels, n_levels, R, \
       TI, find_any, band, t_out, u_out, v_out, tri_out, obj_out, status
-#define LPRT_TREE_FORM(f) \
-  if (form == (f)) tree_trace_kernel<LEAF, (f)><<<grid, block, 0, s>>>(LPRT_TREE_ARGS);
+#define LPRT_TREE_FORM(f)     \
+  if (!pack && form == (f)) \
+    tree_trace_kernel<LEAF, (f), false><<<grid, block, 0, s>>>(LPRT_TREE_ARGS);
   LPRT_FORMS(LPRT_TREE_FORM)
 #undef LPRT_TREE_FORM
+  if constexpr (PACKABLE) {
+#define LPRT_TREE_PACK_FORM(f) \
+  if (pack && form == (f))     \
+    tree_trace_kernel<LEAF, (f), true><<<grid, block, 0, s>>>(LPRT_TREE_ARGS);
+    LPRT_PACK_FORMS(LPRT_TREE_PACK_FORM)
+#undef LPRT_TREE_PACK_FORM
+  }
 #undef LPRT_TREE_ARGS
   return (int)cudaGetLastError();
 }

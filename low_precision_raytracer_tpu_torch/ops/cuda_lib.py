@@ -26,7 +26,7 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("dense_trace", "dense_multi", "svgf", "wavefront", "packet_trace")
+SOURCES = ("dense_trace", "dense_multi", "svgf", "wavefront", "packet_trace", "mxu_proto")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no contraction into FMA: the kernels round like their plain versions
@@ -38,10 +38,10 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of each C entry point, by library
 SIGNATURES = {
     "dense_trace": {
-        "lprt_dense_trace": [P] * 9 + [I, I, I, F] + [I, F, F, F] + [P] * 6 + [P],
+        "lprt_dense_trace": [P] * 9 + [I, I, I, F] + [I, F, F, F] + [I, I] + [P] * 6 + [P],
     },
     "dense_multi": {
-        "lprt_dense_multi": [P] * 10 + [I] * 4 + [I, F, F, F] + [P] * 6 + [P],
+        "lprt_dense_multi": [P] * 10 + [I] * 5 + [I, F, F, F] + [P] * 6 + [P],
     },
     "svgf": {
         "lprt_coef_fetch": [P, P, I, I, I, I, I, P, P],
@@ -52,8 +52,12 @@ SIGNATURES = {
         "lprt_wavefront_schedule": [P] * 5 + [I] * 4 + [P] * 2 + [P],
         "lprt_wavefront_assigned": [P] * 6 + [I, I] + [P, P] + [I] * 4 + [P] * 3 + [P],
     },
+    "mxu_proto": {
+        "lprt_mxu_proto_vpu": [P] * 3 + [I] * 3 + [P] * 3 + [P],
+        "lprt_mxu_proto_mxu": [P] * 4 + [I] * 5 + [P] * 3 + [P],
+    },
     "packet_trace": {
-        "lprt_packet_trace": [P] * 10 + [I] * 4 + [I, F, F, F] + [P] * 6 + [P],
+        "lprt_packet_trace": [P] * 10 + [I] * 5 + [I, F, F, F] + [P] * 6 + [P],
     },
 }
 
@@ -63,7 +67,11 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 # kernel (never on the CPU path); a run resets them to read its own counts
 LAUNCHES = {"dense_trace": 0, "dense_trace_multi": 0, "coef_fetch": 0,
             "temporal_accum": 0, "wavelet_iter": 0, "wavefront_schedule": 0,
-            "wavefront_assigned": 0, "packet_trace": 0}
+            "wavefront_assigned": 0, "packet_trace": 0,
+            # the packed epilogue's forms of K1a and K1b
+            "dense_trace_pack": 0, "dense_trace_multi_pack": 0,
+            # the measurement tool's two bodies (tools/mxu_proto.py)
+            "mxu_proto_vpu": 0, "mxu_proto_mxu": 0}
 
 
 def reset_launches() -> None:

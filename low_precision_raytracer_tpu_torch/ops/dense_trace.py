@@ -24,6 +24,24 @@ to the smallest tri id, so the result does not depend on the order in
 which triangles are tested.  Any hit: tri is a 0 (occluded) / -1 marker,
 t = 1e5, u = v = 0, obj = -1.
 
+`pack=True` (closest hit only; `dense_epilogue='pack'`) selects the
+packed winner epilogue of `dense_pallas.py:_finish_chunk_packed`
+(:130-180) instead, under any acceptance.  Per chunk (128 rows in K1b;
+K1a's one chunk is its table rounded up to 16 rows, `k1a_chunk`, as the
+JAX package sizes it) a row is accepted as above and also needs t > 0;
+its key is (bits(t) & ~(2^lb - 1)) | local row, lb = ceil(log2 chunk)
+(`pack_lb`), and the least key wins the chunk: rows whose t differ by
+less than 2^-lb relative may resolve either way, as in the reference.
+The winner's t is kept exactly.  Across chunks the strictly smaller t
+wins, and on an exact tie the lower global row (the reference leaves
+such ties to its walk order; one rule makes the kernel and its plain
+version agree bit for bit whatever order the walk visits chunks in).
+The launch returns (t, row, pk): the winner's global table row and its
+u/v as 15-bit fixed point, pk = (qu << 15) | qv, q = trunc(clip((x +
+0.5) * 16384, 0, 32767)); t = 1e5, row = pk = -1 on a miss.
+`decode_packed` turns row / pk into tri, obj, u, v (the wavefront's
+decode too).
+
 Around K1b: `ray_aabb_entry` (the conservative slab-entry bound both the
 kernels' walks and the sort key use), the sort keys `anchor_key` and
 `morton_key`, and `dense_trace_multi_sorted`, the coherence-recovering
@@ -287,13 +305,84 @@ def _accept(t, geom, skip, mind, maxd, tri_ids):
             & (tri_ids[None, :] != skip[:, None]) & torch.isfinite(t))
 
 
+PACK_SCALE = 16384.0  # the packed u/v's fixed point: 2^-14 steps, offset 0.5
+INT32_MAX = 2**31 - 1
+
+
+def pack_lb(chunk: int) -> int:
+    """Bits of the chunk-local row in the packed key: ceil(log2 chunk)
+    (7 for K1b's 128-row chunks), at least 1."""
+    return max(1, (chunk - 1).bit_length())
+
+
+def k1a_chunk(TI: int) -> int:
+    """K1a's chunk height under the packed epilogue: the table rounded up
+    to 16 rows (`trace_rays_dense_pallas` :1004), so lb is 6 on Cornell's
+    34 rows."""
+    return max(16, -(-TI // 16) * 16)
+
+
+def pack_uv(u, v):
+    """-> pk = (qu << 15) | qv, q = trunc(clip((x + 0.5) * 16384, 0, 32767))."""
+    q = lambda x: torch.clamp((x + 0.5) * PACK_SCALE, 0.0, 32767.0).to(torch.int32)
+    return (q(u) << 15) | q(v)
+
+
+def _packed(t, u, v, accept, chunk: int):
+    """(R, TI) test results -> the packed epilogue's (t, row, pk) per ray:
+    per chunk of `chunk` rows the least key (bits(t) & ~(2^lb - 1)) | local
+    row over the accepted rows with t > 0; across chunks the least (t,
+    row); a miss where no winner lies below 1e5."""
+    R, TI = t.shape
+    dev = t.device
+    nc = -(-TI // chunk)
+    lmask = (1 << pack_lb(chunk)) - 1
+    pad = nc * chunk - TI
+    local = (torch.arange(nc * chunk, device=dev, dtype=torch.int32) % chunk)[None, :]
+    acc = torch.nn.functional.pad(accept & (t > 0), (0, pad), value=False)
+    tb = torch.nn.functional.pad(t, (0, pad)).view(torch.int32)
+    key = torch.where(acc, (tb & ~lmask) | local, INT32_MAX).reshape(R, nc, chunk)
+    kmin, j = key.min(dim=2)  # keys are unique within a chunk
+    got = kmin != INT32_MAX
+    row = (torch.arange(nc, device=dev)[None, :] * chunk + j).clamp(max=TI - 1)
+    t_c = torch.where(got, t.gather(1, row), float("inf"))
+    t_best = t_c.min(dim=1).values
+    at = got & (t_c == t_best[:, None])
+    row_best = torch.where(at, row, TI).min(dim=1).values
+    hit = t_best < T_MISS
+    rb = row_best.clamp(max=TI - 1)[:, None]
+    pk = pack_uv(u.gather(1, rb)[:, 0], v.gather(1, rb)[:, 0])
+    neg = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    return (torch.where(hit, t_best, torch.full_like(t_best, T_MISS)),
+            torch.where(hit, row_best.to(torch.int32), neg), torch.where(hit, pk, neg))
+
+
+def decode_packed(row, pk, tri_ids, obj_ids):
+    """Packed winners (row, pk; row -1 on a miss) -> (u, v, tri, obj): tri
+    and obj by one take from the table's id columns, u and v from the
+    15-bit fixed point (`trace_rays_dense_pallas` :1241-1254); u = v = 0,
+    ids -1 on a miss."""
+    valid = row >= 0
+    rc = row.clamp(min=0).long()
+    neg = torch.full_like(row, -1)
+    inv_q = 1.0 / PACK_SCALE
+    u = torch.where(valid, (pk >> 15).to(torch.float32) * inv_q - 0.5, 0.0)
+    v = torch.where(valid, (pk & 0x7FFF).to(torch.float32) * inv_q - 0.5, 0.0)
+    return u, v, torch.where(valid, tri_ids[rc], neg), torch.where(valid, obj_ids[rc], neg)
+
+
 def dense_trace_plain(origins, directions, skip, mind, maxd, coef, tri_ids,
-                      obj_ids, lights=None, d_mov: float = 0.0, band: Band = STRICT):
+                      obj_ids, lights=None, d_mov: float = 0.0, band: Band = STRICT,
+                      pack: bool = False):
     """Plain PyTorch version of the kernel: a dense (R, TI) broadcast test,
-    then the shadow phase as a loop over the lights."""
+    then the shadow phase as a loop over the lights; under `pack` the
+    packed epilogue over one `k1a_chunk` chunk, -> (t, row, pk)."""
     R = origins.shape[0]
     t, u, v, geom = tri_quantities(coef, origins, directions, band)
     accept = _accept(t, geom, skip, mind, maxd, tri_ids)
+    if pack:
+        _check_pack(lights)
+        return _packed(t, u, v, accept, k1a_chunk(coef.shape[0]))
     t_out, u_out, v_out, tri_out, obj_out = _closest(t, u, v, accept, tri_ids, obj_ids)
     tri = tri_ids[None, :]
 
@@ -317,6 +406,12 @@ def dense_trace_plain(origins, directions, skip, mind, maxd, coef, tri_ids,
     return t_out, u_out, v_out, tri_out, obj_out, vis
 
 
+def _check_pack(lights=None, find_any=False):
+    if lights is not None or find_any:
+        raise ValueError("the packed epilogue is for closest-hit launches without the "
+                         "fused shadow phase")
+
+
 def _check_args(what, args, want):
     """Raise unless every tensor is contiguous, of its dtype and shape, and
     on the first one's device."""
@@ -332,12 +427,13 @@ def _check_args(what, args, want):
 
 
 def dense_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
-                lights=None, d_mov: float = 0.0, band: Band = STRICT):
+                lights=None, d_mov: float = 0.0, band: Band = STRICT, pack: bool = False):
     """Kernel wrapper: see the module docstring.  origins/directions (R, 3)
     f32, skip (R,) i32, mind/maxd (R,) f32, coef (TI, table_cols(band))
     f32, tri_ids / obj_ids (TI,) i32, lights (L, 4) f32 [is_directional,
     ax, ay, az] or None; `band` the acceptance of both phases, `d_mov` the
-    shadow phase's min t."""
+    shadow phase's min t.  -> (t, u, v, tri, obj, vis); under `pack` (no
+    lights) (t, row, pk)."""
     R = origins.shape[0]
     TI = coef.shape[0]
     L = 0 if lights is None else lights.shape[0]
@@ -355,23 +451,31 @@ def dense_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
             f"dense_trace covers single-chunk scenes (<= {MAX_TRIS} instance "
             f"triangles, <= {MAX_LIGHTS} lights); got {TI} / {L} "
             "(multi-chunk scenes go to dense_trace_multi)")
+    if pack:
+        _check_pack(lights)
     if dev.type == "cpu":
         return dense_trace_plain(origins, directions, skip, mind, maxd, coef,
-                                 tri_ids, obj_ids, lights, d_mov, band)
+                                 tri_ids, obj_ids, lights, d_mov, band, pack)
     t = torch.empty((R,), dtype=f32, device=dev)
-    u, v = torch.empty_like(t), torch.empty_like(t)
     tri = torch.empty((R,), dtype=i32, device=dev)
-    obj, vis = torch.empty_like(tri), torch.empty_like(tri)
+    obj = torch.empty_like(tri)
+    # under pack the kernel writes (t, row, pk) into (t, tri, obj), no u, v
+    u, v, vis = (None,) * 3 if pack else (torch.empty_like(t), torch.empty_like(t),
+                                          torch.empty_like(tri))
+    ptr = lambda x: None if x is None else x.data_ptr()
     lib = cuda_lib.library("dense_trace")
     code = lib.lprt_dense_trace(
         origins.data_ptr(), directions.data_ptr(), skip.data_ptr(),
         mind.data_ptr(), maxd.data_ptr(), coef.data_ptr(), tri_ids.data_ptr(),
-        obj_ids.data_ptr(), None if lights is None else lights.data_ptr(),
-        R, TI, L, float(d_mov), *band, t.data_ptr(), u.data_ptr(), v.data_ptr(),
-        tri.data_ptr(), obj.data_ptr(),
-        None if lights is None else vis.data_ptr(), cuda_lib.stream_ptr(dev),
+        obj_ids.data_ptr(), ptr(lights), R, TI, L, float(d_mov), *band,
+        int(pack), pack_lb(k1a_chunk(TI)), t.data_ptr(), ptr(u), ptr(v),
+        tri.data_ptr(), obj.data_ptr(), None if lights is None else vis.data_ptr(),
+        cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check(code, "dense_trace")
+    if pack:
+        cuda_lib.LAUNCHES["dense_trace_pack"] += 1
+        return t, tri, obj
     cuda_lib.LAUNCHES["dense_trace"] += 1
     if lights is None:
         vis.zero_()
@@ -384,12 +488,16 @@ def dense_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
 
 def dense_trace_multi_plain(origins, directions, skip, mind, maxd, coef, tri_ids,
                             obj_ids, chunk_lo=None, chunk_hi=None, find_any=False,
-                            band: Band = STRICT, tree=None, slab_elems: int = 1 << 22):
+                            band: Band = STRICT, tree=None, slab_elems: int = 1 << 22,
+                            pack: bool = False):
     """Plain PyTorch version of K1b: every ray against every row (the
     chunk AABBs and their tree only prune, so they are not read), as a
-    global (t, tri) minimum or an any-accept, in slabs of rays of about
+    global (t, tri) minimum, the packed epilogue over 128-row chunks
+    (`pack`: -> (t, row, pk)) or an any-accept, in slabs of rays of about
     `slab_elems` (ray, row) pairs to bound memory: each f32 temporary of
     the test is 4 * slab_elems bytes, whatever the table's size."""
+    if pack:
+        _check_pack(find_any=find_any)
     R, TI = origins.shape[0], coef.shape[0]
     dev = origins.device
     outs = []
@@ -406,6 +514,8 @@ def dense_trace_multi_plain(origins, directions, skip, mind, maxd, coef, tri_ids
                          torch.zeros((n,), dtype=torch.float32, device=dev),
                          torch.where(blocked, 0, -1).to(torch.int32),
                          torch.full((n,), -1, dtype=torch.int32, device=dev)))
+        elif pack:
+            outs.append(_packed(t, u, v, acc, CHUNK))
         else:
             outs.append(_closest(t, u, v, acc, tri_ids, obj_ids))
     return tuple(torch.cat(x) for x in zip(*outs))
@@ -454,43 +564,47 @@ def build_tree(leaf_lo, leaf_hi, n_rows: int, leaf: int) -> BoxTree:
 
 
 def tree_launch(name, origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
-                tree: BoxTree, find_any: bool, band: Band):
+                tree: BoxTree, find_any: bool, band: Band, pack: bool = False):
     """Launch the tree walk of csrc/<name>.cu (K1b 'dense_multi', K6
     'packet_trace') on CUDA tensors checked by the caller.  A push past a
     walk's stack sets a status word, on which this raises (one host sync
-    per launch).  -> (t, u, v, tri, obj)."""
+    per launch).  -> (t, u, v, tri, obj); under `pack` (K1b closest hit
+    only) (t, row, pk)."""
     dev = origins.device
     if coef.data_ptr() % 16:
         raise ValueError(f"{name}: the coefficient table must be 16-byte aligned")
     R, TI = origins.shape[0], coef.shape[0]
     t = torch.empty((R,), dtype=torch.float32, device=dev)
-    u, v = torch.empty_like(t), torch.empty_like(t)
     tri = torch.empty((R,), dtype=torch.int32, device=dev)
     obj = torch.empty_like(tri)
+    # under pack the kernel writes (t, row, pk) into (t, tri, obj), no u, v
+    u, v = (None, None) if pack else (torch.empty_like(t), torch.empty_like(t))
     status = torch.zeros((1,), dtype=torch.int32, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()
     lib = cuda_lib.library(name)
     code = getattr(lib, f"lprt_{name}")(
         origins.data_ptr(), directions.data_ptr(), skip.data_ptr(), mind.data_ptr(),
         maxd.data_ptr(), coef.data_ptr(), tri_ids.data_ptr(), obj_ids.data_ptr(),
         tree.boxes.data_ptr(), tree.levels.data_ptr(), len(tree.sizes), R, TI,
-        int(find_any), *band, t.data_ptr(), u.data_ptr(), v.data_ptr(), tri.data_ptr(),
+        int(find_any), int(pack), *band, t.data_ptr(), ptr(u), ptr(v), tri.data_ptr(),
         obj.data_ptr(), status.data_ptr(), cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check(code, name)
     if int(status.item()):
         raise RuntimeError(f"{name}: a ray's walk overflowed the kernel's stack")
-    return t, u, v, tri, obj
+    return (t, tri, obj) if pack else (t, u, v, tri, obj)
 
 
 def dense_trace_multi(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
                       chunk_lo, chunk_hi, find_any: bool = False, band: Band = STRICT,
-                      tree: BoxTree | None = None):
+                      tree: BoxTree | None = None, pack: bool = False):
     """K1b wrapper: see the module docstring.  origins/directions (R, 3)
     f32, skip (R,) i32, mind/maxd (R,) f32, coef (TI, table_cols(band))
     f32, tri_ids / obj_ids (TI,) i32, chunk_lo/chunk_hi (NC, 3) f32 with NC =
     ceil(TI / 128): the AABB of rows [128 c, 128 c + 128), in the rays'
     (recentred) frame; `tree`: `build_tree(chunk_lo, chunk_hi, TI, 128)`
-    when the caller keeps one.  -> (t, u, v, tri, obj)."""
+    when the caller keeps one.  -> (t, u, v, tri, obj); under `pack`
+    (closest hit) (t, row, pk)."""
     R = origins.shape[0]
     TI = coef.shape[0]
     NC = -(-TI // CHUNK)
@@ -501,17 +615,20 @@ def dense_trace_multi(origins, directions, skip, mind, maxd, coef, tri_ids, obj_
                 [(f32, (R, 3)), (f32, (R, 3)), (i32, (R,)), (f32, (R,)), (f32, (R,)),
                  (f32, (TI, table_cols(band))), (i32, (TI,)), (i32, (TI,)), (f32, (NC, 3)),
                  (f32, (NC, 3))])
+    if pack:
+        _check_pack(find_any=find_any)
     if origins.device.type == "cpu":
         return dense_trace_multi_plain(origins, directions, skip, mind, maxd, coef,
-                                       tri_ids, obj_ids, find_any=find_any, band=band)
+                                       tri_ids, obj_ids, find_any=find_any, band=band,
+                                       pack=pack)
     if tree is None:
         tree = build_tree(chunk_lo, chunk_hi, TI, CHUNK)
     if tree.leaf != CHUNK:
         raise ValueError(f"dense_trace_multi: the tree's leaf boxes hold {tree.leaf} rows, "
                          f"not {CHUNK}")
     out = tree_launch("dense_multi", origins, directions, skip, mind, maxd, coef, tri_ids,
-                      obj_ids, tree, find_any, band)
-    cuda_lib.LAUNCHES["dense_trace_multi"] += 1
+                      obj_ids, tree, find_any, band, pack)
+    cuda_lib.LAUNCHES["dense_trace_multi_pack" if pack else "dense_trace_multi"] += 1
     return out
 
 
@@ -659,7 +776,7 @@ def sorted_launch(launch, key, origins, directions, skip, mind, maxd, *table, **
 def dense_trace_multi_sorted(origins, directions, skip, mind, maxd, coef, tri_ids,
                              obj_ids, chunk_lo, chunk_hi, find_any: bool = False,
                              key_mode: str = "anchor", band: Band = STRICT,
-                             tree: BoxTree | None = None):
+                             tree: BoxTree | None = None, pack: bool = False):
     """K1b on incoherent rays, coherence recovered
     (`trace_rays_dense_pallas_sorted`): sort the rays by `anchor_key`, or
     by `morton_key` in mode `key_mode` ('beam' / 'origin'), trace them in
@@ -673,4 +790,4 @@ def dense_trace_multi_sorted(origins, directions, skip, mind, maxd, coef, tri_id
         key = morton_key(origins, directions, live=live, mode=key_mode)
     return sorted_launch(dense_trace_multi, key, origins, directions, skip, mind, maxd,
                          coef, tri_ids, obj_ids, chunk_lo, chunk_hi, find_any=find_any,
-                         band=band, tree=tree)
+                         band=band, tree=tree, pack=pack)

@@ -33,6 +33,12 @@ more than 4096 instance triangles -> `packet_trace_sorted` (the morton
 
 `resolve_fallback`, `incoherent_reorders`, `di_fusible` and
 `moveforward_eps` answer as the JAX package does for the resolved route.
+`dense_epilogue='pack'` takes the packed winner epilogue on the dense
+route's closest-hit launches in bf16 and fp16 (`use_pack`; fp32 ignores
+it, and so do any-hit launches, the wavefront and the packet BVH, as in
+the JAX package): K1a and K1b return (t, row, pk), decoded here
+(`decode_packed`), and there is no fused shadow phase.  The wavefront
+runs in `cfg.wavefront_mode` ('auto' is 'oneshot').
 Every kernel gets the acceptance the JAX package resolves
 (`acceptance_band`): under 'auto' the strict 'mxu3' test in bf16 and fp16
 and the f32 'both' error band in fp32; 'both' and 'dtype' given
@@ -64,6 +70,7 @@ from low_precision_raytracer_tpu_torch.ops.dense_trace import (
     STRICT,
     Band,
     coef_table,
+    decode_packed,
     dense_band,
     dense_trace,
     dense_trace_multi,
@@ -174,10 +181,21 @@ def incoherent_reorders(frame: FrameInput, cfg: RenderConfig, prec: Precision) -
 
 def di_fusible(frame: FrameInput, cfg: RenderConfig) -> bool:
     """Can closest-hit launches carry the fused shadow phase?  True for
-    single-chunk scenes of the dense route with at least one light."""
+    single-chunk scenes of the dense route with at least one light, unless
+    the packed epilogue is asked for (the shadow phase needs the full
+    winner, JAX `ops/trace.py:114-115`)."""
     if cfg.di_fuse == "off" or resolve_impl(frame, cfg) != "dense_pallas":
         return False
+    if cfg.dense_epilogue == "pack":
+        return False
     return 0 < instance_tris(frame) <= TC and frame.n_lights > 0
+
+
+def use_pack(cfg: RenderConfig, prec: Precision, find_any: bool) -> bool:
+    """Does a dense-route launch take the packed epilogue?  Under
+    `dense_epilogue='pack'`, for closest hit, below fp32
+    (`trace_rays_dense_pallas` :961)."""
+    return cfg.dense_epilogue == "pack" and not prec.is_f32 and not find_any
 
 
 def moveforward_eps(frame: FrameInput, cfg: RenderConfig, prec: Precision,
@@ -324,7 +342,7 @@ def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
     if not coherent and _wavefront_route(frame, cfg, prec):
         return Hit(*trace_rays_wavefront(
             frame, origins, directions, prec=prec, skip_tri=skip_tri, min_dist=min_dist,
-            max_dist=max_dist, find_any=find_any))
+            max_dist=max_dist, find_any=find_any, mode=cfg.wavefront_mode))
     c = frame.dense_center
     o = (origins.to(f32) - c[None, :]).contiguous()
     d = directions.to(f32).contiguous()
@@ -338,7 +356,18 @@ def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
     if impl != "dense_pallas":
         raise NotImplementedError(
             f"traversal_impl={impl!r} is not ported (ROADMAP queue 1 item 7)")
+    pack = use_pack(cfg, prec, find_any)
+    if pack and di_lights is not None:
+        raise ValueError("the packed epilogue has no fused shadow phase (di_fusible)")
+
+    def packed(out):
+        t, row, pk = out
+        u, v, tri, obj = decode_packed(row, pk, frame.dense_tri, frame.dense_obj)
+        return Hit(t, u, v, tri, obj)
+
     if instance_tris(frame) <= TC and not find_any:
+        if pack:
+            return packed(dense_trace(*rays, band=acc, pack=True))
         lights = None if di_lights is None else di_light_rows(frame, di_lights)
         *h, vis = dense_trace(*rays, lights, d_mov=fused_moveforward(prec, acc), band=acc)
         return (Hit(*h), vis) if di_lights is not None else Hit(*h)
@@ -350,7 +379,10 @@ def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
         rays = rays[:4] + (cap,) + rays[5:]
     lo, hi, tree = _chunk_tables(frame)
     if not coherent and _sorted_route(frame, cfg):
-        return Hit(*dense_trace_multi_sorted(*rays, lo, hi, find_any=find_any,
-                                             key_mode=cfg.incoherent_sort, band=acc,
-                                             tree=tree))
-    return Hit(*dense_trace_multi(*rays, lo, hi, find_any=find_any, band=acc, tree=tree))
+        out = dense_trace_multi_sorted(*rays, lo, hi, find_any=find_any,
+                                       key_mode=cfg.incoherent_sort, band=acc, tree=tree,
+                                       pack=pack)
+    else:
+        out = dense_trace_multi(*rays, lo, hi, find_any=find_any, band=acc, tree=tree,
+                                pack=pack)
+    return packed(out) if pack else Hit(*out)

@@ -1,9 +1,9 @@
 """Per-ray wavefront for incoherent launches (port of
-`low_precision_raytracer_tpu/ops/wavefront.py:trace_rays_wavefront`, mode
-'oneshot', the mode 'auto' resolves to).
+`low_precision_raytracer_tpu/ops/wavefront.py:trace_rays_wavefront`, in
+its two modes: 'oneshot', the mode 'auto' resolves to, and 'rounds').
 
 Each ray gets an exact candidate list instead of sharing a tile's union of
-chunks.  One launch:
+chunks.  One 'oneshot' launch:
 
 1. cap each ray's reach at its scene exit (`scene_exit_cap`); live rays
    have maxd > min_dist;
@@ -26,16 +26,32 @@ chunks.  One launch:
    pass until none is left.  Each pass tests at least the next candidate of
    every such ray and a ray without one retires, so the loop ends; it
    raises past a cap it cannot reach rather than return a partial result;
-6. DECODE: tri and obj from the winning table row; u and v from the packed
-   15-bit fixed point (2^-14 steps); t exact.  An any-hit launch returns the
-   tri id of a blocker (consumers read only tri >= 0).
+6. DECODE (`decode_packed`): tri and obj from the winning table row; u and
+   v from the packed 15-bit fixed point (2^-14 steps); t exact.  An any-hit
+   launch returns the tri id of a blocker (consumers read only tri >= 0).
 
-The TPU version's per-tile distinct-group lists, tile widths, HBM streaming
-of the table, static tail tiers and tile-path sweep have no counterpart:
-every lane is tested in its pass and the tail runs to completion.  The JAX
-sweep traces its few straggler rays unquantised through the tile path; here
-they stay quantised like every other lane.  'rounds' mode is not ported
-(`config.check_supported` refuses it, ROADMAP queue 1 item 8).
+'rounds' (`run_cycle` / `round_step` of the JAX package, :666-808) keeps
+the rays in f32 (recentred, not rounded) and replaces steps 2-4 by up to
+two schedule cycles: a cycle lists each unresolved ray's K_CAND nearest
+groups (from its cursor), then runs at most N_ROUNDS rounds; a round gives
+each unresolved ray one lane carrying its next Q_RANKS untested ranks (a
+lane tests them in rank order through K5 with q = Q_RANKS), the lanes
+sorted by their first group id, merges the results (strictly smaller t)
+and retires a ray once min(best t, maxd) <= the entry bound of its first
+untested rank (any hit: also at its first hit).  Rounds stop early once
+every ray is resolved.  A second cycle refills from the first untested
+packed word when there are more than CYCLE2_MIN_GROUPS groups and some
+ray is unresolved.
+
+The TPU version's per-tile distinct-group lists (CH_CAP and its `covered`
+deferral), tile widths (WTR), HBM streaming of the table, static tail
+tiers and its terminal tile-path sweep have no counterpart: every rank a
+round assigns and every lane of a pass is tested, and the rays left
+unresolved after 'rounds' cycles go to the tail passes of step 5 (on
+their f32 rays) until each resolves.  The JAX sweep traces its straggler
+rays unquantised through the tile path; in 'oneshot' they stay quantised
+here like every other lane.  `STATS` counts cycles, rounds and the rays
+that reach the tail passes.
 
 Wrappers launch their kernel on CUDA tensors (or raise) and run the plain
 PyTorch version on CPU tensors.
@@ -54,12 +70,19 @@ from low_precision_raytracer_tpu_torch.ops.dense_trace import (
     T_MISS,
     _check_args,
     coef_table,
+    decode_packed,
     m_shift_test,
+    pack_uv,
     ray_aabb_entry,
     scene_exit_cap,
 )
 
 ONESHOT_K = 8  # candidates per ray in the first, full-width pass
+# 'rounds' (the JAX package's K_CAND, Q_RANKS, N_ROUNDS, CYCLE2_MIN_GROUPS)
+K_CAND = 8  # candidates per ray and cycle
+Q_RANKS = 4  # candidate ranks a lane tests per round
+N_ROUNDS = 2  # rounds per cycle at most
+CYCLE2_MIN_GROUPS = 512  # a second (refill) cycle above this many groups
 # tail passes: (unresolved share of the launch above which, candidates)
 TAIL_TIERS = ((1 / 4, 8), (1 / 16, 16), (1 / 64, 32), (1 / 256, 64), (0.0, 128))
 GROUP_WIDTH = 2048  # the schedule's boxes: s_group = ceil(chunks / this)
@@ -183,11 +206,9 @@ def assigned_test_plain(o, d, skip, mind, maxd, gid, coef, tri_ids, s_group: int
                 better = got & (tw < bt)
                 if find_any:
                     better &= brow < 0
-                qu = torch.clamp((take(u) + 0.5) * 16384.0, 0.0, 32767.0).to(torch.int32)
-                qv = torch.clamp((take(v) + 0.5) * 16384.0, 0.0, 32767.0).to(torch.int32)
                 bt = torch.where(better, tw, bt)
                 brow = torch.where(better, (k0 + win).to(torch.int32), brow)
-                bpk = torch.where(better, (qu << 15) | qv, bpk)
+                bpk = torch.where(better, pack_uv(take(u), take(v)), bpk)
         outs.append((bt, brow, bpk))
     return tuple(torch.cat(x) for x in zip(*outs))
 
@@ -230,8 +251,8 @@ class Launch(NamedTuple):
 
     o: torch.Tensor  # (R, 3) f32 world-space rays: the schedule's
     d: torch.Tensor
-    o_q: torch.Tensor  # (R, 3) f32: rounded to the render dtype, recentred
-    d_q: torch.Tensor  # (R, 3) f32: rounded to the render dtype
+    o_q: torch.Tensor  # (R, 3) f32, the lanes' rays: recentred ('oneshot':
+    d_q: torch.Tensor  # rounded to the render dtype first)
     skip: torch.Tensor  # (R,) i32
     mind: torch.Tensor  # (R,) f32
     maxd: torch.Tensor  # (R,) f32, capped at the scene exit
@@ -247,7 +268,9 @@ class Launch(NamedTuple):
 
 
 def setup(frame, origins, directions, prec, skip_tri, min_dist, max_dist,
-          find_any: bool) -> Launch:
+          find_any: bool, quantize: bool = True) -> Launch:
+    """The launch's state; `quantize` rounds the lanes' rays to the render
+    dtype ('oneshot'), else they stay f32 ('rounds')."""
     f32 = torch.float32
     dev = origins.device
     R = origins.shape[0]
@@ -259,8 +282,9 @@ def setup(frame, origins, directions, prec, skip_tri, min_dist, max_dist,
     d = directions.to(f32).contiguous()
     maxd = scene_exit_cap(frame, o, d, max_dist).contiguous()
     c = frame.dense_center
-    o_q = (o.to(prec.dtype).to(f32) - c[None, :]).contiguous()
-    d_q = d.to(prec.dtype).to(f32).contiguous()
+    q = (lambda x: x.to(prec.dtype).to(f32)) if quantize else (lambda x: x)
+    o_q = (q(o) - c[None, :]).contiguous()
+    d_q = q(d).contiguous()
 
     lo, hi = frame.dense_chunk_lo, frame.dense_chunk_hi
     n_chunks = lo.shape[0]
@@ -295,8 +319,12 @@ def pair_lanes(L: Launch, sel, cand, live):
     ray_s = pair // kk
     if sel is not None:
         ray_s = sel[ray_s]
-    return pair, (L.o_q[ray_s], L.d_q[ray_s], L.skip[ray_s], L.mind[ray_s], L.maxd[ray_s],
-                  key_s[:, None].contiguous())
+    return pair, _lanes(L, ray_s, key_s[:, None].contiguous())
+
+
+def _lanes(L: Launch, rays, gid):
+    """The lanes' inputs of K5 for ray indices `rays` with groups gid."""
+    return L.o_q[rays], L.d_q[rays], L.skip[rays], L.mind[rays], L.maxd[rays], gid
 
 
 def combine(pair, out, cand, tcut, id_bits: int):
@@ -342,61 +370,142 @@ def _tail_k(n: int, R: int, n_groups: int) -> int:
     return min(TAIL_TIERS[-1][1], n_groups)
 
 
+class State(NamedTuple):
+    """A launch's running per-ray result (updated in place)."""
+
+    best_t: torch.Tensor  # (R,) f32, 1e5 until a hit
+    best_row: torch.Tensor  # (R,) i32, -1 until a hit
+    best_pk: torch.Tensor  # (R,) i32
+    resolved: torch.Tensor  # (R,) bool
+    emin: torch.Tensor  # (R,) i32: the first untested packed word (the cursor)
+
+
+STATS = {"launches": 0, "cycles": 0, "rounds": 0, "tail_rays": 0, "tail_passes": 0}
+
+
+def reset_stats() -> None:
+    for k in STATS:
+        STATS[k] = 0
+
+
+def _merge(L: Launch, st: State, sel, t_b, row_b, pk_b, e_next, w_next):
+    """Fold a pass's per-ray result into the state for the rays `sel`
+    (None: all): the strictly smaller t wins; a ray resolves once min(best
+    t, maxd) <= e_next (any hit: also once it has a hit); the cursor moves
+    to w_next."""
+    sl = slice(None) if sel is None else sel
+    bt, br, bp = st.best_t[sl], st.best_row[sl], st.best_pk[sl]
+    better = (row_b >= 0) & (t_b < bt)
+    st.best_t[sl] = bt = torch.where(better, t_b, bt)
+    st.best_row[sl] = br = torch.where(better, row_b, br)
+    st.best_pk[sl] = torch.where(better, pk_b, bp)
+    res = torch.minimum(bt, L.maxd[sl]) <= e_next
+    if L.find_any:
+        res |= br >= 0
+    st.resolved[sl] = st.resolved[sl] | res
+    st.emin[sl] = w_next
+
+
+def run_cycle(L: Launch, st: State, sel) -> int:
+    """One 'rounds' cycle (JAX `run_cycle` :760-808) for the unresolved
+    live rays `sel` (i64): their K_CAND nearest groups from the cursor,
+    then up to N_ROUNDS rounds (`round_step` :666-758), each ray's next
+    Q_RANKS ranks per round.  Updates `st`; -> the rounds run."""
+    n_groups = L.lo.shape[0]
+    k = min(K_CAND, n_groups)
+    q = min(Q_RANKS, k)
+    id_mask = (1 << L.id_bits) - 1
+    dev = L.o.device
+    cand, tcut = schedule(L.lo, L.hi, L.o[sel], L.d[sel], L.maxd[sel].contiguous(),
+                          st.emin[sel].contiguous(), L.id_bits, k)
+    cand_id = cand & id_mask
+    cand_e = (cand & ~id_mask).view(torch.float32)
+    tcut_e = (tcut & ~id_mask).view(torch.float32)
+    ptr = torch.zeros(sel.shape, dtype=torch.int64, device=dev)
+    ranks = torch.arange(q, device=dev)[None, :]
+
+    def entry_at(p, idx=slice(None)):  # entry bound of the first untested rank
+        on_list = cand_e[idx].gather(1, p.clamp(max=k - 1)[:, None])[:, 0]
+        return torch.where(p < k, on_list, tcut_e[idx])
+
+    bt, br, bp = st.best_t[sel], st.best_row[sel], st.best_pk[sel]
+    mx = L.maxd[sel]
+    res = st.resolved[sel] | (torch.minimum(bt, mx) <= entry_at(ptr))
+    rounds = 0
+    while rounds < N_ROUNDS:
+        act = torch.nonzero(~res).flatten()  # one host sync per round
+        if act.numel() == 0:
+            break
+        rk = ptr[act, None] + ranks
+        gid = torch.where(rk < k, cand_id[act].gather(1, rk.clamp(max=k - 1)), id_mask)
+        # the lanes sorted by their first group: a warp's lanes share rows
+        order = torch.sort(gid[:, 0], stable=True).indices
+        lanes = _lanes(L, sel[act[order]], gid[order].to(torch.int32).contiguous())
+        t_r, row_r, pk_r = assigned_test(*lanes, L.coef, L.tri, L.s_group, L.find_any)
+        ia = act[order]
+        better = (row_r >= 0) & (t_r < bt[ia])
+        bt[ia] = torch.where(better, t_r, bt[ia])
+        br[ia] = torch.where(better, row_r, br[ia])
+        bp[ia] = torch.where(better, pk_r, bp[ia])
+        ptr[act] = torch.clamp(ptr[act] + q, max=k)
+        ra = torch.minimum(bt[act], mx[act]) <= entry_at(ptr[act], act)
+        if L.find_any:
+            ra |= br[act] >= 0
+        res[act] = ra
+        rounds += 1
+    w_at = cand.gather(1, ptr.clamp(max=k - 1)[:, None])[:, 0]
+    st.best_t[sel], st.best_row[sel], st.best_pk[sel] = bt, br, bp
+    st.resolved[sel] = res
+    st.emin[sel] = torch.where(res, INT32_MAX, torch.where(ptr < k, w_at, tcut))
+    return rounds
+
+
 def trace_rays_wavefront(frame, origins, directions, *, prec, skip_tri=None, min_dist=0.0,
-                         max_dist=1e5, find_any: bool = False):
-    """One wavefront launch in 'oneshot' mode (see the module docstring).
-    origins/directions (R, 3), skip_tri (R,) i32 or None, min_dist/max_dist
-    scalars or (R,).  -> (t, u, v, tri, obj): t = 1e5, u = v = 0 and ids -1
-    on a miss."""
+                         max_dist=1e5, find_any: bool = False, mode: str = "auto"):
+    """One wavefront launch in `mode` ('auto' is 'oneshot'; see the module
+    docstring).  origins/directions (R, 3), skip_tri (R,) i32 or None,
+    min_dist/max_dist scalars or (R,).  -> (t, u, v, tri, obj): t = 1e5,
+    u = v = 0 and ids -1 on a miss."""
     if prec.is_f32:
         raise ValueError("the wavefront launch is for bf16/fp16 (the mxu3 test)")
-    L = setup(frame, origins, directions, prec, skip_tri, min_dist, max_dist, find_any)
+    mode = "oneshot" if mode == "auto" else mode
+    if mode not in ("oneshot", "rounds"):
+        raise ValueError(f"wavefront mode {mode!r}")
+    L = setup(frame, origins, directions, prec, skip_tri, min_dist, max_dist, find_any,
+              quantize=mode == "oneshot")
     R, dev = L.o.shape[0], L.o.device
     n_groups = L.lo.shape[0]
-    best_t = torch.full((R,), T_MISS, dtype=torch.float32, device=dev)
-    best_row = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    best_pk = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    resolved = ~L.live
-    emin = torch.full((R,), INT32_MIN, dtype=torch.int32, device=dev)
+    i32 = torch.int32
+    st = State(torch.full((R,), T_MISS, dtype=torch.float32, device=dev),
+               torch.full((R,), -1, dtype=i32, device=dev),
+               torch.full((R,), -1, dtype=i32, device=dev), ~L.live,
+               torch.full((R,), INT32_MIN, dtype=i32, device=dev))
+    STATS["launches"] += 1
 
-    sel = None
-    k = min(ONESHOT_K, n_groups)
+    if mode == "rounds":
+        for _cycle in range(1 if n_groups <= CYCLE2_MIN_GROUPS else 2):
+            sel = torch.nonzero(~st.resolved).flatten()
+            if sel.numel() == 0:
+                break
+            STATS["cycles"] += 1
+            STATS["rounds"] += run_cycle(L, st, sel)
+    else:
+        _merge(L, st, None, *pair_pass(L, None, st.emin, min(ONESHOT_K, n_groups)))
+
+    # the tail: the unresolved rays, compacted (one host sync per pass)
+    sel = torch.nonzero(~st.resolved).flatten()
+    STATS["tail_rays"] += sel.numel()
     # every pass tests >= 8 (or all remaining) candidates of each ray in it
-    max_passes = 2 + -(-n_groups // min(8, n_groups))
+    max_passes = 1 + -(-n_groups // min(8, n_groups))
     for n_pass in range(max_passes + 1):
-        if n_pass == max_passes:
-            raise RuntimeError(f"wavefront: rays unresolved after {max_passes} passes")
-        t_b, row_b, pk_b, e_next, w_next = pair_pass(
-            L, sel, emin if sel is None else emin[sel], k)
-        take = (lambda x: x) if sel is None else (lambda x: x[sel])
-        bt, br, bp = take(best_t), take(best_row), take(best_pk)
-        better = (row_b >= 0) & (t_b < bt)
-        bt = torch.where(better, t_b, bt)
-        br = torch.where(better, row_b, br)
-        bp = torch.where(better, pk_b, bp)
-        res = torch.minimum(bt, take(L.maxd)) <= e_next
-        if find_any:
-            res |= br >= 0
-        if sel is None:
-            best_t, best_row, best_pk = bt, br, bp
-            resolved = resolved | res
-            emin = w_next
-        else:
-            best_t[sel], best_row[sel], best_pk[sel] = bt, br, bp
-            resolved[sel] = res
-            emin[sel] = w_next
-        # the unresolved rays, compacted (one host sync per pass)
-        sel = torch.nonzero(~resolved).flatten()
         if sel.numel() == 0:
             break
+        if n_pass == max_passes:
+            raise RuntimeError(f"wavefront: rays unresolved after {max_passes} tail passes")
+        STATS["tail_passes"] += 1
         k = _tail_k(sel.numel(), R, n_groups)
+        _merge(L, st, sel, *pair_pass(L, sel, st.emin[sel], k))
+        sel = torch.nonzero(~st.resolved).flatten()
 
-    valid = best_row >= 0
-    rc = best_row.clamp(min=0).long()
-    neg = torch.full_like(best_row, -1)
-    tri = torch.where(valid, L.tri[rc], neg)
-    obj = torch.where(valid, L.obj[rc], neg)
-    inv_q = 1.0 / 16384.0
-    u = torch.where(valid, (best_pk >> 15).to(torch.float32) * inv_q - 0.5, 0.0)
-    v = torch.where(valid, (best_pk & 0x7FFF).to(torch.float32) * inv_q - 0.5, 0.0)
-    return best_t, u, v, tri, obj
+    u, v, tri, obj = decode_packed(st.best_row, st.best_pk, L.tri, L.obj)
+    return st.best_t, u, v, tri, obj

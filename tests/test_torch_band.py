@@ -39,6 +39,7 @@ agreement > 0.999, dead lanes exactly the miss record.  The
 JAX side sums its bf16 dots in its own order and takes t from its bf16x3
 product (~2^-16), the port sums in the kernel's order from the f32 table."""
 
+import torch_threads  # noqa: F401  (caps the CPU threads per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -9,6 +9,7 @@ frame of the packet route is in tests/test_torch_fp16.py.)  In its own
 file so that tier-1's `--dist loadfile` spreads it beside
 tests/test_torch_band.py and tests/test_torch_fp16.py."""
 
+import torch_threads  # noqa: F401  (caps the CPU threads per test process)
 import pytest
 
 from low_precision_raytracer_tpu.models.procedural import cornell_box_scene as jax_cornell

@@ -9,6 +9,7 @@ helpers); and an fp16 'both' frame of the packet route against the JAX
 `Renderer` (tests/test_torch_render_e2e.py's bars).  In its own file so
 that tier-1's `--dist loadfile` spreads the band tests over workers."""
 
+import torch_threads  # noqa: F401  (caps the CPU threads per test process)
 import pytest
 
 from low_precision_raytracer_tpu.config import RenderConfig as JaxConfig

@@ -19,6 +19,7 @@ triangles) as the JAX package does on the TPU.
   rays, the triangle on > 98% of common hits, t within 0.03 at the 95th
   percentile."""
 
+import torch_threads  # noqa: F401  (caps the CPU threads per test process)
 import numpy as np
 import pytest
 import torch

@@ -24,6 +24,7 @@ boxes past its best t, any hit stopping at its first blocker; emulated by
 tests/test_torch_packet.py:_walk) equals the plain version's global
 minimum bit for bit: its boxes never cut a hit."""
 
+import torch_threads  # noqa: F401  (caps the CPU threads per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ plain f32, so hits agree on > 99.9% of lanes and t/u/v within rtol/atol
 shadow bits agree on > 99.9% of lanes; dead lanes (maxd <= mind) keep the
 exact miss record."""
 
+import torch_threads  # noqa: F401  (caps the CPU threads per test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

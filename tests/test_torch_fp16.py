@@ -21,6 +21,7 @@
   48, made by the JAX package on its XLA 'dense' route with the 'both'
   test) in the port at > 30 dB (tests/test_golden.py's fp16 bar)."""
 
+import torch_threads  # noqa: F401  (caps the CPU threads per test process)
 import os
 
 import jax

@@ -28,6 +28,7 @@ rtol / atol 1e-4 there (observed at most 1.6e-6 on K1a, 1.4e-5 on K1b,
 sums in another order than the port's f32), occlusion and visibility
 agreement > 0.999, dead lanes exactly the miss record."""
 
+import torch_threads  # noqa: F401  (caps the CPU threads per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -223,6 +224,18 @@ def _k1a_both(c, o, d, **kw):
     return j, t
 
 
+def _once(c, key, fn):
+    """`fn()` once per module fixture `c`: a JAX interpret-mode reference
+    the cases share."""
+    if key not in c:
+        c[key] = fn()
+    return c[key]
+
+
+def _k1a_primary(c):
+    return _once(c, "primary", lambda: _k1a_both(c, c["o"], c["d"]))
+
+
 def _check_k1a(j, t):
     same = j["tri"] == t["tri"]
     assert same.mean() > 0.999, f"tri agreement {same.mean()}"
@@ -235,7 +248,7 @@ def test_k1a_primary(cornell):
     c = cornell
     tf = c["tframe"]
     assert acceptance_band(tf, RenderConfig(precision="fp32"), FP32) == dense_band(FP32)
-    j, t = _k1a_both(c, c["o"], c["d"])
+    j, t = _k1a_primary(c)
     _check_k1a(j, t)
     assert (t["tri"] >= 0).mean() > 0.99 and t["vis"].any() and not t["vis"].all()
 
@@ -245,7 +258,7 @@ def test_k1a_bounce(cornell):
     skipped, min_dist the fp32 epsilon 1e-4, a quarter of the lanes dead)
     with the fused shadow phase from the bounce hits."""
     c = cornell
-    j0, _ = _k1a_both(c, c["o"], c["d"])
+    j0, _ = _k1a_primary(c)
     rng = np.random.default_rng(7)
     R = c["o"].shape[0]
     o = (c["o"] + j0["t"][:, None] * c["d"]).astype(np.float32)
@@ -341,10 +354,19 @@ def test_primary(route):
     assert 0.1 < (t["tri"] >= 0).mean() < 0.95
 
 
+def _bounce_sorted(c):
+    """The GI-shaped launch (seed 5) through both packages, once per route:
+    -> (rays (p, d, skip, maxd), (jax, port))."""
+    def run():
+        p, d, skip, maxd = _gi_rays(c, np.random.default_rng(5))
+        return (p, d, skip, maxd), _route_both(c, p, d, skip_tri=skip, min_dist=1e-4,
+                                               max_dist=maxd, coherent=False)
+    return _once(c, "bounce", run)
+
+
 def test_bounce_sorted(route):
     c = route
-    p, d, skip, maxd = _gi_rays(c, np.random.default_rng(5))
-    j, t = _route_both(c, p, d, skip_tri=skip, min_dist=1e-4, max_dist=maxd, coherent=False)
+    (p, d, skip, maxd), (j, t) = _bounce_sorted(c)
     _check_closest(j, t, maxd == 0)
     assert (t["tri"][maxd > 0] >= 0).mean() > 0.2
 
@@ -358,9 +380,7 @@ def test_shadows_any_hit(route, coherent):
         p = (c["o"] + j0["t"][:, None] * c["d"]).astype(np.float32)
         valid, skip = j0["tri"] >= 0, j0["tri"]
     else:
-        p, d, skip_gi, maxd = _gi_rays(c, np.random.default_rng(5))
-        jg, _ = _route_both(c, p, d, skip_tri=skip_gi, min_dist=1e-4, max_dist=maxd,
-                            coherent=False)
+        (p, d, _skip, _maxd), (jg, _) = _bounce_sorted(c)
         p = (p + np.where(jg["tri"] >= 0, jg["t"], 0)[:, None] * d).astype(np.float32)
         valid, skip = jg["tri"] >= 0, jg["tri"]
     o, d, maxd, dead = _shadow_rays(c, p, valid, rng)

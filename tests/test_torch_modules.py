@@ -18,6 +18,7 @@ Bars and why:
   eager PyTorch, and one bf16 rounding is 2^-8 relative;
 - compose: within 1 ulp (pow is the only transcendental)."""
 
+import torch_threads  # noqa: F401  (caps the CPU threads per test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

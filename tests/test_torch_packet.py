@@ -27,6 +27,7 @@ accepted row), emulated here in PyTorch, equals the plain version's global
 (t, tri, row) minimum bit for bit, on a constructed equal-t tie across two
 leaves too.  Routes: `resolve_impl` and the gates that read it."""
 
+import torch_threads  # noqa: F401  (caps the CPU threads per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,12 +50,14 @@ from low_precision_raytracer_tpu_torch.models import scene as tscene
 from low_precision_raytracer_tpu_torch.models.procedural import sponza_like_scene
 from low_precision_raytracer_tpu_torch.ops.camera import primary_ray_grid as torch_ray_grid
 from low_precision_raytracer_tpu_torch.ops.dense_trace import (
+    CHUNK,
     FAN,
     STRICT,
     build_tree,
     coef_table,
     dense_trace_multi_plain,
     m_shift_test,
+    pack_uv,
 )
 from low_precision_raytracer_tpu_torch.ops.packet_trace import (
     LEAF,
@@ -212,11 +215,21 @@ def test_primary_closest(setup):
     assert 0.1 < (t["tri"] >= 0).mean()
 
 
+def _bounce_closest(c):
+    """The GI bounce (seed 5) through both packages, once per scene: ->
+    (rays (p, d, skip, maxd), (jax, port)); the round-1 shadows start from
+    its hits."""
+    if "bounce" not in c:
+        p, d, skip, maxd = _bounce(c, 5)
+        c["bounce"] = (p, d, skip, maxd), _both(c, p, d, skip_tri=skip, min_dist=0.1,
+                                                max_dist=maxd, coherent=False)
+    return c["bounce"]
+
+
 def test_bounce_closest(setup):
     """The GI bounce (coherent=False: the sorted walk on colonnade-46k)."""
     c = setup
-    p, d, skip, maxd = _bounce(c, 5)
-    j, t = _both(c, p, d, skip_tri=skip, min_dist=0.1, max_dist=maxd, coherent=False)
+    (p, d, skip, maxd), (j, t) = _bounce_closest(c)
     _check_closest(c, j, t, p, d, maxd == 0)
     assert (t["tri"][maxd > 0] >= 0).mean() > 0.2
 
@@ -232,8 +245,7 @@ def test_shadows_any_hit(setup, coherent):
         p = (c["o"] + j0["t"][:, None] * c["d"]).astype(np.float32)
         valid, skip = j0["tri"] >= 0, j0["tri"]
     else:
-        p, d, skip_gi, maxd = _bounce(c, 5)
-        jg, _ = _both(c, p, d, skip_tri=skip_gi, min_dist=0.1, max_dist=maxd, coherent=False)
+        (p, d, _skip, _maxd), (jg, _) = _bounce_closest(c)
         p = (p + np.where(jg["tri"] >= 0, jg["t"], 0)[:, None] * d).astype(np.float32)
         valid, skip = jg["tri"] >= 0, jg["tri"]
     o, d, skips, maxd, dead, L = _shadows(c, p, valid, skip, rng)
@@ -279,14 +291,57 @@ def _entry(tree, gidx, o, inv, maxd):
     return e, ok
 
 
-def _row_loop(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, find_any, band):
+class _Packed:
+    """The kernels' packed epilogue (`trace_common.cuh:PackedBest`) per ray,
+    vectorised: a running chunk key minimum, folded at each chunk's end
+    into the least (t, row)."""
+
+    def __init__(self, n, lmask):
+        self.lmask = lmask
+        self.t = torch.full((n,), 1e5)
+        self.u, self.v = torch.zeros(n), torch.zeros(n)
+        self.row = torch.full((n,), -1, dtype=torch.int64)
+        self.kmin = torch.full((n,), 2**31 - 1, dtype=torch.int32)
+        self.ct, self.cu, self.cv = torch.zeros(n), torch.zeros(n), torch.zeros(n)
+
+    def row_test(self, idx, acc, t, u, v, local):
+        """Rays `idx` with the row at `local` of their chunk."""
+        key = (t.view(torch.int32) & ~self.lmask) | local
+        take = acc & (t > 0) & (key < self.kmin[idx])
+        w = idx[take]
+        self.kmin[w], self.ct[w], self.cu[w], self.cv[w] = key[take], t[take], u[take], v[take]
+
+    def end_chunk(self, idx, first):
+        got = self.kmin[idx] != 2**31 - 1
+        r = first + (self.kmin[idx] & self.lmask).long()
+        ct, bt, brow = self.ct[idx], self.t[idx], self.row[idx]
+        better = got & ((ct < bt) | ((ct == bt) & (r < brow)))
+        w = idx[better]
+        self.t[w], self.u[w], self.v[w], self.row[w] = ct[better], self.cu[w], self.cv[w], r[better]
+        self.kmin[idx] = 2**31 - 1
+
+    def out(self):
+        pk = torch.where(self.row >= 0, pack_uv(self.u, self.v), -1).to(torch.int32)
+        return self.t, self.row.to(torch.int32), pk
+
+
+def _row_loop(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, find_any, band, pack=False,
+              leaf=CHUNK):
     """The kernels' loop over every row in order under a widened band, with
-    their update rule (any hit: the first accepted row blocks)."""
+    their update rule (any hit: the first accepted row blocks; `pack`: the
+    packed epilogue over chunks of `leaf` rows)."""
     n, TI = o.shape[0], coef.shape[0]
     t, u, v, geom = m_shift_test([coef[:, i][None, :] for i in range(coef.shape[1])],
                                  o[:, :, None], d[:, :, None], band)
     acc = (geom & (t > mind[:, None]) & (t < maxd[:, None])
            & (tri_ids[None, :] != skip[:, None]) & torch.isfinite(t))
+    if pack:
+        pb, every = _Packed(n, leaf - 1), torch.arange(n)
+        for k in range(TI):
+            pb.row_test(every, acc[:, k], t[:, k], u[:, k], v[:, k], k % leaf)
+            if k % leaf == leaf - 1 or k == TI - 1:
+                pb.end_chunk(every, k - k % leaf)
+        return pb.out()
     if find_any:
         return (torch.full((n,), 1e5), torch.zeros(n), torch.zeros(n),
                 torch.where(acc.any(1), 0, -1).to(torch.int32),
@@ -307,18 +362,22 @@ def _row_loop(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, find_any, band):
     return bt, bu, bv, btri, obj
 
 
-def _walk(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, tree, find_any, band=STRICT):
+def _walk(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, tree, find_any, band=STRICT,
+          pack=False):
     """The kernels' tree walk in PyTorch, vectorised over rays: per ray a
     stack of (level, index, entry); pop, skip a node whose entry exceeds
     the best t (closest hit), test a leaf's `tree.leaf` rows in order (the
-    kernel's update rule, the test accepted by `band`) or push an internal
+    kernel's update rule, the test accepted by `band`; `pack`: the packed
+    epilogue, a leaf one chunk, -> (t, row, pk)) or push an internal
     node's entered children farthest first (equal entries: the lower index
     on top).  Under a widened band the kernels walk no tree: every row, in
     order (`_row_loop`)."""
     if band.widened:
-        return _row_loop(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, find_any, band)
+        return _row_loop(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, find_any, band,
+                         pack, tree.leaf)
     n, TI = o.shape[0], coef.shape[0]
     leaf = tree.leaf
+    pb = _Packed(n, leaf - 1) if pack else None
     L = len(tree.sizes)
     offs = tree.levels[:L].long()
     sizes = torch.tensor(tree.sizes)
@@ -334,7 +393,7 @@ def _walk(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, tree, find_any, band=S
     st_lvl[root, 0] = L - 1
     st_ent[root, 0] = e[root, 0]
     sp[root] = 1
-    bt = torch.full((n,), 1e5)
+    bt = pb.t if pack else torch.full((n,), 1e5)  # the pruning bound: the best t
     bu, bv = torch.zeros(n), torch.zeros(n)
     btri = torch.full((n,), -1, dtype=torch.int32)
     brow = torch.full((n,), -1, dtype=torch.int64)
@@ -353,7 +412,11 @@ def _walk(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, tree, find_any, band=S
             tri = tri_ids[rows.clamp(max=TI - 1)]
             acc = ((rows < TI) & geom & (t > mind[lf, None])
                    & (t < maxd[lf, None]) & (tri != skip[lf, None]) & torch.isfinite(t))
-            if find_any:
+            if pack:
+                for k in range(leaf):
+                    pb.row_test(lf, acc[:, k], t[:, k], u[:, k], v[:, k], k)
+                pb.end_chunk(lf, li * leaf)
+            elif find_any:
                 hit = lf[acc.any(1)]
                 btri[hit] = 0
                 sp[hit] = 0
@@ -387,6 +450,8 @@ def _walk(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, tree, find_any, band=S
                 assert bool((at < S).all()), "stack overflow"
                 st_lvl[rws, at], st_idx[rws, at], st_ent[rws, at] = cl[m], ch_s[m, j], e_s[m, j]
                 sp[rws] += 1
+    if pack:
+        return pb.out()
     if find_any:
         return (torch.full((n,), 1e5), torch.zeros(n), torch.zeros(n), btri,
                 torch.full((n,), -1, dtype=torch.int32))

@@ -1,17 +1,12 @@
 """PyTorch port, whole frames: the port's Renderer against the JAX
-Renderer, bf16, GI with max_bounces=2, SVGF on, TAA at mix weight 1, at
-64 x 64 — the flagship Cornell frame over 5 frames (frame 5 is the first
-whose SVGF moments come from the temporal branch), and the Sponza-class
-frame (`sponza_like_scene(3, 1)`, skybox on: multi-chunk, unfused
-shadows, sorted incoherent launches) over 4 — and colonnade-83k
-(`sponza_like_scene(8, 3)`: incoherent launches on the per-ray wavefront)
-at 32 x 32 over 4, and the packet-BVH route (`traversal_impl='pallas'` on
-colonnade-5k, the route 'auto' takes above 2^20 instance triangles) at
-32 x 32 over 4.  The JAX side runs the TPU route
-(dense Pallas trace or the packet BVH kernel, fused Pallas SVGF) in
-interpret mode; the port is fed
-the JAX package's own GI uniforms, `jax.random.uniform(k_shade0, (7R,))`
-from the key splits of `render_frame`.
+Renderer, bf16, GI with max_bounces=2, SVGF on, TAA at mix weight 1 — the
+flagship Cornell frame at 64 x 64 over 5 frames (frame 5 is the first
+whose SVGF moments come from the temporal branch), in bf16 and in fp32
+(the default precision; the kernels' f32 'both' acceptance).  The JAX
+side runs the TPU route (dense Pallas trace, fused Pallas SVGF) in
+interpret mode; the port is fed the JAX package's own GI uniforms,
+`jax.random.uniform(k_shade0, (7R,))` from the key splits of
+`render_frame`.
 
 Bars, every frame: image PSNR >= 35 dB (the bar the ROADMAP set for the
 port's frame); the G-buffer validity mask agrees on >= 99.9% of pixels;
@@ -19,33 +14,25 @@ the SVGF frame counts are equal where the validity agrees.  The two sides
 differ by the trace's bf16x3-vs-f32 u/v/t (~2^-16), bf16 rounding points
 in the bounce attributes, and ~1 ulp transcendentals.
 
-fp32 (the default precision; the kernels' f32 'both' acceptance): the
-flagship at 64 x 64 over 5 frames and the Sponza-class frame at 32 x 32
-over 4, at the same bars.  The golden configs and the other bf16 frame
-variants are in tests/test_torch_render_variants.py."""
+The other frames, each file small enough for tier-1's `--dist loadfile`
+to spread them over its workers: the Sponza-class frame in
+tests/test_torch_render_e2e_sponza.py, colonnade-83k (the per-ray
+wavefront) in tests/test_torch_render_e2e_colonnade.py, the packet-BVH
+route in tests/test_torch_render_e2e_packet.py; the golden configs and the
+other bf16 frame variants in tests/test_torch_render_variants.py.  The
+helpers here (`_run_both`, `_jax_uniforms`, `_jax_pallas_cfg`) are
+shared by them."""
 
+import torch_threads  # noqa: F401  (caps the CPU threads per test process)
 import jax
 import numpy as np
 
 from low_precision_raytracer_tpu.config import RenderConfig as JaxConfig
 from low_precision_raytracer_tpu.config import SVGFConfig as JaxSVGF
 from low_precision_raytracer_tpu.models.procedural import cornell_box_scene as jax_cornell
-from low_precision_raytracer_tpu.models.procedural import sponza_like_scene as jax_sponza
-from low_precision_raytracer_tpu.models.scene import flatten_frame
-from low_precision_raytracer_tpu.ops.trace import di_fusible as jax_di_fusible
-from low_precision_raytracer_tpu.ops.trace import incoherent_reorders as jax_reorders
 from low_precision_raytracer_tpu.render.renderer import Renderer as JaxRenderer
 from low_precision_raytracer_tpu_torch.config import RenderConfig
-from low_precision_raytracer_tpu_torch.models.procedural import (
-    cornell_box_scene,
-    sponza_like_scene,
-)
-from low_precision_raytracer_tpu_torch.models.scene import instance_tris
-from low_precision_raytracer_tpu_torch.ops.trace import (
-    _wavefront_route,
-    di_fusible,
-    incoherent_reorders,
-)
+from low_precision_raytracer_tpu_torch.models.procedural import cornell_box_scene
 from low_precision_raytracer_tpu_torch.render.renderer import Renderer
 
 N = 64
@@ -106,87 +93,6 @@ def test_flagship_frame_matches_jax():
     assert int(ct.max()) == FRAMES - 1
 
 
-def test_sponza_frame_matches_jax():
-    """The Sponza-class route: no fused shadow phase, incoherent launches
-    sorted, sky radiance in both rounds."""
-    jr = JaxRenderer(jax_sponza(3, 1), JaxConfig(
-        width=N, height=N, precision="bf16", traversal_impl="dense_pallas",
-        svgf=JaxSVGF(wavelet_impl="pallas")))
-    tr = Renderer(sponza_like_scene(3, 1), RenderConfig(width=N, height=N, precision="bf16"),
-                  device="cpu")
-    f0 = flatten_frame(jr.host, jr.prec, max_direct_lights=4, width=N, height=N)
-    assert not jax_di_fusible(jr.scene, f0, jr.cfg, jr.prec)
-    assert jax_reorders(jr.scene, f0, jr.cfg, jr.prec)
-    assert not di_fusible(tr.frame, tr.cfg)
-    assert incoherent_reorders(tr.frame, tr.cfg, tr.cfg.prec)
-    assert tr.scene.sky_valid
-    ct = _run_both(jr, tr, 4)
-    assert int(ct.max()) == 3
-
-
-def test_colonnade_83k_frame_matches_jax(monkeypatch):
-    """colonnade-83k (`sponza_like_scene(8, 3)`: 82,690 instance triangles
-    in 647 chunks, skybox) at 32 x 32 over 4 frames: primary and round-0
-    shadows on K1b, the GI bounce and round-1 shadows (any hit) on the
-    per-ray wavefront, two launches each per frame."""
-    from low_precision_raytracer_tpu_torch.ops import trace as ttrace
-
-    calls = []
-    for name in ("dense_trace_multi", "dense_trace_multi_sorted", "trace_rays_wavefront"):
-        fn = getattr(ttrace, name)
-        monkeypatch.setattr(ttrace, name, lambda *a, _n=name, _f=fn, **kw: (
-            calls.append((_n, kw.get("find_any", False))) or _f(*a, **kw)))
-    n = 32
-    jr = JaxRenderer(jax_sponza(8, 3), JaxConfig(
-        width=n, height=n, precision="bf16", traversal_impl="dense_pallas",
-        svgf=JaxSVGF(wavelet_impl="pallas")))
-    tr = Renderer(sponza_like_scene(8, 3), RenderConfig(width=n, height=n, precision="bf16"),
-                  device="cpu")
-    f0 = flatten_frame(jr.host, jr.prec, max_direct_lights=4, width=n, height=n)
-    assert not jax_di_fusible(jr.scene, f0, jr.cfg, jr.prec)
-    assert jax_reorders(jr.scene, f0, jr.cfg, jr.prec)
-    assert not di_fusible(tr.frame, tr.cfg)
-    assert _wavefront_route(tr.frame, tr.cfg, tr.cfg.prec)
-    assert instance_tris(tr.frame) == 82690 and tr.frame.dense_chunk_lo.shape[0] == 647
-    ct = _run_both(jr, tr, 4, n)
-    assert int(ct.max()) == 3
-    assert calls == [("dense_trace_multi", False), ("dense_trace_multi", True),
-                     ("trace_rays_wavefront", False), ("trace_rays_wavefront", True)] * 4
-
-
-def test_packet_frame_matches_jax(monkeypatch):
-    """The packet BVH route (K6) on colonnade-5k (`sponza_like_scene()`,
-    5,314 instance triangles, skybox) with traversal_impl='pallas' on both
-    sides, 32 x 32 over 4 frames: per frame the primary and round-0 shadows
-    on the packet walk, the GI bounce and round-1 shadows on the sorted
-    packet walk (above 4096 instance triangles, several objects)."""
-    from low_precision_raytracer_tpu_torch.ops import trace as ttrace
-
-    calls = []
-    for name in ("dense_trace", "dense_trace_multi", "dense_trace_multi_sorted",
-                 "trace_rays_wavefront", "packet_trace", "packet_trace_sorted"):
-        fn = getattr(ttrace, name)
-        monkeypatch.setattr(ttrace, name, lambda *a, _n=name, _f=fn, **kw: (
-            calls.append((_n, kw.get("find_any", False))) or _f(*a, **kw)))
-    n = 32
-    jr = JaxRenderer(jax_sponza(), JaxConfig(
-        width=n, height=n, precision="bf16", traversal_impl="pallas",
-        svgf=JaxSVGF(wavelet_impl="pallas")))
-    tr = Renderer(sponza_like_scene(), RenderConfig(width=n, height=n, precision="bf16",
-                                                    traversal_impl="pallas"), device="cpu")
-    f0 = flatten_frame(jr.host, jr.prec, max_direct_lights=4, width=n, height=n)
-    assert not jax_di_fusible(jr.scene, f0, jr.cfg, jr.prec)
-    assert jax_reorders(jr.scene, f0, jr.cfg, jr.prec)
-    assert not di_fusible(tr.frame, tr.cfg)
-    assert incoherent_reorders(tr.frame, tr.cfg, tr.cfg.prec)
-    assert not _wavefront_route(tr.frame, tr.cfg, tr.cfg.prec)
-    assert instance_tris(tr.frame) == 5314
-    ct = _run_both(jr, tr, 4, n)
-    assert int(ct.max()) == 3
-    assert calls == [("packet_trace", False), ("packet_trace", True),
-                     ("packet_trace_sorted", False), ("packet_trace_sorted", True)] * 4
-
-
 def _jax_pallas_cfg(**kw):
     return JaxConfig(traversal_impl="dense_pallas", svgf=JaxSVGF(wavelet_impl="pallas"), **kw)
 
@@ -199,16 +105,3 @@ def test_flagship_frame_matches_jax_fp32():
                   device="cpu")
     ct = _run_both(jr, tr, FRAMES)
     assert int(ct.max()) == FRAMES - 1
-
-
-def test_sponza_frame_matches_jax_fp32():
-    """The fp32 Sponza-class route: K1b with the f32 band, the incoherent
-    launches on the sorted K1b."""
-    n = 32
-    jr = JaxRenderer(jax_sponza(3, 1), _jax_pallas_cfg(width=n, height=n, precision="fp32"))
-    tr = Renderer(sponza_like_scene(3, 1), RenderConfig(width=n, height=n, precision="fp32"),
-                  device="cpu")
-    assert not _wavefront_route(tr.frame, tr.cfg, tr.cfg.prec)
-    assert incoherent_reorders(tr.frame, tr.cfg, tr.cfg.prec)
-    ct = _run_both(jr, tr, 4, n)
-    assert int(ct.max()) == 3

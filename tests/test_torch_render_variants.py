@@ -14,6 +14,7 @@ tests/test_torch_render_e2e.py (whose helpers they share).
   Renderer (GI off, the denoiser off, TAA off, three bounces) at 32 x 32
   over 2 frames, at tests/test_torch_render_e2e.py's bars."""
 
+import torch_threads  # noqa: F401  (caps the CPU threads per test process)
 import os
 
 import jax

@@ -4,6 +4,7 @@ chunk and leaf AABBs, the quad-packed sky); `scene_from_numpy` carries the JAX
 leaves across unchanged; the port imports no JAX; the entry points refuse
 what they do not cover."""
 
+import torch_threads  # noqa: F401  (caps the CPU threads per test process)
 import subprocess
 import sys
 from pathlib import Path
@@ -161,7 +162,7 @@ def test_renderer_without_cuda_raises(monkeypatch):
     dict(taa_force_full=True),
     dict(traversal_impl="jax"),
     dict(svgf=SVGFConfig(sigma_n=127.5)),
-    dict(dense_epilogue="pack"),
+    dict(svgf=SVGFConfig(state_f32=False)),
     dict(traversal_impl="dense"),
 ])
 def test_uncovered_configs_raise(kw):
@@ -200,11 +201,11 @@ def test_widened_band_row_cap(precision, fallback, impl, refused):
 
 def test_uncovered_scenes_raise():
     """Textured scenes, scenes that 'auto' sends to the XLA BVH walk (above
-    packet_bvh_max_tris) and the wavefront's 'rounds' mode are refused; a
+    packet_bvh_max_tris) and a-trous strides above 16 are refused; a
     two-chunk scene (130 instance triangles), a skybox, di_fuse='off', the
     per-ray wavefront (K5, here on colonnade-830 with its threshold
-    lowered), the morton sort keys and the packet BVH (K6, with
-    packet_bvh_min_tris lowered) are covered."""
+    lowered) in both its modes, the morton sort keys and the packet BVH
+    (K6, with packet_bvh_min_tris lowered) are covered."""
     cfg = RenderConfig(width=8, height=8, precision="bf16")
     host = cornell_box_scene()
     host.textures = [np.zeros((2, 2, 4), np.uint8)]
@@ -219,12 +220,15 @@ def test_uncovered_scenes_raise():
         img, _aux = Renderer(sponza_like_scene(3, 1), RenderConfig(
             width=8, height=8, precision="bf16", **kw), device="cpu").render()
         assert bool(torch.isfinite(img).all())
-    with pytest.raises(NotImplementedError, match=r"rounds.*ROADMAP queue 1 item 8\)"):
+    with pytest.raises(NotImplementedError, match=r"strides above 16.*ROADMAP queue 1 item 9\)"):
         Renderer(sponza_like_scene(3, 1), RenderConfig(
-            width=8, height=8, precision="bf16", wavefront_mode="rounds"), device="cpu")
-    img, _aux = Renderer(sponza_like_scene(3, 1), RenderConfig(
-        width=8, height=8, precision="bf16", wavefront_min_tris=600), device="cpu").render()
-    assert bool(torch.isfinite(img).all())
+            width=8, height=8, precision="bf16",
+            svgf=SVGFConfig(strides=(1, 2, 4, 8, 16, 32))), device="cpu")
+    for mode in ("auto", "rounds"):
+        img, _aux = Renderer(sponza_like_scene(3, 1), RenderConfig(
+            width=8, height=8, precision="bf16", wavefront_min_tris=600, wavefront_mode=mode),
+            device="cpu").render()
+        assert bool(torch.isfinite(img).all())
     host = cornell_box_scene()
     for i in range(8):  # 34 + 8 x 12 = 130 instance triangles: two chunks
         host.root.add(_mesh_node(host, 1, 0, f"extra{i}", t=[0.1 * i, 0, 0],

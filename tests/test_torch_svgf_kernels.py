@@ -9,6 +9,7 @@ transcendental implementations (exp, sqrt on XLA:CPU vs ATen, ~1 ulp) and
 the 1/x rounding they feed, amplified at most ~10x by the cancellation in
 var = m2 - m1^2."""
 
+import torch_threads  # noqa: F401  (caps the CPU threads per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

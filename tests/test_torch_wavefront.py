@@ -32,6 +32,7 @@ JAX `_schedule` (words and tcut equal); and the whole launch against an
 all-pairs reference of the packed semantics on the same quantised rays, bit
 for bit: the schedule and the tail passes never cut a hit."""
 
+import torch_threads  # noqa: F401  (caps the CPU threads per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -168,10 +169,18 @@ def test_primary_scrambled(setup):
     assert 0.1 < (t["tri"] >= 0).mean() < 0.95
 
 
+def _bounce_launch(c):
+    """The bounce launch (seed 7) through both packages, once per scene;
+    -> (rays (p, b, maxd, live), (jax, port))."""
+    if "bounce" not in c:
+        p, b, maxd, live = _bounce(c, 7)
+        c["bounce"] = (p, b, maxd, live), _both(c, p, b, min_dist=0.1, max_dist=maxd)
+    return c["bounce"]
+
+
 def test_bounce(setup):
     """Per-lane maxd with dead lanes, min_dist 0.1 (the bounce epsilon)."""
-    p, b, maxd, live = _bounce(setup, 7)
-    j, t = _both(setup, p, b, min_dist=0.1, max_dist=maxd)
+    (p, b, maxd, live), (j, t) = _bounce_launch(setup)
     _check_closest(setup, j, t, p, b, live)
     assert (t["tri"][live] >= 0).mean() > 0.2
 
@@ -221,14 +230,17 @@ def test_random_rays(setup, seed):
 
 def test_starved_first_pass(setup, monkeypatch):
     """Two candidates in the first pass: most rays resolve in the tail
-    passes, and the result is unchanged."""
+    passes, and the result still meets the bars against the JAX launch
+    (test_bounce's rays and reference)."""
     c = setup
+    (p, b, maxd, live), (j, _t) = _bounce_launch(c)
     passes = []
     pair_pass = W.pair_pass
     monkeypatch.setattr(W, "ONESHOT_K", 2)
     monkeypatch.setattr(W, "pair_pass", lambda L, sel, *a: passes.append(sel) or pair_pass(L, sel, *a))
-    p, b, maxd, live = _bounce(c, 5)
-    j, t = _both(c, p, b, min_dist=0.1, max_dist=maxd)
+    ht = W.trace_rays_wavefront(c["tframe"], torch.from_numpy(p), torch.from_numpy(b),
+                                prec=BF16, min_dist=0.1, max_dist=torch.from_numpy(maxd))
+    t = {k: x.numpy() for k, x in zip(("t", "u", "v", "tri", "obj"), ht)}
     _check_closest(c, j, t, p, b, live)
     assert len(passes) >= 2 and passes[1].numel() > 0
 
