@@ -7,12 +7,18 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
 
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of the port from csrc/ (one nvcc per source,
-   started together), timed;
+   started together), timed, with one ptxas line per kernel (registers,
+   stack frame, spills; K1b's warp walk is `chunk_walk_kernel`, its
+   all-row scan and K6 `tree_trace_kernel`, K4 `wavelet_kernel`);
 3. flagship kernel phase: two warm-up frames of the flagship (Cornell,
    bf16, 1920x1080) record the inputs each kernel wrapper gets on the main
    path; each kernel is then held against its plain PyTorch version on
-   those inputs on the card (K1a exact, the SVGF kernels to rtol 1e-4 /
-   atol 1e-5), and both are timed with CUDA events;
+   those inputs on the card (K1a and K4 exact, K2 and K3 to rtol 1e-4 /
+   atol 1e-5), and both are timed with CUDA events (K4 with the bytes its
+   staging reads and the previous kernel's time per stride beside it);
+   then K4 exact at
+   every stride on 97x61 and 7x29 frames with NaN, +-Inf and dead centres
+   planted (`k4_edge_holds`);
 4. flagship path phase: all launch counts are zeroed, a fresh Renderer
    (seed 0) renders 8 flagship frames, the counts are read; per frame the
    single-chunk trace K1a runs 2 times, the temporal kernel once, the
@@ -28,7 +34,12 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    shadows (sorted).  K1b is timed on each full launch and held against
    its plain version on a fixed strided slice of 2^18 of its rays (tri,
    obj, t, u, v all exact); the sorted launches are also timed unsorted
-   and with their sort + unsort;
+   and with their sort + unsort, and the walk in the other persistence;
+   each launch's bound counts the 32-row slices it enters (the chunk-row
+   count, 128 rows a chunk entered, beside it).  Then K1b's edge holds
+   (`k1b_edge_holds`, exact): the shadows' rays with a zero direction
+   component, a 1,007-ray launch, whole warps of dead lanes, and the
+   overflow status raised by too small a stack;
 7. Sponza path phase: counts zeroed, 8 frames; per frame K1b 4, K1a 0,
    the temporal kernel 1, the a-trous kernel 5, the history fetch 1 from
    frame 1;
@@ -94,7 +105,9 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
     instance triangles in 2,567 chunks, bf16, 1920x1080; 'auto' resolves
     to the dense route): K1b (its walk of a tree over the chunk boxes) on
     the primary and round-0 shadow launches, exact against the plain
-    version on 2^16-ray slices, timed with its bound;
+    version on a 2^16-ray slice (primary) and on every ray (the round-0
+    shadows, the plain version in slabs of 2^26 (ray, row) pairs), timed
+    with its bound;
 20. colonnade-328k path phase: 8 frames; per frame K1b 2, the wavefront's
     K5 >= 2 and equal to its schedule kernel, K6 0, K1a 0.
 
@@ -160,7 +173,9 @@ launches are on their own lines; K6's are the mean of its four
 colonnade-2M launches) and the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}.  The `kernels` line also has K1a's and
 K1b's packed forms (their times from phase 24) and the tool's two bodies
-(NCHUNK = 1; launches from phase 26).  About 5 minutes on an H100.
+(NCHUNK = 1; launches from phase 26).  Frame times, and K1b's, K4's and
+K6's times per launch, print beside the previous kernels' (`PREV_*`).  About 5 minutes on
+an H100, plus the every-ray hold of phase 19.
 """
 
 from __future__ import annotations
@@ -184,6 +199,25 @@ HUGE_CHECK = 1 << 12  # colonnade-2M: rays per K6 launch held against the plain 
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12  # dense bf16 on the tensor cores
+# The figures of the previous K1b walk (one thread a ray) and K4 (taps
+# through the read-only cache), from PERF.md's earlier chip run on an
+# NVIDIA H100 80GB HBM3 at 700 W, printed beside this run's: frame ms of
+# the path phases, ms per launch of K4 by stride, of K1b and K6 by (scene,
+# launch)
+PREV_FRAME_MS = {"flagship": 40.025, "sponza": 124.122, "colonnade-83k": 91.824,
+                "colonnade-328k": 129.449, "colonnade-2M": 242.886, "flagship-fp32": 44.048,
+                "flagship-fp16": 39.806, "sponza-fp32": 134.047, "colonnade-83k-fp16": 89.788}
+PREV_K4_MS = {1: 0.763, 2: 0.789, 4: 0.822, 8: 0.824, 16: 0.872}
+PREV_LAUNCH_MS = {
+    ("sponza", "primary"): 2.600, ("sponza", "shadow0"): 5.043,
+    ("sponza", "gi_sorted"): 3.320, ("sponza", "shadow1_sorted"): 3.110,
+    ("colonnade-83k", "primary"): 3.640, ("colonnade-83k", "shadow0"): 17.281,
+    ("colonnade-328k", "primary"): 4.428, ("colonnade-328k", "shadow0"): 37.769,
+    ("sponza pack", "primary"): 2.706, ("sponza pack", "gi_sorted"): 3.567,
+    ("colonnade-2M", "primary"): 2.757, ("colonnade-2M", "shadow0"): 67.750,
+    ("colonnade-2M", "gi_sorted"): 6.977, ("colonnade-2M", "shadow1_sorted"): 113.908}
+# ... and the means kept there where no launch's own was kept
+PREV_MEAN_MS = {"sponza-fp32": 6.187, "sponza-fp32 packet route": 3.260}
 TPU = "low_precision_raytracer_tpu/ops/"
 KERNELS = {  # wrapper name -> (source, TPU kernel it replaces)
     "dense_trace": ("low_precision_raytracer_tpu_torch/csrc/dense_trace.cu",
@@ -385,6 +419,101 @@ def check_svgf(name, k, p):
     return float((k[ok] - p[ok]).abs().max())
 
 
+def check_bits(name, k, p):
+    """Bit for bit: NaN at the same places, every other value's bits
+    equal.  -> max abs error (0)."""
+    import torch
+
+    nan_k, nan_p = torch.isnan(k), torch.isnan(p)
+    if not torch.equal(nan_k, nan_p):
+        raise AssertionError(f"{name}: NaN positions differ on "
+                             f"{int((nan_k != nan_p).sum())} of {k.numel()} values")
+    diff = (k.view(torch.int32) != p.view(torch.int32)) & ~nan_k
+    if bool(diff.any()):
+        raise AssertionError(f"{name}: {int(diff.sum())} of {k.numel()} values differ from the "
+                             f"plain version (max abs err {float((k - p).abs()[diff].max())})")
+    return 0.0
+
+
+def ptxas_report(logs):
+    """One line per kernel of nvcc's -Xptxas -v output: its (demangled)
+    name, registers, stack frame and spills."""
+    import re
+    import shutil
+
+    filt = shutil.which("c++filt")
+    for lib, text in logs.items():
+        name, props = None, ""
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                name = m.group(1)
+                if filt:
+                    name = subprocess.run([filt, name], capture_output=True, text=True,
+                                          timeout=30).stdout.strip() or name
+                name = re.sub(r"^void ", "", name.replace("(anonymous namespace)::", ""))
+                name = name.split("(")[0]  # the argument list
+                continue
+            if "stack frame" in line:
+                props = line.strip()
+            elif "registers" in line:
+                log(f"ptxas {lib} {name}: {line.split(':', 1)[-1].strip()}; {props}")
+                props = ""
+
+
+def k4_edge_holds():
+    """K4 held bit for bit against its plain version at every stride of
+    the pipeline on odd frame sizes: 97 x 61 and 7 x 29 (narrower than 2s
+    from s = 4 on), the planes made from a seed with NaN, +-Inf and dead
+    centres (pen > 0) planted."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.config import SVGFConfig
+    from low_precision_raytracer_tpu_torch.ops.svgf_kernels import (
+        C_PEN0,
+        N_CV,
+        N_GEO,
+        wavelet_iter,
+        wavelet_iter_plain,
+    )
+
+    cfg = SVGFConfig()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rand = lambda *shape: torch.rand(shape, device="cuda", generator=gen)
+    for Hs, Ws in ((61, 97), (29, 7)):
+        yy = torch.arange(Hs, device="cuda")[:, None].float()
+        xx = torch.arange(Ws, device="cuda")[None, :].float()
+        geo = torch.zeros((N_GEO, Hs, Ws), device="cuda")
+        geo[0] = 2 + 0.3 * torch.sin(xx / 7) + 0.2 * torch.cos(yy / 5)
+        geo[1:3] = 0.05 * (rand(2, Hs, Ws) - 0.5)
+        n = torch.stack([0.2 * torch.sin(xx / 9).expand(Hs, Ws),
+                         0.2 * torch.cos(yy / 8).expand(Hs, Ws), torch.ones(Hs, Ws, device="cuda")])
+        geo[3:6] = n / n.norm(dim=0, keepdim=True)
+        geo[6] = 1.0
+        geo[7:9] = rand(2, Hs, Ws)
+        geo[C_PEN0:C_PEN0 + 2] = torch.where(rand(2, Hs, Ws) < 0.05, 1e30, 0.0)
+        cv = rand(N_CV, Hs, Ws)
+        for b in (0, 6):
+            cv[b + 4] = (rand(Hs, Ws) < 0.85).float()
+            cv[b + 5] = (rand(Hs, Ws) < 0.85).float()
+        m = rand(N_CV, Hs, Ws)
+        cv = torch.where(m < 0.02, float("nan"), cv)
+        cv = torch.where((m > 0.5) & (m < 0.52), float("inf"), cv)
+        cv = torch.where((m > 0.7) & (m < 0.72), -float("inf"), cv)
+        g = rand(3, Hs, Ws)
+        geo[0] = torch.where(g[0] < 0.02, float("nan"), geo[0])
+        geo[7] = torch.where(g[1] < 0.02, float("inf"), geo[7])
+        geo[1] = torch.where(g[2] < 0.01, float("nan"), geo[1])
+        geo, cv = geo.contiguous(), cv.contiguous()
+        for stride in cfg.strides:
+            out = wavelet_iter(geo, cv, stride, cfg)
+            torch.cuda.synchronize()
+            check_bits(f"wavelet_iter {Ws}x{Hs} stride {stride}", out,
+                       wavelet_iter_plain(geo, cv, stride, cfg))
+        log(f"kernel wavelet_iter edge hold {Ws}x{Hs}: strides {list(cfg.strides)} equal "
+            "(NaN, +-Inf and dead centres planted)")
+
+
 def out_names(out):
     """The names of a trace kernel's outputs: the packed epilogue's three
     or the full record."""
@@ -417,6 +546,7 @@ def kernel_phase(calls, names=("dense_trace", "coef_fetch", "temporal_accum", "w
         temporal_accum_plain,
         wavelet_iter,
         wavelet_iter_plain,
+        wavelet_staged_bytes,
     )
 
     pairs = {
@@ -447,14 +577,17 @@ def kernel_phase(calls, names=("dense_trace", "coef_fetch", "temporal_accum", "w
                     extra.update(pack=True, reduce5_ms=cuda_ms(
                         lambda: kern(*args, **dict(kw, pack=False)), 20))
             else:
-                err = check_svgf(name, out_k, out_p)
+                err = (check_bits if name == "wavelet_iter" else check_svgf)(name, out_k, out_p)
                 tensors = [a for a in args if isinstance(a, torch.Tensor)]
                 outs = out_k if isinstance(out_k, tuple) else (out_k,)
                 n_bytes = nbytes(*tensors) + nbytes(*outs)
                 n_ops = {"coef_fetch": lambda: coef_fetch_ops(args[0].shape[0], HW),
                          "temporal_accum": lambda: temporal_ops(HW),
                          "wavelet_iter": lambda: wavelet_ops(HW)}[name]()
-                extra = {"stride": args[2]} if name == "wavelet_iter" else {}
+                extra = {}
+                if name == "wavelet_iter":
+                    extra = {"stride": args[2], "prev_ms": PREV_K4_MS.get(args[2]),
+                             "staged_bytes": wavelet_staged_bytes(H, W, args[2])}
             ms = cuda_ms(lambda: kern(*args, **kw), 20)
             plain_ms = cuda_ms(lambda: plain(*args, **kw), 3)
             b_ms, b_by = bound_ms(n_bytes, n_ops)
@@ -518,7 +651,8 @@ def report_path(name, frames, peak_gib, totals):
     steady = frames[2:]
     frame_ms = statistics.median(f["ms"] for f in steady)
     n_rays = statistics.median(f["n_rays"] for f in steady)
-    log(f"path {name}: frame_ms(median of frames 3-{len(frames)}) {frame_ms:.3f}  "
+    prev = f"  (before: {PREV_FRAME_MS[name]})" if name in PREV_FRAME_MS else ""
+    log(f"path {name}: frame_ms(median of frames 3-{len(frames)}) {frame_ms:.3f}{prev}  "
         f"Mrays/s {n_rays / frame_ms / 1e3:.3f}  n_rays {n_rays}  "
         f"peak memory {peak_gib:.3f} GiB  launches {json.dumps(totals)}")
 
@@ -617,33 +751,46 @@ def capture_sponza_launches(renderer, frames):
 
 
 def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
-              scene="sponza"):
+              scene="sponza", every_ray=()):
     """K1b on each recorded launch: timed on the full launch, held against
     the plain version on a strided slice of `check_rays` rays (every output
-    exact), its bound from the data (`walk_ops` on the launch's chunk
-    tree); the sorted launches also unsorted and with their sort.
-    `plain_on_slice`: the plain version (an all-pairs test) is timed on the
-    slice, beside the kernel on the same slice, instead of on the full
-    launch.  -> report dict."""
+    exact), or on every ray for the kinds in `every_ray` (the plain
+    version in slabs of 2^26 (ray, row) pairs); its bound from the data
+    (`walk_ops` on the launch's chunk tree and slice boxes; the chunk-row count,
+    128 rows per chunk entered, beside it); the walk also timed in the
+    other persistence (`k1b_launch`); the sorted launches also unsorted and
+    with their sort.  `plain_on_slice`: the plain version (an all-pairs
+    test) is timed on the slice, beside the kernel on the same slice,
+    instead of on the full launch.  -> report dict."""
     import torch
 
     from low_precision_raytracer_tpu_torch.ops.dense_trace import (
+        STRICT,
         dense_trace_multi,
         dense_trace_multi_plain,
         dense_trace_multi_sorted,
+        k1b_launch,
     )
 
     per = []
     for kind, args, kw, unsorted in launches:
         R = args[0].shape[0]
+        # the plain version reads no box: the wrapper's slice boxes are not its
+        pkw = {k: v for k, v in kw.items() if k != "slices"}
+        full = kind in every_ray
         out = dense_trace_multi(*args, **kw)
         torch.cuda.synchronize()
-        sel = torch.arange(0, R, max(1, R // check_rays), device=args[0].device)[:check_rays]
-        sub = [a[sel].contiguous() if a.shape[0] == R else a for a in args]
+        if full:
+            sel = torch.arange(R, device=args[0].device)
+            sub, pkw_check = list(args), dict(pkw, slab_elems=1 << 26)
+        else:
+            sel = torch.arange(0, R, max(1, R // check_rays), device=args[0].device)[:check_rays]
+            sub = [a[sel].contiguous() if a.shape[0] == R else a for a in args]
+            pkw_check = pkw
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        ref = dense_trace_multi_plain(*sub, **kw)
+        ref = dense_trace_multi_plain(*sub, **pkw_check)
         t1.record()
         t1.synchronize()
         plain_ms = t0.elapsed_time(t1)
@@ -651,37 +798,56 @@ def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
         for name, a, b in zip(out_names(out), out, ref):
             a = a[sel]
             if not torch.equal(a, b):
-                raise AssertionError(f"dense_trace_multi {kind}: {name} differs from the plain "
-                                     f"version on {int((a != b).sum())} of {sel.numel()} rays")
+                raise AssertionError(f"dense_trace_multi {scene} {kind}: {name} differs from the "
+                                     f"plain version on {int((a != b).sum())} of {sel.numel()} "
+                                     "rays")
             if a.dtype == torch.float32:
                 err = max(err, float((a - b).abs().max()))
+        del ref
         tri_out = out[1] if kw.get("pack") else out[3]  # the row, or tri
         # the bound: any-hit rays need the boxes up to their closest blocker
         t_final = out[0] if not kw.get("find_any") else torch.where(
             out[3] >= 0, dense_trace_multi(*args, **dict(kw, find_any=False))[0], 1e5)
+        blocked = out[3] >= 0 if kw.get("find_any") else None
+        band = kw.get("band")
+        walk = not (band is not None and band.widened)
         n_ops, n_boxes, n_rows, _per_ray = walk_ops(
-            args, t_final, kw["tree"], kw.get("band"),
-            blocked=out[3] >= 0 if kw.get("find_any") else None)
-        n_bytes = nbytes(*args, kw["tree"].boxes) + nbytes(*out)
+            args, t_final, kw["tree"], band, blocked=blocked,
+            slices=kw.get("slices") if walk else None)
+        n_bytes = nbytes(*args, kw["tree"].boxes, kw.get("slices")) + nbytes(*out)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         ms = cuda_ms(lambda: dense_trace_multi(*args, **kw), reps)
-        if not plain_on_slice:
+        if not plain_on_slice and not full:
             torch.cuda.synchronize()
             t0.record()
-            dense_trace_multi_plain(*args, **kw)
+            dense_trace_multi_plain(*args, **pkw)
             t1.record()
             t1.synchronize()
             plain_ms = t0.elapsed_time(t1)
         rec = dict(kind=kind, rays=R, live=int((args[4] > args[3]).sum()),
-                   hits=int((tri_out >= 0).sum()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, max_abs_err=err, checked_rays=int(sel.numel()),
-                   bytes=n_bytes, ops=n_ops, boxes_entered=n_boxes, rows_tested=n_rows)
+                   hits=int((tri_out >= 0).sum()), ms=ms, prev_ms=PREV_LAUNCH_MS.get((scene, kind)),
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                   checked_rays=int(sel.numel()), bytes=n_bytes, ops=n_ops,
+                   boxes_entered=n_boxes, rows_tested=n_rows)
+        rec["ratio"] = ms / b_ms
+        if walk:  # the chunk-row bound (128 rows a chunk entered), the other persistence
+            c_ops, _b, c_rows, _p = walk_ops(args, t_final, kw["tree"], band, blocked=blocked)
+            rec.update(bound_ms_chunk_rows=bound_ms(n_bytes, c_ops)[0], rows_chunk_rows=c_rows)
+            rec["ratio_chunk_rows"] = ms / rec["bound_ms_chunk_rows"]
+            persist = not kw.get("find_any")  # the wrapper persists in any hit
+            tree, sl = kw["tree"], kw.get("slices")
+            rec["other_persist"] = persist
+            rec["other_persist_ms"] = cuda_ms(lambda: k1b_launch(
+                *args[:8], tree, sl, kw.get("find_any", False), band or STRICT,
+                kw.get("pack", False), persist=persist), reps)
         if kw.get("pack"):  # the full epilogue on the same rays, beside it
             rec["reduce5_ms"] = cuda_ms(lambda: dense_trace_multi(*args, **dict(kw, pack=False)),
                                         reps)
-        if plain_on_slice:
+        if plain_on_slice and not full:
             rec["plain_ms_on"] = "slice"
             rec["slice_ms"] = cuda_ms(lambda: dense_trace_multi(*sub, **kw), reps)
+        if full:
+            rec["plain_ms_on"] = "every ray"
         if unsorted is not None:
             srt = dense_trace_multi_sorted(*unsorted, **kw)
             direct = dense_trace_multi(*unsorted, **kw)
@@ -695,9 +861,75 @@ def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
         per.append(rec)
         log(f"kernel dense_trace_multi {scene}: {json.dumps(rec)}")
     mean = lambda k: statistics.fmean(p[k] for p in per)
+    log(f"kernel dense_trace_multi {scene}: mean ms {mean('ms')} over {len(per)} launches "
+        f"(before: {PREV_MEAN_MS.get(scene)})")
     return dict(max_abs_err=max(p["max_abs_err"] for p in per), ms=mean("ms"),
                 plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
                 bound_by=max(per, key=lambda p: p["bound_ms"])["bound_by"])
+
+
+def k1b_edge_holds(launches):
+    """K1b held bit for bit against its plain version on edge cases made
+    from the Sponza-class frame's recorded launches: every ray with a zero
+    direction component (the sun of `sponza_like_scene` has dx = 0) of the
+    round-0 shadow launch; a launch of 1,007 rays (not a multiple of 32);
+    4,096 primary rays with three whole warps dead (maxd = 0) and one
+    partly; and the overflow status, raised when the walk's stack is
+    smaller than the tree's depth needs."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import (
+        STRICT,
+        dense_trace_multi,
+        dense_trace_multi_plain,
+        k1b_launch,
+        walk_stack,
+    )
+
+    by_kind = {k: (a, kw) for k, a, kw, _u in launches}
+
+    def hold(what, args, kw):
+        out = dense_trace_multi(*args, **kw)
+        torch.cuda.synchronize()
+        ref = dense_trace_multi_plain(*args, **{k: v for k, v in kw.items() if k != "slices"})
+        for name, a, b in zip(out_names(out), out, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"dense_trace_multi edge hold {what}: {name} differs on "
+                                     f"{int((a != b).sum())} of {a.numel()} rays")
+        hits = out[1] if kw.get("pack") else out[3]
+        log(f"kernel dense_trace_multi edge hold {what}: {args[0].shape[0]} rays equal, "
+            f"{int((hits >= 0).sum())} hits")
+
+    def take(args, idx):
+        R = args[0].shape[0]
+        return [a[idx].contiguous() if a.shape[0] == R else a for a in args]
+
+    args, kw = by_kind["shadow0"]
+    zero = torch.nonzero((args[1] == 0).any(dim=1) & (args[4] > args[3]))[:, 0]
+    if zero.numel() == 0:
+        raise AssertionError("edge hold: the round-0 shadows have no live ray with a zero "
+                             "direction component")
+    hold(f"zero direction component (shadow0, {int(zero.numel())} live rays)", take(args, zero),
+         kw)
+    args, kw = by_kind["primary"]
+    hold("1,007 rays", take(args, torch.arange(1007, device=args[0].device)), kw)
+    sub = take(args, torch.arange(0, 4096 * 401, 401, device=args[0].device))
+    maxd = sub[4].clone()
+    for lo, hi in ((32, 64), (64, 96), (1024, 1056), (2000, 2013)):
+        maxd[lo:hi] = 0.0
+    sub[4] = maxd
+    hold("dead warps (4,096 rays, lanes 32-95 and 1024-1055 dead)", sub, kw)
+    tree = kw["tree"]
+    try:
+        k1b_launch(*args[:8], tree, kw["slices"], False, kw.get("band", STRICT), stack=2)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        if "overflow" not in str(e):
+            raise
+        log(f"kernel dense_trace_multi edge hold overflow: a stack of 2 on a "
+            f"{len(tree.sizes)}-level tree (walk_stack {walk_stack(tree)}) raised: {e}")
+    else:
+        raise AssertionError("edge hold: a stack of 2 entries did not overflow")
 
 
 # ---------------------------------------------------------------------------
@@ -895,12 +1127,11 @@ def wavefront_phase(kind, args, kw):
                 kw["max_dist"].contiguous(), L.coef, frame.dense_tri, frame.dense_obj,
                 (frame.dense_chunk_lo - c[None, :]).contiguous(),
                 (frame.dense_chunk_hi - c[None, :]).contiguous())
-    tree = T._chunk_tables(frame)[2]
-    ref = dense_trace_multi(*k1b_args, find_any=find_any, tree=tree)
-    rep["k1b_unsorted_ms"] = cuda_ms(
-        lambda: dense_trace_multi(*k1b_args, find_any=find_any, tree=tree), 1)
-    rep["k1b_sorted_ms"] = cuda_ms(
-        lambda: dense_trace_multi_sorted(*k1b_args, find_any=find_any, tree=tree), 1)
+    k1b_kw = dict(find_any=find_any, tree=T._chunk_tables(frame)[2],
+                  slices=T._slice_table(frame))
+    ref = dense_trace_multi(*k1b_args, **k1b_kw)
+    rep["k1b_unsorted_ms"] = cuda_ms(lambda: dense_trace_multi(*k1b_args, **k1b_kw), 1)
+    rep["k1b_sorted_ms"] = cuda_ms(lambda: dense_trace_multi_sorted(*k1b_args, **k1b_kw), 1)
     rep["agreement_with_k1b"] = float(((out[3] >= 0) == (ref[3] >= 0)).float().mean()
                                       if find_any else (out[3] == ref[3]).float().mean())
     log(f"wavefront {kind}: {json.dumps(rep)}")
@@ -1022,13 +1253,15 @@ def first_accepts(args, band, rays, step=256, slab_elems=1 << 24):
     return first
 
 
-def walk_ops(args, t_final, tree, band=None, blocked=None):
+def walk_ops(args, t_final, tree, band=None, blocked=None, slices=None):
     """Tree-walk operations (K1b, K6) this run's data needs: per live ray,
     one slab test per tree box (internal node or leaf) it enters no later
     than `t_final` (its closest hit, or 1e5), through ancestors it also
     enters so, and the row test (with the band's when there is one) per row
-    of each such leaf.  Counted level by level from the root, in blocks of
-    rays.  Under a widened band the kernels walk no tree: each live ray
+    of each such leaf; with `slices` (K1b's (4 NC, 6) 32-row slice boxes)
+    a slab test per slice of each such leaf and the row test per row of
+    the slices it enters no later than `t_final`.  Counted level by level
+    from the root, in blocks of rays.  Under a widened band the kernels walk no tree: each live ray
     tests the rows in order, all of them, or in an any-hit launch
     (`blocked`, the kernel's result (R,)) a blocked ray up to and including
     its first accepted row.  -> (ops, boxes entered, rows tested, leaves
@@ -1066,8 +1299,18 @@ def walk_ops(args, t_final, tree, band=None, blocked=None):
             keep = ok & (e <= t_final[ray])
             ray, node = ray[keep], node[keep]
             n_boxes += int(keep.sum())
-        n_rows += int(torch.clamp(TI - node * tree.leaf, max=tree.leaf).sum())
         per_ray.index_add_(0, ray, torch.ones_like(ray, dtype=torch.float32))
+        if slices is None:
+            n_rows += int(torch.clamp(TI - node * tree.leaf, max=tree.leaf).sum())
+            continue
+        per = tree.leaf // 32
+        sl = node[:, None] * per + torch.arange(per, device=ray.device)[None, :]
+        has = sl * 32 < TI
+        ray, sl = ray[:, None].expand(-1, per)[has], sl[has]
+        n_boxes += sl.numel()
+        e, ok = _pair_entry(slices[sl], o[ray], d[ray], maxd[ray])
+        sl = sl[ok & (e <= t_final[ray])]
+        n_rows += int(torch.clamp(TI - sl * 32, max=32).sum())
     return (float(n_boxes) * BOX_TEST_OPS + float(n_rows) * row_ops(band), n_boxes, n_rows,
             per_ray[live])
 
@@ -1122,8 +1365,8 @@ def k6_phase(launches, leaves, scene="colonnade-2M"):
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         ms = cuda_ms(lambda: packet_trace(*args, **kw), 5)
         rec = dict(kind=kind, rays=R, live=int((args[4] > args[3]).sum()),
-                   hits=int((out[3] >= 0).sum()), ms=ms, plain_ms=plain_ms,
-                   plain_ms_on="slice", slice_ms=cuda_ms(
+                   hits=int((out[3] >= 0).sum()), ms=ms, prev_ms=PREV_LAUNCH_MS.get((scene, kind)),
+                   plain_ms=plain_ms, plain_ms_on="slice", slice_ms=cuda_ms(
                        lambda: packet_trace(*sub, *args[8:10], **kw), 5),
                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                    checked_rays=int(sel.numel()), bytes=n_bytes, ops=n_ops,
@@ -1147,6 +1390,8 @@ def k6_phase(launches, leaves, scene="colonnade-2M"):
         per.append(rec)
         log(f"kernel packet_trace {scene}: {json.dumps(rec)}")
     mean = lambda k: statistics.fmean(p[k] for p in per)
+    log(f"kernel packet_trace {scene}: mean ms {mean('ms')} over {len(per)} launches "
+        f"(before: {PREV_MEAN_MS.get(scene)})")
     return dict(max_abs_err=max(p["max_abs_err"] for p in per), ms=mean("ms"),
                 plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
                 bound_by=max(per, key=lambda p: p["bound_ms"])["bound_by"], launches=per)
@@ -1177,7 +1422,8 @@ def colonnade_328k_kernel_phase(cfg):
     del warm
     rep = k1b_phase([(kind, a, kw, None) for kind, (_n, a, kw)
                      in zip(("primary", "shadow0"), calls[:2])],
-                    check_rays=BIG_CHECK, reps=3, plain_on_slice=True, scene="colonnade-328k")
+                    check_rays=BIG_CHECK, reps=3, plain_on_slice=True, scene="colonnade-328k",
+                    every_ray=("shadow0",))
     del calls
     torch.cuda.empty_cache()
     return rep
@@ -1551,10 +1797,7 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     build_logs = cuda_lib.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s ({', '.join(build_logs) or 'cached'})")
-    for name, text in build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+    ptxas_report(build_logs)
     cfg = RenderConfig(width=W, height=H, precision="bf16")
     totals = dict.fromkeys(cuda_lib.LAUNCHES, 0)  # launches over every path phase
     # ... by acceptance: "fp32", "fp16" ('auto'), "<precision>-<fallback>"
@@ -1589,6 +1832,7 @@ def main(argv) -> int:
     del warm
     reports = kernel_phase(calls)
     del calls
+    k4_edge_holds()
     torch.cuda.empty_cache()
     elapsed()
 
@@ -1608,6 +1852,7 @@ def main(argv) -> int:
     launches = capture_sponza_launches(warm, 2)
     del warm
     reports["dense_trace_multi"] = k1b_phase(launches)
+    k1b_edge_holds(launches)
     del launches
     torch.cuda.empty_cache()
     elapsed()

@@ -41,7 +41,7 @@ SIGNATURES = {
         "lprt_dense_trace": [P] * 9 + [I, I, I, F] + [I, F, F, F] + [I, I] + [P] * 6 + [P],
     },
     "dense_multi": {
-        "lprt_dense_multi": [P] * 10 + [I] * 5 + [I, F, F, F] + [P] * 6 + [P],
+        "lprt_dense_multi": [P] * 12 + [I] * 8 + [F] * 3 + [P] * 6 + [P],
     },
     "svgf": {
         "lprt_coef_fetch": [P, P, I, I, I, I, I, P, P],

@@ -12,9 +12,11 @@ runs the plain version):
   Returns (t, u, v, tri, obj, vis), vis the per-ray bitmask of lights
   unoccluded from the winner's point (zeros when `lights` is None).
 - `dense_trace_multi` (K1b, `csrc/dense_multi.cu`): any table size, the
-  rows grouped in chunks of 128 with one world AABB each, walked through
-  a 4-ary tree over the chunk boxes (`build_tree`); closest hit or any
-  hit.  Returns (t, u, v, tri, obj).
+  rows grouped in chunks of 128 with one world AABB each, walked by a
+  warp through a 4-ary tree over the chunk boxes (`build_tree`, the stack
+  sized by `walk_stack`), each chunk's four 32-row slices culled by their
+  own boxes and tested one row a lane (the table re-laid by `lane_table`;
+  `k1b_launch`); closest hit or any hit.  Returns (t, u, v, tri, obj).
 
 Both take the rays recentred by the scene centre, the coefficient table
 as (TI, 12) f32 rows [n (3x3 row-major) | e (3)] (a sub-f32 error-band
@@ -49,8 +51,8 @@ launch for incoherent rays (`trace_rays_dense_pallas_sorted`: key, stable
 sort, trace, unsort; `sorted_launch` also serves the packet BVH's).
 `m_shift_test` and `band_accept` (the test's arithmetic, shared by the
 plain versions), the acceptances (`Band`, `dense_band`, `packet_band`),
-`coef_table` and `band_rows` (the kernels' table layout), `build_tree` and
-`tree_launch` (the box tree and the launch K1b and K6 share) and
+`coef_table` and `band_rows` (the kernels' table layout), `build_tree`
+(the box tree K1b and K6 walk), `tree_launch` (K6's launch) and
 `scene_exit_cap` (the per-ray reach cap of the wavefront and of the
 multi-chunk dense launches) sit here too.
 """
@@ -564,12 +566,12 @@ def build_tree(leaf_lo, leaf_hi, n_rows: int, leaf: int) -> BoxTree:
 
 
 def tree_launch(name, origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
-                tree: BoxTree, find_any: bool, band: Band, pack: bool = False):
-    """Launch the tree walk of csrc/<name>.cu (K1b 'dense_multi', K6
-    'packet_trace') on CUDA tensors checked by the caller.  A push past a
-    walk's stack sets a status word, on which this raises (one host sync
-    per launch).  -> (t, u, v, tri, obj); under `pack` (K1b closest hit
-    only) (t, row, pk)."""
+                tree: BoxTree, find_any: bool, band: Band):
+    """Launch the per-thread tree walk of csrc/<name>.cu
+    (`trace_common.cuh:tree_trace_kernel`; K6 'packet_trace') on CUDA
+    tensors checked by the caller.  A push past a walk's stack sets a
+    status word, on which this raises (one host sync per launch).  -> (t,
+    u, v, tri, obj)."""
     dev = origins.device
     if coef.data_ptr() % 16:
         raise ValueError(f"{name}: the coefficient table must be 16-byte aligned")
@@ -577,33 +579,114 @@ def tree_launch(name, origins, directions, skip, mind, maxd, coef, tri_ids, obj_
     t = torch.empty((R,), dtype=torch.float32, device=dev)
     tri = torch.empty((R,), dtype=torch.int32, device=dev)
     obj = torch.empty_like(tri)
-    # under pack the kernel writes (t, row, pk) into (t, tri, obj), no u, v
-    u, v = (None, None) if pack else (torch.empty_like(t), torch.empty_like(t))
+    u, v = torch.empty_like(t), torch.empty_like(t)
     status = torch.zeros((1,), dtype=torch.int32, device=dev)
-    ptr = lambda x: None if x is None else x.data_ptr()
     lib = cuda_lib.library(name)
     code = getattr(lib, f"lprt_{name}")(
         origins.data_ptr(), directions.data_ptr(), skip.data_ptr(), mind.data_ptr(),
         maxd.data_ptr(), coef.data_ptr(), tri_ids.data_ptr(), obj_ids.data_ptr(),
         tree.boxes.data_ptr(), tree.levels.data_ptr(), len(tree.sizes), R, TI,
-        int(find_any), int(pack), *band, t.data_ptr(), ptr(u), ptr(v), tri.data_ptr(),
+        int(find_any), 0, *band, t.data_ptr(), u.data_ptr(), v.data_ptr(), tri.data_ptr(),
         obj.data_ptr(), status.data_ptr(), cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check(code, name)
     if int(status.item()):
         raise RuntimeError(f"{name}: a ray's walk overflowed the kernel's stack")
+    return t, u, v, tri, obj
+
+
+SLICE = 32  # K1b: rows per slice box (four a chunk), one row per lane of a warp
+MAX_STACK = 3 * (MAX_LEVELS - 1) + 1  # the deepest stack K1b's walk is built for
+
+
+def walk_stack(tree: BoxTree) -> int:
+    """Stack entries K1b's walk needs on `tree`: popping an internal node
+    pushes at most FAN - 1 entries more than it takes, so 3 (levels - 1)
+    + 1; a tree deeper than the kernel's MAX_LEVELS is refused."""
+    L = len(tree.sizes)
+    if L > MAX_LEVELS:
+        raise NotImplementedError(f"walk_stack: {L} tree levels, K1b's walk covers "
+                                  f"{MAX_LEVELS} ({MAX_STACK} stack entries)")
+    return 3 * (L - 1) + 1
+
+
+def lane_table(coef) -> torch.Tensor:
+    """The (TI, 12) f32 rows re-laid for K1b's walk: per 32-row slice s
+    and float4 part m of a row, the 32 rows' parts side by side, so that
+    lane j's load of part m of row 32 s + j is 16-byte coalesced across the
+    warp.  -> (NC * 4 * 3 * 32, 4) f32, rows past TI zero (NC = ceil(TI /
+    128)); row k's part m sits at [(k // 32) * 96 + 32 m + k % 32]."""
+    TI = coef.shape[0]
+    n = -(-TI // CHUNK) * CHUNK
+    padded = torch.nn.functional.pad(coef[:, :12], (0, 0, 0, n - TI))
+    return padded.reshape(n // SLICE, SLICE, 3, 4).transpose(1, 2).reshape(-1, 4).contiguous()
+
+
+def chunk_slices(chunk_lo, chunk_hi) -> torch.Tensor:
+    """Slice boxes for a table whose 32-row slices have no boxes of their
+    own: each chunk's box four times, (4 NC, 6) [lo3 | hi3]."""
+    return torch.cat([chunk_lo, chunk_hi], dim=1).repeat_interleave(CHUNK // SLICE, dim=0)
+
+
+def k1b_launch(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids, tree: BoxTree,
+               slices, find_any: bool, band: Band, pack: bool = False,
+               stack: int | None = None, persist: bool | None = None):
+    """Launch K1b (csrc/dense_multi.cu) on CUDA tensors checked by the
+    caller: the warp walk of `tree` and the (4 NC, 6) `slices` boxes, or
+    under a widened acceptance the all-row scan.  `stack`: the walk's stack
+    entries (default `walk_stack(tree)`; a smaller one makes deep walks
+    overflow, which raises); `persist`: resident blocks pull the rays from
+    a counter, so a lane whose ray ends takes the next (default: in any hit,
+    where rays end at very different depths; in closest hit the lanes keep
+    their neighbouring rays, which share chunks).  -> (t, u, v, tri, obj);
+    under `pack` (t, row, pk)."""
+    dev = origins.device
+    if coef.data_ptr() % 16:
+        raise ValueError("dense_trace_multi: the coefficient table must be 16-byte aligned")
+    R, TI = origins.shape[0], coef.shape[0]
+    if tree.leaf != CHUNK:
+        raise ValueError(f"dense_trace_multi: the tree's leaf boxes hold {tree.leaf} rows, "
+                         f"not {CHUNK}")
+    NC = tree.sizes[0]
+    if tuple(slices.shape) != (NC * CHUNK // SLICE, 6) or slices.dtype != torch.float32:
+        raise ValueError(f"dense_trace_multi: slices must be ({NC * CHUNK // SLICE}, 6) f32, "
+                         f"got {slices.dtype} {tuple(slices.shape)}")
+    stack = walk_stack(tree) if stack is None else stack
+    persist = find_any if persist is None else persist
+    lanes = None if band.widened else lane_table(coef)
+    slices = slices.contiguous()
+    t = torch.empty((R,), dtype=torch.float32, device=dev)
+    tri = torch.empty((R,), dtype=torch.int32, device=dev)
+    obj = torch.empty_like(tri)
+    # under pack the kernel writes (t, row, pk) into (t, tri, obj), no u, v
+    u, v = (None, None) if pack else (torch.empty_like(t), torch.empty_like(t))
+    status = torch.zeros((2,), dtype=torch.int32, device=dev)  # overflow, ray counter
+    ptr = lambda x: None if x is None else x.data_ptr()
+    code = cuda_lib.library("dense_multi").lprt_dense_multi(
+        origins.data_ptr(), directions.data_ptr(), skip.data_ptr(), mind.data_ptr(),
+        maxd.data_ptr(), coef.data_ptr(), tri_ids.data_ptr(), obj_ids.data_ptr(),
+        tree.boxes.data_ptr(), tree.levels.data_ptr(), ptr(lanes), slices.data_ptr(),
+        len(tree.sizes), R, TI, int(find_any), int(pack), band.form, int(stack), int(persist),
+        band.k0, band.k1, band.k2, t.data_ptr(), ptr(u), ptr(v), tri.data_ptr(),
+        obj.data_ptr(), status.data_ptr(), cuda_lib.stream_ptr(dev),
+    )
+    cuda_lib.check(code, "dense_multi")
+    if int(status[0].item()):
+        raise RuntimeError("dense_multi: a ray's walk overflowed the kernel's stack")
     return (t, tri, obj) if pack else (t, u, v, tri, obj)
 
 
 def dense_trace_multi(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
                       chunk_lo, chunk_hi, find_any: bool = False, band: Band = STRICT,
-                      tree: BoxTree | None = None, pack: bool = False):
+                      tree: BoxTree | None = None, pack: bool = False, slices=None):
     """K1b wrapper: see the module docstring.  origins/directions (R, 3)
     f32, skip (R,) i32, mind/maxd (R,) f32, coef (TI, table_cols(band))
     f32, tri_ids / obj_ids (TI,) i32, chunk_lo/chunk_hi (NC, 3) f32 with NC =
     ceil(TI / 128): the AABB of rows [128 c, 128 c + 128), in the rays'
     (recentred) frame; `tree`: `build_tree(chunk_lo, chunk_hi, TI, 128)`
-    when the caller keeps one.  -> (t, u, v, tri, obj); under `pack`
+    when the caller keeps one; `slices` (4 NC, 6) f32 [lo3 | hi3]: the
+    AABB of rows [32 s, 32 s + 32), in the same frame (default: each
+    chunk's box, `chunk_slices`).  -> (t, u, v, tri, obj); under `pack`
     (closest hit) (t, row, pk)."""
     R = origins.shape[0]
     TI = coef.shape[0]
@@ -623,11 +706,10 @@ def dense_trace_multi(origins, directions, skip, mind, maxd, coef, tri_ids, obj_
                                        pack=pack)
     if tree is None:
         tree = build_tree(chunk_lo, chunk_hi, TI, CHUNK)
-    if tree.leaf != CHUNK:
-        raise ValueError(f"dense_trace_multi: the tree's leaf boxes hold {tree.leaf} rows, "
-                         f"not {CHUNK}")
-    out = tree_launch("dense_multi", origins, directions, skip, mind, maxd, coef, tri_ids,
-                      obj_ids, tree, find_any, band, pack)
+    if slices is None:
+        slices = chunk_slices(chunk_lo, chunk_hi)
+    out = k1b_launch(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids, tree,
+                     slices, find_any, band, pack)
     cuda_lib.LAUNCHES["dense_trace_multi_pack" if pack else "dense_trace_multi"] += 1
     return out
 
@@ -776,7 +858,7 @@ def sorted_launch(launch, key, origins, directions, skip, mind, maxd, *table, **
 def dense_trace_multi_sorted(origins, directions, skip, mind, maxd, coef, tri_ids,
                              obj_ids, chunk_lo, chunk_hi, find_any: bool = False,
                              key_mode: str = "anchor", band: Band = STRICT,
-                             tree: BoxTree | None = None, pack: bool = False):
+                             tree: BoxTree | None = None, pack: bool = False, slices=None):
     """K1b on incoherent rays, coherence recovered
     (`trace_rays_dense_pallas_sorted`): sort the rays by `anchor_key`, or
     by `morton_key` in mode `key_mode` ('beam' / 'origin'), trace them in
@@ -790,4 +872,4 @@ def dense_trace_multi_sorted(origins, directions, skip, mind, maxd, coef, tri_id
         key = morton_key(origins, directions, live=live, mode=key_mode)
     return sorted_launch(dense_trace_multi, key, origins, directions, skip, mind, maxd,
                          coef, tri_ids, obj_ids, chunk_lo, chunk_hi, find_any=find_any,
-                         band=band, tree=tree, pack=pack)
+                         band=band, tree=tree, pack=pack, slices=slices)

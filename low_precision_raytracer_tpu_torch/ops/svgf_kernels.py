@@ -14,9 +14,14 @@ Each kernel wrapper (`coef_fetch`, `temporal_accum`, `wavelet_iter`)
 checks its inputs, runs the plain PyTorch version on CPU tensors and
 launches the CUDA kernel of `csrc/svgf.cu` on CUDA tensors (or raises).
 The plain versions follow the TPU kernels' arithmetic order.
+`wavelet_tiles` and `wavelet_tile_points` mirror K4's coset tiling (the
+CPU emulation of tests/test_torch_wavelet_tiles.py reads them), and
+`wavelet_staged_bytes` counts what its staging reads.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -359,6 +364,69 @@ def wavelet_iter_plain(geo, cv, stride: int, cfg: SVGFConfig):
                 torch.where(valid_c, 1.0, cv[b + C_FC]),
                 torch.where(valid_v, 1.0, cv[b + C_FV])]
     return torch.stack(out).contiguous()
+
+
+class WaveletTiles(NamedTuple):
+    """The coset tiling of K4 (`csrc/svgf.cu:wavelet_kernel`) at one
+    stride: a block takes `rows` coset rows of one row coset and `k`
+    neighbouring column cosets of `cols` coset columns each, and stages
+    them with a `ring` of coset points on every side."""
+
+    k: int  # column cosets a block covers
+    groups: int  # blocks across the column cosets of one tile
+    cols: int  # coset columns per column coset
+    rows: int  # coset rows
+    ring: int
+    grid: tuple  # (blocks across x, blocks across y)
+
+    @property
+    def staged(self) -> tuple:
+        """(staged rows, staged columns) of a block's tile and ring."""
+        return self.rows + 2 * self.ring, (self.cols + 2 * self.ring) * self.k
+
+
+WT_X, WT_Y, WT_KMAX, WT_RING = 32, 8, 4, 2  # csrc/svgf.cu's tile constants
+STAGED_FLOATS = 18  # floats a staged point holds: depth, n, il0, il1, 2 x (rgb, v, fc, fv)
+
+
+def wavelet_tiles(H: int, W: int, stride: int) -> WaveletTiles:
+    """K4's tile geometry at `stride` on an (H, W) frame (the kernel's
+    own arithmetic, `launch_wavelet` and `wavelet_kernel`)."""
+    k = min(stride, WT_KMAX)
+    groups = -(-stride // k)
+    cols = WT_X // k
+    tiles_x = -(-(-(-W // stride)) // cols)
+    tiles_y = -(-(-(-H // stride)) // WT_Y)
+    return WaveletTiles(k, groups, cols, WT_Y, WT_RING, (tiles_x * groups, tiles_y * stride))
+
+
+def wavelet_tile_points(H: int, W: int, stride: int):
+    """The points each block of K4 stages, as frame coordinates:
+    -> (y, x) int64 tensors (blocks_y, blocks_x, staged rows, staged
+    columns); points outside the frame (y or x out of range) are staged
+    as zeros.  Mirrors the kernel's staging loop."""
+    t = wavelet_tiles(H, W, stride)
+    nr, nc = t.staged
+    by = torch.arange(t.grid[1])[:, None, None, None]
+    bx = torch.arange(t.grid[0])[None, :, None, None]
+    r = torch.arange(nr)[None, None, :, None]
+    c = torch.arange(nc)[None, None, None, :]
+    cx0 = (bx % t.groups) * t.k
+    X0 = (bx // t.groups) * t.cols
+    cy = by % stride
+    Y0 = (by // stride) * t.rows
+    x = (X0 + torch.div(c, t.k, rounding_mode="floor") - t.ring) * stride + cx0 + c % t.k
+    y = (Y0 + r - t.ring) * stride + cy
+    return y.expand(-1, t.grid[0], -1, nc), x.expand(t.grid[1], -1, nr, -1)
+
+
+def wavelet_staged_bytes(H: int, W: int, stride: int) -> int:
+    """Bytes K4's staging reads from device memory in one launch: the
+    STAGED_FLOATS channels of every in-frame point of every block's tile
+    and ring (points staged by two blocks count twice)."""
+    y, x = wavelet_tile_points(H, W, stride)
+    inside = (y >= 0) & (y < H) & (x >= 0) & (x < W)
+    return int(inside.sum()) * STAGED_FLOATS * 4
 
 
 def wavelet_iter(geo, cv, stride: int, cfg: SVGFConfig):

@@ -290,6 +290,17 @@ def _chunk_tables(frame: FrameInput):
     return _box_tables(frame.dense_chunk_lo, frame.dense_chunk_hi, frame, CHUNK)
 
 
+def _slice_table(frame: FrameInput):
+    """K1b's slice boxes: the AABB of each 32 rows (the packet route's
+    leaf boxes), recentred like the rays, (4 NC, 6) [lo3 | hi3]."""
+
+    def build():
+        c = frame.dense_center[None, :]
+        return torch.cat([frame.dense_leaf_lo - c, frame.dense_leaf_hi - c], dim=1).contiguous()
+
+    return _per_table(frame.dense_leaf_lo, ("slices",), build)
+
+
 def di_light_rows(frame: FrameInput, di_lights: dict) -> torch.Tensor:
     """(L, 4) f32 rows [is_directional, ax, ay, az]: a = -normalize(dir)
     for directional lights, else the position recentred like the rays."""
@@ -378,11 +389,12 @@ def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
         cap = scene_exit_cap(frame, origins.to(f32), d, max_dist).contiguous()
         rays = rays[:4] + (cap,) + rays[5:]
     lo, hi, tree = _chunk_tables(frame)
+    slices = _slice_table(frame)
     if not coherent and _sorted_route(frame, cfg):
         out = dense_trace_multi_sorted(*rays, lo, hi, find_any=find_any,
                                        key_mode=cfg.incoherent_sort, band=acc, tree=tree,
-                                       pack=pack)
+                                       pack=pack, slices=slices)
     else:
         out = dense_trace_multi(*rays, lo, hi, find_any=find_any, band=acc, tree=tree,
-                                pack=pack)
+                                pack=pack, slices=slices)
     return packed(out) if pack else Hit(*out)
