@@ -8,8 +8,10 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
 1. the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of the port from csrc/ (one nvcc per source,
    started together), timed, with one ptxas line per kernel (registers,
-   stack frame, spills; K1b's warp walk is `chunk_walk_kernel`, its
-   all-row scan and K6 `tree_trace_kernel`, K4 `wavelet_kernel`);
+   stack frame, spills; K1b's and K6's warp walk is `chunk_walk_kernel`
+   (its last parameter true in K6: the zero-axis box rule), their all-row
+   scans `scan_trace_kernel`, K4 `wavelet_kernel`, the schedule
+   `schedule_kernel` (<true>: its counting form));
 3. flagship kernel phase: two warm-up frames of the flagship (Cornell,
    bf16, 1920x1080) record the inputs each kernel wrapper gets on the main
    path; each kernel is then held against its plain PyTorch version on
@@ -51,8 +53,12 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    wavefront launches (the GI bounce, round-1 shadows).  K1b is timed on
    each full launch and held against its plain version on a strided slice
    of 2^16 rays (exact).  For each wavefront launch: the schedule kernel
-   equals its plain version on a slice of rays (words and tcut exact, the
-   first pass's list and a 128-deep one from its cursor), K5 equals its
+   (its tree walk) equals its plain version on every ray of every call the
+   launch makes, the first pass and each tail pass (words and tcut exact),
+   and a 128-deep list from the first cursor on 2^18 rays; the first pass
+   is timed, its plain version too, and the boxes the walk tests counted
+   (the kernel's counting form) for the bound, the flat scan's count
+   beside it (`schedule_holds`); K5 equals its
    plain version on a strided slice of the first pass's pair lanes (the
    live pairs; t, row, pk exact), and the whole launch on a slice of rays
    equals the same launch through the plain versions (tri, obj, t, u, v
@@ -70,13 +76,21 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
     5)` (2,049,202 instance triangles, 64,040 leaves, bf16, 1920x1080;
     'auto' resolves to the packet BVH) record its four packet-walk (K6)
     launches: primary, round-0 shadows, the GI bounce (sorted) and round-1
-    shadows (sorted).  K6 is timed on each full launch and held against its
-    plain version (K1b's, an all-pairs test) on a strided slice of 2^12
-    rays of each launch: tri, obj, t, u, v exact on closest hit, the
-    occlusion marker exact on any hit; the plain version is timed on that
-    slice.  The sorted launches are also timed unsorted, and their key and
-    sort + unsort on their own.  In phase 9, K6 also runs on K1b's two
-    colonnade-83k launches, timed and held equal to K1b's result;
+    shadows (sorted).  For each launch: the leaves entered per live ray
+    (p50/p90/p99/max) under box_entry and under K6's zero-axis rule, split
+    by the rays' exact zero direction components and, on the shadow
+    launches, by light (`leaf_split`); K6 held equal to K1b (its chunk
+    tree and slice boxes of the same table, box_entry) on every ray, both
+    timed; K6 held against its plain version (K1b's, an all-pairs test)
+    on 2^16 rays (a strided slice and the 4,096 rays entering the most
+    leaves under box_entry) and on 1,024 face rays (one exact zero axis,
+    the origin on a leaf face: `face_rays`): tri, obj, t, u, v exact on
+    closest hit, the occlusion marker on any hit; the plain version timed
+    on the sample; K6 timed in both persistences, its bound under its own
+    rule beside box_entry's count.  The sorted launches are also timed
+    unsorted, and their key and sort + unsort on their own.  In phase 9,
+    K6 also runs on K1b's two colonnade-83k launches, timed and held equal
+    to K1b's result;
 13. colonnade-2M path phase: counts zeroed, 8 frames; per frame K6 4, K1a
     0, K1b 0, the wavefront 0, the temporal kernel 1, the a-trous kernel
     5, the history fetch 1 from frame 1;
@@ -105,9 +119,10 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
     instance triangles in 2,567 chunks, bf16, 1920x1080; 'auto' resolves
     to the dense route): K1b (its walk of a tree over the chunk boxes) on
     the primary and round-0 shadow launches, exact against the plain
-    version on a 2^16-ray slice (primary) and on every ray (the round-0
+    version on a 2^16-ray slice (primary) and a 2^20-ray slice (the round-0
     shadows, the plain version in slabs of 2^26 (ray, row) pairs), timed
-    with its bound;
+    with its bound; the schedule kernel on its two wavefront launches, as
+    in phase 9 (`schedule_holds`);
 20. colonnade-328k path phase: 8 frames; per frame K1b 2, the wavefront's
     K5 >= 2 and equal to its schedule kernel, K6 0, K1a 0.
 
@@ -173,9 +188,10 @@ launches are on their own lines; K6's are the mean of its four
 colonnade-2M launches) and the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}.  The `kernels` line also has K1a's and
 K1b's packed forms (their times from phase 24) and the tool's two bodies
-(NCHUNK = 1; launches from phase 26).  Frame times, and K1b's, K4's and
-K6's times per launch, print beside the previous kernels' (`PREV_*`).  About 5 minutes on
-an H100, plus the every-ray hold of phase 19.
+(NCHUNK = 1; launches from phase 26).  Frame times, and K1b's, K4's,
+K6's and the schedule's times per launch, print beside the previous
+tree's (`PREV_*`).  About 10 minutes on an H100, most of it the plain
+versions' holds of phases 12 and 19.
 """
 
 from __future__ import annotations
@@ -199,25 +215,26 @@ HUGE_CHECK = 1 << 12  # colonnade-2M: rays per K6 launch held against the plain 
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12  # dense bf16 on the tensor cores
-# The figures of the previous K1b walk (one thread a ray) and K4 (taps
-# through the read-only cache), from PERF.md's earlier chip run on an
-# NVIDIA H100 80GB HBM3 at 700 W, printed beside this run's: frame ms of
-# the path phases, ms per launch of K4 by stride, of K1b and K6 by (scene,
-# launch)
-PREV_FRAME_MS = {"flagship": 40.025, "sponza": 124.122, "colonnade-83k": 91.824,
-                "colonnade-328k": 129.449, "colonnade-2M": 242.886, "flagship-fp32": 44.048,
-                "flagship-fp16": 39.806, "sponza-fp32": 134.047, "colonnade-83k-fp16": 89.788}
-PREV_K4_MS = {1: 0.763, 2: 0.789, 4: 0.822, 8: 0.824, 16: 0.872}
+# The previous tree's figures (K6 one thread a ray, the schedule a flat
+# scan of every group box), from PERF.md's chip run of it on an NVIDIA H100
+# 80GB HBM3 at 700 W, printed beside this run's: frame ms of the path
+# phases, ms per launch of K4 by stride, of K1b, K6 and the schedule by
+# (scene, launch)
+PREV_FRAME_MS = {"flagship": 37.366, "sponza": 110.030, "colonnade-83k": 79.912,
+                "colonnade-328k": 105.933, "colonnade-2M": 241.817, "flagship-fp32": 38.359,
+                "flagship-fp16": 38.179, "sponza-fp32": 117.152, "colonnade-83k-fp16": 81.187}
+PREV_K4_MS = {1: 0.299, 2: 0.299, 4: 0.307, 8: 0.308, 16: 0.337}
 PREV_LAUNCH_MS = {
-    ("sponza", "primary"): 2.600, ("sponza", "shadow0"): 5.043,
-    ("sponza", "gi_sorted"): 3.320, ("sponza", "shadow1_sorted"): 3.110,
-    ("colonnade-83k", "primary"): 3.640, ("colonnade-83k", "shadow0"): 17.281,
-    ("colonnade-328k", "primary"): 4.428, ("colonnade-328k", "shadow0"): 37.769,
-    ("sponza pack", "primary"): 2.706, ("sponza pack", "gi_sorted"): 3.567,
-    ("colonnade-2M", "primary"): 2.757, ("colonnade-2M", "shadow0"): 67.750,
-    ("colonnade-2M", "gi_sorted"): 6.977, ("colonnade-2M", "shadow1_sorted"): 113.908}
+    ("sponza", "primary"): 1.381, ("sponza", "shadow0"): 2.430,
+    ("sponza", "gi_sorted"): 1.208, ("sponza", "shadow1_sorted"): 1.115,
+    ("colonnade-83k", "primary"): 1.744, ("colonnade-83k", "shadow0"): 8.481,
+    ("colonnade-328k", "primary"): 1.959, ("colonnade-328k", "shadow0"): 15.479,
+    ("sponza pack", "primary"): 1.233, ("sponza pack", "gi_sorted"): 1.166,
+    ("colonnade-2M", "primary"): 2.800, ("colonnade-2M", "shadow0"): 69.326,
+    ("colonnade-2M", "gi_sorted"): 7.305, ("colonnade-2M", "shadow1_sorted"): 113.402,
+    ("colonnade-83k schedule", "gi"): 2.720, ("colonnade-83k schedule", "shadow1"): 5.163}
 # ... and the means kept there where no launch's own was kept
-PREV_MEAN_MS = {"sponza-fp32": 6.187, "sponza-fp32 packet route": 3.260}
+PREV_MEAN_MS = {"sponza-fp32": 2.220, "sponza-fp32 packet route": 3.260}
 TPU = "low_precision_raytracer_tpu/ops/"
 KERNELS = {  # wrapper name -> (source, TPU kernel it replaces)
     "dense_trace": ("low_precision_raytracer_tpu_torch/csrc/dense_trace.cu",
@@ -751,11 +768,11 @@ def capture_sponza_launches(renderer, frames):
 
 
 def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
-              scene="sponza", every_ray=()):
+              scene="sponza", check_by_kind=None):
     """K1b on each recorded launch: timed on the full launch, held against
     the plain version on a strided slice of `check_rays` rays (every output
-    exact), or on every ray for the kinds in `every_ray` (the plain
-    version in slabs of 2^26 (ray, row) pairs); its bound from the data
+    exact; `check_by_kind`: another count for some kinds, the plain version
+    then in slabs of 2^26 (ray, row) pairs); its bound from the data
     (`walk_ops` on the launch's chunk tree and slice boxes; the chunk-row count,
     128 rows per chunk entered, beside it); the walk also timed in the
     other persistence (`k1b_launch`); the sorted launches also unsorted and
@@ -777,16 +794,13 @@ def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
         R = args[0].shape[0]
         # the plain version reads no box: the wrapper's slice boxes are not its
         pkw = {k: v for k, v in kw.items() if k != "slices"}
-        full = kind in every_ray
+        n_check = (check_by_kind or {}).get(kind, check_rays)
+        big = n_check != check_rays
         out = dense_trace_multi(*args, **kw)
         torch.cuda.synchronize()
-        if full:
-            sel = torch.arange(R, device=args[0].device)
-            sub, pkw_check = list(args), dict(pkw, slab_elems=1 << 26)
-        else:
-            sel = torch.arange(0, R, max(1, R // check_rays), device=args[0].device)[:check_rays]
-            sub = [a[sel].contiguous() if a.shape[0] == R else a for a in args]
-            pkw_check = pkw
+        sel = torch.arange(0, R, max(1, R // n_check), device=args[0].device)[:n_check]
+        sub = [a[sel].contiguous() if a.shape[0] == R else a for a in args]
+        pkw_check = dict(pkw, slab_elems=1 << 26) if big else pkw
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
@@ -817,7 +831,7 @@ def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
         n_bytes = nbytes(*args, kw["tree"].boxes, kw.get("slices")) + nbytes(*out)
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         ms = cuda_ms(lambda: dense_trace_multi(*args, **kw), reps)
-        if not plain_on_slice and not full:
+        if not plain_on_slice:
             torch.cuda.synchronize()
             t0.record()
             dense_trace_multi_plain(*args, **pkw)
@@ -843,11 +857,9 @@ def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
         if kw.get("pack"):  # the full epilogue on the same rays, beside it
             rec["reduce5_ms"] = cuda_ms(lambda: dense_trace_multi(*args, **dict(kw, pack=False)),
                                         reps)
-        if plain_on_slice and not full:
+        if plain_on_slice:
             rec["plain_ms_on"] = "slice"
             rec["slice_ms"] = cuda_ms(lambda: dense_trace_multi(*sub, **kw), reps)
-        if full:
-            rec["plain_ms_on"] = "every ray"
         if unsorted is not None:
             srt = dense_trace_multi_sorted(*unsorted, **kw)
             direct = dense_trace_multi(*unsorted, **kw)
@@ -992,6 +1004,90 @@ def assigned_ops(lanes, out, TI, s_group, find_any):
     return float(rows.double().sum()) * TRI_TEST_OPS
 
 
+def plain_schedule(*args, tree=None, tests=None):
+    """`schedule_plain` in the place of the schedule wrapper (which also
+    takes the kernel's tree and its counter)."""
+    from low_precision_raytracer_tpu_torch.ops import wavefront as WF
+
+    return WF.schedule_plain(*args)
+
+
+SCHED_DEEP_CHECK = 1 << 18  # rays of a first pass held with a 128-deep list
+
+
+def schedule_holds(scene, kind, args, kw):
+    """The schedule kernel on one recorded wavefront launch: each call the
+    launch makes (the first pass, every tail pass) held bit for bit
+    against `schedule_plain` on every ray; a 128-deep list from the first
+    pass's cursor (the rescan: 8 batches) on SCHED_DEEP_CHECK strided rays;
+    the first pass timed, the plain version timed on it, and the boxes the
+    walk tests counted by the kernel's counting form: the bound from that
+    count, and from the flat scan's (one slab test per live ray and group
+    per batch) beside it.  -> report."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops import wavefront as WF
+
+    calls = []
+    sched = WF.schedule
+
+    def rec(*a, **k):  # the launch updates its cursors in place: keep copies
+        out = sched(*a, **k)
+        calls.append((tuple(x.clone() if torch.is_tensor(x) else x for x in a), k, out))
+        return out
+
+    WF.schedule = rec
+    try:
+        WF.trace_rays_wavefront(*args, **kw)
+    finally:
+        WF.schedule = sched
+    torch.cuda.synchronize()
+    passes = []
+    for a, k, (cand, tcut) in calls:
+        want = WF.schedule_plain(*a, slab_elems=1 << 26)
+        for name, x, y in (("cand", cand, want[0]), ("tcut", tcut, want[1])):
+            if not torch.equal(x, y):
+                raise AssertionError(f"wavefront_schedule {scene} {kind}: k={a[7]} {name} "
+                                     f"differs from the plain version on "
+                                     f"{int((x != y).any(dim=-1).sum()) if x.dim() > 1 else int((x != y).sum())} "
+                                     f"of {a[2].shape[0]} rays")
+        passes.append(dict(rays=int(a[2].shape[0]), k=int(a[7]), checked_rays=int(a[2].shape[0]),
+                           zero_axis_rays=int((a[3] == 0).any(dim=1).sum())))
+    a, k, (cand, tcut) = calls[0]
+    lo, hi, o, d, maxd, wmin, id_bits, kk = a
+    R, NG = o.shape[0], lo.shape[0]
+    sel = torch.arange(0, R, max(1, R // SCHED_DEEP_CHECK), device=o.device)[:SCHED_DEEP_CHECK]
+    deep = (lo, hi, o[sel], d[sel], maxd[sel], tcut[sel].contiguous(), id_bits, min(128, NG))
+    got, want = WF.schedule(*deep, tree=k["tree"]), WF.schedule_plain(*deep)
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError(f"wavefront_schedule {scene} {kind}: the {deep[7]}-deep list "
+                             "differs from the plain version")
+    ms = cuda_ms(lambda: WF.schedule(*a, **k), 5)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    WF.schedule_plain(*a, slab_elems=1 << 26)
+    e1.record()
+    e1.synchronize()
+    tests = torch.zeros((R,), dtype=torch.int32, device=o.device)
+    WF.schedule(*a, **k, tests=tests)
+    n_live = int((maxd > 0).sum())
+    batches = kk // 17 + 1
+    n_tests = float(tests.double().sum())
+    n_flat = float(n_live) * NG * batches
+    n_bytes = nbytes(o, d, maxd, wmin, k["tree"].boxes, cand, tcut)
+    b_ms, b_by = bound_ms(n_bytes, n_tests * BOX_TEST_OPS)
+    b_flat = bound_ms(n_bytes, n_flat * BOX_TEST_OPS)[0]
+    rep = dict(scene=scene, kind=kind, rays=R, live=n_live, groups=NG,
+               tree_levels=list(k["tree"].sizes), k=kk, ms=ms, plain_ms=e0.elapsed_time(e1),
+               bound_ms=b_ms, bound_by=b_by, bound_ms_flat=b_flat, box_tests=n_tests,
+               box_tests_flat=n_flat, box_tests_per_live_ray=n_tests / max(n_live, 1),
+               ratio=ms / b_ms, ratio_flat=ms / b_flat, max_abs_err=0.0,
+               prev_ms=PREV_LAUNCH_MS.get((scene + " schedule", kind)),
+               deep_list_checked_rays=int(sel.numel()), passes=passes)
+    log(f"kernel wavefront_schedule {scene}: {json.dumps(rep)}")
+    return rep
+
+
 def wavefront_phase(kind, args, kw):
     """One recorded wavefront launch: the schedule kernel, K5 and the whole
     launch held against their plain versions (exact), and the launch timed
@@ -1050,12 +1146,10 @@ def wavefront_phase(kind, args, kw):
     parts = dict(
         setup=cuda_ms(lambda: WF.setup(frame, origins, directions, kw["prec"], kw["skip_tri"],
                                        kw["min_dist"], kw["max_dist"], find_any), 3),
-        schedule=cuda_ms(sched, 5),
         pair_sort=cuda_ms(lambda: WF.pair_lanes(L, None, cand, L.live), 3),
         k5=cuda_ms(k5, 5),
         combine=cuda_ms(lambda: WF.combine(pair, out5, cand, tcut, L.id_bits), 5))
     parts["tail"] = sum(p["ms"] for p in rep["passes"][1:])
-    rep["parts_ms"] = parts
     P = lanes[0].shape[0]
     rep["pairs"] = cand.numel()
     rep["pair_lanes"] = P  # the live pairs: the lanes K5 tests
@@ -1081,26 +1175,12 @@ def wavefront_phase(kind, args, kw):
     rep["k5"] = dict(ms=parts["k5"], plain_ms=e0.elapsed_time(e1), bound_ms=b_ms,
                      bound_by=b_by, max_abs_err=k5_err, checked_lanes=int(lsel.numel()))
 
-    # the schedule kernel against its plain version: the register list of
-    # the first pass, and a deep list (the rescan) from the first cursor
+    # the schedule kernel: every pass held against its plain version, timed
+    # and counted (`schedule_holds`)
+    rep["schedule"] = schedule_holds("colonnade-83k", kind, args, kw)
+    parts["schedule"] = rep["schedule"]["ms"]
+    rep["parts_ms"] = parts
     rsel = torch.arange(0, R, max(1, R // BIG_CHECK), device=dev)[:BIG_CHECK]
-    for kk, wm in ((k, wmin), (min(128, NG), tcut)):
-        sub = (L.lo, L.hi, L.o[rsel], L.d[rsel], mx[rsel], wm[rsel].contiguous(), L.id_bits, kk)
-        got, want = WF.schedule(*sub), WF.schedule_plain(*sub)
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            raise AssertionError(f"wavefront_schedule {kind}: k={kk} differs from the plain "
-                                 "version")
-    torch.cuda.synchronize()
-    e0.record()
-    WF.schedule_plain(L.lo, L.hi, L.o, L.d, mx, wmin, L.id_bits, k, slab_elems=1 << 26)
-    e1.record()
-    e1.synchronize()
-    n_live = int(L.live.sum())
-    b_ms, b_by = bound_ms(nbytes(L.o, L.d, mx, wmin, L.lo, L.hi, cand, tcut),
-                          n_live * NG * BOX_TEST_OPS)
-    # exact integer words: the error is 0 whenever the check above passed
-    rep["schedule"] = dict(ms=parts["schedule"], plain_ms=e0.elapsed_time(e1), bound_ms=b_ms,
-                           bound_by=b_by, max_abs_err=0.0, checked_rays=int(rsel.numel()))
 
     # the whole launch on a slice of rays against the same launch through
     # the plain versions
@@ -1109,7 +1189,7 @@ def wavefront_phase(kind, args, kw):
                   max_dist=kw["max_dist"][rsel])
     got = WF.trace_rays_wavefront(*sub_args, **sub_kw)
     kern = WF.schedule, WF.assigned_test
-    WF.schedule, WF.assigned_test = WF.schedule_plain, WF.assigned_test_plain
+    WF.schedule, WF.assigned_test = plain_schedule, WF.assigned_test_plain
     try:
         want = WF.trace_rays_wavefront(*sub_args, **sub_kw)
     finally:
@@ -1211,10 +1291,13 @@ def capture_packet_launches(renderer, frames):
     return [(k, a, kw, u) for k, (a, kw), u in zip(kinds, calls, unsorted)]
 
 
-def _pair_entry(b, o, d, maxd):
+def _pair_entry(b, o, d, maxd, exact0=False):
     """The kernels' slab test of rays (n, 3) against one box each (n, 6):
-    -> (entry, ok) (n,)."""
+    -> (entry, ok) (n,); `exact0`: K6's rule, also exact on a zero
+    direction axis (`packet_trace.zero_axis_inside`)."""
     import torch
+
+    from low_precision_raytracer_tpu_torch.ops.packet_trace import zero_axis_inside
 
     inv = 1.0 / d
     t1 = (b[:, :3] - o) * inv
@@ -1223,7 +1306,10 @@ def _pair_entry(b, o, d, maxd):
     tmin = torch.where(fin, torch.minimum(t1, t2), -3e38).amax(dim=1)
     tmax = torch.where(fin, torch.maximum(t1, t2), 3e38).amin(dim=1)
     e = torch.clamp(tmin - 0.02, min=0.0)
-    return e, fin.any(1) & (tmin <= tmax + 0.02) & (tmax + 0.02 >= 0) & (e < maxd)
+    ok = fin.any(1) & (tmin <= tmax + 0.02) & (tmax + 0.02 >= 0) & (e < maxd)
+    if exact0:
+        ok &= zero_axis_inside(b[:, :3], b[:, 3:], o, inv)
+    return e, ok
 
 
 def first_accepts(args, band, rays, step=256, slab_elems=1 << 24):
@@ -1253,19 +1339,21 @@ def first_accepts(args, band, rays, step=256, slab_elems=1 << 24):
     return first
 
 
-def walk_ops(args, t_final, tree, band=None, blocked=None, slices=None):
+def walk_ops(args, t_final, tree, band=None, blocked=None, slices=None, exact0=False):
     """Tree-walk operations (K1b, K6) this run's data needs: per live ray,
     one slab test per tree box (internal node or leaf) it enters no later
     than `t_final` (its closest hit, or 1e5), through ancestors it also
     enters so, and the row test (with the band's when there is one) per row
     of each such leaf; with `slices` (K1b's (4 NC, 6) 32-row slice boxes)
     a slab test per slice of each such leaf and the row test per row of
-    the slices it enters no later than `t_final`.  Counted level by level
-    from the root, in blocks of rays.  Under a widened band the kernels walk no tree: each live ray
-    tests the rows in order, all of them, or in an any-hit launch
+    the slices it enters no later than `t_final`.  `exact0`: boxes are
+    entered by K6's rule (exact on a zero direction axis), else by the slab
+    test alone (`box_entry`).  Counted level by level from the root, in
+    blocks of rays.  Under a widened band the kernels walk no tree: each
+    live ray tests the rows in order, all of them, or in an any-hit launch
     (`blocked`, the kernel's result (R,)) a blocked ray up to and including
     its first accepted row.  -> (ops, boxes entered, rows tested, leaves
-    entered per live ray (n_live,))."""
+    entered per ray (R,), 0 for a dead ray)."""
     import torch
 
     from low_precision_raytracer_tpu_torch.ops.dense_trace import FAN
@@ -1273,6 +1361,7 @@ def walk_ops(args, t_final, tree, band=None, blocked=None, slices=None):
     o, d, _skip, mind, maxd, coef = args[:6]
     TI = coef.shape[0]
     live = torch.nonzero(maxd > mind)[:, 0]
+    per_ray = torch.zeros(o.shape[0], dtype=torch.float32, device=o.device)
     if band is not None and band.widened:
         n_rows = live.numel() * TI
         if blocked is not None:
@@ -1282,10 +1371,9 @@ def walk_ops(args, t_final, tree, band=None, blocked=None, slices=None):
                 raise AssertionError(f"{int((first < 0).sum())} blocked rays accept no row "
                                      "in the plain per-row test")
             n_rows -= int((TI - 1 - first).sum())
-        return float(n_rows) * row_ops(band), 0, n_rows, torch.zeros(0, device=o.device)
+        return float(n_rows) * row_ops(band), 0, n_rows, per_ray
     L = len(tree.sizes)
     offs = tree.levels[:L].tolist()
-    per_ray = torch.zeros(o.shape[0], dtype=torch.float32, device=o.device)
     n_boxes = n_rows = 0
     for r0 in range(0, live.numel(), 1 << 17):
         ray = live[r0:r0 + (1 << 17)]
@@ -1295,7 +1383,7 @@ def walk_ops(args, t_final, tree, band=None, blocked=None, slices=None):
                 ch = node[:, None] * FAN + torch.arange(FAN, device=ray.device)[None, :]
                 ok = ch < tree.sizes[lvl]
                 ray, node = ray[:, None].expand(-1, FAN)[ok], ch[ok]
-            e, ok = _pair_entry(tree.boxes[offs[lvl] + node], o[ray], d[ray], maxd[ray])
+            e, ok = _pair_entry(tree.boxes[offs[lvl] + node], o[ray], d[ray], maxd[ray], exact0)
             keep = ok & (e <= t_final[ray])
             ray, node = ray[keep], node[keep]
             n_boxes += int(keep.sum())
@@ -1308,22 +1396,97 @@ def walk_ops(args, t_final, tree, band=None, blocked=None, slices=None):
         has = sl * 32 < TI
         ray, sl = ray[:, None].expand(-1, per)[has], sl[has]
         n_boxes += sl.numel()
-        e, ok = _pair_entry(slices[sl], o[ray], d[ray], maxd[ray])
+        e, ok = _pair_entry(slices[sl], o[ray], d[ray], maxd[ray], exact0)
         sl = sl[ok & (e <= t_final[ray])]
         n_rows += int(torch.clamp(TI - sl * 32, max=32).sum())
     return (float(n_boxes) * BOX_TEST_OPS + float(n_rows) * row_ops(band), n_boxes, n_rows,
-            per_ray[live])
+            per_ray)
 
 
-def k6_phase(launches, leaves, scene="colonnade-2M"):
-    """K6 on each recorded launch: timed on the full launch, held against
-    the plain version on a strided slice of HUGE_CHECK rays (every output
-    exact; that call timed as the plain version), its bound from the data;
-    the sorted launches also unsorted, and their key and sort + unsort on
-    their own.  -> report."""
+def _quantiles(x):
+    """[p50, p90, p99, max] of a 1-d tensor (empty: [])."""
     import torch
 
-    from low_precision_raytracer_tpu_torch.ops.dense_trace import dense_trace_multi_plain
+    if x.numel() == 0:
+        return []
+    q = torch.tensor([0.5, 0.9, 0.99], device=x.device)
+    return [float(v) for v in torch.quantile(x.float(), q)] + [float(x.max())]
+
+
+def leaf_split(o, d, live, per_old, per_new, lights):
+    """Leaves entered per live ray (p50, p90, p99, max) under box_entry
+    (`per_old`) and K6's zero-axis rule (`per_new`), split by the rays'
+    exact zero direction components (by axis, and none) and, for a shadow
+    launch laid out lane-major over `lights` lights, by light (light 0 the
+    sun).  -> dict."""
+    zero = d == 0
+    groups = {"all": live, "x0": live & zero[:, 0], "y0": live & zero[:, 1],
+              "z0": live & zero[:, 2], "no_zero": live & ~zero.any(dim=1)}
+    if lights > 1:
+        import torch
+
+        light = torch.arange(o.shape[0], device=o.device) // (o.shape[0] // lights)
+        for li in range(lights):
+            on = live & (light == li)
+            groups[f"light{li}"] = on
+            groups[f"light{li}_no_zero"] = on & ~zero.any(dim=1)
+            groups[f"light{li}_x0"] = on & zero[:, 0]
+    return {name: dict(rays=int(m.sum()), box_entry=_quantiles(per_old[m]),
+                       exact0=_quantiles(per_new[m])) for name, m in groups.items()}
+
+
+def face_rays(args, leaves, n, seed=0):
+    """`n` rays of the launch `args` (strided), each turned to have one
+    exact zero direction component and its origin exactly on a face of a
+    random leaf in the plane of that face (inside the leaf's span on the
+    other axes), the edge case of K6's zero-axis rule.  -> the launch's
+    arguments on those rays."""
+    import torch
+
+    o, d, skip, mind, maxd = args[:5]
+    lo, hi, tree = leaves
+    n0 = tree.sizes[0]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    R = o.shape[0]
+    sel = torch.arange(0, R, max(1, R // n), device=o.device)[:n]
+    m = sel.numel()
+    leaf = torch.randint(0, n0, (m,), generator=g).to(o.device)
+    ax = torch.randint(0, 3, (m,), generator=g).to(o.device)
+    side = torch.rand((m,), generator=g).to(o.device) < 0.5
+    frac = torch.rand((m, 3), generator=g).to(o.device)
+    llo, lhi = lo[leaf], hi[leaf]
+    oo = llo + frac * (lhi - llo)
+    idx = torch.arange(m, device=o.device)
+    oo[idx, ax] = torch.where(side, llo[idx, ax], lhi[idx, ax])
+    dd = d[sel].clone()
+    dd[idx, ax] = 0.0
+    dd = dd / torch.linalg.norm(dd, dim=1, keepdim=True).clamp(min=1e-30)
+    bad = ~torch.isfinite(dd).all(dim=1) | (dd.abs().sum(dim=1) == 0)
+    dd[bad] = torch.tensor([0.0, 1.0, 0.0], device=o.device)
+    mx = torch.where(maxd[sel] > mind[sel], maxd[sel], 40.0)
+    return [oo.contiguous(), dd.contiguous(), skip[sel].contiguous(), mind[sel].contiguous(),
+            mx.contiguous()] + list(args[5:])
+
+
+def k6_phase(launches, leaves, scene="colonnade-2M", chunks=None, check_rays=HUGE_CHECK,
+             lights=1):
+    """K6 on each recorded launch: timed on the full launch in both
+    persistences (the wrapper persists in any hit), held against the plain
+    version on `check_rays` rays (a strided slice; with `chunks` also the
+    launch's `check_rays // 16` rays with the most leaves under box_entry,
+    and a launch of face rays, `face_rays`), every output exact; with
+    `chunks` (K1b's chunk boxes, tree and slice boxes of the same table)
+    also held equal to K1b on every ray, both timed, and the leaves entered
+    per ray measured under both box rules (`leaf_split`).  Its bound from
+    the data under the kernel's rule (`walk_ops`), the old rule's count
+    beside it.  The sorted launches also unsorted, and their key and sort +
+    unsort on their own.  -> report."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import (
+        dense_trace_multi,
+        dense_trace_multi_plain,
+    )
     from low_precision_raytracer_tpu_torch.ops.packet_trace import (
         morton_key,
         packet_trace,
@@ -1334,15 +1497,54 @@ def k6_phase(launches, leaves, scene="colonnade-2M"):
     per = []
     for kind, args, kw, unsorted in launches:
         R = args[0].shape[0]
+        dev = args[0].device
         find_any = kw.get("find_any", False)
+        band = kw["band"]
         out = packet_trace(*args, **kw)
         torch.cuda.synchronize()
-        sel = torch.arange(0, R, max(1, R // HUGE_CHECK), device=args[0].device)[:HUGE_CHECK]
+        rec = dict(kind=kind, rays=R, live=int((args[4] > args[3]).sum()),
+                   hits=int((out[3] >= 0).sum()))
+        # the bound, and the leaves entered per ray under both rules, on the
+        # rays in the launch's lane-major order (a sorted launch: as the sort
+        # received them); any-hit rays need the boxes up to their closest
+        # blocker
+        margs = list(unsorted if unsorted is not None else args)
+        t_final = packet_trace(*margs, **dict(kw, find_any=False))[0]
+        if find_any:
+            m_out = packet_trace(*margs, **kw)
+            t_final = torch.where(m_out[3] >= 0, t_final, 1e5)
+        blocked = (out[3] >= 0) if find_any else None
+        m_blocked = (m_out[3] >= 0) if find_any else None
+        n_ops, n_boxes, n_rows, per_new = walk_ops(margs, t_final, tree, band,
+                                                   blocked=m_blocked, exact0=True)
+        o_ops, o_boxes, o_rows, per_old = (n_ops, n_boxes, n_rows, per_new) if band.widened \
+            else walk_ops(margs, t_final, tree, band, blocked=m_blocked)
+        n_bytes = nbytes(*args[:10], tree.boxes) + nbytes(*out)
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        live = margs[4] > margs[3]
+        rec.update(bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, ops=n_ops, boxes_entered=n_boxes,
+                   rows_tested=n_rows, bound_ms_box_entry=bound_ms(n_bytes, o_ops)[0],
+                   boxes_entered_box_entry=o_boxes, rows_tested_box_entry=o_rows,
+                   leaves_per_live_ray=_quantiles(per_new[live]),
+                   leaves_per_live_ray_box_entry=_quantiles(per_old[live]))
+        if chunks is not None:
+            rec["leaf_split"] = leaf_split(margs[0], margs[1], live, per_old, per_new,
+                                           lights if find_any else 1)
+
+        # the plain version on the sample
+        sel = torch.arange(0, R, max(1, R // check_rays), device=dev)[:check_rays]
+        if chunks is not None:  # ... with the rays entering the most leaves (box_entry)
+            per_old_k = per_old
+            if unsorted is not None:  # in the kernel's order: the sort's permutation
+                o, d, mn, mx = unsorted[0], unsorted[1], unsorted[3], unsorted[4]
+                per_old_k = per_old[torch.sort(morton_key(o, d, live=mx > mn),
+                                               stable=True).indices]
+            top = torch.topk(per_old_k, check_rays // 16).indices
+            sel = torch.unique(torch.cat([sel[:check_rays - top.numel()], top]))
         sub = [a[sel].contiguous() for a in args[:5]] + list(args[5:8])
-        band = kw["band"]
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0.record()
-        ref = dense_trace_multi_plain(*sub, find_any=find_any, band=band, slab_elems=1 << 26)
+        ref = dense_trace_multi_plain(*sub, find_any=find_any, band=band, slab_elems=1 << 27)
         t1.record()
         t1.synchronize()
         plain_ms = t0.elapsed_time(t1)
@@ -1350,29 +1552,46 @@ def k6_phase(launches, leaves, scene="colonnade-2M"):
         for name, a, b in zip(("t", "u", "v", "tri", "obj"), out, ref):
             a = a[sel]
             if not torch.equal(a, b):
-                raise AssertionError(f"packet_trace {kind}: {name} differs from the plain "
-                                     f"version on {int((a != b).sum())} of {sel.numel()} rays")
+                raise AssertionError(f"packet_trace {scene} {kind}: {name} differs from the "
+                                     f"plain version on {int((a != b).sum())} of {sel.numel()} "
+                                     "rays")
             if a.dtype == torch.float32:
                 err = max(err, float((a - b).abs().max()))
-        # the bound: any-hit rays need the boxes up to their closest blocker
-        t_final = out[0] if not find_any else torch.where(
-            out[3] >= 0, packet_trace(*args, **dict(kw, find_any=False))[0], 1e5)
-        n_ops, n_boxes, n_rows, leaves_per_ray = walk_ops(
-            args, t_final, tree, kw.get("band"), blocked=out[3] >= 0 if find_any else None)
-        q = torch.tensor([0.5, 0.9, 0.99], device=leaves_per_ray.device)
-        leaf_q = [float(x) for x in torch.quantile(leaves_per_ray, q)] if n_boxes else []
-        n_bytes = nbytes(*args[:10], tree.boxes) + nbytes(*out)
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        zero_sel = int((sub[1] == 0).any(dim=1).sum())
+        rec.update(plain_ms=plain_ms, plain_ms_on="sample", checked_rays=int(sel.numel()),
+                   checked_zero_axis_rays=zero_sel, max_abs_err=err)
+        del ref
+        if chunks is not None:
+            # face rays: one exact zero axis, the origin on a leaf face
+            fargs = face_rays(args, leaves, 1024, seed=len(per))
+            fout = packet_trace(*fargs, **kw)
+            fref = dense_trace_multi_plain(*fargs[:8], find_any=find_any, band=band,
+                                           slab_elems=1 << 27)
+            if not all(torch.equal(a, b) for a, b in zip(fout, fref)):
+                raise AssertionError(f"packet_trace {scene} {kind}: face rays differ from the "
+                                     "plain version")
+            rec["face_rays_checked"] = int(fargs[0].shape[0])
+            rec["face_rays_hits"] = int((fout[3] >= 0).sum())
+            # K1b on every ray of the launch, the same table
+            c_lo, c_hi, c_tree, c_slices = chunks
+            k1b = lambda: dense_trace_multi(*args[:8], c_lo, c_hi, find_any=find_any, band=band,
+                                            tree=c_tree, slices=c_slices)
+            want = k1b()
+            torch.cuda.synchronize()
+            for name, a, b in zip(("t", "u", "v", "tri", "obj"), out, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"packet_trace {scene} {kind}: {name} differs from K1b "
+                                         f"on {int((a != b).sum())} of {R} rays")
+            del want
+            rec["equal_to_k1b_rays"] = R
+            rec["k1b_ms"] = cuda_ms(k1b, 3)
         ms = cuda_ms(lambda: packet_trace(*args, **kw), 5)
-        rec = dict(kind=kind, rays=R, live=int((args[4] > args[3]).sum()),
-                   hits=int((out[3] >= 0).sum()), ms=ms, prev_ms=PREV_LAUNCH_MS.get((scene, kind)),
-                   plain_ms=plain_ms, plain_ms_on="slice", slice_ms=cuda_ms(
-                       lambda: packet_trace(*sub, *args[8:10], **kw), 5),
-                   bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                   checked_rays=int(sel.numel()), bytes=n_bytes, ops=n_ops,
-                   boxes_entered=n_boxes, rows_tested=n_rows,
-                   leaves_per_live_ray_p50_p90_p99=leaf_q,
-                   leaves_per_live_ray_max=float(leaves_per_ray.max()) if n_boxes else 0.0)
+        other = not find_any  # the wrapper persists in any hit
+        rec.update(ms=ms, prev_ms=PREV_LAUNCH_MS.get((scene, kind)), other_persist=other,
+                   other_persist_ms=cuda_ms(lambda: packet_trace(*args, **dict(kw, persist=other)),
+                                            5),
+                   slice_ms=cuda_ms(lambda: packet_trace(*sub, *args[8:10], **kw), 5))
+        rec["ratio"] = ms / b_ms
         if unsorted is not None:
             srt = packet_trace_sorted(*unsorted, **kw)
             direct = packet_trace(*unsorted, **kw)
@@ -1405,8 +1624,10 @@ def colonnade_328k():
 
 def colonnade_328k_kernel_phase(cfg):
     """K1b on colonnade-328k's primary and round-0 shadow launches (2,567
-    chunks), each held to the plain version on a strided slice of BIG_CHECK
-    rays.  -> K1b report."""
+    chunks), held to the plain version on a strided slice of BIG_CHECK rays
+    (primary) and of 2^20 rays (the shadows); the schedule kernel on its
+    two wavefront launches (`schedule_holds`).  -> (K1b report, schedule
+    reports)."""
     import torch
 
     from low_precision_raytracer_tpu_torch.ops import trace as T
@@ -1423,10 +1644,12 @@ def colonnade_328k_kernel_phase(cfg):
     rep = k1b_phase([(kind, a, kw, None) for kind, (_n, a, kw)
                      in zip(("primary", "shadow0"), calls[:2])],
                     check_rays=BIG_CHECK, reps=3, plain_on_slice=True, scene="colonnade-328k",
-                    every_ray=("shadow0",))
+                    check_by_kind={"shadow0": 1 << 20})
+    sched = [schedule_holds("colonnade-328k", kind, a, kw)
+             for kind, (_n, a, kw) in zip(("gi", "shadow1"), calls[2:])]
     del calls
     torch.cuda.empty_cache()
-    return rep
+    return rep, sched
 
 
 def colonnade_kernel_phase(cfg):
@@ -1555,7 +1778,7 @@ def rounds_phase(kind, args, kw):
                   max_dist=kw["max_dist"][rsel])
     got = WF.trace_rays_wavefront(*sub_args, **sub_kw)
     kern = WF.schedule, WF.assigned_test
-    WF.schedule, WF.assigned_test = WF.schedule_plain, WF.assigned_test_plain
+    WF.schedule, WF.assigned_test = plain_schedule, WF.assigned_test_plain
     try:
         want = WF.trace_rays_wavefront(*sub_args, **sub_kw)
     finally:
@@ -1897,9 +2120,13 @@ def main(argv) -> int:
         f"{warm.frame.dense_leaf_lo.shape[0]} leaves, tree levels {leaves[2].sizes}; "
         f"leaf box extent (largest axis) p50/p90/p99 {ext_q}, max {float(ext.max())}, "
         f"{int((ext > 1.0).sum())} leaves wider than 1")
+    c_lo, c_hi, c_tree = T._chunk_tables(warm.frame)
+    chunks = (c_lo, c_hi, c_tree, T._slice_table(warm.frame))
+    log(f"colonnade-2M: K1b's chunk tree levels {c_tree.sizes}")
     del warm
-    reports["packet_trace"] = k6_phase(launches, leaves)
-    del launches, leaves
+    reports["packet_trace"] = k6_phase(launches, leaves, chunks=chunks, check_rays=1 << 16,
+                                       lights=2)
+    del launches, leaves, chunks
     torch.cuda.empty_cache()
     elapsed()
 
@@ -1973,8 +2200,11 @@ def main(argv) -> int:
     elapsed()
 
     # ---- colonnade-328k (bf16): K1b at 2,567 chunks, the wavefront
-    k1b_328k = colonnade_328k_kernel_phase(cfg)
+    k1b_328k, sched_328k = colonnade_328k_kernel_phase(cfg)
     log(f"colonnade-328k K1b: {json.dumps(k1b_328k)}")
+    log("colonnade-328k schedule (ms, bound ms from the walk's box tests / the flat scan's): "
+        + json.dumps([dict(kind=r["kind"], ms=r["ms"], bound_ms=r["bound_ms"],
+                           bound_ms_flat=r["bound_ms_flat"]) for r in sched_328k]))
     run_path("colonnade-328k", colonnade_328k, big)
     elapsed()
 

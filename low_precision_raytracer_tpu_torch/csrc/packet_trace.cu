@@ -15,42 +15,59 @@
 // miss.  Any hit: tri = 0 if some triangle accepts, else -1; t = 1e5,
 // u = v = 0, obj = -1 either way.
 //
-// Design: one thread per ray, an ordered depth-first walk of an implicit
-// 4-ary tree with a per-thread stack (trace_common.cuh:tree_trace_kernel).
-// Level 0 is the leaves (32 consecutive rows of the morton-ordered table
-// each, with their widened world AABBs); node i of level l + 1 is the union
-// of nodes 4i .. 4i + 3 of level l (ops/packet_trace.py:build_tree), up to
-// one root.  Children are pushed farthest entry first, nodes beyond the best
-// t skipped, ties by (t, tri, row), any hit stopping at its first accepted
-// row: the result equals the plain version's global minimum bit for bit.
+// Design, for the forms whose acceptance stays inside the triangle ('mxu3'
+// and the f32 'both' band): the warp walk of chunk_walk.cuh, K1b's.  The
+// packet BVH is an implicit 4-ary tree over the morton-ordered 32-row leaves
+// (ops/dense_trace.py:build_tree), so its level-1 nodes are exactly the
+// 128-row chunks of 4 leaves: the walk takes levels 1.. as its chunk tree
+// and the leaves as its slices (ops/packet_trace.py:walk_view), with the
+// table re-laid for coalesced row loads (lane_table).  Each lane walks its
+// ray's tree nearest entry first with its stack in shared memory; the warp
+// tests each waiting ray's leaves with one row a lane and merges the
+// accepting lanes in (t, tri, row) order; an any-hit ray leaves at its first
+// accepted row.  The boxes are tested by box_entry_exact0: on a zero
+// direction axis the origin must lie inside the box (with a margin), where
+// box_entry let such a ray enter every box its other slabs cross (the
+// colonnade's sun rays, d_x = 0, entered over 1,500 leaves a ray).  The
+// result equals the plain version's global minimum bit for bit.  The
+// widened forms (sub-f32 bands, 'dtype') scan every row
+// (trace_common.cuh:scan_trace_kernel).
 //
-// What bounds it on the H100: operations, by the data — per live ray a slab
+// What bounds it on the H100: operations, by the data: per live ray a slab
 // test (34 ops) per box it enters before its hit and ~40 f32 operations per
-// row of each leaf it tests (~60 more in a band).  The table (48 B/row,
-// 98 MB at 2M rows; 112 B/row with a sub-f32 form's band rows) is read through the read-only cache; neighbouring rays
-// (screen order, or the morton sort of incoherent launches) share leaves.
-// None of the TPU kernel's packet scheduling (512-ray packets sharing a leaf
-// list, the list rows and their SMEM pipeline, 7-bit quantised bounds, the
-// overflow walk, GSZ grouping for the MXU, the streamed table, screen
-// tiling) has a counterpart here.  Built with --fmad=false so the test
-// rounds like its plain version.
+// row of each leaf it tests (~60 more in a band).  The table (48 B/row, 98
+// MB at 2M rows; 112 B/row with a sub-f32 form's band rows) is read through
+// the read-only cache; neighbouring rays (screen order, or the morton sort
+// of incoherent launches) share leaves.  None of the TPU kernel's packet
+// scheduling (512-ray packets sharing a leaf list, the list rows and their
+// SMEM pipeline, 7-bit quantised bounds, the overflow walk, GSZ grouping for
+// the MXU, the streamed table, screen tiling) has a counterpart here.  Built
+// with --fmad=false so the test rounds like its plain version.
 
-#include "trace_common.cuh"
+#include "chunk_walk.cuh"
 
-#define LPRT_LEAF 32
-
+// boxes / levels / n_levels: the chunk tree (the packet tree's levels 1..),
+// slices: the 32-row leaf boxes, lanes: lane_table(coef), stack_cap: the
+// walk's stack entries, persist: resident blocks pulling rays from
+// status[1].  The widened forms read coef and scan every row.
 extern "C" int lprt_packet_trace(const float* orig, const float* dir,
                                  const int* skip, const float* mind,
                                  const float* maxd, const float* coef,
                                  const int* tri_id, const int* obj_id,
                                  const float* boxes, const int* levels,
+                                 const float* lanes, const float* slices,
                                  int n_levels, int R, int TI, int find_any,
-                                 int pack, int form, float k0, float k1, float k2,
+                                 int form, int stack_cap, int persist,
+                                 float k0, float k1, float k2,
                                  float* t_out, float* u_out, float* v_out,
                                  int* tri_out, int* obj_out, int* status,
                                  void* stream) {
-  return lprt::launch_tree_trace<LPRT_LEAF, false>(
-      orig, dir, skip, mind, maxd, coef, tri_id, obj_id, boxes, levels,
-      n_levels, R, TI, find_any, pack, form, k0, k1, k2, t_out, u_out, v_out,
-      tri_out, obj_out, status, stream);
+  if (LPRT_WIDENED(form))
+    return lprt::launch_scan_trace<false>(orig, dir, skip, mind, maxd, coef, tri_id, obj_id, R,
+                                          TI, find_any, 0, form, k0, k1, k2, t_out, u_out,
+                                          v_out, tri_out, obj_out, stream);
+  return lprt::walk::launch_walk_forms<false, true>(
+      orig, dir, skip, mind, maxd, lanes, tri_id, obj_id, boxes, slices, levels, n_levels, R, TI,
+      find_any, 0, form, stack_cap, persist, k0, k1, k2, t_out, u_out, v_out, tri_out, obj_out,
+      status, stream);
 }

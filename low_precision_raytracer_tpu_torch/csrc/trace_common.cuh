@@ -21,12 +21,12 @@
 //   Plain version: ops/dense_trace.py:m_shift_test and band_accept.
 // - box_entry: the conservative slab test of ops/dense_trace.py:
 //   ray_aabb_entry (0.02 of slop, axes with non-finite slab distances
-//   skipped).
-// - tree_trace_kernel<LEAF, FORM, PACK>: closest or any hit over a table of
-//   any size, one thread per ray walking an implicit 4-ary tree of boxes
-//   (ops/dense_trace.py:build_tree) whose leaves each hold LEAF consecutive
-//   rows: K1b walks its 128-row chunks, K6 its 32-row leaves.  PACK (K1b
-//   only) takes the packed winner epilogue (PackedBest).
+//   skipped); box_entry_exact0: the same, exact on a zero direction axis
+//   (K6's walk).
+// - scan_trace_kernel<FORM, PACK>: closest or any hit of every row under a
+//   widened acceptance, one thread per ray (K1b's and K6's band forms).  The
+//   forms whose acceptance stays inside the triangle walk a tree of boxes
+//   instead (chunk_walk.cuh).
 //
 // Every expression keeps the plain versions' order of operations, and the
 // sources build with --fmad=false, so a kernel rounds like its plain
@@ -49,7 +49,7 @@
 #define LPRT_KIND(f) ((f) & 3)
 #define LPRT_OPERAND(f) ((f) & (LPRT_OPERAND_BF16 | LPRT_OPERAND_FP16))
 // a widened acceptance (sub-f32, or 'dtype') can accept points outside the
-// triangle's box: the tree walk then tests every row
+// triangle's box: K1b and K6 then walk no tree and test every row
 #define LPRT_WIDENED(f) (LPRT_OPERAND(f) || ((f) & LPRT_FLAG_DTYPE))
 // floats per table row: 12 f32 columns, then 16 band rows in sub-f32 forms
 #define LPRT_ROW(f) (LPRT_OPERAND(f) ? 28 : 12)
@@ -252,66 +252,82 @@ __device__ __forceinline__ bool box_entry(const float* __restrict__ b, float ox,
   return any_fin && (tmin <= tmax + slop) && (tmax + slop >= 0.f) && (e < maxd);
 }
 
-// The tree walk.  What it computes, per ray: the tri_test<FORM> of every
-// row, a hit also needing mind < t < maxd, tri != skip and a finite t.
-// Closest hit: the (t, tri, row)-lexicographic minimum, t = 1e5 / ids -1 on
-// a miss.  Any hit: tri = 0 if some row accepts, else -1; t = 1e5,
-// u = v = 0, obj = -1 either way.
+// box_entry made exact on a zero direction axis (K6's walk only; the
+// schedule's words and K1b's walk keep box_entry).  box_entry skips an axis
+// whose slab distances are not finite, so a ray with d_a = 0 enters every box
+// whose other slabs it crosses, whatever the box's extent on a: the sun of
+// sponza_like_scene (a rotation about x) sends every shadow ray along such a
+// band.  Here an axis whose 1/d is infinite (d_a = +-0, or |d_a| < 2^-128,
+// which moves the ray less than 1e-33 over any segment) also needs the origin
+// inside the box on that axis, by the margin
+//   m = LPRT_ZERO_AXIS_MARGIN (1 + |o_x| + |o_y| + |o_z|),
+// then box_entry decides as before: a subset of box_entry's boxes.
+// Why it keeps every accepted row: on such an axis every point of the
+// segment has coordinate o_a, so an accepted point lies at o_a.  A leaf box
+// is its rows' f32 vertex bounds widened by 1e-3 of its extent + 1e-4
+// (models/scene.py:_group_aabbs), recentred like the rays (one rounding,
+// ops/trace.py:_box_tables); the strict f32 test (and the f32 'both' band,
+// strict up to ~2^-20) accepts a point at most ~gamma_8 S (1 + aspect)
+// outside its triangle, gamma_8 ~ 4.8e-7, S the magnitude of the recentred
+// coordinates it combines, aspect the triangle's edge over its height.  m
+// and the widening cover that for S up to 1 + |o|_1 and an aspect up to
+// ~200; past that, the widening alone covers it, as it does for box_entry
+// on any axis with d_a != 0 (there the 0.02 slop in t is 0.02 |d_a| in
+// space, which vanishes as d_a -> 0).  The comparison needs no product, so
+// o_a == lo_a is exact (box_entry's (lo_a - o_a) * inf is NaN there).  An
+// internal node is a union of its leaves, so it passes whenever a leaf
+// below it does.  Plain version: ops/packet_trace.py:zero_axis_inside.
+#define LPRT_ZERO_AXIS_MARGIN 1e-4f
+
+__device__ __forceinline__ bool box_entry_exact0(const float* __restrict__ b, float ox,
+                                                 float oy, float oz, float ix, float iy,
+                                                 float iz, float maxd, float* entry) {
+  const float o[3] = {ox, oy, oz};
+  const float inv[3] = {ix, iy, iz};
+  const float m = LPRT_ZERO_AXIS_MARGIN * (1.f + fabsf(ox) + fabsf(oy) + fabsf(oz));
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    if (isinf(inv[a])) {
+      if (!(__ldg(b + a) - m <= o[a] && o[a] <= __ldg(b + 3 + a) + m)) {
+        *entry = 0.f;
+        return false;
+      }
+    }
+  }
+  return box_entry(b, ox, oy, oz, ix, iy, iz, maxd, entry);
+}
+
+// The all-row scan of the widened acceptances (LPRT_WIDENED: the sub-f32
+// forms and 'dtype'), K1b's and K6's.  What it computes, per ray: the
+// tri_test<FORM> of every row, a hit also needing mind < t < maxd,
+// tri != skip and a finite t.  Closest hit: the (t, tri, row)-lexicographic
+// minimum, t = 1e5 / ids -1 on a miss.  Any hit: tri = 0 if some row
+// accepts, else -1; t = 1e5, u = v = 0, obj = -1 either way.
 //
-// Design: an ordered depth-first walk with a per-thread stack.  Level 0 is
-// the leaf boxes (rows [LEAF i, LEAF i + LEAF) each); node i of level l + 1
-// is the union of nodes 4i .. 4i + 3 of level l, up to one root.  Popping an
-// internal node slab-tests its children and pushes those the segment
-// enters, farthest first, so the nearest entry is visited next.  A node
-// whose entry lies beyond the best t so far is skipped when it is pushed
-// and again when it is popped (closest hit; `<=` keeps a node whose entry
-// equals the best t, since it may hold an equal-t hit with a smaller tri);
-// any hit stops at its first accepted row.  The boxes are conservative and
-// ties go by (t, tri, row), so the result does not depend on the walk: it
-// equals the plain version's global minimum bit for bit.  Dead lanes
-// (maxd <= mind) walk nothing.
-//
-// Under a widened acceptance (LPRT_WIDENED: the sub-f32 forms and 'dtype')
-// a row can accept a point well outside its triangle (a bf16 'dtype' band
-// reaches tens of percent of the barycentric range on distant hits), so
-// outside every box of the tree: there the kernel walks no tree and tests
-// every row, and the result is again the plain version's global minimum.
-// (The TPU kernels cull such hits by their tiles' boxes, which bound no
-// single ray; the JAX package's all-pairs XLA route, ops/dense.py, keeps
-// them, as this does.)
-//
-// Under PACK (closest hit, K1b's 128-row leaves) each leaf is a chunk of
-// the packed epilogue (PackedBest), in the walk and in the all-row scan
-// alike (there the key resets every LEAF rows).  The pruning stays exact:
-// a chunk's winner lies at or beyond the chunk box's entry.
-//
-// The stack holds at most 3 entries per internal level + 1, which
-// LPRT_MAX_STACK covers for up to LPRT_MAX_LEVELS levels; the entry points
-// refuse a deeper tree, and a push past the stack sets *status (the
-// wrapper raises), so no walk is ever cut short silently.
-template <int LEAF, int FORM, bool PACK>
-__global__ void tree_trace_kernel(
+// A widened test can accept a point well outside its triangle (a bf16
+// 'dtype' band reaches tens of percent of the barycentric range on distant
+// hits), so outside every box of a tree: one thread per ray tests every row
+// in order, and the result is the plain version's global minimum.  (The TPU
+// kernels cull such hits by their tiles' boxes, which bound no single ray;
+// the JAX package's all-pairs XLA route, ops/dense.py, keeps them, as this
+// does.  Culling that stays exact under the band is ROADMAP queue 1 item
+// 12.)  Under PACK (K1b's packed epilogue) every LPRT_SCAN_CHUNK rows are a
+// chunk of PackedBest.  Dead lanes (maxd <= mind) test nothing.
+#define LPRT_SCAN_CHUNK 128
+#define LPRT_SCAN_FORMS(X) X(5) X(6) X(9) X(10) X(13) X(14) X(18) X(22)
+#define LPRT_SCAN_PACK_FORMS(X) X(9) X(13)
+
+template <int FORM, bool PACK>
+__global__ void scan_trace_kernel(
     const float* __restrict__ orig, const float* __restrict__ dir,
     const int* __restrict__ skip, const float* __restrict__ mind,
     const float* __restrict__ maxd, const float4* __restrict__ coef,
-    const int* __restrict__ tri_id, const int* __restrict__ obj_id,
-    const float* __restrict__ boxes, const int* __restrict__ levels,
-    int n_levels, int R, int TI, int find_any, Band band,
-    float* __restrict__ t_out, float* __restrict__ u_out,
-    float* __restrict__ v_out, int* __restrict__ tri_out,
-    int* __restrict__ obj_out, int* __restrict__ status) {
-  __shared__ int s_off[LPRT_MAX_LEVELS], s_n[LPRT_MAX_LEVELS];
-  if (threadIdx.x < n_levels) {
-    s_off[threadIdx.x] = levels[threadIdx.x];
-    s_n[threadIdx.x] = levels[n_levels + threadIdx.x];
-  }
-  __syncthreads();
-
+    const int* __restrict__ tri_id, const int* __restrict__ obj_id, int R, int TI,
+    int find_any, Band band, float* __restrict__ t_out, float* __restrict__ u_out,
+    float* __restrict__ v_out, int* __restrict__ tri_out, int* __restrict__ obj_out) {
   constexpr int ROW = LPRT_ROW(FORM);
-  constexpr bool ORDERED = !LPRT_WIDENED(FORM);
-  static_assert(!ORDERED || ROW == 12, "the walk reads 12-float rows");
-  static_assert(!PACK || (LEAF & (LEAF - 1)) == 0, "a packed chunk is a power of 2");
-  constexpr int LMASK = LEAF - 1;  // the packed key's local-row bits
+  constexpr int LMASK = LPRT_SCAN_CHUNK - 1;  // the packed key's local-row bits
+  static_assert(LPRT_WIDENED(FORM), "the ordered forms walk a tree (chunk_walk.cuh)");
   int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   float ox = orig[3 * r], oy = orig[3 * r + 1], oz = orig[3 * r + 2];
@@ -322,12 +338,12 @@ __global__ void tree_trace_kernel(
   float bt = 1e5f, bu = 0.f, bv = 0.f;
   int btri = -1, brow = -1;
   PackedBest pb;
-  if (mx > mn && !ORDERED) {  // a widened acceptance: every row, in order
+  if (mx > mn) {
     float q[6];
     if (LPRT_OPERAND(FORM)) make_operand<FORM>(ox, oy, oz, dx, dy, dz, q);
     bool done = false;
-    for (int k0 = 0; k0 < TI && !done; k0 += LEAF) {
-      const int k1 = min(TI, k0 + LEAF);
+    for (int k0 = 0; k0 < TI && !done; k0 += LPRT_SCAN_CHUNK) {
+      const int k1 = min(TI, k0 + LPRT_SCAN_CHUNK);
       for (int k = k0; k < k1; ++k) {
         float c[ROW];
 #pragma unroll
@@ -362,88 +378,6 @@ __global__ void tree_trace_kernel(
       }
       if (PACK) pb.end_chunk(k0, LMASK);
     }
-  } else if (mx > mn) {  // the walk (the forms with 12-float rows)
-    float ix = 1.f / dx, iy = 1.f / dy, iz = 1.f / dz;
-    int st_node[LPRT_MAX_STACK];  // (level << LPRT_IDX_BITS) | index
-    float st_ent[LPRT_MAX_STACK];
-    int sp = 0;
-    const int top = n_levels - 1;
-    float e;
-    if (box_entry(boxes + 6 * s_off[top], ox, oy, oz, ix, iy, iz, mx, &e)) {
-      st_node[0] = top << LPRT_IDX_BITS;
-      st_ent[0] = e;
-      sp = 1;
-    }
-    bool blocked = false;
-    while (sp > 0) {
-      --sp;
-      const int node = st_node[sp];
-      if (!find_any && st_ent[sp] > (PACK ? pb.t : bt)) continue;
-      const int lvl = node >> LPRT_IDX_BITS;
-      const int idx = node & ((1 << LPRT_IDX_BITS) - 1);
-      if (lvl == 0) {
-        const int k1 = min(TI, (idx + 1) * LEAF);
-        for (int k = idx * LEAF; k < k1; ++k) {
-          float4 q0 = __ldg(coef + 3 * k), q1 = __ldg(coef + 3 * k + 1),
-                 q2 = __ldg(coef + 3 * k + 2);
-          const float c[12] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y,
-                               q1.z, q1.w, q2.x, q2.y, q2.z, q2.w};
-          float t, u, v;
-          bool geom = tri_test<FORM>(c, ox, oy, oz, dx, dy, dz, nullptr, band, t, u, v);
-          int tri = __ldg(tri_id + k);
-          bool acc = geom && (t > mn) && (t < mx) && (tri != sk) && isfinite(t);
-          if (!acc) continue;
-          if (PACK) {
-            if (t > 0.f) pb.row_test(t, u, v, k - idx * LEAF, LMASK);
-            continue;
-          }
-          if (find_any) {
-            blocked = true;
-            break;
-          }
-          if (t < bt || (t == bt && (tri < btri || (tri == btri && k < brow)))) {
-            bt = t;
-            bu = u;
-            bv = v;
-            btri = tri;
-            brow = k;
-          }
-        }
-        if (PACK) pb.end_chunk(idx * LEAF, LMASK);
-        if (blocked) break;
-        continue;
-      }
-      // children of an internal node, sorted farthest entry first
-      const int cl = lvl - 1;
-      const int c0 = idx * LPRT_FAN;
-      const int c1 = min(c0 + LPRT_FAN, s_n[cl]);
-      float ce[LPRT_FAN];
-      int cn[LPRT_FAN];
-      int n = 0;
-      for (int ch = c0; ch < c1; ++ch) {
-        if (!box_entry(boxes + 6 * (s_off[cl] + ch), ox, oy, oz, ix, iy, iz, mx, &e))
-          continue;
-        if (!find_any && e > (PACK ? pb.t : bt)) continue;
-        int j = n++;
-        while (j > 0 && ce[j - 1] <= e) {  // equal entries: the lower index on top
-          ce[j] = ce[j - 1];
-          cn[j] = cn[j - 1];
-          --j;
-        }
-        ce[j] = e;
-        cn[j] = ch;
-      }
-      if (sp + n > LPRT_MAX_STACK) {
-        atomicOr(status, 1);
-        break;
-      }
-      for (int j = 0; j < n; ++j) {
-        st_node[sp] = (cl << LPRT_IDX_BITS) | cn[j];
-        st_ent[sp] = ce[j];
-        ++sp;
-      }
-    }
-    if (blocked) btri = 0;
   }
   if (PACK) {  // (t, row, pk) into (t_out, tri_out, obj_out)
     t_out[r] = pb.t;
@@ -466,18 +400,16 @@ __global__ void tree_trace_kernel(
   obj_out[r] = brow >= 0 ? __ldg(obj_id + brow) : -1;
 }
 
-// Launch tree_trace_kernel<LEAF, form, pack> on `stream`; -> cudaError_t.
+// Launch scan_trace_kernel<form, pack> on `stream`; -> cudaError_t.
 // PACKABLE: the packed forms are built (K1b); elsewhere pack is refused.
-template <int LEAF, bool PACKABLE>
-int launch_tree_trace(const float* orig, const float* dir, const int* skip,
+template <bool PACKABLE>
+int launch_scan_trace(const float* orig, const float* dir, const int* skip,
                       const float* mind, const float* maxd, const float* coef,
-                      const int* tri_id, const int* obj_id, const float* boxes,
-                      const int* levels, int n_levels, int R, int TI,
-                      int find_any, int pack, int form, float k0, float k1,
-                      float k2, float* t_out, float* u_out, float* v_out,
-                      int* tri_out, int* obj_out, int* status, void* stream) {
-  if (n_levels < 1 || n_levels > LPRT_MAX_LEVELS || !valid_form(form) ||
-      (long long)TI > ((long long)LEAF << LPRT_IDX_BITS) ||
+                      const int* tri_id, const int* obj_id, int R, int TI, int find_any,
+                      int pack, int form, float k0, float k1, float k2, float* t_out,
+                      float* u_out, float* v_out, int* tri_out, int* obj_out,
+                      void* stream) {
+  if (!valid_form(form) || !LPRT_WIDENED(form) ||
       (pack && (!PACKABLE || find_any || !valid_pack_form(form))))
     return (int)cudaErrorInvalidValue;
   const int block = 128;
@@ -486,22 +418,20 @@ int launch_tree_trace(const float* orig, const float* dir, const int* skip,
   const Band band = {k0, k1, k2};
   const float4* c4 = reinterpret_cast<const float4*>(coef);
   cudaStream_t s = (cudaStream_t)stream;
-#define LPRT_TREE_ARGS                                                          \
-  orig, dir, skip, mind, maxd, c4, tri_id, obj_id, boxes, levels, n_levels, R, \
-      TI, find_any, band, t_out, u_out, v_out, tri_out, obj_out, status
-#define LPRT_TREE_FORM(f)     \
-  if (!pack && form == (f)) \
-    tree_trace_kernel<LEAF, (f), false><<<grid, block, 0, s>>>(LPRT_TREE_ARGS);
-  LPRT_FORMS(LPRT_TREE_FORM)
-#undef LPRT_TREE_FORM
+#define LPRT_SCAN_ARGS                                                                 \
+  orig, dir, skip, mind, maxd, c4, tri_id, obj_id, R, TI, find_any, band, t_out, u_out, \
+      v_out, tri_out, obj_out
+#define LPRT_SCAN_FORM(f) \
+  if (!pack && form == (f)) scan_trace_kernel<(f), false><<<grid, block, 0, s>>>(LPRT_SCAN_ARGS);
+  LPRT_SCAN_FORMS(LPRT_SCAN_FORM)
+#undef LPRT_SCAN_FORM
   if constexpr (PACKABLE) {
-#define LPRT_TREE_PACK_FORM(f) \
-  if (pack && form == (f))     \
-    tree_trace_kernel<LEAF, (f), true><<<grid, block, 0, s>>>(LPRT_TREE_ARGS);
-    LPRT_PACK_FORMS(LPRT_TREE_PACK_FORM)
-#undef LPRT_TREE_PACK_FORM
+#define LPRT_SCAN_PACK_FORM(f) \
+  if (pack && form == (f)) scan_trace_kernel<(f), true><<<grid, block, 0, s>>>(LPRT_SCAN_ARGS);
+    LPRT_SCAN_PACK_FORMS(LPRT_SCAN_PACK_FORM)
+#undef LPRT_SCAN_PACK_FORM
   }
-#undef LPRT_TREE_ARGS
+#undef LPRT_SCAN_ARGS
   return (int)cudaGetLastError();
 }
 

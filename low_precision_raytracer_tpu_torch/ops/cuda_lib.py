@@ -49,7 +49,7 @@ SIGNATURES = {
         "lprt_wavelet": [P, P, I, I, I, I, F, F, F, P, P],
     },
     "wavefront": {
-        "lprt_wavefront_schedule": [P] * 5 + [I] * 4 + [P] * 2 + [P],
+        "lprt_wavefront_schedule": [P] * 6 + [I] * 6 + [P] * 3 + [P],
         "lprt_wavefront_assigned": [P] * 6 + [I, I] + [P, P] + [I] * 4 + [P] * 3 + [P],
     },
     "mxu_proto": {
@@ -57,7 +57,7 @@ SIGNATURES = {
         "lprt_mxu_proto_mxu": [P] * 4 + [I] * 5 + [P] * 3 + [P],
     },
     "packet_trace": {
-        "lprt_packet_trace": [P] * 10 + [I] * 5 + [I, F, F, F] + [P] * 6 + [P],
+        "lprt_packet_trace": [P] * 12 + [I] * 7 + [F] * 3 + [P] * 6 + [P],
     },
 }
 

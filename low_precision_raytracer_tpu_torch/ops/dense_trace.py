@@ -52,13 +52,16 @@ sort, trace, unsort; `sorted_launch` also serves the packet BVH's).
 `m_shift_test` and `band_accept` (the test's arithmetic, shared by the
 plain versions), the acceptances (`Band`, `dense_band`, `packet_band`),
 `coef_table` and `band_rows` (the kernels' table layout), `build_tree`
-(the box tree K1b and K6 walk), `tree_launch` (K6's launch) and
+(the box trees K1b, K6 and the wavefront's schedule walk), `lane_table`
+and `walk_stack` (what the warp walk K1b and K6 share reads, in
+`csrc/chunk_walk.cuh`), `per_table` (the per-frame-table cache) and
 `scene_exit_cap` (the per-ray reach cap of the wavefront and of the
 multi-chunk dense launches) sit here too.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -523,6 +526,24 @@ def dense_trace_multi_plain(origins, directions, skip, mind, maxd, coef, tri_ids
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
+_TABLE_CACHE: dict = {}
+
+
+def per_table(anchor: torch.Tensor, key, build):
+    """`build()`, once per frame table and `key`: the result is kept while
+    `anchor` (a tensor of that table) lives, and entries whose anchor died
+    are dropped."""
+    k = (id(anchor), key)
+    hit = _TABLE_CACHE.get(k)
+    if hit is not None and hit[0]() is anchor:
+        return hit[1]
+    for dead in [d for d, (ref, _) in _TABLE_CACHE.items() if ref() is None]:
+        del _TABLE_CACHE[dead]
+    value = build()
+    _TABLE_CACHE[k] = (weakref.ref(anchor), value)
+    return value
+
+
 class BoxTree(NamedTuple):
     """An implicit FAN-ary tree over boxes that each hold `leaf`
     consecutive table rows, in the rays' frame."""
@@ -563,36 +584,6 @@ def build_tree(leaf_lo, leaf_hi, n_rows: int, leaf: int) -> BoxTree:
                                                                      reversed(his))])
     levels = torch.tensor(offsets + list(sizes), dtype=torch.int32, device=leaf_lo.device)
     return BoxTree(boxes.contiguous(), levels, sizes, leaf)
-
-
-def tree_launch(name, origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
-                tree: BoxTree, find_any: bool, band: Band):
-    """Launch the per-thread tree walk of csrc/<name>.cu
-    (`trace_common.cuh:tree_trace_kernel`; K6 'packet_trace') on CUDA
-    tensors checked by the caller.  A push past a walk's stack sets a
-    status word, on which this raises (one host sync per launch).  -> (t,
-    u, v, tri, obj)."""
-    dev = origins.device
-    if coef.data_ptr() % 16:
-        raise ValueError(f"{name}: the coefficient table must be 16-byte aligned")
-    R, TI = origins.shape[0], coef.shape[0]
-    t = torch.empty((R,), dtype=torch.float32, device=dev)
-    tri = torch.empty((R,), dtype=torch.int32, device=dev)
-    obj = torch.empty_like(tri)
-    u, v = torch.empty_like(t), torch.empty_like(t)
-    status = torch.zeros((1,), dtype=torch.int32, device=dev)
-    lib = cuda_lib.library(name)
-    code = getattr(lib, f"lprt_{name}")(
-        origins.data_ptr(), directions.data_ptr(), skip.data_ptr(), mind.data_ptr(),
-        maxd.data_ptr(), coef.data_ptr(), tri_ids.data_ptr(), obj_ids.data_ptr(),
-        tree.boxes.data_ptr(), tree.levels.data_ptr(), len(tree.sizes), R, TI,
-        int(find_any), 0, *band, t.data_ptr(), u.data_ptr(), v.data_ptr(), tri.data_ptr(),
-        obj.data_ptr(), status.data_ptr(), cuda_lib.stream_ptr(dev),
-    )
-    cuda_lib.check(code, name)
-    if int(status.item()):
-        raise RuntimeError(f"{name}: a ray's walk overflowed the kernel's stack")
-    return t, u, v, tri, obj
 
 
 SLICE = 32  # K1b: rows per slice box (four a chunk), one row per lane of a warp

@@ -23,14 +23,20 @@ smallest row, as in K1b (the TPU kernel keeps the first winner it visits
 across its 128-row groups, so at exact cross-leaf ties the two packages
 may differ).
 
-The kernel, `csrc/packet_trace.cu`, is one thread per ray walking an
-implicit 4-ary tree over the morton-ordered leaves front to back with a
-stack (`dense_trace.build_tree`, and the walk of `csrc/trace_common.cuh`,
-which K1b runs over its 128-row chunks).  None of the TPU kernel's scheduling
-carries over: its 512-ray packets sharing one leaf list, the list rows
-and their SMEM DMA pipeline, the 7-bit quantised bounds, the overflow
-walk, the leaf groups staged for the MXU, the streamed table and the
-screen tiling all exist to feed 512-lane tiles from VMEM.
+The kernel, `csrc/packet_trace.cu`, walks the packet tree with K1b's warp
+walk (`csrc/chunk_walk.cuh`): the tree's level-1 nodes are exactly the
+128-row chunks of four leaves, so levels 1.. are its chunk tree and the
+leaves its 32-row slices (`walk_view`); each lane walks its ray's tree
+nearest entry first, and the warp tests each waiting ray's leaves one row
+a lane.  Its boxes are tested exactly on a zero direction axis
+(`zero_axis_inside`): there the origin must lie in the box, with a margin,
+where the slab test of the other kernels lets such a ray enter every box
+its other slabs cross.  The widened acceptances scan every row.  None of
+the TPU kernel's scheduling carries over: its 512-ray packets sharing one
+leaf list, the list rows and their SMEM DMA pipeline, the 7-bit quantised
+bounds, the overflow walk, the leaf groups staged for the MXU, the
+streamed table and the screen tiling all exist to feed 512-lane tiles
+from VMEM.
 
 `packet_trace_sorted` is the coherence-recovering launch of incoherent
 rays (key by `morton_key` in its 'beam' mode, stable sort, trace, scatter
@@ -39,37 +45,90 @@ back); its result equals `packet_trace`'s bit for bit.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from low_precision_raytracer_tpu_torch.models.scene import BVH_LEAF_TRIS, DENSE_CHUNK_TRIS
 from low_precision_raytracer_tpu_torch.ops import cuda_lib
 from low_precision_raytracer_tpu_torch.ops.dense_trace import (
+    MAX_LEVELS,
     STRICT,
     Band,
     BoxTree,
     _check_args,
     build_tree,
     dense_trace_multi_plain,
+    lane_table,
     morton_key,
     sorted_launch,
     table_cols,
-    tree_launch,
 )
 
 LEAF = BVH_LEAF_TRIS
+ZERO_AXIS_MARGIN = 1e-4  # csrc/trace_common.cuh:LPRT_ZERO_AXIS_MARGIN
+
+
+def zero_axis_inside(lo, hi, o, inv):
+    """The zero-axis rule of K6's box test (`box_entry_exact0`): rays (n,
+    3) with inv = 1 / d against one box each (n, 3) + (n, 3) -> (n,) bool,
+    false where some axis with an infinite inv (d = +-0) has the origin
+    outside the box by more than the margin ZERO_AXIS_MARGIN (1 + |o|_1).
+    The kernel enters a box when this holds and the slab test
+    (`dense_trace.ray_aabb_entry`'s rule) enters it."""
+    ao = o.abs()
+    m = ZERO_AXIS_MARGIN * (1 + ao[:, 0] + ao[:, 1] + ao[:, 2])
+    zero = torch.isinf(inv)
+    inside = ((lo - m[:, None]) <= o) & (o <= (hi + m[:, None]))
+    return (inside | ~zero).all(dim=1)
+
+
+class PacketWalk(NamedTuple):
+    """The packet tree as the warp walk reads it (`walk_view`)."""
+
+    boxes: torch.Tensor  # (N, 6) f32: the boxes `levels` indexes
+    levels: torch.Tensor  # (2 n_levels,) i32 the chunk tree's [offsets | sizes]
+    n_levels: int
+    slices: torch.Tensor  # (ceil(TI / 32), 6) f32 the leaf boxes
+    lanes: torch.Tensor  # lane_table(coef): the f32 rows re-laid for the walk
+    stack: int  # the walk's stack entries, 3 (n_levels - 1) + 1
+
+
+def walk_view(tree: BoxTree, coef) -> PacketWalk:
+    """K6's tree for K1b's warp walk: node i of the packet tree's level 1
+    is the union of leaves 4i .. 4i + 3, i.e. the box of rows [128 i,
+    128 i + 128), so levels 1.. are a chunk tree and the leaves its 32-row
+    slices; a one-leaf tree is its own chunk."""
+    L = len(tree.sizes)
+    offs = [sum(tree.sizes[lvl + 1:]) for lvl in range(L)]
+    n0 = tree.sizes[0]
+    slices = tree.boxes[offs[0]:offs[0] + n0]
+    if L == 1:
+        levels, n_levels = [0, 1], 1
+    else:
+        levels, n_levels = offs[1:] + list(tree.sizes[1:]), L - 1
+    if n_levels > MAX_LEVELS:
+        raise NotImplementedError(f"packet_trace: {n_levels} chunk-tree levels, the walk "
+                                  f"covers {MAX_LEVELS}")
+    return PacketWalk(tree.boxes, torch.tensor(levels, dtype=torch.int32,
+                                               device=tree.boxes.device),
+                      n_levels, slices, lane_table(coef), 3 * (n_levels - 1) + 1)
 
 
 def packet_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
                  leaf_lo, leaf_hi, find_any: bool = False, band: Band = STRICT,
-                 tree: BoxTree | None = None):
+                 tree: BoxTree | None = None, walk: PacketWalk | None = None,
+                 persist: bool | None = None):
     """K6 wrapper.  origins/directions (R, 3) f32 (recentred), skip (R,)
     i32, mind/maxd (R,) f32, coef (TI, table_cols(band)) f32, tri_ids /
     obj_ids (TI,) i32, leaf_lo/leaf_hi (NL, 3) f32 with NL = 4 ceil(TI /
     128): the (widened) AABB of rows [32 l, 32 l + 32), in the rays' frame; `band`:
     `STRICT` or a `packet_band`; `tree`: `build_tree(leaf_lo, leaf_hi, TI,
-    LEAF)` when the caller keeps one.  -> (t, u, v, tri, obj), see the module
-    docstring.  On CPU tensors it runs the plain version; on CUDA tensors
-    it launches the kernel or raises."""
+    LEAF)` and `walk`: `walk_view(tree, coef)`, when the caller keeps them;
+    `persist`: resident blocks pull the rays from a counter (default: in
+    any hit, as K1b).  -> (t, u, v, tri, obj), see the module docstring.
+    On CPU tensors it runs the plain version; on CUDA tensors it launches
+    the kernel or raises."""
     R, TI = origins.shape[0], coef.shape[0]
     NL = -(-TI // DENSE_CHUNK_TRIS) * (DENSE_CHUNK_TRIS // LEAF)
     f32, i32 = torch.float32, torch.int32
@@ -82,19 +141,41 @@ def packet_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
     if origins.device.type == "cpu":
         return dense_trace_multi_plain(origins, directions, skip, mind, maxd, coef,
                                        tri_ids, obj_ids, find_any=find_any, band=band)
+    if coef.data_ptr() % 16:
+        raise ValueError("packet_trace: the coefficient table must be 16-byte aligned")
     if tree is None:
         tree = build_tree(leaf_lo, leaf_hi, TI, LEAF)
     if tree.leaf != LEAF:
         raise ValueError(f"packet_trace: the tree's leaf boxes hold {tree.leaf} rows, not {LEAF}")
-    out = tree_launch("packet_trace", origins, directions, skip, mind, maxd, coef, tri_ids,
-                      obj_ids, tree, find_any, band)
+    if walk is None and not band.widened:
+        walk = walk_view(tree, coef)
+    persist = find_any if persist is None else persist
+    dev = origins.device
+    t = torch.empty((R,), dtype=f32, device=dev)
+    tri = torch.empty((R,), dtype=i32, device=dev)
+    obj = torch.empty_like(tri)
+    u, v = torch.empty_like(t), torch.empty_like(t)
+    status = torch.zeros((2,), dtype=i32, device=dev)  # overflow, ray counter
+    ptr = lambda x: None if x is None else x.data_ptr()
+    w = walk if walk is not None else PacketWalk(None, None, 0, None, None, 0)
+    code = cuda_lib.library("packet_trace").lprt_packet_trace(
+        origins.data_ptr(), directions.data_ptr(), skip.data_ptr(), mind.data_ptr(),
+        maxd.data_ptr(), coef.data_ptr(), tri_ids.data_ptr(), obj_ids.data_ptr(),
+        ptr(w.boxes), ptr(w.levels), ptr(w.lanes), ptr(w.slices), w.n_levels, R, TI,
+        int(find_any), band.form, w.stack, int(persist), band.k0, band.k1, band.k2, t.data_ptr(), u.data_ptr(),
+        v.data_ptr(), tri.data_ptr(), obj.data_ptr(), status.data_ptr(),
+        cuda_lib.stream_ptr(dev))
+    cuda_lib.check(code, "packet_trace")
+    if walk is not None and int(status[0].item()):
+        raise RuntimeError("packet_trace: a ray's walk overflowed the kernel's stack")
     cuda_lib.LAUNCHES["packet_trace"] += 1
-    return out
+    return t, u, v, tri, obj
 
 
 def packet_trace_sorted(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
                         leaf_lo, leaf_hi, find_any: bool = False, band: Band = STRICT,
-                        tree: BoxTree | None = None):
+                        tree: BoxTree | None = None, walk: PacketWalk | None = None,
+                        persist: bool | None = None):
     """K6 on incoherent rays (`trace_rays_packet_sorted`): sort the rays by
     `morton_key(..., mode='beam')` (dead lanes last), trace them in that
     order, scatter the results back.  Same arguments and results as
@@ -102,4 +183,4 @@ def packet_trace_sorted(origins, directions, skip, mind, maxd, coef, tri_ids, ob
     key = morton_key(origins, directions, live=maxd > mind, mode="beam")
     return sorted_launch(packet_trace, key, origins, directions, skip, mind, maxd, coef,
                          tri_ids, obj_ids, leaf_lo, leaf_hi, find_any=find_any, band=band,
-                         tree=tree)
+                         tree=tree, walk=walk, persist=persist)

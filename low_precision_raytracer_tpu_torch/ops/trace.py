@@ -29,7 +29,9 @@ The dense route:
 The packet BVH (K6, `ops/packet_trace.py`): coherent launches ->
 `packet_trace`; incoherent launches on scenes with several objects and
 more than 4096 instance triangles -> `packet_trace_sorted` (the morton
-'beam' key); the tree over the leaf AABBs is built once per frame table.
+'beam' key); the tree over the leaf AABBs, and the view of it K6's warp
+walk reads (`walk_view`, with the re-laid rows), are built once per frame
+table.
 
 `resolve_fallback`, `incoherent_reorders`, `di_fusible` and
 `moveforward_eps` answer as the JAX package does for the resolved route.
@@ -52,7 +54,6 @@ carries the sub-f32 forms' band rows only when such a form is asked for.
 from __future__ import annotations
 
 import dataclasses
-import weakref
 from typing import NamedTuple
 
 import torch
@@ -78,11 +79,12 @@ from low_precision_raytracer_tpu_torch.ops.dense_trace import (
     packet_band,
     scene_exit_cap,
 )
-from low_precision_raytracer_tpu_torch.ops.dense_trace import build_tree
+from low_precision_raytracer_tpu_torch.ops.dense_trace import build_tree, per_table
 from low_precision_raytracer_tpu_torch.ops.packet_trace import (
     LEAF,
     packet_trace,
     packet_trace_sorted,
+    walk_view,
 )
 from low_precision_raytracer_tpu_torch.ops.wavefront import trace_rays_wavefront
 
@@ -241,24 +243,6 @@ def check_scene(frame: FrameInput, cfg: RenderConfig) -> None:
             "exact under the band waits (ROADMAP queue 1 item 12)")
 
 
-_CACHE: dict = {}
-
-
-def _per_table(anchor: torch.Tensor, key, build):
-    """`build()`, once per frame table and `key`: the result is kept while
-    `anchor` (a tensor of that table) lives, and entries whose anchor died
-    are dropped."""
-    k = (id(anchor), key)
-    hit = _CACHE.get(k)
-    if hit is not None and hit[0]() is anchor:
-        return hit[1]
-    for dead in [d for d, (ref, _) in _CACHE.items() if ref() is None]:
-        del _CACHE[dead]
-    value = build()
-    _CACHE[k] = (weakref.ref(anchor), value)
-    return value
-
-
 def _box_tables(boxes_lo, boxes_hi, frame: FrameInput, leaf: int):
     """Boxes of `leaf` rows each, recentred like the rays, and the tree over
     them, once per frame table (keyed on `boxes_lo`)."""
@@ -269,7 +253,7 @@ def _box_tables(boxes_lo, boxes_hi, frame: FrameInput, leaf: int):
         hi = (boxes_hi - c[None, :]).contiguous()
         return lo, hi, build_tree(lo, hi, frame.dense_n_f32.shape[0], leaf)
 
-    return _per_table(boxes_lo, ("boxes", leaf), build)
+    return per_table(boxes_lo, ("boxes", leaf), build)
 
 
 def frame_table(frame: FrameInput, band: Band) -> torch.Tensor:
@@ -277,12 +261,18 @@ def frame_table(frame: FrameInput, band: Band) -> torch.Tensor:
     per frame table and form (keyed on `dense_n_f32`): the f32 (TI, 12)
     rows, with the band rows only when a sub-f32 error-band acceptance asks
     for them."""
-    return _per_table(frame.dense_n_f32, ("table", band), lambda: coef_table(frame, band))
+    return per_table(frame.dense_n_f32, ("table", band), lambda: coef_table(frame, band))
 
 
 def _packet_tables(frame: FrameInput):
     """The packet route's leaf AABBs and the tree over them."""
     return _box_tables(frame.dense_leaf_lo, frame.dense_leaf_hi, frame, LEAF)
+
+
+def _packet_walk(frame: FrameInput, coef, tree):
+    """K6's view of the packet tree for its warp walk (`walk_view`, with
+    the f32 rows re-laid for it), once per frame table."""
+    return per_table(frame.dense_leaf_lo, ("walk",), lambda: walk_view(tree, coef))
 
 
 def _chunk_tables(frame: FrameInput):
@@ -298,7 +288,7 @@ def _slice_table(frame: FrameInput):
         c = frame.dense_center[None, :]
         return torch.cat([frame.dense_leaf_lo - c, frame.dense_leaf_hi - c], dim=1).contiguous()
 
-    return _per_table(frame.dense_leaf_lo, ("slices",), build)
+    return per_table(frame.dense_leaf_lo, ("slices",), build)
 
 
 def di_light_rows(frame: FrameInput, di_lights: dict) -> torch.Tensor:
@@ -361,9 +351,10 @@ def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
             max_dist.contiguous(), frame_table(frame, acc), frame.dense_tri, frame.dense_obj)
     if impl == "pallas":
         lo, hi, tree = _packet_tables(frame)
+        walk = None if acc.widened else _packet_walk(frame, rays[5], tree)
         launch = (packet_trace_sorted if not coherent and _sorted_route(frame, cfg)
                   else packet_trace)
-        return Hit(*launch(*rays, lo, hi, find_any=find_any, band=acc, tree=tree))
+        return Hit(*launch(*rays, lo, hi, find_any=find_any, band=acc, tree=tree, walk=walk))
     if impl != "dense_pallas":
         raise NotImplementedError(
             f"traversal_impl={impl!r} is not ported (ROADMAP queue 1 item 7)")

@@ -9,7 +9,10 @@ chunks.  One 'oneshot' launch:
    have maxd > min_dist;
 2. SCHEDULE (`schedule`, CUDA `lprt_wavefront_schedule`): every live ray's
    k nearest chunk groups by slab-entry bound, as packed words
-   (entry_bits & ~id_mask) | group id, plus the (k+1)-th word `tcut`;
+   (entry_bits & ~id_mask) | group id, plus the (k+1)-th word `tcut`; the
+   kernel walks a tree of union boxes over the groups (`group_tree`,
+   built once per frame table with the group boxes, `group_tables`) and
+   culls a subtree only where no word below it can make the list;
 3. PAIR PASS: every live (ray, candidate) pair becomes one lane (dead
    rays and empty list slots get none); the lane's ray is rounded to the
    render dtype and then recentred in f32; the lanes are
@@ -68,11 +71,14 @@ from low_precision_raytracer_tpu_torch.ops import cuda_lib
 from low_precision_raytracer_tpu_torch.ops.dense_trace import (
     CHUNK,
     T_MISS,
+    BoxTree,
     _check_args,
+    build_tree,
     coef_table,
     decode_packed,
     m_shift_test,
     pack_uv,
+    per_table,
     ray_aabb_entry,
     scene_exit_cap,
 )
@@ -132,8 +138,22 @@ def schedule_plain(lo, hi, o, d, maxd, wmin, id_bits: int, k: int,
     return cand, tcut
 
 
-def schedule(lo, hi, o, d, maxd, wmin, id_bits: int, k: int):
-    """Schedule wrapper (see `schedule_plain`)."""
+def group_tree(lo, hi) -> BoxTree:
+    """The schedule kernel's tree over the NG group boxes (one group a
+    leaf, in group order): node i of level l + 1 is the exact union of
+    nodes 4i .. 4i + 3 of level l (`dense_trace.build_tree`)."""
+    return build_tree(lo, hi, lo.shape[0], 1)
+
+
+SCHED_LEVELS = 8  # csrc/wavefront.cu:LPRT_SCHED_LEVELS
+
+
+def schedule(lo, hi, o, d, maxd, wmin, id_bits: int, k: int, tree: BoxTree | None = None,
+             tests=None):
+    """Schedule wrapper (see `schedule_plain`).  `tree`: `group_tree(lo,
+    hi)` when the caller keeps one; `tests` (R,) i32: where given, each
+    ray's count of the boxes its walk tested (the kernel's counting form,
+    for the bound)."""
     R, NG = o.shape[0], lo.shape[0]
     f32, i32 = torch.float32, torch.int32
     _check_args("wavefront schedule", [o, d, maxd, wmin, lo, hi],
@@ -144,12 +164,19 @@ def schedule(lo, hi, o, d, maxd, wmin, id_bits: int, k: int):
     dev = o.device
     if dev.type == "cpu":
         return schedule_plain(lo, hi, o, d, maxd, wmin, id_bits, k)
+    if tree is None:
+        tree = group_tree(lo, hi)
+    if tree.sizes[0] != NG or tree.leaf != 1 or len(tree.sizes) > SCHED_LEVELS:
+        raise ValueError(f"wavefront schedule: a tree of {tree.sizes} over {NG} groups")
+    if tests is not None:
+        _check_args("wavefront schedule", [tests], [(i32, (R,))])
     cand = torch.empty((R, k), dtype=i32, device=dev)
     tcut = torch.empty((R,), dtype=i32, device=dev)
-    boxes = torch.cat([lo, hi], dim=1).contiguous()
     code = cuda_lib.library("wavefront").lprt_wavefront_schedule(
-        o.data_ptr(), d.data_ptr(), maxd.data_ptr(), wmin.data_ptr(), boxes.data_ptr(),
-        R, NG, id_bits, k, cand.data_ptr(), tcut.data_ptr(), cuda_lib.stream_ptr(dev))
+        o.data_ptr(), d.data_ptr(), maxd.data_ptr(), wmin.data_ptr(), tree.boxes.data_ptr(),
+        tree.levels.data_ptr(), len(tree.sizes), tree.boxes.shape[0], R, NG, id_bits, k,
+        cand.data_ptr(), tcut.data_ptr(), None if tests is None else tests.data_ptr(),
+        cuda_lib.stream_ptr(dev))
     cuda_lib.check(code, "wavefront schedule")
     cuda_lib.LAUNCHES["wavefront_schedule"] += 1
     return cand, tcut
@@ -259,6 +286,7 @@ class Launch(NamedTuple):
     live: torch.Tensor  # (R,) bool
     lo: torch.Tensor  # (NG, 3) f32 world group boxes
     hi: torch.Tensor
+    tree: BoxTree  # the schedule's tree over them (`group_tree`)
     coef: torch.Tensor  # (TI, 12) f32
     tri: torch.Tensor  # (TI,) i32
     obj: torch.Tensor  # (TI,) i32
@@ -286,21 +314,34 @@ def setup(frame, origins, directions, prec, skip_tri, min_dist, max_dist,
     o_q = (q(o) - c[None, :]).contiguous()
     d_q = q(d).contiguous()
 
-    lo, hi = frame.dense_chunk_lo, frame.dense_chunk_hi
-    n_chunks = lo.shape[0]
-    s_group = max(1, -(-n_chunks // GROUP_WIDTH))
-    pad = (-n_chunks) % s_group
-    if s_group > 1:
-        lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=3e38)
-        hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-3e38)
-        lo = lo.reshape(-1, s_group, 3).amin(dim=1)
-        hi = hi.reshape(-1, s_group, 3).amax(dim=1)
-    n_groups = lo.shape[0]
-    # one extra bit so the sentinel id (all ones) exceeds every real id
-    id_bits = max(2, n_groups.bit_length())
+    lo, hi, s_group, id_bits, tree = group_tables(frame)
     return Launch(o, d, o_q, d_q, skip.contiguous(), mind.contiguous(), maxd,
-                  maxd > mind, lo.contiguous(), hi.contiguous(), coef_table(frame), frame.dense_tri,
+                  maxd > mind, lo, hi, tree, coef_table(frame), frame.dense_tri,
                   frame.dense_obj, s_group, id_bits, find_any)
+
+
+def group_tables(frame):
+    """The frame's group boxes (world AABBs of s_group consecutive chunks,
+    s_group = ceil(chunks / GROUP_WIDTH)), s_group, the id bits of the
+    packed words and the schedule's tree over the groups, once per frame
+    table (keyed on `dense_chunk_lo`)."""
+
+    def build():
+        lo, hi = frame.dense_chunk_lo, frame.dense_chunk_hi
+        n_chunks = lo.shape[0]
+        s_group = max(1, -(-n_chunks // GROUP_WIDTH))
+        pad = (-n_chunks) % s_group
+        if s_group > 1:
+            lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=3e38)
+            hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-3e38)
+            lo = lo.reshape(-1, s_group, 3).amin(dim=1)
+            hi = hi.reshape(-1, s_group, 3).amax(dim=1)
+        lo, hi = lo.contiguous(), hi.contiguous()
+        # one extra bit so the sentinel id (all ones) exceeds every real id
+        id_bits = max(2, lo.shape[0].bit_length())
+        return lo, hi, s_group, id_bits, group_tree(lo, hi)
+
+    return per_table(frame.dense_chunk_lo, ("groups",), build)
 
 
 def pair_lanes(L: Launch, sel, cand, live):
@@ -357,7 +398,7 @@ def pair_pass(L: Launch, sel, emin, kk: int):
     live = take(L.live)
     cand, tcut = schedule(L.lo, L.hi, take(L.o), take(L.d),
                           torch.where(live, take(L.maxd), 0.0).contiguous(), emin,
-                          L.id_bits, kk)
+                          L.id_bits, kk, tree=L.tree)
     pair, lanes = pair_lanes(L, sel, cand, live)
     out = assigned_test(*lanes, L.coef, L.tri, L.s_group, L.find_any)
     return combine(pair, out, cand, tcut, L.id_bits)
@@ -417,7 +458,7 @@ def run_cycle(L: Launch, st: State, sel) -> int:
     id_mask = (1 << L.id_bits) - 1
     dev = L.o.device
     cand, tcut = schedule(L.lo, L.hi, L.o[sel], L.d[sel], L.maxd[sel].contiguous(),
-                          st.emin[sel].contiguous(), L.id_bits, k)
+                          st.emin[sel].contiguous(), L.id_bits, k, tree=L.tree)
     cand_id = cand & id_mask
     cand_e = (cand & ~id_mask).view(torch.float32)
     tcut_e = (tcut & ~id_mask).view(torch.float32)

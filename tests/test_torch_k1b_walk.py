@@ -87,9 +87,10 @@ def _box(b, o, inv, maxd):
 
 
 def warp_walk(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, tree, slices, find_any=False,
-              band=STRICT, pack=False, stack=None):
+              band=STRICT, pack=False, stack=None, box=_box):
     """K1b's warp walk, ray by ray: -> (outputs as the kernel writes them,
-    overflowed).  Per ray a stack of at most `stack` entries (default
+    overflowed).  `box`: the box test (K1b's `box_entry`; K6 passes its
+    zero-axis rule).  Per ray a stack of at most `stack` entries (default
     `walk_stack(tree)`); a popped chunk's slices are slab-tested (closest
     hit without pack also skips a slice entered beyond the best t) and the
     32 rows of each slice left, read from `lane_table`, are tested at once,
@@ -115,7 +116,7 @@ def warp_walk(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, tree, slices, find
         blocked = False
         if mx > mn:
             inv = 1.0 / d[r]
-            e, ok = _box(tree.boxes[offs[top]][None], o[r], inv, maxd[r])
+            e, ok = box(tree.boxes[offs[top]][None], o[r], inv, maxd[r])
             st = [(top, 0, e[0])] if bool(ok[0]) else []
             while st:
                 lvl, idx, ent = st.pop()
@@ -125,7 +126,7 @@ def warp_walk(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, tree, slices, find
                 if lvl == 0:
                     sl = [CHUNK // SLICE * idx + q for q in range(CHUNK // SLICE)]
                     sl = [s for s in sl if s * SLICE < TI]
-                    es, ok = _box(slices[sl], o[r], inv, maxd[r])
+                    es, ok = box(slices[sl], o[r], inv, maxd[r])
                     if not find_any and not pack:
                         ok &= ~(es > best)
                     kmin, ct, cu, cv = INT32_MAX, None, 0.0, 0.0
@@ -166,7 +167,7 @@ def warp_walk(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, tree, slices, find
                     continue
                 cl = lvl - 1
                 ch = [c for c in range(4 * idx, 4 * idx + 4) if c < tree.sizes[cl]]
-                e, ok = _box(tree.boxes[[offs[cl] + c for c in ch]], o[r], inv, maxd[r])
+                e, ok = box(tree.boxes[[offs[cl] + c for c in ch]], o[r], inv, maxd[r])
                 if not find_any:
                     ok &= ~(e > (pt if pack else bt))
                 kids = sorted(((float(e[j]), c) for j, c in enumerate(ch) if bool(ok[j])),
