@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py              # one card; exits non-zero without one
     python3 chip_smoke.py --profile    # also prints device time by kernel
+    python3 chip_smoke.py --beside DIR # also times DIR's K5 and K3 (an older
+                                       # checkout) on this run's inputs
 
 Phases, in order (any failed check raises, so the exit code is non-zero):
 
@@ -17,10 +19,11 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    path; each kernel is then held against its plain PyTorch version on
    those inputs on the card (K1a and K4 exact, K2 and K3 to rtol 1e-4 /
    atol 1e-5), and both are timed with CUDA events (K4 with the bytes its
-   staging reads and the previous kernel's time per stride beside it);
-   then K4 exact at
+   staging reads and the previous kernel's time per stride beside it; K3
+   beside the older checkout's, --beside); then K4 exact at
    every stride on 97x61 and 7x29 frames with NaN, +-Inf and dead centres
-   planted (`k4_edge_holds`);
+   planted (`k4_edge_holds`), and K3 on such frames with NaN and +-Inf
+   planted, both moment branches and fc = 0 (`k3_edge_holds`);
 4. flagship path phase: all launch counts are zeroed, a fresh Renderer
    (seed 0) renders 8 flagship frames, the counts are read; per frame the
    single-chunk trace K1a runs 2 times, the temporal kernel once, the
@@ -33,7 +36,8 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    (`sponza_like_scene()`, 5,314 instance triangles in 42 chunks, skybox,
    bf16, 1920x1080) record the inputs of its four multi-chunk trace (K1b)
    launches: primary, round-0 shadows, the GI bounce (sorted) and round-1
-   shadows (sorted).  K1b is timed on each full launch and held against
+   shadows (sorted), and K3's inputs of a third frame (K3 held and timed
+   on them as in phase 3).  K1b is timed on each full launch and held against
    its plain version on a fixed strided slice of 2^18 of its rays (tri,
    obj, t, u, v all exact); the sorted launches are also timed unsorted
    and with their sort + unsort, and the walk in the other persistence;
@@ -58,9 +62,17 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    and a 128-deep list from the first cursor on 2^18 rays; the first pass
    is timed, its plain version too, and the boxes the walk tests counted
    (the kernel's counting form) for the bound, the flat scan's count
-   beside it (`schedule_holds`); K5 equals its
-   plain version on a strided slice of the first pass's pair lanes (the
-   live pairs; t, row, pk exact), and the whole launch on a slice of rays
+   beside it (`schedule_holds`); K5 on every call the launch makes (the
+   first pass and each tail pass) equals its plain version on every lane
+   (t, row, pk exact), its counting form and the plain emulation of its
+   culled loop (`assigned_cull_plain`, results and counts) on a strided
+   slice, timed (beside the older checkout's, --beside) with its bound
+   from the slice boxes and rows it tests (the all-row count beside it),
+   the slices entered per lane under box_entry and the zero-axis rule split
+   by light, and the warp divergence (`k5_holds`); K5's edge cases: the
+   sun's lanes on groups they enter only under box_entry, the last partial
+   chunk, any-hit rows past a chunk's first slice, keys tied across slices
+   (`k5_edge_holds`); the whole launch on a slice of rays
    equals the same launch through the plain versions (tri, obj, t, u, v
    exact).  Each launch is timed whole and by part (setup, schedule, pair
    sort, K5 on all the first pass's lanes, the return and combine, each
@@ -122,7 +134,8 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
     version on a 2^16-ray slice (primary) and a 2^20-ray slice (the round-0
     shadows, the plain version in slabs of 2^26 (ray, row) pairs), timed
     with its bound; the schedule kernel on its two wavefront launches, as
-    in phase 9 (`schedule_holds`);
+    in phase 9 (`schedule_holds`), and K5 (two chunks a group) on every
+    call they make with its edge cases (`k5_holds`, `k5_edge_holds`);
 20. colonnade-328k path phase: 8 frames; per frame K1b 2, the wavefront's
     K5 >= 2 and equal to its schedule kernel, K6 0, K1a 0.
 
@@ -140,8 +153,9 @@ fp16 ('mxu3', the kernel routes 'auto' takes) runs between phases 16 and
 
 and after phase 20:
 
-21. fp16 colonnade-83k path phase: 4 frames, K1b 2 and the wavefront per
-    frame as in bf16;
+21. fp16 colonnade-83k: K5 on every call of its two wavefront launches
+    (`k5_holds`), then the path phase: 4 frames, K1b 2 and the wavefront
+    per frame as in bf16;
 22. band kernel phases, for 'both' and 'dtype' in bf16 and in fp16, and
     for fp32 'dtype' (`band_kernel_phase`): K1a on the flagship's two launches (every ray),
     K1b on the Sponza-class frame's four (2^18-ray slices) and K6 on its
@@ -162,8 +176,8 @@ and after phase 20:
     phase; Sponza-class: K1b packed 2, K1b any hit 2);
 25. the wavefront's 'rounds' mode on colonnade-83k (`rounds_kernel_phase`):
     each K5 launch of its two 1080p wavefront launches (q = 4 lanes, and
-    the tail passes' q = 1) exact against the plain version on lane slices,
-    timed with its bound; each launch on a slice of rays exact against its
+    the tail passes' q = 1) through `k5_holds` (every lane exact, timed
+    with its bound); each launch on a slice of rays exact against its
     plain route; rounds, cycles and tail rays; the launch timed against
     'oneshot' on the same rays; 4 frames (the schedule >= 2 and K5 at
     least as often per frame); a 64x64 'rounds' render on the card against
@@ -215,14 +229,15 @@ HUGE_CHECK = 1 << 12  # colonnade-2M: rays per K6 launch held against the plain 
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12  # dense bf16 on the tensor cores
-# The previous tree's figures (K6 one thread a ray, the schedule a flat
-# scan of every group box), from PERF.md's chip run of it on an NVIDIA H100
-# 80GB HBM3 at 700 W, printed beside this run's: frame ms of the path
-# phases, ms per launch of K4 by stride, of K1b, K6 and the schedule by
-# (scene, launch)
-PREV_FRAME_MS = {"flagship": 37.366, "sponza": 110.030, "colonnade-83k": 79.912,
-                "colonnade-328k": 105.933, "colonnade-2M": 241.817, "flagship-fp32": 38.359,
-                "flagship-fp16": 38.179, "sponza-fp32": 117.152, "colonnade-83k-fp16": 81.187}
+# The previous tree's figures (K5 testing every row of its chunks, K3 on
+# 32 x 8 tiles), from PERF.md's chip run of it on an NVIDIA H100 80GB HBM3
+# at 700 W, printed beside this run's: frame ms of the path phases, ms per
+# launch of K4 by stride, of K1b, K6 and the schedule by (scene, launch).
+# K5 and K3 are compared with an older checkout's on this run's own inputs
+# instead (`--beside DIR`, `load_beside`).
+PREV_FRAME_MS = {"flagship": 37.093, "sponza": 110.849, "colonnade-83k": 72.285,
+                 "colonnade-328k": 91.836, "colonnade-2M": 59.575, "flagship-fp32": 39.528,
+                 "flagship-fp16": 36.711, "sponza-fp32": 116.840, "colonnade-83k-fp16": 76.070}
 PREV_K4_MS = {1: 0.299, 2: 0.299, 4: 0.307, 8: 0.308, 16: 0.337}
 PREV_LAUNCH_MS = {
     ("sponza", "primary"): 1.381, ("sponza", "shadow0"): 2.430,
@@ -230,11 +245,12 @@ PREV_LAUNCH_MS = {
     ("colonnade-83k", "primary"): 1.744, ("colonnade-83k", "shadow0"): 8.481,
     ("colonnade-328k", "primary"): 1.959, ("colonnade-328k", "shadow0"): 15.479,
     ("sponza pack", "primary"): 1.233, ("sponza pack", "gi_sorted"): 1.166,
-    ("colonnade-2M", "primary"): 2.800, ("colonnade-2M", "shadow0"): 69.326,
-    ("colonnade-2M", "gi_sorted"): 7.305, ("colonnade-2M", "shadow1_sorted"): 113.402,
-    ("colonnade-83k schedule", "gi"): 2.720, ("colonnade-83k schedule", "shadow1"): 5.163}
+    ("colonnade-2M", "primary"): 2.535, ("colonnade-2M", "shadow0"): 3.989,
+    ("colonnade-2M", "gi_sorted"): 4.862, ("colonnade-2M", "shadow1_sorted"): 2.797,
+    ("colonnade-83k schedule", "gi"): 0.809, ("colonnade-83k schedule", "shadow1"): 1.940}
 # ... and the means kept there where no launch's own was kept
-PREV_MEAN_MS = {"sponza-fp32": 2.220, "sponza-fp32 packet route": 3.260}
+PREV_MEAN_MS = {"sponza-fp32": 2.220, "sponza-fp32 packet route": 1.534}
+BESIDE = None  # an older checkout's K5 and K3 wrappers (--beside DIR), or None
 TPU = "low_precision_raytracer_tpu/ops/"
 KERNELS = {  # wrapper name -> (source, TPU kernel it replaces)
     "dense_trace": ("low_precision_raytracer_tpu_torch/csrc/dense_trace.cu",
@@ -287,6 +303,24 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def sample_reps(fn, target_ms=2.0, most=200):
+    """Calls of fn a timing sample needs to last about `target_ms`."""
+    return min(most, max(3, math.ceil(target_ms / max(cuda_ms(fn, 3), 1e-3))))
+
+
+def ab_ms(fns, reps, rounds=5):
+    """ms per call of each of `fns` (`cuda_ms` over `reps` calls a sample),
+    sampled in `rounds` rounds, each in the order fns and then reversed (a
+    b b a for two), so that a drift of the card's clock falls on each
+    alike.  -> per fn its samples, sorted."""
+    samples = [[] for _ in fns]
+    order = list(range(len(fns)))
+    for _ in range(rounds):
+        for i in order + order[::-1]:
+            samples[i].append(cuda_ms(fns[i], reps))
+    return [sorted(x) for x in samples]
+
+
 def bound_ms(n_bytes, n_ops):
     t_bytes, t_ops = n_bytes / HBM_BPS, n_ops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -294,6 +328,47 @@ def bound_ms(n_bytes, n_ops):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def load_beside(root):
+    """The K5 and K3 wrappers of an older checkout of this repository at
+    `root` (`git archive` of another commit), bound to that checkout's own
+    kernels (its csrc/, built into its own _build/), for timing beside this
+    tree's kernels on the same inputs.  Each wrapper module is loaded with
+    the older `ops/cuda_lib.py` standing in for this tree's while it is
+    imported; its other imports are this tree's.  -> namespace(wavefront,
+    svgf_kernels)."""
+    import importlib.util
+    import types
+    from pathlib import Path
+
+    import low_precision_raytracer_tpu_torch.ops as ops_pkg
+    # this tree's modules first, so that everything the older modules import
+    # from this tree is bound to this tree's cuda_lib
+    import low_precision_raytracer_tpu_torch.ops.svgf_kernels  # noqa: F401
+    import low_precision_raytracer_tpu_torch.ops.trace  # noqa: F401
+
+    pkg = Path(root).resolve() / "low_precision_raytracer_tpu_torch"
+
+    def load(name, path):
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    key = "low_precision_raytracer_tpu_torch.ops.cuda_lib"
+    own = sys.modules[key]
+    lib = load("beside_cuda_lib", pkg / "ops" / "cuda_lib.py")
+    sys.modules[key] = ops_pkg.cuda_lib = lib
+    try:
+        mods = {m: load(f"beside_{m}", pkg / "ops" / f"{m}.py")
+                for m in ("wavefront", "svgf_kernels")}
+    finally:
+        sys.modules[key] = ops_pkg.cuda_lib = own
+    t0 = time.perf_counter()
+    lib.build_all(("wavefront", "svgf"))
+    log(f"beside {root}: K5 and K3 built in {time.perf_counter() - t0:.2f} s")
+    return types.SimpleNamespace(**mods)
 
 
 # ---------------------------------------------------------------------------
@@ -531,6 +606,64 @@ def k4_edge_holds():
             "(NaN, +-Inf and dead centres planted)")
 
 
+def k3_edge_holds():
+    """K3 held against its plain version (rtol 1e-4 / atol 1e-5, NaN
+    positions equal) on odd frame sizes, 97 x 61 and 7 x 29 (narrower than
+    a tile, rows not 16-byte aligned), the planes made from a seed with
+    NaN, +-Inf and out-of-range depths planted in colour, geometry and
+    history; the history count fc is 0 on some pixels, below the spatial
+    moments threshold on others and above it on the rest (both moment
+    branches)."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.config import SVGFConfig
+    from low_precision_raytracer_tpu_torch.ops.svgf_kernels import (
+        BIG,
+        N_CTR,
+        T_FC,
+        temporal_accum,
+        temporal_accum_plain,
+    )
+
+    cfg = SVGFConfig()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rand = lambda *shape: torch.rand(shape, device="cuda", generator=gen)
+    for Hs, Ws in ((61, 97), (29, 7)):
+        yy = torch.arange(Hs, device="cuda")[:, None].float()
+        xx = torch.arange(Ws, device="cuda")[None, :].float()
+        geo = torch.zeros((7, Hs, Ws), device="cuda")
+        geo[0] = 2 + 0.3 * torch.sin(xx / 7) + 0.2 * torch.cos(yy / 5)
+        geo[0] = torch.where(rand(Hs, Ws) < 0.05, BIG, geo[0])  # sky
+        geo[1:3] = 0.05 * (rand(2, Hs, Ws) - 0.5)
+        n = torch.stack([0.2 * torch.sin(xx / 9).expand(Hs, Ws),
+                         0.2 * torch.cos(yy / 8).expand(Hs, Ws), torch.ones(Hs, Ws, device="cuda")])
+        geo[3:6] = n / n.norm(dim=0, keepdim=True)
+        geo[3:6] = torch.where(rand(Hs, Ws) < 0.03, 0.0, geo[3:6])  # no normal
+        geo[6] = 1.0
+        col = 2 * rand(6, Hs, Ws)
+        ctr = rand(N_CTR, Hs, Ws)
+        u = rand(Hs, Ws)  # fc: 0, below the threshold, above it
+        below = float(cfg.spatial_moments_below)
+        ctr[T_FC] = torch.where(u < 0.2, 0.0, torch.where(u < 0.6, torch.floor(below * rand(Hs, Ws)),
+                                                          below + torch.floor(8 * rand(Hs, Ws))))
+        for x, share in ((col, 1.0), (ctr, 1.0), (geo, 0.3)):
+            m = rand(*x.shape)
+            x.copy_(torch.where(m < 0.02 * share, float("nan"), x))
+            x.copy_(torch.where((m > 0.5) & (m < 0.5 + 0.02 * share), float("inf"), x))
+            x.copy_(torch.where((m > 0.7) & (m < 0.7 + 0.02 * share), -float("inf"), x))
+        col, geo, ctr = col.contiguous(), geo.contiguous(), ctr.contiguous()
+        for color_w, moments_w in ((0.2, 0.2), (1.0, 1.0)):
+            out = temporal_accum(col, geo, ctr, cfg, color_w, moments_w)
+            torch.cuda.synchronize()
+            err = check_svgf(f"temporal_accum {Ws}x{Hs}", out,
+                             temporal_accum_plain(col, geo, ctr, cfg, color_w, moments_w))
+            spatial = int((ctr[T_FC] < below).sum())
+            log(f"kernel temporal_accum edge hold {Ws}x{Hs} (color_w {color_w}, moments_w "
+                f"{moments_w}): within rtol 1e-4 / atol 1e-5, max abs err {err}; fc = 0 on "
+                f"{int((ctr[T_FC] == 0).sum())}, spatial moments on {spatial} of {Hs * Ws} "
+                "pixels (NaN, +-Inf planted)")
+
+
 def out_names(out):
     """The names of a trace kernel's outputs: the packed epilogue's three
     or the full record."""
@@ -596,16 +729,34 @@ def kernel_phase(calls, names=("dense_trace", "coef_fetch", "temporal_accum", "w
             else:
                 err = (check_bits if name == "wavelet_iter" else check_svgf)(name, out_k, out_p)
                 tensors = [a for a in args if isinstance(a, torch.Tensor)]
+                if name == "temporal_accum":  # K3 reads geo7's first 6 planes only
+                    tensors[1] = tensors[1][:6]
                 outs = out_k if isinstance(out_k, tuple) else (out_k,)
                 n_bytes = nbytes(*tensors) + nbytes(*outs)
                 n_ops = {"coef_fetch": lambda: coef_fetch_ops(args[0].shape[0], HW),
                          "temporal_accum": lambda: temporal_ops(HW),
                          "wavelet_iter": lambda: wavelet_ops(HW)}[name]()
                 extra = {}
+                if name == "temporal_accum":
+                    flat = lambda x: torch.cat([t.reshape(-1) for t in x])
+                    a, b = flat(out_k), flat(out_p)
+                    extra = {"values_differing_in_bits": int(
+                        ((a.view(torch.int32) != b.view(torch.int32))
+                         & ~(torch.isnan(a) & torch.isnan(b))).sum())}
+                    if BESIDE is not None:
+                        prev = BESIDE.svgf_kernels.temporal_accum(*args, **kw)
+                        torch.cuda.synchronize()
+                        check_svgf(f"{name} (beside)", prev, out_p)
+                        this, older = ab_ms(
+                            [lambda: kern(*args, **kw),
+                             lambda: BESIDE.svgf_kernels.temporal_accum(*args, **kw)], 20)
+                        extra.update(ms_samples=this, beside_ms=statistics.median(older),
+                                     beside_samples=older)
                 if name == "wavelet_iter":
                     extra = {"stride": args[2], "prev_ms": PREV_K4_MS.get(args[2]),
                              "staged_bytes": wavelet_staged_bytes(H, W, args[2])}
-            ms = cuda_ms(lambda: kern(*args, **kw), 20)
+            ms = statistics.median(extra["ms_samples"]) if "ms_samples" in extra \
+                else cuda_ms(lambda: kern(*args, **kw), 20)
             plain_ms = cuda_ms(lambda: plain(*args, **kw), 3)
             b_ms, b_by = bound_ms(n_bytes, n_ops)
             per.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -988,20 +1139,224 @@ def capture_big_launches(renderer, frames):
     return calls
 
 
-def assigned_ops(lanes, out, TI, s_group, find_any):
-    """K5 operations this run's data needs: every lane (a live pair) tests
-    the rows of its group (an any-hit lane up to its first accepted row)."""
+def record_k5(args, kw):
+    """Run one recorded wavefront launch and record each K5 call it makes
+    (the first pass and each tail pass; in 'rounds' each round too):
+    -> [(args, kwargs, the lanes' ray indices)]."""
+    from low_precision_raytracer_tpu_torch.ops import wavefront as WF
+
+    calls, rays = [], []
+    real, lanes_fn = WF.assigned_test, WF._lanes
+
+    def rec_lanes(L, r, gid):
+        rays.append(r)
+        return lanes_fn(L, r, gid)
+
+    WF.assigned_test = lambda *a, **k: calls.append((a, k)) or real(*a, **k)
+    WF._lanes = rec_lanes
+    try:
+        WF.trace_rays_wavefront(*args, **kw)
+    finally:
+        WF.assigned_test, WF._lanes = real, lanes_fn
+    if len(calls) != len(rays):
+        raise AssertionError(f"K5: {len(calls)} calls for {len(rays)} lane sets")
+    return [(a, k, r) for (a, k), r in zip(calls, rays)]
+
+
+def k5_hold(name, a, k, check_emulation=False):
+    """K5 on one call's inputs (`assigned_test(*a, **k)`) held bit for bit
+    (t, row, pk) against `assigned_test_plain` on every lane, its counting
+    form giving the same result; with `check_emulation` also against the
+    plain emulation of its culled loop (`assigned_cull_plain`: results and
+    counts) on a strided slice of BIG_CHECK lanes.  -> (result, counts,
+    plain result, plain ms, emulated lanes)."""
     import torch
 
-    from low_precision_raytracer_tpu_torch.ops.dense_trace import CHUNK
+    from low_precision_raytracer_tpu_torch.ops import wavefront as WF
 
-    gid = lanes[5][:, 0].long()
-    span = s_group * CHUNK
-    rows = torch.clamp(TI - gid * span, max=span)
+    lanes, (coef, tri, s_group, find_any) = a[:6], a[6:]
+    P = lanes[5].shape[0]
+    got = WF.assigned_test(*a, **k)
+    counts = torch.zeros((P, len(WF.ASSIGNED_COUNTS)), dtype=torch.int32, device=coef.device)
+    got_c = WF.assigned_test(*a, **k, counts=counts)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    ref = WF.assigned_test_plain(*a, slab_lanes=1 << 16)
+    e1.record()
+    e1.synchronize()
+    for what, x, y, z in zip(("t", "row", "pk"), got, ref, got_c):
+        if not torch.equal(x, y):
+            raise AssertionError(f"wavefront_assigned {name}: {what} differs from the plain "
+                                 f"version on {int((x != y).sum())} of {P} lanes")
+        if not torch.equal(z, y):
+            raise AssertionError(f"wavefront_assigned {name}: the counting form's {what} "
+                                 f"differs on {int((z != y).sum())} of {P} lanes")
+    n_emu = 0
+    if check_emulation and P:
+        lsel = torch.arange(0, P, max(1, P // BIG_CHECK), device=coef.device)[:BIG_CHECK]
+        emu = WF.assigned_cull_plain(*(x[lsel].contiguous() for x in lanes), coef, tri,
+                                     k["slices"], s_group, find_any)
+        for what, x, y in zip(("t", "row", "pk"), emu, ref):
+            if not torch.equal(x, y[lsel]):
+                raise AssertionError(f"K5 emulation {name}: {what} differs from the plain "
+                                     "version")
+        if not torch.equal(emu[3], counts[lsel, :5].long()):
+            bad = (emu[3] != counts[lsel, :5].long()).any(dim=0).tolist()
+            raise AssertionError(f"wavefront_assigned {name}: the counting form's counts "
+                                 f"differ from the emulation's in columns {bad}")
+        n_emu = int(lsel.numel())
+    return got, counts, ref, e0.elapsed_time(e1), n_emu
+
+
+def k5_holds(scene, kind, args, kw, lights=1):
+    """K5 on every call one recorded wavefront launch makes (`record_k5`),
+    each held by `k5_hold` (every lane; the emulation and its counts on a
+    strided slice), timed (beside the older checkout's K5, --beside, held
+    too), with its bound from the counting form (a slab test per slice box
+    tested, the row test per row tested: up to an any-hit lane's first
+    accepted row) and the all-row count beside it (`assigned_ops_q`); per
+    call the slices entered per lane under box_entry and the zero-axis
+    rule (`leaf_split`) and the warp divergence: the slice bodies the warps
+    ran against the most slices any of their lanes tested, and the lanes'
+    share of those bodies.  Times are medians of `ab_ms`'s samples (beside
+    the older checkout's in a b b a order), each sample about 2 ms of calls,
+    their least and greatest beside them.  -> [report per call]."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops import wavefront as WF
+
+    R = args[1].shape[0]
+    reports = []
+    for n, (a, k, ray) in enumerate(record_k5(args, kw)):
+        lanes, (coef, tri, s_group, find_any) = a[:6], a[6:]
+        P, q = lanes[5].shape
+        TI = coef.shape[0]
+        name = f"{scene} {kind} call {n}"
+        got, counts, ref, plain_ms, n_emu = k5_hold(name, a, k, check_emulation=True)
+        fns = [lambda: WF.assigned_test(*a, **k)]
+        if BESIDE is not None:
+            prev = BESIDE.wavefront.assigned_test(*a)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(prev, ref)):
+                raise AssertionError(f"beside K5 {name}: differs from the plain version")
+            fns.append(lambda: BESIDE.wavefront.assigned_test(*a))
+        samples = ab_ms(fns, sample_reps(fns[0]))
+        ms = statistics.median(samples[0])
+        beside_ms = statistics.median(samples[1]) if BESIDE is not None else None
+        spread = lambda x: [x[0], x[-1]]
+        c = counts.double().sum(dim=0).tolist()
+        n_ops = c[2] * BOX_TEST_OPS + c[4] * TRI_TEST_OPS
+        b_ms, b_by = bound_ms(nbytes(*lanes, coef, tri, k["slices"], *got), n_ops)
+        NG = WF._n_groups(TI, s_group)
+        ops_all = assigned_ops_q(lanes, got, TI, NG, s_group, find_any)
+        b_all = bound_ms(nbytes(*lanes, coef, tri, *got), ops_all)[0]
+        warp = counts[:, 6].long() // 32  # the warps the lanes ran in
+        nw = int(warp.max()) + 1 if P else 0
+        execs = torch.zeros(nw, dtype=torch.float64, device=coef.device).index_add_(
+            0, warp, counts[:, 5].double())
+        most = torch.zeros(nw, dtype=torch.float64, device=coef.device).scatter_reduce(
+            0, warp, counts[:, 3].double(), "amax", include_self=False)
+        ex, mo = float(execs.sum()), float(most.sum())
+        rep = dict(scene=scene, kind=kind, call=n, lanes=P, q=q, s_group=s_group,
+                   find_any=bool(find_any), ms=ms, ms_spread=spread(samples[0]),
+                   beside_ms=beside_ms,
+                   beside_spread=spread(samples[1]) if BESIDE is not None else None,
+                   plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, bound_ms_all_rows=b_all,
+                   ratio=ms / b_ms if b_ms else None, boxes_tested=c[2], slices_entered=c[0],
+                   slices_entered_box_entry=c[1], slices_tested=c[3], rows_tested=c[4],
+                   rows_all=ops_all / TRI_TEST_OPS, warp_slice_bodies=ex,
+                   warp_slices_needed=mo, divergence=ex / mo if mo else None,
+                   lane_share=c[3] / (32 * ex) if ex else None, max_abs_err=0.0,
+                   checked_lanes=P, emulated_lanes=n_emu,
+                   entered=leaf_split(lanes[1], torch.ones_like(ray, dtype=torch.bool),
+                                      counts[:, 1], counts[:, 0], lights, ray, R))
+        log(f"kernel wavefront_assigned {scene} {kind}: {json.dumps(rep)}")
+        reports.append(rep)
+    return reports
+
+
+def k5_edge_holds(scene, kind, args, kw, n_lanes=4096):
+    """K5's edge cases on one recorded wavefront launch's first pass, each
+    held by `k5_hold` (bit for bit against the plain version, the
+    emulation and its counts): the sun's lanes (d_x = 0) on groups whose
+    slices they enter only under box_entry; lanes sent to the last group,
+    whose last chunk is partial (rows >= TI), with q = 1 and with q = 4
+    (the last group, a group past NG, the one before the last, the last);
+    any-hit lanes whose first accepted row lies past their chunk's first
+    slice; and, in closest hit, lanes whose winning row is copied into
+    another slice of its chunk (the copies' plane offset exact or moved by
+    one ulp either way, so keys tie in their 128-ulp bucket across slices)
+    with every slice box its chunk's box.  -> report."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops import wavefront as WF
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import CHUNK, chunk_slices
+
+    frame, origins, directions = args
+    find_any = kw["find_any"]
+    L = WF.setup(frame, origins, directions, kw["prec"], kw["skip_tri"], kw["min_dist"],
+                 kw["max_dist"], find_any)
+    dev = origins.device
+    R, NG = origins.shape[0], L.lo.shape[0]
+    k = min(WF.ONESHOT_K, NG)
+    cand, _tcut = WF.schedule(L.lo, L.hi, L.o, L.d, torch.where(L.live, L.maxd, 0.0).contiguous(),
+                              torch.full((R,), WF.INT32_MIN, dtype=torch.int32, device=dev),
+                              L.id_bits, k, tree=L.tree)
+    _pair, lanes = WF.pair_lanes(L, None, cand, L.live)
+    P = lanes[0].shape[0]
+    rest = (L.coef, L.tri, L.s_group, find_any)
+    kws = dict(slices=L.slices)
+    sub = lambda m: tuple(x[m].contiguous() for x in lanes)
+    rep = dict(scene=scene, kind=kind, groups=NG, s_group=L.s_group, rows=int(L.coef.shape[0]))
+    counts = torch.zeros((P, len(WF.ASSIGNED_COUNTS)), dtype=torch.int32, device=dev)
+    WF.assigned_test(*lanes, *rest, **kws, counts=counts)
+    spur = (lanes[1][:, 0] == 0) & (counts[:, 0] == 0) & (counts[:, 1] > 0)
+    rep["sun_lanes_spurious"] = int(spur.sum())
+    if rep["sun_lanes_spurious"]:
+        k5_hold(f"{scene} {kind} spurious sun lanes", sub(spur) + rest, kws, True)
+    strided = torch.arange(0, P, max(1, P // n_lanes), device=dev)[:n_lanes]
+    base = sub(strided)
+    last = torch.full((strided.numel(), 1), NG - 1, dtype=torch.int32, device=dev)
+    k5_hold(f"{scene} {kind} last group", base[:5] + (last,) + rest, kws, True)
+    four = torch.tensor([NG - 1, NG, max(NG - 2, 0), NG - 1], dtype=torch.int32, device=dev)
+    k5_hold(f"{scene} {kind} q = 4 at the end", base[:5] + (four.expand(strided.numel(), 4)
+                                                            .contiguous(),) + rest, kws, True)
+    rep["last_chunk_rows"] = int(L.coef.shape[0] - (-(-L.coef.shape[0] // CHUNK) - 1) * CHUNK)
+    ref = WF.assigned_test_plain(*lanes, *rest, slab_lanes=1 << 16)
     if find_any:
-        row = out[1].long()
-        rows = torch.where(row >= 0, row - gid * span + 1, rows)
-    return float(rows.double().sum()) * TRI_TEST_OPS
+        later = (ref[1] >= 0) & (ref[1] % CHUNK >= 32)
+        rep["any_hit_later_slice_lanes"] = int(later.sum())
+        if rep["any_hit_later_slice_lanes"]:
+            k5_hold(f"{scene} {kind} any hit past the first slice", sub(later) + rest, kws, True)
+    else:  # ties across slices on a table with copied rows
+        hit = torch.nonzero(ref[1] >= 0)[:, 0]
+        pick = hit[torch.arange(0, hit.numel(), max(1, hit.numel() // n_lanes), device=dev)]
+        row = ref[1][pick].long()
+        to = torch.where(row % CHUNK < CHUNK - 32, row + 32, row - 32)
+        coef2, tri2 = L.coef.clone(), L.tri.clone()
+        copy = coef2[row].clone()
+        step = torch.arange(pick.numel(), device=dev) % 3  # exact, one ulp down, one ulp up
+        e2 = copy[:, 11]
+        copy[:, 11] = torch.where(step == 1, torch.nextafter(e2, torch.full_like(e2, -3e38)),
+                                  torch.where(step == 2, torch.nextafter(
+                                      e2, torch.full_like(e2, 3e38)), e2))
+        coef2[to] = copy
+        tri2[to] = L.tri[row]
+        c = frame.dense_center[None, :]
+        boxes = chunk_slices((frame.dense_chunk_lo - c).contiguous(),
+                             (frame.dense_chunk_hi - c).contiguous()).contiguous()
+        tied = sub(pick)
+        got, _c, ref2, _ms, _n = k5_hold(f"{scene} {kind} ties across slices",
+                                         tied + (coef2, tri2, L.s_group, find_any),
+                                         dict(slices=boxes), True)
+        rep["tie_lanes"] = int(pick.numel())
+        rep["tie_lanes_winner_moved"] = int((ref2[1] != ref[1][pick]).sum())
+        rep["tie_lanes_winner_earlier_slice"] = int(
+            ((ref2[1] // 32) < (ref[1][pick] // 32)).sum())
+    log(f"kernel wavefront_assigned edge holds {scene} {kind}: {json.dumps(rep)}")
+    return rep
 
 
 def plain_schedule(*args, tree=None, tests=None):
@@ -1010,6 +1365,14 @@ def plain_schedule(*args, tree=None, tests=None):
     from low_precision_raytracer_tpu_torch.ops import wavefront as WF
 
     return WF.schedule_plain(*args)
+
+
+def plain_assigned(*args, slices=None, counts=None):
+    """`assigned_test_plain` in the place of K5's wrapper (which also takes
+    the kernel's slice boxes and its counter)."""
+    from low_precision_raytracer_tpu_torch.ops import wavefront as WF
+
+    return WF.assigned_test_plain(*args)
 
 
 SCHED_DEEP_CHECK = 1 << 18  # rays of a first pass held with a 128-deep list
@@ -1141,39 +1504,25 @@ def wavefront_phase(kind, args, kw):
     sched = lambda: WF.schedule(L.lo, L.hi, L.o, L.d, mx, wmin, L.id_bits, k)
     cand, tcut = sched()
     pair, lanes = WF.pair_lanes(L, None, cand, L.live)
-    k5 = lambda: WF.assigned_test(*lanes, L.coef, L.tri, L.s_group, find_any)
-    out5 = k5()
+    out5 = WF.assigned_test(*lanes, L.coef, L.tri, L.s_group, find_any, slices=L.slices)
+    rep["pairs"] = cand.numel()
+    rep["pair_lanes"] = lanes[0].shape[0]  # the live pairs: the lanes K5 tests
+
+    # K5 on every call of the launch, each lane against its plain version
+    # (`k5_holds`: the first call is the first pass), and its edge cases
+    # (`k5_edge_holds`)
+    rep["k5_calls"] = k5_holds("colonnade-83k", kind, args, kw, lights=2 if find_any else 1)
+    rep["k5"] = {x: rep["k5_calls"][0][x] for x in (
+        "ms", "beside_ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_all_rows",
+        "max_abs_err", "checked_lanes")}
+    rep["k5_edge"] = k5_edge_holds("colonnade-83k", kind, args, kw)
     parts = dict(
         setup=cuda_ms(lambda: WF.setup(frame, origins, directions, kw["prec"], kw["skip_tri"],
                                        kw["min_dist"], kw["max_dist"], find_any), 3),
         pair_sort=cuda_ms(lambda: WF.pair_lanes(L, None, cand, L.live), 3),
-        k5=cuda_ms(k5, 5),
+        k5=rep["k5"]["ms"],
         combine=cuda_ms(lambda: WF.combine(pair, out5, cand, tcut, L.id_bits), 5))
     parts["tail"] = sum(p["ms"] for p in rep["passes"][1:])
-    P = lanes[0].shape[0]
-    rep["pairs"] = cand.numel()
-    rep["pair_lanes"] = P  # the live pairs: the lanes K5 tests
-
-    # K5 against its plain version on a strided slice of the pair lanes
-    lsel = torch.arange(0, P, max(1, P // BIG_CHECK), device=dev)[:BIG_CHECK]
-    ref5 = WF.assigned_test_plain(*(x[lsel].contiguous() for x in lanes), L.coef, L.tri,
-                                  L.s_group, find_any)
-    for name, a, b in zip(("t", "row", "pk"), out5, ref5):
-        if not torch.equal(a[lsel], b):
-            raise AssertionError(f"wavefront_assigned {kind}: {name} differs from the plain "
-                                 f"version on {int((a[lsel] != b).sum())} of {lsel.numel()} lanes")
-    k5_err = float((out5[0][lsel] - ref5[0]).abs().max())
-    torch.cuda.synchronize()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    e0.record()
-    WF.assigned_test_plain(*lanes, L.coef, L.tri, L.s_group, find_any, slab_lanes=1 << 16)
-    e1.record()
-    e1.synchronize()
-    n_bytes = nbytes(*lanes, L.coef, L.tri, *out5)
-    b_ms, b_by = bound_ms(n_bytes, assigned_ops(lanes, out5, L.coef.shape[0], L.s_group,
-                                                find_any))
-    rep["k5"] = dict(ms=parts["k5"], plain_ms=e0.elapsed_time(e1), bound_ms=b_ms,
-                     bound_by=b_by, max_abs_err=k5_err, checked_lanes=int(lsel.numel()))
 
     # the schedule kernel: every pass held against its plain version, timed
     # and counted (`schedule_holds`)
@@ -1189,7 +1538,7 @@ def wavefront_phase(kind, args, kw):
                   max_dist=kw["max_dist"][rsel])
     got = WF.trace_rays_wavefront(*sub_args, **sub_kw)
     kern = WF.schedule, WF.assigned_test
-    WF.schedule, WF.assigned_test = plain_schedule, WF.assigned_test_plain
+    WF.schedule, WF.assigned_test = plain_schedule, plain_assigned
     try:
         want = WF.trace_rays_wavefront(*sub_args, **sub_kw)
     finally:
@@ -1294,22 +1643,11 @@ def capture_packet_launches(renderer, frames):
 def _pair_entry(b, o, d, maxd, exact0=False):
     """The kernels' slab test of rays (n, 3) against one box each (n, 6):
     -> (entry, ok) (n,); `exact0`: K6's rule, also exact on a zero
-    direction axis (`packet_trace.zero_axis_inside`)."""
-    import torch
+    direction axis (`wavefront.slice_entry`, K5's test of its slices)."""
+    from low_precision_raytracer_tpu_torch.ops.wavefront import slice_entry
 
-    from low_precision_raytracer_tpu_torch.ops.packet_trace import zero_axis_inside
-
-    inv = 1.0 / d
-    t1 = (b[:, :3] - o) * inv
-    t2 = (b[:, 3:] - o) * inv
-    fin = torch.isfinite(t1) & torch.isfinite(t2)
-    tmin = torch.where(fin, torch.minimum(t1, t2), -3e38).amax(dim=1)
-    tmax = torch.where(fin, torch.maximum(t1, t2), 3e38).amin(dim=1)
-    e = torch.clamp(tmin - 0.02, min=0.0)
-    ok = fin.any(1) & (tmin <= tmax + 0.02) & (tmax + 0.02 >= 0) & (e < maxd)
-    if exact0:
-        ok &= zero_axis_inside(b[:, :3], b[:, 3:], o, inv)
-    return e, ok
+    e, ok_exact0, ok = slice_entry(b, o, 1.0 / d, maxd)
+    return e, (ok_exact0 if exact0 else ok)
 
 
 def first_accepts(args, band, rays, step=256, slab_elems=1 << 24):
@@ -1413,25 +1751,24 @@ def _quantiles(x):
     return [float(v) for v in torch.quantile(x.float(), q)] + [float(x.max())]
 
 
-def leaf_split(o, d, live, per_old, per_new, lights):
-    """Leaves entered per live ray (p50, p90, p99, max) under box_entry
-    (`per_old`) and K6's zero-axis rule (`per_new`), split by the rays'
-    exact zero direction components (by axis, and none) and, for a shadow
-    launch laid out lane-major over `lights` lights, by light (light 0 the
-    sun).  -> dict."""
+def leaf_split(d, live, per_old, per_new, lights, ray, R):
+    """Boxes entered (K6: leaves per live ray; K5: slices per lane), p50,
+    p90, p99 and max, under box_entry (`per_old`) and the zero-axis rule
+    (`per_new`), split by the exact zero direction components of `d` (by
+    axis, and none) and, for a shadow launch of R rays laid out lane-major
+    over `lights` lights, by the light of each item's ray `ray` (light 0
+    the sun).  -> dict."""
     zero = d == 0
     groups = {"all": live, "x0": live & zero[:, 0], "y0": live & zero[:, 1],
               "z0": live & zero[:, 2], "no_zero": live & ~zero.any(dim=1)}
     if lights > 1:
-        import torch
-
-        light = torch.arange(o.shape[0], device=o.device) // (o.shape[0] // lights)
+        light = ray // (R // lights)
         for li in range(lights):
             on = live & (light == li)
             groups[f"light{li}"] = on
             groups[f"light{li}_no_zero"] = on & ~zero.any(dim=1)
             groups[f"light{li}_x0"] = on & zero[:, 0]
-    return {name: dict(rays=int(m.sum()), box_entry=_quantiles(per_old[m]),
+    return {name: dict(n=int(m.sum()), box_entry=_quantiles(per_old[m]),
                        exact0=_quantiles(per_new[m])) for name, m in groups.items()}
 
 
@@ -1528,8 +1865,9 @@ def k6_phase(launches, leaves, scene="colonnade-2M", chunks=None, check_rays=HUG
                    leaves_per_live_ray=_quantiles(per_new[live]),
                    leaves_per_live_ray_box_entry=_quantiles(per_old[live]))
         if chunks is not None:
-            rec["leaf_split"] = leaf_split(margs[0], margs[1], live, per_old, per_new,
-                                           lights if find_any else 1)
+            rec["leaf_split"] = leaf_split(margs[1], live, per_old, per_new,
+                                           lights if find_any else 1,
+                                           torch.arange(R, device=dev), R)
 
         # the plain version on the sample
         sel = torch.arange(0, R, max(1, R // check_rays), device=dev)[:check_rays]
@@ -1626,8 +1964,9 @@ def colonnade_328k_kernel_phase(cfg):
     """K1b on colonnade-328k's primary and round-0 shadow launches (2,567
     chunks), held to the plain version on a strided slice of BIG_CHECK rays
     (primary) and of 2^20 rays (the shadows); the schedule kernel on its
-    two wavefront launches (`schedule_holds`).  -> (K1b report, schedule
-    reports)."""
+    two wavefront launches (`schedule_holds`), and K5 (s_group = 2) on
+    every call they make (`k5_holds`) and its edge cases
+    (`k5_edge_holds`).  -> (K1b report, schedule reports)."""
     import torch
 
     from low_precision_raytracer_tpu_torch.ops import trace as T
@@ -1647,6 +1986,15 @@ def colonnade_328k_kernel_phase(cfg):
                     check_by_kind={"shadow0": 1 << 20})
     sched = [schedule_holds("colonnade-328k", kind, a, kw)
              for kind, (_n, a, kw) in zip(("gi", "shadow1"), calls[2:])]
+    k5 = []
+    for kind, (_n, a, kw) in zip(("gi", "shadow1"), calls[2:]):
+        k5 += k5_holds("colonnade-328k", kind, a, kw, lights=2 if kw["find_any"] else 1)
+        k5_edge_holds("colonnade-328k", kind, a, kw)
+    log("colonnade-328k K5 (ms, beside ms, bound ms, all-row bound ms) per call: " + json.dumps(
+        [dict(kind=r["kind"], call=r["call"], lanes=r["lanes"], ms=r["ms"],
+              ms_spread=r["ms_spread"], beside_ms=r["beside_ms"],
+              beside_spread=r["beside_spread"], bound_ms=r["bound_ms"],
+              bound_ms_all_rows=r["bound_ms_all_rows"]) for r in k5]))
     del calls
     torch.cuda.empty_cache()
     return rep, sched
@@ -1714,8 +2062,8 @@ def assigned_ops_q(lanes, out, TI, NG, s_group, find_any):
 
 def rounds_phase(kind, args, kw):
     """One recorded wavefront launch in 'rounds' mode: its K5 launches
-    (q = Q_RANKS lanes) held against the plain version on strided slices
-    of their lanes (t, row, pk exact) and timed with their bound; the whole
+    (q = Q_RANKS lanes in the rounds, q = 1 in the tail passes) through
+    `k5_holds` (every lane exact, timed with their bounds); the whole
     launch on a slice of rays against its plain route (exact); rounds,
     cycles and tail rays; the launch timed against 'oneshot' on the same
     rays.  -> report dict."""
@@ -1727,41 +2075,12 @@ def rounds_phase(kind, args, kw):
     find_any = kw["find_any"]
     R = origins.shape[0]
     dev = origins.device
-    calls = []
-    real = WF.assigned_test
     WF.reset_stats()
-    WF.assigned_test = lambda *a, **k: calls.append(a) or real(*a, **k)
-    try:
-        out = WF.trace_rays_wavefront(*args, **kw)
-    finally:
-        WF.assigned_test = real
+    out = WF.trace_rays_wavefront(*args, **kw)
     torch.cuda.synchronize()
     rep = dict(kind=kind, rays=R, find_any=find_any, stats=dict(WF.STATS),
                hits=int((out[3] >= 0).sum()))
-    TI = frame.dense_n_f32.shape[0]
-    k5 = []
-    for a in calls:
-        lanes, rest = a[:6], a[6:]
-        P, q = lanes[5].shape
-        got = real(*a)
-        lsel = torch.arange(0, P, max(1, P // BIG_CHECK), device=dev)[:BIG_CHECK]
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        ref = WF.assigned_test_plain(*(x[lsel].contiguous() for x in lanes), *rest)
-        e1.record()
-        e1.synchronize()
-        for name, x, y in zip(("t", "row", "pk"), got, ref):
-            if not torch.equal(x[lsel], y):
-                raise AssertionError(f"wavefront_assigned rounds {kind}: {name} differs from "
-                                     f"the plain version on {int((x[lsel] != y).sum())} of "
-                                     f"{lsel.numel()} lanes")
-        NG = WF._n_groups(TI, rest[2])
-        n_bytes = nbytes(*lanes, rest[0], rest[1], *got)
-        b_ms, b_by = bound_ms(n_bytes, assigned_ops_q(lanes, got, TI, NG, rest[2], find_any))
-        k5.append(dict(lanes=P, q=q, ms=cuda_ms(lambda: real(*a), 3), bound_ms=b_ms,
-                       bound_by=b_by, plain_ms=e0.elapsed_time(e1), plain_ms_on="slice",
-                       checked_lanes=int(lsel.numel()),
-                       max_abs_err=float((got[0][lsel] - ref[0]).abs().max())))
+    k5 = k5_holds("colonnade-83k rounds", kind, args, kw, lights=2 if find_any else 1)
     if not any(r["q"] == WF.Q_RANKS for r in k5):
         raise AssertionError(f"rounds {kind}: no K5 launch with q = {WF.Q_RANKS}")
     rep["k5"] = k5
@@ -1778,7 +2097,7 @@ def rounds_phase(kind, args, kw):
                   max_dist=kw["max_dist"][rsel])
     got = WF.trace_rays_wavefront(*sub_args, **sub_kw)
     kern = WF.schedule, WF.assigned_test
-    WF.schedule, WF.assigned_test = plain_schedule, WF.assigned_test_plain
+    WF.schedule, WF.assigned_test = plain_schedule, plain_assigned
     try:
         want = WF.trace_rays_wavefront(*sub_args, **sub_kw)
     finally:
@@ -2002,6 +2321,9 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    global BESIDE
+    if "--beside" in argv:
+        BESIDE = load_beside(argv[argv.index("--beside") + 1])
     from low_precision_raytracer_tpu_torch.config import RenderConfig
     from low_precision_raytracer_tpu_torch.models.procedural import (
         cornell_box_scene,
@@ -2056,6 +2378,7 @@ def main(argv) -> int:
     reports = kernel_phase(calls)
     del calls
     k4_edge_holds()
+    k3_edge_holds()
     torch.cuda.empty_cache()
     elapsed()
 
@@ -2073,7 +2396,10 @@ def main(argv) -> int:
     # ---- the Sponza-class frame: K1b (with K2, K3, K4)
     warm = Renderer(sponza_like_scene(), cfg)
     launches = capture_sponza_launches(warm, 2)
+    calls = capture_inputs(warm, 1)
     del warm
+    kernel_phase(calls, names=("temporal_accum",), tag=" sponza")
+    del calls
     reports["dense_trace_multi"] = k1b_phase(launches)
     k1b_edge_holds(launches)
     del launches
@@ -2208,7 +2534,14 @@ def main(argv) -> int:
     run_path("colonnade-328k", colonnade_328k, big)
     elapsed()
 
-    # ---- fp16 colonnade-83k: K1b and the wavefront ('mxu3')
+    # ---- fp16 colonnade-83k: K1b and the wavefront ('mxu3'), K5 on its lanes
+    warm = Renderer(colonnade_83k(), RenderConfig(width=W, height=H, precision="fp16"))
+    calls = capture_big_launches(warm, 2)
+    del warm
+    for kind, (_n, a, kw) in zip(("gi", "shadow1"), calls[2:]):
+        k5_holds("colonnade-83k fp16", kind, a, kw, lights=2 if kw["find_any"] else 1)
+    del calls
+    torch.cuda.empty_cache()
     run_path("colonnade-83k-fp16", colonnade_83k, big, "fp16", frames_n=4)
     elapsed()
 

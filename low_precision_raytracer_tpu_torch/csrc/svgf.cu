@@ -19,10 +19,9 @@
 // channels, K3 a 9x9 box per stage-1 position, K4 25 taps x 18 channels)
 // and run ~0.2-1.5 kFLOP per pixel.  The designs keep those re-reads on
 // chip: K2 reads taps through the read-only cache (neighbouring threads
-// share rows of taps), K3 stages the colour tile with its 6-pixel
-// halo in shared memory and does the 9x9 box sums separably there, so its
-// device-memory traffic stays near the compulsory bytes.  K4 stages a
-// tile of one coset with its ring in shared memory (see K4 below).
+// share rows of taps); K3 stages a 32 x 32 tile's colour with its 6-pixel
+// halo and its geometry with a 2-pixel ring in shared memory (see K3
+// below); K4 stages a tile of one coset with its ring (see K4 below).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,6 +65,26 @@ __device__ __forceinline__ float wavelet_h(int a, int b) {
 __device__ __forceinline__ float gauss_g(int a, int b) {
   const double g[2] = {1.0 / 2.0, 1.0 / 4.0};
   return (float)(g[a < 0 ? -a : a] * g[b < 0 ? -b : b]);
+}
+
+// pow_int with the exponent known at compile time (N >= 0), or at run
+// time (N < 0): the same multiply chain either way
+template <int N>
+__device__ __forceinline__ float pow_n(float x, int n) {
+  if (N < 0) return pow_int(x, n);
+  if (N == 0) return 1.f;
+  float result = 0.f, base = x;
+  bool have = false;
+#pragma unroll
+  for (int b = 0; b < 31; ++b) {
+    if ((N >> b) == 0) break;
+    if ((N >> b) & 1) {
+      result = have ? result * base : base;
+      have = true;
+    }
+    base = base * base;
+  }
+  return result;
 }
 
 // ---------------------------------------------------------------------------
@@ -134,173 +153,281 @@ __global__ void coef_fetch_kernel(const float* __restrict__ hist,
 // stage 2 read it from shared memory.
 // out: cv (12, H, W) [per instance r, g, b, var, fc, fv], ext (4, H, W)
 // [il0, il1, pen0, pen1], mst (4, H, W) [m1_0, m1_1, m2_0, m2_1].
-#define T_TW 32
-#define T_TH 8
-#define T_S1W (T_TW + 4)
-#define T_S1H (T_TH + 4)
-#define T_INW (T_S1W + 8)
-#define T_INH (T_S1H + 8)
+//
+// Design: a block of 32 x 16 threads takes a 32 x 32 tile (each thread two
+// pixels in stage 2), so the colour halo it re-reads is 44 x 44 / 32^2 =
+// 1.9x and stage 1 runs on 36 x 36 / 32^2 = 1.27x.  Per instance:
+// (A) its three colour channels are staged once for the 44-row region, in
+//     row-aligned float4 loads where the rows allow (W % 4 == 0 and an
+//     aligned base), as the plain version's `safe` value (0 where not
+//     finite or outside the image) and one bit per pixel, finite and in the
+//     image (the `finv` indicator), in two words a row;
+// (B) one thread per (channel, column, strip of 9 stage-1 rows) forms the
+//     strip's 17 row sums (9 taps each, in order) in a register ring and
+//     each stage-1 value from 9 of them (in order), then the clamp and the
+//     history lerp; the counts are popcounts of the bit rows (sums of
+//     0 / 1 in any order are exact); ic goes to shared memory and, on the
+//     tile, straight to cv;
+// (C) the illuminance (r, g, b terms in order) and its finiteness mask.
+// Depth and normal of the tile and its 2-pixel ring are staged once as
+// float4 (zero outside the image, as the plain version's pad), so stage 2's
+// 25 taps read only shared memory.  Five barriers for the whole tile, where
+// the 32 x 8 tile of one channel at a time took twenty.  Shared memory:
+// ~84 KB a block, two blocks (1,024 threads) an SM.  Every pixel keeps the
+// plain version's term order, IEEE division, expf and pow_int's multiply
+// chain (unrolled for the configured sigma_n = 128).
+//
+// What bounds it: bytes (24 planes in, 20 out: 0.36 GB at 1920x1080,
+// 109 us at 3.35 TB/s); the row and column sums (~80 f32 operations a pixel
+// and channel) and the 25 taps' divides and expf are the on-chip work.
+#define T_TW 32   // tile width and height
+#define T_TY 16   // thread rows: two pixel rows each
+#define T_S1 (T_TW + 4)   // stage-1 region: the tile and a 2-pixel ring
+#define T_INH (T_S1 + 8)  // colour rows staged: the stage-1 rows +- 4
+#define T_INW (T_TW + 16) // colour columns staged: col0 - 8 .. col0 + 39 (44 used)
+#define T_STRIP 9         // stage-1 rows per thread in (B)
+#define T_NSTRIP (T_S1 / T_STRIP)
 
-__global__ void __launch_bounds__(T_TW* T_TH)
+// the shared memory of one block, carved from the dynamic allocation
+struct TemporalSmem {
+  float safe[3][T_INH][T_INW];          // (A): one instance's colour, `safe`
+  unsigned bits[2][3][T_INH][2];        // (A): finite-and-in-image bits a row
+  float ic[3][T_S1][T_S1];              // (B)
+  float il[2][T_S1][T_S1], fil[2][T_S1][T_S1];  // (C), both instances
+  float4 geo[T_S1][T_S1];               // depth, nx, ny, nz
+  unsigned char fin_ic[T_TW][T_TW];     // bit i: instance i's ic all finite
+};
+
+template <int SN>
+__global__ void __launch_bounds__(T_TW* T_TY, 2)
     temporal_kernel(const float* __restrict__ col6,
                     const float* __restrict__ geo7,
-                    const float* __restrict__ ctr11, int H, int W,
+                    const float* __restrict__ ctr11, int H, int W, int vec,
                     float color_w, float moments_w, float below, int sigma_n,
                     float eps_z, float* __restrict__ cv,
                     float* __restrict__ ext, float* __restrict__ mst) {
-  __shared__ float s_raw[T_INH][T_INW];
-  __shared__ float s_cs[3][T_INH][T_S1W];
-  __shared__ float s_acc[T_S1H][T_S1W];
-  __shared__ float s_il[2][T_S1H][T_S1W];
-  __shared__ float s_fil[2][T_S1H][T_S1W];
-  __shared__ float s_ic[6][T_TH][T_TW];
-
+  extern __shared__ float4 smem_raw[];
+  TemporalSmem& S = *reinterpret_cast<TemporalSmem*>(smem_raw);
   const int tid = threadIdx.y * T_TW + threadIdx.x;
-  const int nthr = T_TW * T_TH;
-  const int row0 = blockIdx.y * T_TH, col0 = blockIdx.x * T_TW;
+  const int nthr = T_TW * T_TY;
+  const int row0 = blockIdx.y * T_TW, col0 = blockIdx.x * T_TW;
   const size_t HW = (size_t)H * W;
   const float lum_w[3] = {0.2126f, 0.7152f, 0.0722f};
   const float one_m_wc = 1.f - color_w;
+  auto inside = [&](int y, int x) { return y >= 0 && y < H && x >= 0 && x < W; };
 
-  for (int inst = 0; inst < 2; ++inst) {
-    for (int c = 0; c < 3; ++c) {
+  for (int i = tid; i < 2 * 3 * T_INH * 2; i += nthr) (&S.bits[0][0][0][0])[i] = 0u;
+  __syncthreads();
+
+  // (A) instance `inst`'s colour; with the first, the geometry of stage 2
+  auto stage = [&](int inst) {
+    constexpr int V = T_INW / 4;  // float4 a row
+    for (int i = tid; i < 3 * T_INH * V; i += nthr) {
+      const int c = i / (T_INH * V), r = i % (T_INH * V);
+      const int iy = r / V, k = r % V;
+      const int y = row0 - 6 + iy, x0 = col0 - 8 + 4 * k;
       const float* ch = col6 + (size_t)(3 * inst + c) * HW;
-      for (int i = tid; i < T_INH * T_INW; i += nthr) {
-        int iy = i / T_INW, ix = i % T_INW;
-        int y = row0 - 6 + iy, x = col0 - 6 + ix;
-        bool in = y >= 0 && y < H && x >= 0 && x < W;
-        s_raw[iy][ix] = in ? ch[(size_t)y * W + x] : 0.f;
+      float v[4];
+      if (vec && y >= 0 && y < H && x0 >= 0 && x0 + 3 < W) {
+        const float4 f = __ldg(reinterpret_cast<const float4*>(ch + (size_t)y * W + x0));
+        v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = inside(y, x0 + e) ? __ldg(ch + (size_t)y * W + x0 + e) : 0.f;
       }
-      __syncthreads();
-      // 9-tap row sums (column offsets -4..4, in order) of the finite
-      // indicator, the sanitised value and its square
-      for (int i = tid; i < T_INH * T_S1W; i += nthr) {
-        int iy = i / T_S1W, sx = i % T_S1W;
-        int y = row0 - 6 + iy;
-        float a = 0.f, b = 0.f, q = 0.f;
-        for (int dj = 0; dj < 9; ++dj) {
-          int x = col0 - 6 + sx + dj;
-          float one = (y >= 0 && y < H && x >= 0 && x < W) ? 1.f : 0.f;
-          float raw = s_raw[iy][sx + dj];
-          bool fin = isfinite(raw);
-          float finv = (fin ? 1.f : 0.f) * one;
-          float safe = (fin ? raw : 0.f) * one;
-          if (dj == 0) {
-            a = finv; b = safe; q = safe * safe;
-          } else {
-            a = a + finv; b = b + safe; q = q + safe * safe;
-          }
-        }
-        s_cs[0][iy][sx] = a;
-        s_cs[1][iy][sx] = b;
-        s_cs[2][iy][sx] = q;
+      unsigned nib = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool fin = isfinite(v[e]);
+        if (fin && inside(y, x0 + e)) nib |= 1u << e;
+        v[e] = fin ? v[e] : 0.f;
       }
-      __syncthreads();
-      for (int i = tid; i < T_S1H * T_S1W; i += nthr) {
-        int sy = i / T_S1W, sx = i % T_S1W;
-        float rs_f = s_cs[0][sy][sx], rs_s = s_cs[1][sy][sx], rs_s2 = s_cs[2][sy][sx];
-        for (int di = 1; di < 9; ++di) {
-          rs_f = rs_f + s_cs[0][sy + di][sx];
-          rs_s = rs_s + s_cs[1][sy + di][sx];
-          rs_s2 = rs_s2 + s_cs[2][sy + di][sx];
-        }
-        float m1c = rs_s / rs_f;
-        float m2c = rs_s2 / rs_f;
-        float raw = s_raw[sy + 4][sx + 4];
-        float p = isfinite(raw) ? raw : m1c;
-        float stdc = sqrtf(m2c - m1c * m1c);
-        if (isfinite(stdc)) p = fminf(fmaxf(p, m1c - 0.5f * stdc), m1c + 0.5f * stdc);
-        int y = row0 - 2 + sy, x = col0 - 2 + sx;
-        bool in = y >= 0 && y < H && x >= 0 && x < W;
-        size_t q = (size_t)y * W + x;
-        float h = in ? ctr11[(size_t)(3 * inst + c) * HW + q] : 0.f;
-        float fcq = in ? ctr11[10 * HW + q] : 0.f;
-        float hist = fcq > 0.f ? h : p;
-        hist = isfinite(hist) ? hist : p;
-        float ic = color_w * p + one_m_wc * hist;
-        float term = lum_w[c] * ic;
-        s_acc[sy][sx] = c == 0 ? term : s_acc[sy][sx] + term;
-        int ty = sy - 2, tx = sx - 2;
-        if (ty >= 0 && ty < T_TH && tx >= 0 && tx < T_TW) s_ic[3 * inst + c][ty][tx] = ic;
-      }
-      __syncthreads();
+      *reinterpret_cast<float4*>(&S.safe[c][iy][4 * k]) = make_float4(v[0], v[1], v[2], v[3]);
+      if (nib) atomicOr(&S.bits[inst][c][iy][k >> 3], nib << (4 * (k & 7)));
     }
-    for (int i = tid; i < T_S1H * T_S1W; i += nthr) {
-      int sy = i / T_S1W, sx = i % T_S1W;
-      int y = row0 - 2 + sy, x = col0 - 2 + sx;
-      float one = (y >= 0 && y < H && x >= 0 && x < W) ? 1.f : 0.f;
-      float acc = s_acc[sy][sx];
-      bool fin = isfinite(acc);
-      s_il[inst][sy][sx] = fin ? acc : 0.f;
-      s_fil[inst][sy][sx] = (fin ? 1.f : 0.f) * one;
+    if (inst == 0) {
+      for (int i = tid; i < T_S1 * T_S1; i += nthr) {
+        const int sy = i / T_S1, sx = i % T_S1;
+        const int y = row0 - 2 + sy, x = col0 - 2 + sx;
+        float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (inside(y, x)) {
+          const size_t q = (size_t)y * W + x;
+          g = make_float4(__ldg(geo7 + q), __ldg(geo7 + 3 * HW + q), __ldg(geo7 + 4 * HW + q),
+                          __ldg(geo7 + 5 * HW + q));
+        }
+        S.geo[sy][sx] = g;
+      }
     }
-    __syncthreads();
-  }
+  };
 
-  const int ty = threadIdx.y, tx = threadIdx.x;
-  const int y = row0 + ty, x = col0 + tx;
-  if (y >= H || x >= W) return;
-  const size_t p = (size_t)y * W + x;
-  const float depth_p = geo7[p], gx = geo7[HW + p], gy = geo7[2 * HW + p];
-  const float nx_p = geo7[3 * HW + p], ny_p = geo7[4 * HW + p], nz_p = geo7[5 * HW + p];
-  float num[2] = {0.f, 0.f}, num2[2] = {0.f, 0.f}, wsum[2] = {0.f, 0.f};
-  for (int tj = -2; tj <= 2; ++tj) {
-    for (int ti = -2; ti <= 2; ++ti) {
-      int qy = y + ti, qx = x + tj;
-      bool in = qy >= 0 && qy < H && qx >= 0 && qx < W;
-      size_t q = (size_t)qy * W + qx;
-      float dq = in ? geo7[q] : 0.f;
-      float nxq = in ? geo7[3 * HW + q] : 0.f;
-      float nyq = in ? geo7[4 * HW + q] : 0.f;
-      float nzq = in ? geo7[5 * HW + q] : 0.f;
-      float dd = gx * (float)ti + gy * (float)tj;
-      float t1 = fabsf(depth_p - dq) / fabsf(dd + eps_z);
-      float ndot = nx_p * nxq + ny_p * nyq + nz_p * nzq;
-      float w_n = pow_int(nan_max(0.f, ndot), sigma_n);
-      float hw = wavelet_h(ti, tj) * expf(-t1) * w_n;
-      for (int i = 0; i < 2; ++i) {
-        float hm = hw * s_fil[i][ty + 2 + ti][tx + 2 + tj];
-        float iq = s_il[i][ty + 2 + ti][tx + 2 + tj];
-        num[i] = num[i] + hm * iq;
-        num2[i] = num2[i] + hm * iq * iq;
-        wsum[i] = wsum[i] + hm;
+  // (B) the stage-1 values of instance `inst`: one thread per (channel,
+  // strip, column); the 9x9 box sums keep the plain version's order (the 9
+  // column offsets of a row first, then the 9 rows)
+  auto box_stage = [&](int inst) {
+    if (tid >= 3 * T_NSTRIP * T_S1) return;
+    const int sx = tid % T_S1, c = tid / (T_NSTRIP * T_S1);
+    const int sy0 = ((tid / T_S1) % T_NSTRIP) * T_STRIP;
+    const unsigned* bits = &S.bits[inst][c][0][0];
+    float ra[T_STRIP], rb[T_STRIP], rq[T_STRIP];
+#pragma unroll
+    for (int r = 0; r < T_STRIP + 8; ++r) {
+      const int iy = sy0 + r;
+      const float* row = &S.safe[c][iy][sx + 2];
+      float b = row[0], q = b * b;
+#pragma unroll
+      for (int dj = 1; dj < 9; ++dj) {
+        const float sv = row[dj];
+        b = b + sv;
+        q = q + sv * sv;
+      }
+      const unsigned long long m =
+          ((unsigned long long)bits[2 * iy + 1] << 32) | bits[2 * iy];
+      ra[r % T_STRIP] = (float)__popcll((m >> (sx + 2)) & 0x1FFull);
+      rb[r % T_STRIP] = b;
+      rq[r % T_STRIP] = q;
+      if (r < 8) continue;
+      const int k = r - 8, sy = sy0 + k;
+      float rs_f = ra[k % T_STRIP], rs_s = rb[k % T_STRIP], rs_s2 = rq[k % T_STRIP];
+#pragma unroll
+      for (int di = 1; di < 9; ++di) {
+        rs_f = rs_f + ra[(k + di) % T_STRIP];
+        rs_s = rs_s + rb[(k + di) % T_STRIP];
+        rs_s2 = rs_s2 + rq[(k + di) % T_STRIP];
+      }
+      float m1c = rs_s / rs_f;
+      float m2c = rs_s2 / rs_f;
+      const int y = row0 - 2 + sy, x = col0 - 2 + sx;
+      const bool in = inside(y, x);
+      // the raw centre: finite (or outside the image, where it is 0) -> safe
+      const unsigned long long mc =
+          ((unsigned long long)bits[2 * (sy + 4) + 1] << 32) | bits[2 * (sy + 4)];
+      float p = (!in || ((mc >> (sx + 6)) & 1ull)) ? S.safe[c][sy + 4][sx + 6] : m1c;
+      float stdc = sqrtf(m2c - m1c * m1c);
+      if (isfinite(stdc)) p = fminf(fmaxf(p, m1c - 0.5f * stdc), m1c + 0.5f * stdc);
+      const size_t qi = in ? (size_t)y * W + x : 0;
+      float h = in ? __ldg(ctr11 + (size_t)(3 * inst + c) * HW + qi) : 0.f;
+      float fcq = in ? __ldg(ctr11 + 10 * HW + qi) : 0.f;
+      float hist = fcq > 0.f ? h : p;
+      hist = isfinite(hist) ? hist : p;
+      float ic = color_w * p + one_m_wc * hist;
+      S.ic[c][sy][sx] = ic;
+      const int ty = sy - 2, tx = sx - 2;
+      if (in && ty >= 0 && ty < T_TW && tx >= 0 && tx < T_TW)
+        cv[(size_t)(6 * inst + c) * HW + qi] = ic;
+    }
+  };
+
+  // (C) instance `inst`'s illuminance and its mask on the stage-1 region
+  auto lum_stage = [&](int inst) {
+    for (int i = tid; i < T_S1 * T_S1; i += nthr) {
+      const int sy = i / T_S1, sx = i % T_S1;
+      const float ic0 = S.ic[0][sy][sx], ic1 = S.ic[1][sy][sx], ic2 = S.ic[2][sy][sx];
+      float acc = lum_w[0] * ic0;
+      acc = acc + lum_w[1] * ic1;
+      acc = acc + lum_w[2] * ic2;
+      const float one = inside(row0 - 2 + sy, col0 - 2 + sx) ? 1.f : 0.f;
+      const bool fin = isfinite(acc);
+      S.il[inst][sy][sx] = fin ? acc : 0.f;
+      S.fil[inst][sy][sx] = (fin ? 1.f : 0.f) * one;
+      const int ty = sy - 2, tx = sx - 2;
+      if (ty >= 0 && ty < T_TW && tx >= 0 && tx < T_TW) {
+        const bool f = isfinite(ic0) && isfinite(ic1) && isfinite(ic2);
+        S.fin_ic[ty][tx] = (inst ? S.fin_ic[ty][tx] : 0) | (f ? 1 << inst : 0);
       }
     }
-  }
+  };
+
+  stage(0);
+  __syncthreads();
+  box_stage(0);
+  __syncthreads();
+  lum_stage(0);
+  stage(1);
+  __syncthreads();
+  box_stage(1);
+  __syncthreads();
+  lum_stage(1);
+  __syncthreads();
 
   const float one_m_mw = 1.f - moments_w;
-  const float fc_c = ctr11[10 * HW + p];
-  const bool spatial = fc_c < below;
-  const float n2 = nx_p * nx_p + ny_p * ny_p + nz_p * nz_p;
-  const bool geo_ok_base = (depth_p < 1e30f * 0.5f) && (n2 > 0.5f);
-  for (int i = 0; i < 2; ++i) {
-    float ic0 = s_ic[3 * i][ty][tx], ic1 = s_ic[3 * i + 1][ty][tx], ic2 = s_ic[3 * i + 2][ty][tx];
-    float ilc = s_il[i][ty + 2][tx + 2];
-    bool fin_il = s_fil[i][ty + 2][tx + 2] > 0.f;
-    float m1_sp = num[i] / wsum[i];
-    float m2_sp = num2[i] / wsum[i];
-    float m1_t = one_m_mw * ctr11[(size_t)(6 + i) * HW + p] + moments_w * ilc;
-    m1_t = isfinite(m1_t) ? m1_t : ilc;
-    float il2 = ilc * ilc;
-    float m2_t = one_m_mw * ctr11[(size_t)(8 + i) * HW + p] + moments_w * il2;
-    m2_t = isfinite(m2_t) ? m2_t : il2;
-    float miu1 = spatial ? m1_sp : m1_t;
-    float miu2 = spatial ? m2_sp : m2_t;
-    float var = miu2 - miu1 * miu1;
-    bool fin_ic = isfinite(ic0) && isfinite(ic1) && isfinite(ic2);
-    bool geo_ok = geo_ok_base && fin_il;
-    size_t b = (size_t)(6 * i) * HW;
-    cv[b + p] = ic0;
-    cv[b + HW + p] = ic1;
-    cv[b + 2 * HW + p] = ic2;
-    cv[b + 3 * HW + p] = var;
-    cv[b + 4 * HW + p] = (fin_ic && geo_ok) ? 1.f : 0.f;
-    cv[b + 5 * HW + p] = (isfinite(var) && geo_ok) ? 1.f : 0.f;
-    ext[(size_t)i * HW + p] = ilc;
-    ext[(size_t)(2 + i) * HW + p] = geo_ok ? 0.f : 1e30f;
-    mst[(size_t)i * HW + p] = miu1;
-    mst[(size_t)(2 + i) * HW + p] = miu2;
+#pragma unroll 1
+  for (int half = 0; half < 2; ++half) {
+    const int ty = threadIdx.y + T_TY * half, tx = threadIdx.x;
+    const int y = row0 + ty, x = col0 + tx;
+    if (y >= H || x >= W) continue;
+    const size_t p = (size_t)y * W + x;
+    const float4 own = S.geo[ty + 2][tx + 2];
+    const float depth_p = own.x, nx_p = own.y, ny_p = own.z, nz_p = own.w;
+    const float gx = geo7[HW + p], gy = geo7[2 * HW + p];
+    float num[2] = {0.f, 0.f}, num2[2] = {0.f, 0.f}, wsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int tj = -2; tj <= 2; ++tj) {
+#pragma unroll
+      for (int ti = -2; ti <= 2; ++ti) {
+        const float4 qg = S.geo[ty + 2 + ti][tx + 2 + tj];
+        float dd = gx * (float)ti + gy * (float)tj;
+        float t1 = fabsf(depth_p - qg.x) / fabsf(dd + eps_z);
+        float ndot = nx_p * qg.y + ny_p * qg.z + nz_p * qg.w;
+        float w_n = pow_n<SN>(nan_max(0.f, ndot), sigma_n);
+        float hw = wavelet_h(ti, tj) * expf(-t1) * w_n;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float hm = hw * S.fil[i][ty + 2 + ti][tx + 2 + tj];
+          float iq = S.il[i][ty + 2 + ti][tx + 2 + tj];
+          num[i] = num[i] + hm * iq;
+          num2[i] = num2[i] + hm * iq * iq;
+          wsum[i] = wsum[i] + hm;
+        }
+      }
+    }
+
+    const float fc_c = ctr11[10 * HW + p];
+    const bool spatial = fc_c < below;
+    const float n2 = nx_p * nx_p + ny_p * ny_p + nz_p * nz_p;
+    const bool geo_ok_base = (depth_p < 1e30f * 0.5f) && (n2 > 0.5f);
+    const unsigned fin_ic = S.fin_ic[ty][tx];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float ilc = S.il[i][ty + 2][tx + 2];
+      bool fin_il = S.fil[i][ty + 2][tx + 2] > 0.f;
+      float m1_sp = num[i] / wsum[i];
+      float m2_sp = num2[i] / wsum[i];
+      float m1_t = one_m_mw * ctr11[(size_t)(6 + i) * HW + p] + moments_w * ilc;
+      m1_t = isfinite(m1_t) ? m1_t : ilc;
+      float il2 = ilc * ilc;
+      float m2_t = one_m_mw * ctr11[(size_t)(8 + i) * HW + p] + moments_w * il2;
+      m2_t = isfinite(m2_t) ? m2_t : il2;
+      float miu1 = spatial ? m1_sp : m1_t;
+      float miu2 = spatial ? m2_sp : m2_t;
+      float var = miu2 - miu1 * miu1;
+      bool geo_ok = geo_ok_base && fin_il;
+      size_t b = (size_t)(6 * i) * HW;
+      cv[b + 3 * HW + p] = var;
+      cv[b + 4 * HW + p] = ((fin_ic >> i & 1) && geo_ok) ? 1.f : 0.f;
+      cv[b + 5 * HW + p] = (isfinite(var) && geo_ok) ? 1.f : 0.f;
+      ext[(size_t)i * HW + p] = ilc;
+      ext[(size_t)(2 + i) * HW + p] = geo_ok ? 0.f : 1e30f;
+      mst[(size_t)i * HW + p] = miu1;
+      mst[(size_t)(2 + i) * HW + p] = miu2;
+    }
   }
+}
+
+template <int SN>
+int launch_temporal(const float* col6, const float* geo7, const float* ctr11, int H, int W,
+                    float color_w, float moments_w, float below, int sigma_n, float eps_z,
+                    float* cv, float* ext, float* mst, cudaStream_t s) {
+  const size_t smem = sizeof(TemporalSmem);
+  cudaError_t e = cudaFuncSetAttribute(
+      temporal_kernel<SN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  // float4 rows: every row starts 16-byte aligned
+  const int vec = W % 4 == 0 && reinterpret_cast<size_t>(col6) % 16 == 0;
+  dim3 block(T_TW, T_TY);
+  dim3 grid((W + T_TW - 1) / T_TW, (H + T_TW - 1) / T_TW);
+  temporal_kernel<SN><<<grid, block, smem, s>>>(col6, geo7, ctr11, H, W, vec, color_w,
+                                                moments_w, below, sigma_n, eps_z, cv, ext, mst);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -352,26 +479,6 @@ struct WavePixel {
   bool live[2];  // instance i's centre is not dead (pen <= 0 or NaN)
   float num_r[2], num_g[2], num_b[2], den_c[2], num_v[2], den_v[2];
 };
-
-// pow_int with the exponent known at compile time (N >= 0), or at run
-// time (N < 0): the same multiply chain either way
-template <int N>
-__device__ __forceinline__ float pow_n(float x, int n) {
-  if (N < 0) return pow_int(x, n);
-  if (N == 0) return 1.f;
-  float result = 0.f, base = x;
-  bool have = false;
-#pragma unroll
-  for (int b = 0; b < 31; ++b) {
-    if ((N >> b) == 0) break;
-    if ((N >> b) & 1) {
-      result = have ? result * base : base;
-      have = true;
-    }
-    base = base * base;
-  }
-  return result;
-}
 
 // one tap (ti, tj) of pixel a from the staged point q[0..4]:
 // q0 = (depth, nx, ny, nz), q1 = (il0, fc0, fv0, il1),
@@ -580,12 +687,14 @@ extern "C" int lprt_temporal(const float* col6, const float* geo7,
                              float moments_w, float below, int sigma_n,
                              float eps_z, float* cv, float* ext, float* mst,
                              void* stream) {
-  dim3 block(T_TW, T_TH);
-  dim3 grid((W + T_TW - 1) / T_TW, (H + T_TH - 1) / T_TH);
-  temporal_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      col6, geo7, ctr11, H, W, color_w, moments_w, below, sigma_n, eps_z, cv,
-      ext, mst);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  // the configured sigma_n (128) with pow_int's chain unrolled; any other
+  // exponent runs the loop
+  if (sigma_n == 128)
+    return launch_temporal<128>(col6, geo7, ctr11, H, W, color_w, moments_w, below, sigma_n,
+                                eps_z, cv, ext, mst, s);
+  return launch_temporal<-1>(col6, geo7, ctr11, H, W, color_w, moments_w, below, sigma_n,
+                             eps_z, cv, ext, mst, s);
 }
 
 extern "C" int lprt_wavelet(const float* geo, const float* cvin, int H, int W,

@@ -50,7 +50,7 @@ SIGNATURES = {
     },
     "wavefront": {
         "lprt_wavefront_schedule": [P] * 6 + [I] * 6 + [P] * 3 + [P],
-        "lprt_wavefront_assigned": [P] * 6 + [I, I] + [P, P] + [I] * 4 + [P] * 3 + [P],
+        "lprt_wavefront_assigned": [P] * 6 + [I, I] + [P] * 3 + [I] * 4 + [P] * 5,
     },
     "mxu_proto": {
         "lprt_mxu_proto_vpu": [P] * 3 + [I] * 3 + [P] * 3 + [P],

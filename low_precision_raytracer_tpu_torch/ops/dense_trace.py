@@ -544,6 +544,18 @@ def per_table(anchor: torch.Tensor, key, build):
     return value
 
 
+def slice_table(frame) -> torch.Tensor:
+    """The 32-row slice boxes K1b and K5 cull by: the AABB of each 32 rows
+    (the packet route's leaf boxes), recentred like the rays, (4 NC, 6)
+    [lo3 | hi3], once per frame table."""
+
+    def build():
+        c = frame.dense_center[None, :]
+        return torch.cat([frame.dense_leaf_lo - c, frame.dense_leaf_hi - c], dim=1).contiguous()
+
+    return per_table(frame.dense_leaf_lo, ("slices",), build)
+
+
 class BoxTree(NamedTuple):
     """An implicit FAN-ary tree over boxes that each hold `leaf`
     consecutive table rows, in the rays' frame."""

@@ -80,6 +80,7 @@ from low_precision_raytracer_tpu_torch.ops.dense_trace import (
     scene_exit_cap,
 )
 from low_precision_raytracer_tpu_torch.ops.dense_trace import build_tree, per_table
+from low_precision_raytracer_tpu_torch.ops.dense_trace import slice_table as _slice_table
 from low_precision_raytracer_tpu_torch.ops.packet_trace import (
     LEAF,
     packet_trace,
@@ -278,17 +279,6 @@ def _packet_walk(frame: FrameInput, coef, tree):
 def _chunk_tables(frame: FrameInput):
     """K1b's chunk AABBs and the tree over them."""
     return _box_tables(frame.dense_chunk_lo, frame.dense_chunk_hi, frame, CHUNK)
-
-
-def _slice_table(frame: FrameInput):
-    """K1b's slice boxes: the AABB of each 32 rows (the packet route's
-    leaf boxes), recentred like the rays, (4 NC, 6) [lo3 | hi3]."""
-
-    def build():
-        c = frame.dense_center[None, :]
-        return torch.cat([frame.dense_leaf_lo - c, frame.dense_leaf_hi - c], dim=1).contiguous()
-
-    return per_table(frame.dense_leaf_lo, ("slices",), build)
 
 
 def di_light_rows(frame: FrameInput, di_lights: dict) -> torch.Tensor:

@@ -18,7 +18,9 @@ chunks.  One 'oneshot' launch:
    render dtype and then recentred in f32; the lanes are
    sorted by group id (`torch.sort(stable=True)`, the payload gathered
    through the permutation) and each is tested against its group's rows
-   (`assigned_test`, K5, CUDA `lprt_wavefront_assigned`); the results go
+   (`assigned_test`, K5, CUDA `lprt_wavefront_assigned`: it tests only the
+   32-row slices whose boxes its ray enters under the zero-axis rule, as
+   `assigned_cull_plain` emulates); the results go
    back to pair order, and per ray the winner is the first minimum t over
    its candidates;
 4. MERGE: the running best is replaced only by a strictly smaller t; a ray
@@ -70,6 +72,7 @@ import torch
 from low_precision_raytracer_tpu_torch.ops import cuda_lib
 from low_precision_raytracer_tpu_torch.ops.dense_trace import (
     CHUNK,
+    SLICE,
     T_MISS,
     BoxTree,
     _check_args,
@@ -81,7 +84,9 @@ from low_precision_raytracer_tpu_torch.ops.dense_trace import (
     per_table,
     ray_aabb_entry,
     scene_exit_cap,
+    slice_table,
 )
+from low_precision_raytracer_tpu_torch.ops.packet_trace import zero_axis_inside
 
 ONESHOT_K = 8  # candidates per ray in the first, full-width pass
 # 'rounds' (the JAX package's K_CAND, Q_RANKS, N_ROUNDS, CYCLE2_MIN_GROUPS)
@@ -240,9 +245,130 @@ def assigned_test_plain(o, d, skip, mind, maxd, gid, coef, tri_ids, s_group: int
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
+# the counting form's ints per lane (csrc/wavefront.cu:LPRT_ASSIGNED_COUNTS)
+ASSIGNED_COUNTS = ("entered", "entered_box_entry", "boxes_tested", "slices_tested",
+                   "rows_tested", "warp_slices", "thread")
+
+
+def slice_entry(b, o, inv, maxd):
+    """K5's slab test of lanes (n, 3) with inv = 1 / d against one slice
+    box each (n, 6) [lo3 | hi3]: -> (entry (n,) f32, entered under the
+    zero-axis rule (`box_entry_exact0`) (n,) bool, entered under the slab
+    test alone (`box_entry`) (n,) bool)."""
+    t1 = (b[:, :3] - o) * inv
+    t2 = (b[:, 3:] - o) * inv
+    fin = torch.isfinite(t1) & torch.isfinite(t2)
+    tmin = torch.where(fin, torch.minimum(t1, t2), -3e38).amax(dim=1)
+    tmax = torch.where(fin, torch.maximum(t1, t2), 3e38).amin(dim=1)
+    e = torch.clamp(tmin - 0.02, min=0.0)
+    ok = fin.any(dim=1) & (tmin <= tmax + 0.02) & (tmax + 0.02 >= 0) & (e < maxd)
+    return e, ok & zero_axis_inside(b[:, :3], b[:, 3:], o, inv), ok
+
+
+def assigned_cull_plain(o, d, skip, mind, maxd, gid, coef, tri_ids, slices, s_group: int,
+                        find_any: bool = False, slab_lanes: int = 8192):
+    """K5's culled loop (csrc/wavefront.cu:assigned_kernel) emulated in
+    plain PyTorch, lane by lane in slabs: per chunk the four slice boxes
+    `slices` (4 NC, 6) tested by `slice_entry`; closest hit skips a chunk
+    whose entered slices all have entry >= the best t and a slice whose
+    least key (bits(entry) & ~127) | 32 i exceeds min(chunk minimum so
+    far, (bits(best t) & ~127) | 127); any hit skips unentered slices only
+    and stops at its first accepted row.  Its result equals
+    `assigned_test_plain`'s.  -> (t, row, pk, counts (P, 5) i64: the
+    first five of ASSIGNED_COUNTS)."""
+    P, q = gid.shape
+    TI = coef.shape[0]
+    NG = _n_groups(TI, s_group)
+    dev = o.device
+    lmask = CHUNK - 1
+    local = torch.arange(CHUNK, device=dev)
+    first = torch.arange(0, CHUNK, SLICE, device=dev)  # each slice's first local row
+    inv = 1.0 / d
+    outs = []
+    for p0 in range(0, max(P, 1), slab_lanes):
+        sl = slice(p0, p0 + slab_lanes)
+        n = gid[sl].shape[0]
+        oo, dd = o[sl][:, :, None], d[sl][:, :, None]
+        bt = torch.full((n,), T_MISS, dtype=torch.float32, device=dev)
+        brow = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        bpk = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        done = torch.zeros((n,), dtype=torch.bool, device=dev)
+        cnt = torch.zeros((n, 5), dtype=torch.int64, device=dev)
+        for j in range(q):
+            g = gid[sl, j].to(torch.int64)
+            for s in range(s_group):
+                c = g * s_group + s
+                k0 = c * CHUNK
+                on = (g >= 0) & (g < NG) & (k0 < TI)  # the chunk is visited
+                live = on & ~done  # ... and its rows may be tested
+                rows = k0[:, None] + local[None, :]
+                valid = on[:, None] & (rows < TI)
+                rows_c = torch.where(valid, rows, 0)
+                cr = coef[rows_c]  # (n, 128, 12)
+                t, u, v, geom = m_shift_test([cr[..., i] for i in range(12)], oo, dd)
+                acc = (valid & geom & (t > mind[sl, None]) & (t < maxd[sl, None]) & (t > 0)
+                       & (tri_ids[rows_c] != skip[sl, None]) & torch.isfinite(t))
+                has = on[:, None] & (k0[:, None] + first[None, :] < TI)  # (n, 4)
+                width = torch.clamp(TI - (k0[:, None] + first[None, :]), 0, SLICE) * has
+                box = slices[torch.where(has, 4 * c[:, None] + torch.arange(4, device=dev), 0)]
+                e, ent, ent_b = (x.reshape(n, 4) for x in slice_entry(
+                    box.reshape(-1, 6), o[sl].repeat_interleave(4, 0),
+                    inv[sl].repeat_interleave(4, 0), maxd[sl].repeat_interleave(4)))
+                ent, ent_b = ent & has, ent_b & has
+                cnt[:, 0] += ent.sum(dim=1)
+                cnt[:, 1] += ent_b.sum(dim=1)
+                cnt[:, 2] += torch.where(live, has.sum(dim=1), 0)
+                if find_any:
+                    tested = ent & live[:, None]
+                    a = (acc.reshape(n, 4, SLICE) & tested[:, :, None]).reshape(n, CHUNK)
+                    got = a.any(dim=1)
+                    win = torch.argmax(a.to(torch.int8), dim=1)  # the first accepted row
+                    before = first[None, :] < (win - win % SLICE)[:, None]
+                    n_rows = torch.where(got, (width * (tested & before)).sum(dim=1)
+                                         + win % SLICE + 1, (width * tested).sum(dim=1))
+                    # the lane leaves the chunk at its first accepted row
+                    tested &= ~got[:, None] | (first[None, :] <= (win - win % SLICE)[:, None])
+                else:
+                    emin = torch.where(ent, e, float("inf")).amin(dim=1)
+                    chunk_on = live & ent.any(dim=1) & (emin < bt)
+                    keys = torch.where(acc, (t.view(torch.int32) & ~lmask)
+                                       | local.to(torch.int32), INT32_MAX).reshape(n, 4, SLICE)
+                    kb = (bt.view(torch.int32) & ~lmask) | lmask
+                    kmin = torch.full((n,), INT32_MAX, dtype=torch.int32, device=dev)
+                    tested = torch.zeros((n, 4), dtype=torch.bool, device=dev)
+                    for i in range(4):
+                        least = (e[:, i].contiguous().view(torch.int32) & ~lmask) | (SLICE * i)
+                        ti = chunk_on & ent[:, i] & (least <= torch.minimum(kmin, kb))
+                        tested[:, i] = ti
+                        kmin = torch.where(ti, torch.minimum(kmin, keys[:, i].amin(dim=1)), kmin)
+                    got = kmin != INT32_MAX
+                    win = (kmin & lmask).to(torch.int64)
+                    n_rows = (width * tested).sum(dim=1)
+                cnt[:, 3] += tested.sum(dim=1)
+                cnt[:, 4] += n_rows
+                take = lambda x: x.gather(1, win[:, None])[:, 0]
+                tw = take(t)
+                better = got & (tw < bt)
+                if find_any:
+                    better &= brow < 0
+                bt = torch.where(better, tw, bt)
+                brow = torch.where(better, (k0 + win).to(torch.int32), brow)
+                bpk = torch.where(better, pack_uv(take(u), take(v)), bpk)
+                if find_any:
+                    done |= brow >= 0
+        outs.append((bt, brow, bpk, cnt))
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
 def assigned_test(o, d, skip, mind, maxd, gid, coef, tri_ids, s_group: int,
-                  find_any: bool = False):
-    """K5 wrapper (see `assigned_test_plain`)."""
+                  find_any: bool = False, *, slices=None, counts=None):
+    """K5 wrapper (see `assigned_test_plain`).  The kernel tests only the
+    32-row slices its lane's ray enters (`assigned_cull_plain`): `slices`
+    (4 NC, 6) f32, the frame's `slice_table`, is required on CUDA; `counts`
+    (P, 7) i32: where given, the kernel's counting form fills it
+    (ASSIGNED_COUNTS).  Each block of the kernel regroups its lanes by the
+    slices of their first chunk that their rays enter, so a warp's lanes
+    test the same slices; the results do not depend on the lanes' order."""
     P, q = gid.shape
     TI = coef.shape[0]
     NG = _n_groups(TI, s_group)
@@ -253,17 +379,26 @@ def assigned_test(o, d, skip, mind, maxd, gid, coef, tri_ids, s_group: int,
                  (i32, (P, q)), (f32, (TI, 12)), (i32, (TI,))])
     dev = o.device
     if dev.type == "cpu":
+        if counts is not None:
+            raise ValueError("wavefront assigned_test: the counting form is the kernel's")
         return assigned_test_plain(o, d, skip, mind, maxd, gid, coef, tri_ids, s_group,
                                    find_any)
     if coef.data_ptr() % 16:
         raise ValueError("wavefront assigned_test: the coefficient table must be 16-byte aligned")
+    NC = -(-TI // CHUNK)
+    if slices is None:
+        raise ValueError("wavefront assigned_test: the kernel needs the slice boxes")
+    _check_args("wavefront assigned_test", [slices], [(f32, (NC * CHUNK // SLICE, 6))])
+    if counts is not None:
+        _check_args("wavefront assigned_test", [counts], [(i32, (P, len(ASSIGNED_COUNTS)))])
     t = torch.empty((P,), dtype=f32, device=dev)
     row = torch.empty((P,), dtype=i32, device=dev)
     pk = torch.empty_like(row)
     code = cuda_lib.library("wavefront").lprt_wavefront_assigned(
         o.data_ptr(), d.data_ptr(), skip.data_ptr(), mind.data_ptr(), maxd.data_ptr(),
-        gid.data_ptr(), P, q, coef.data_ptr(), tri_ids.data_ptr(), TI, NG, s_group,
-        int(find_any), t.data_ptr(), row.data_ptr(), pk.data_ptr(), cuda_lib.stream_ptr(dev))
+        gid.data_ptr(), P, q, coef.data_ptr(), tri_ids.data_ptr(), slices.data_ptr(), TI, NG,
+        s_group, int(find_any), t.data_ptr(), row.data_ptr(), pk.data_ptr(),
+        None if counts is None else counts.data_ptr(), cuda_lib.stream_ptr(dev))
     cuda_lib.check(code, "wavefront assigned_test")
     cuda_lib.LAUNCHES["wavefront_assigned"] += 1
     return t, row, pk
@@ -288,6 +423,7 @@ class Launch(NamedTuple):
     hi: torch.Tensor
     tree: BoxTree  # the schedule's tree over them (`group_tree`)
     coef: torch.Tensor  # (TI, 12) f32
+    slices: torch.Tensor  # (4 NC, 6) f32 the 32-row slice boxes K5 culls by
     tri: torch.Tensor  # (TI,) i32
     obj: torch.Tensor  # (TI,) i32
     s_group: int
@@ -316,8 +452,8 @@ def setup(frame, origins, directions, prec, skip_tri, min_dist, max_dist,
 
     lo, hi, s_group, id_bits, tree = group_tables(frame)
     return Launch(o, d, o_q, d_q, skip.contiguous(), mind.contiguous(), maxd,
-                  maxd > mind, lo, hi, tree, coef_table(frame), frame.dense_tri,
-                  frame.dense_obj, s_group, id_bits, find_any)
+                  maxd > mind, lo, hi, tree, coef_table(frame), slice_table(frame),
+                  frame.dense_tri, frame.dense_obj, s_group, id_bits, find_any)
 
 
 def group_tables(frame):
@@ -400,7 +536,7 @@ def pair_pass(L: Launch, sel, emin, kk: int):
                           torch.where(live, take(L.maxd), 0.0).contiguous(), emin,
                           L.id_bits, kk, tree=L.tree)
     pair, lanes = pair_lanes(L, sel, cand, live)
-    out = assigned_test(*lanes, L.coef, L.tri, L.s_group, L.find_any)
+    out = assigned_test(*lanes, L.coef, L.tri, L.s_group, L.find_any, slices=L.slices)
     return combine(pair, out, cand, tcut, L.id_bits)
 
 
@@ -482,7 +618,8 @@ def run_cycle(L: Launch, st: State, sel) -> int:
         # the lanes sorted by their first group: a warp's lanes share rows
         order = torch.sort(gid[:, 0], stable=True).indices
         lanes = _lanes(L, sel[act[order]], gid[order].to(torch.int32).contiguous())
-        t_r, row_r, pk_r = assigned_test(*lanes, L.coef, L.tri, L.s_group, L.find_any)
+        t_r, row_r, pk_r = assigned_test(*lanes, L.coef, L.tri, L.s_group, L.find_any,
+                                         slices=L.slices)
         ia = act[order]
         better = (row_r >= 0) & (t_r < bt[ia])
         bt[ia] = torch.where(better, t_r, bt[ia])
