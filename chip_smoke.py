@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py              # one card; exits non-zero without one
     python3 chip_smoke.py --profile    # also prints device time by kernel
-    python3 chip_smoke.py --beside DIR # also times DIR's K5 and K3 (an older
-                                       # checkout) on this run's inputs
+    python3 chip_smoke.py --beside DIR # also times DIR's K5, K3, K2 and K1a (an
+                                       # older checkout) on this run's inputs
 
 Phases, in order (any failed check raises, so the exit code is non-zero):
 
@@ -17,13 +17,23 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
 3. flagship kernel phase: two warm-up frames of the flagship (Cornell,
    bf16, 1920x1080) record the inputs each kernel wrapper gets on the main
    path; each kernel is then held against its plain PyTorch version on
-   those inputs on the card (K1a and K4 exact, K2 and K3 to rtol 1e-4 /
+   those inputs on the card (K1a, K2 and K4 bit for bit, K3 to rtol 1e-4 /
    atol 1e-5), and both are timed with CUDA events (K4 with the bytes its
-   staging reads and the previous kernel's time per stride beside it; K3
-   beside the older checkout's, --beside); then K4 exact at
-   every stride on 97x61 and 7x29 frames with NaN, +-Inf and dead centres
-   planted (`k4_edge_holds`), and K3 on such frames with NaN and +-Inf
-   planted, both moment branches and fc = 0 (`k3_edge_holds`);
+   staging reads and the previous kernel's time per stride beside it; K3,
+   K2 and K1a beside the older checkout's, --beside, a b b a; K1a with the
+   (ray, row) pairs its culls skip and the warp steps it runs, from the
+   plain emulation of its loops, `dense_trace_cull_plain`, held equal to
+   the plain version; K2 with the tiles on its 16-view sum); then K4 exact
+   at every stride on 97x61 and 7x29 frames with NaN, +-Inf and dead
+   centres planted (`k4_edge_holds`), K3 on such frames with NaN and +-Inf
+   planted, both moment branches and fc = 0 (`k3_edge_holds`), K2 bit for
+   bit on synthetic 1920x1080, 97x61 and 7x29 frames (residuals in and
+   outside the window, wrapping motions of both signs, NaN, +-Inf and -0
+   taps in a few tiles, count 0), with both sides of its finite gate timed
+   at 1080p (`k2_edge_holds`), and K1a bit for bit in every form it runs,
+   packed too, on adversarial lanes (zero direction components, origins on
+   a plane, mind < 0, dead lanes, coplanar ties, a doubled table:
+   `k1a_edge_holds`);
 4. flagship path phase: all launch counts are zeroed, a fresh Renderer
    (seed 0) renders 8 flagship frames, the counts are read; per frame the
    single-chunk trace K1a runs 2 times, the temporal kernel once, the
@@ -204,12 +214,13 @@ colonnade-2M launches) and the nvidia-smi line; the last line is
 K1b's packed forms (their times from phase 24) and the tool's two bodies
 (NCHUNK = 1; launches from phase 26).  Frame times, and K1b's, K4's,
 K6's and the schedule's times per launch, print beside the previous
-tree's (`PREV_*`).  About 10 minutes on an H100, most of it the plain
+tree's (`PREV_*`).  About 11 minutes on an H100, most of it the plain
 versions' holds of phases 12 and 19.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import statistics
@@ -250,7 +261,7 @@ PREV_LAUNCH_MS = {
     ("colonnade-83k schedule", "gi"): 0.809, ("colonnade-83k schedule", "shadow1"): 1.940}
 # ... and the means kept there where no launch's own was kept
 PREV_MEAN_MS = {"sponza-fp32": 2.220, "sponza-fp32 packet route": 1.534}
-BESIDE = None  # an older checkout's K5 and K3 wrappers (--beside DIR), or None
+BESIDE = None  # an older checkout's K5, K3, K2 and K1a wrappers (--beside DIR), or None
 TPU = "low_precision_raytracer_tpu/ops/"
 KERNELS = {  # wrapper name -> (source, TPU kernel it replaces)
     "dense_trace": ("low_precision_raytracer_tpu_torch/csrc/dense_trace.cu",
@@ -331,13 +342,13 @@ def nbytes(*ts):
 
 
 def load_beside(root):
-    """The K5 and K3 wrappers of an older checkout of this repository at
-    `root` (`git archive` of another commit), bound to that checkout's own
-    kernels (its csrc/, built into its own _build/), for timing beside this
-    tree's kernels on the same inputs.  Each wrapper module is loaded with
-    the older `ops/cuda_lib.py` standing in for this tree's while it is
-    imported; its other imports are this tree's.  -> namespace(wavefront,
-    svgf_kernels)."""
+    """The K5, K3, K2 and K1a wrappers of an older checkout of this
+    repository at `root` (`git archive` of another commit), bound to that
+    checkout's own kernels (its csrc/, built into its own _build/), for
+    timing beside this tree's kernels on the same inputs.  Each wrapper
+    module is loaded with the older `ops/cuda_lib.py` standing in for this
+    tree's while it is imported; its other imports are this tree's.  ->
+    namespace(wavefront, svgf_kernels, dense_trace)."""
     import importlib.util
     import types
     from pathlib import Path
@@ -362,12 +373,12 @@ def load_beside(root):
     sys.modules[key] = ops_pkg.cuda_lib = lib
     try:
         mods = {m: load(f"beside_{m}", pkg / "ops" / f"{m}.py")
-                for m in ("wavefront", "svgf_kernels")}
+                for m in ("wavefront", "svgf_kernels", "dense_trace")}
     finally:
         sys.modules[key] = ops_pkg.cuda_lib = own
     t0 = time.perf_counter()
-    lib.build_all(("wavefront", "svgf"))
-    log(f"beside {root}: K5 and K3 built in {time.perf_counter() - t0:.2f} s")
+    lib.build_all(("wavefront", "svgf", "dense_trace"))
+    log(f"beside {root}: K5, K3, K2 and K1a built in {time.perf_counter() - t0:.2f} s")
     return types.SimpleNamespace(**mods)
 
 
@@ -397,28 +408,44 @@ def row_ops(band):
     return TRI_TEST_OPS + BAND_OPS + (SUB_BAND_OPS if band.operand is not None else 0)
 
 
-def dense_trace_ops(args, kw, out):
-    """Triangle tests this run's data needs: every live lane against every
-    triangle, then per winner and light the tests up to the first
-    occluder (the kernel's any-hit loop stops there)."""
+# K1a's culls (csrc/dense_trace.cu:cull): a visited (ray, row) pair costs
+# its plane rows Oz, Dz (3 multiplies and 3 adds, 3 and 2), part of the
+# row test, and the cull (the product rounded up, the range and the sign
+# compares); a pair that survives the rest of the row test
+PLANE_OPS = 11
+CULL_OPS = 3
+
+
+def dense_trace_ops(args, kw, out, culls=None):
+    """Triangle tests this run's data needs.  With `culls` (`k1a_culls`:
+    the (ray, row) pairs K1a's culled loops visit and test in full, per
+    phase): PLANE_OPS + CULL_OPS per visited pair and the rest of the row
+    test per pair tested in full.  Without (the all-row count): every live
+    lane against every row, then per winner and light the rows up to the
+    first occluder (the any-hit loop stops there).  Either way the shadow
+    rays' setup per winner and light."""
     import torch
 
     from low_precision_raytracer_tpu_torch.ops.dense_trace import STRICT, tri_quantities
 
     o, d, skip, mind, maxd, coef, tri_ids = args[:7]
-    lights = args[8] if len(args) > 8 else kw.get("lights")
+    lights = None if kw.get("pack") else (args[8] if len(args) > 8 else kw.get("lights"))
     d_mov = kw.get("d_mov", 0.0)
     band = kw.get("band", STRICT)
+    n_lights = 0 if lights is None else lights.shape[0]
+    setup = 0 if lights is None else int((out[3] >= 0).sum()) * n_lights * SHADOW_SETUP_OPS
+    if culls is not None:
+        return setup + sum(c["tests"] * (PLANE_OPS + CULL_OPS)
+                           + c["full"] * (row_ops(band) - PLANE_OPS) for c in culls.values())
     TI = coef.shape[0]
     tests = int((maxd > mind).sum()) * TI
-    if kw.get("pack"):  # no shadow phase
+    if lights is None:
         return tests * row_ops(band)
     t, tri = out[0], out[3]
     got = tri >= 0
-    n_got = int(got.sum())
     p = (o + t[:, None] * d)[got]
     wtri = tri[got]
-    for l in range(0 if lights is None else lights.shape[0]):
+    for l in range(n_lights):
         a = lights[l, 1:4]
         dvec = a[None, :] - p
         dist = torch.sqrt(dvec[:, 0] * dvec[:, 0] + dvec[:, 1] * dvec[:, 1]
@@ -432,8 +459,7 @@ def dense_trace_ops(args, kw, out):
             & torch.isfinite(t2)
         first = torch.where(blk.any(1), blk.to(torch.int8).argmax(1) + 1, TI)
         tests += int(first.sum())
-    n_lights = 0 if lights is None else lights.shape[0]
-    return tests * row_ops(band) + n_got * n_lights * SHADOW_SETUP_OPS
+    return tests * row_ops(band) + setup
 
 
 def coef_fetch_ops(C, HW):
@@ -664,6 +690,143 @@ def k3_edge_holds():
                 "pixels (NaN, +-Inf planted)")
 
 
+def k2_edge_holds():
+    """K2 held bit for bit against its plain version on synthetic inputs
+    (made from a seed): frames of 1920x1080, 97x61 and 7x29; residuals
+    drawn from {-1, 0, 1} (some -0) with 3% outside the window (+-2, 0.5,
+    NaN); weights with -0, NaN and +Inf among them; count 0 on a third of
+    the pixels; global motions (0, 0), (3, -5), (-2, 7) and one past the
+    frame's size (wrapping), each with NaN, +-Inf and -0 history taps
+    planted in a few tiles only; all with the main path's 10 history
+    channels (`coef_fetch_kernel<10>`), and the small frames and a 1080p
+    frame also with 1, 3 and 16 (the run-time-C body).  Then the finite gate's two sides timed
+    at 1920x1080: every tile finite (the matched views) and one NaN
+    planted per tile (the 16-view sum everywhere), beside the plain
+    version's time."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops.svgf_kernels import (
+        FETCH_TILE,
+        coef_fetch,
+        coef_fetch_plain,
+        fetch_full_tiles,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rand = lambda *shape: torch.rand(shape, device="cuda", generator=gen)
+
+    def inputs(Hs, Ws, planted=True, C=10):
+        hist = 4 * rand(C, Hs, Ws) - 2
+        hist = torch.where(rand(C, Hs, Ws) < 0.05, -0.0, hist)
+        if planted:  # a few taps in a few places: most tiles stay finite
+            for val in (float("nan"), float("inf"), -float("inf")):
+                for _ in range(2):
+                    c, y, x = (int(torch.randint(0, n, (1,), device="cuda", generator=gen))
+                               for n in (C, Hs, Ws))
+                    hist[c, y, x] = val
+        res = torch.floor(3 * rand(2, Hs, Ws)) - 1
+        res = torch.where(rand(2, Hs, Ws) < 0.05, -0.0 * torch.ones_like(res), res)
+        odd = torch.tensor([-2.0, 2.0, 0.5, float("nan")], device="cuda")
+        pick = odd[torch.randint(0, 4, (2, Hs, Ws), device="cuda", generator=gen)]
+        res = torch.where(rand(2, Hs, Ws) < 0.03, pick, res)
+        w = rand(4, Hs, Ws) * (rand(4, Hs, Ws) > 0.2)
+        w = torch.where(rand(4, Hs, Ws) < 0.05, -0.0, w)
+        w = torch.where(rand(4, Hs, Ws) < 0.002, float("nan"), w)
+        w = torch.where(rand(4, Hs, Ws) < 0.002, float("inf"), w)
+        count = torch.where(rand(1, Hs, Ws) < 0.33, 0.0, torch.floor(4 * rand(1, Hs, Ws)) + 1)
+        return hist.contiguous(), torch.cat([res, w, count]).contiguous()
+
+    cases = [(Hs, Ws, C) for C in (10, 1, 3, 16) for Hs, Ws in ((61, 97), (29, 7))]
+    for Hs, Ws, C in [(H, W, 10)] + cases + [(H, W, 16)]:
+        hist, rw = inputs(Hs, Ws, C=C)
+        for my, mx in ((0, 0), (3, -5), (-2, 7), (Hs + 5, -(Ws + 3))):
+            out = coef_fetch(hist, rw, my, mx)
+            torch.cuda.synchronize()
+            check_bits(f"coef_fetch {Ws}x{Hs} C {C} motion ({my}, {mx})", out,
+                       coef_fetch_plain(hist, rw, my, mx))
+            full = fetch_full_tiles(hist, my, mx)
+            log(f"kernel coef_fetch edge hold {Ws}x{Hs} C {C} motion ({my}, {mx}): equal bit "
+                f"for bit; {int(full.sum())} of {full.numel()} tiles on the 16-view sum")
+    hist, rw = inputs(H, W, planted=False)
+    TH, TW = FETCH_TILE
+    nan_hist = hist.clone()
+    nan_hist[0, TH // 2::TH, TW // 2::TW] = float("nan")  # one NaN a tile
+    times = {}
+    for what, h in (("matched views", hist), ("16-view sum", nan_hist)):
+        full = fetch_full_tiles(h, 0, 0)
+        out = coef_fetch(h, rw, 0, 0)
+        torch.cuda.synchronize()
+        check_bits(f"coef_fetch 1080p {what}", out, coef_fetch_plain(h, rw, 0, 0))
+        times[what] = dict(ms=cuda_ms(lambda: coef_fetch(h, rw, 0, 0), 50),
+                           full_tiles=int(full.sum()), tiles=full.numel())
+    times["plain_ms"] = cuda_ms(lambda: coef_fetch_plain(hist, rw, 0, 0), 3)
+    log(f"kernel coef_fetch gate sides 1920x1080: {json.dumps(times)}")
+
+
+K1A_FORMS = (("bf16", "mxu3"), ("fp16", "mxu3"), ("fp32", "both"), ("bf16", "both"),
+             ("bf16", "dtype"), ("fp16", "both"), ("fp16", "dtype"), ("fp32", "dtype"))
+
+
+def k1a_edge_holds(n=1 << 16):
+    """K1a held against its plain version (every output on every ray,
+    `check_dense`) on adversarial lanes (`k1a_edge_rays`: zero direction
+    components against Cornell's axis-aligned walls, origins on a row's
+    plane with Oz exactly 0, mind < 0, dead lanes with maxd <= mind, rays
+    up through the floor under the tall box, whose bottom face lies in the
+    floor's plane) in every form K1a runs (`K1A_FORMS`), with the fused
+    shadow phase and, in the forms the packed epilogue takes, packed; on
+    the flagship's table and on the table doubled (every row again with
+    its id + 1000, first: exact ties in t, the smaller id found later).
+    Logs the rays whose least accepted t is tied between rows."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.models.procedural import cornell_box_scene
+    from low_precision_raytracer_tpu_torch.models.scene import flatten_frame
+    from low_precision_raytracer_tpu_torch.ops import trace as T
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import (
+        dense_trace,
+        dense_trace_plain,
+        k1a_edge_rays,
+        tri_quantities,
+    )
+
+    for precision, fallback in K1A_FORMS:
+        cfg = RenderConfig(width=W, height=H, precision=precision, triangle_fallback=fallback)
+        frame = flatten_frame(cornell_box_scene(), cfg.prec, "cuda", 4, W, H)
+        band = T.acceptance_band(frame, cfg, cfg.prec)
+        coef = T.frame_table(frame, band)
+        spec = {k: getattr(frame, k)[: frame.n_lights]
+                for k in ("light_type", "light_pos", "light_dir")}
+        lights = T.di_light_rows(frame, spec)
+        d_mov = T.fused_moveforward(cfg.prec, band)
+        c = frame.dense_center
+        box = torch.tensor([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]], device="cuda") - c
+        spot = torch.tensor([-0.35, -1.0, -0.35], device="cuda") - c
+        rays = k1a_edge_rays(coef, box[0].tolist(), box[1].tolist(), spot.tolist(), n, seed=5)
+        tables = {"table": (coef, frame.dense_tri, frame.dense_obj),
+                  "doubled": (torch.cat([coef, coef]).contiguous(),
+                              torch.cat([frame.dense_tri + 1000, frame.dense_tri]).int().contiguous(),
+                              torch.cat([frame.dense_obj, frame.dense_obj]).int().contiguous())}
+        for tname, table in tables.items():
+            args = rays + table
+            forms = [dict(lights=lights, d_mov=d_mov)]
+            if not cfg.prec.is_f32:  # the packed epilogue's forms
+                forms.append(dict(pack=True))
+            for extra in forms:
+                out_k = dense_trace(*args, band=band, **extra)
+                torch.cuda.synchronize()
+                check_dense(out_k, dense_trace_plain(*args, band=band, **extra))
+            t, _u, _v, geom = tri_quantities(table[0], rays[0], rays[1], band)
+            ok = (geom & (t > rays[3][:, None]) & (t < rays[4][:, None])
+                  & (table[1][None] != rays[2][:, None]) & torch.isfinite(t))
+            tmin = torch.where(ok, t, float("inf")).min(dim=1).values
+            ties = int((((t == tmin[:, None]) & ok).sum(dim=1) > 1).sum())
+            log(f"kernel dense_trace edge hold {precision}-{fallback} {tname}: "
+                f"{rays[0].shape[0]} rays equal{' (and packed)' if len(forms) > 1 else ''}; "
+                f"{ties} rays with tied least t")
+
+
 def out_names(out):
     """The names of a trace kernel's outputs: the packed epilogue's three
     or the full record."""
@@ -682,6 +845,37 @@ def check_dense(k, p):
     return 0.0
 
 
+def beside(name, older, kern, args, kw, out_p, check, reps=20, older_kw=None):
+    """The older checkout's kernel (`--beside`) on the same inputs (its own
+    keywords `older_kw`, by default `kw`): held against the plain version
+    (`check(got, out_p)`), then both timed a b b a (`ab_ms`, `reps` calls a
+    sample).  -> {ms_samples, beside_ms, beside_samples}."""
+    import torch
+
+    okw = kw if older_kw is None else older_kw
+    prev = older(*args, **okw)
+    torch.cuda.synchronize()
+    check(prev, out_p)
+    this, old = ab_ms([lambda: kern(*args, **kw), lambda: older(*args, **okw)], reps)
+    log(f"kernel {name} beside the older checkout: ms {statistics.median(this):.4f} "
+        f"[{statistics.median(old):.4f}]")
+    return dict(ms_samples=this, beside_ms=statistics.median(old), beside_samples=old)
+
+
+def k1a_culls(args, kw, out_p):
+    """K1a's culled loops emulated in plain PyTorch on the card
+    (`dense_trace_cull_plain`) on one launch's inputs, held equal to the
+    plain version; -> the (ray, row) pairs and (warp, row) steps the loops
+    visit, cull by sign and by range, and test in full, per phase."""
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import dense_trace_cull_plain
+
+    out_e, counts = dense_trace_cull_plain(*args, **kw)
+    for what, a, b in zip(out_names(out_e), out_e, out_p):
+        if not bool((a == b).all()):
+            raise AssertionError(f"dense_trace_cull_plain: {what} differs from the plain version")
+    return counts
+
+
 def kernel_phase(calls, names=("dense_trace", "coef_fetch", "temporal_accum", "wavelet_iter"),
                  tag=""):
     """Hold each kernel of `names` against its plain version on the
@@ -692,6 +886,7 @@ def kernel_phase(calls, names=("dense_trace", "coef_fetch", "temporal_accum", "w
     from low_precision_raytracer_tpu_torch.ops.svgf_kernels import (
         coef_fetch,
         coef_fetch_plain,
+        fetch_full_tiles,
         temporal_accum,
         temporal_accum_plain,
         wavelet_iter,
@@ -721,13 +916,19 @@ def kernel_phase(calls, names=("dense_trace", "coef_fetch", "temporal_accum", "w
                 err = check_dense(out_k, out_p)
                 b_in = nbytes(*args[:8], args[8] if len(args) > 8 else kw.get("lights"))
                 n_bytes = b_in + nbytes(*out_k)
-                n_ops = dense_trace_ops(args, kw, out_p)
-                extra = {"band": list(kw.get("band", ()))}
+                culls = k1a_culls(args, kw, out_p)
+                n_ops = dense_trace_ops(args, kw, out_p, culls)
+                # beside it the all-row count (every row of every live lane)
+                extra = {"band": list(kw.get("band", ())), "culls": culls, "bound_ms_all_rows":
+                         bound_ms(n_bytes, dense_trace_ops(args, kw, out_p))[0]}
                 if kw.get("pack"):  # the full epilogue on the same rays, beside it
                     extra.update(pack=True, reduce5_ms=cuda_ms(
                         lambda: kern(*args, **dict(kw, pack=False)), 20))
+                if BESIDE is not None:
+                    extra.update(beside(name, BESIDE.dense_trace.dense_trace, kern, args, kw,
+                                        out_p, check_dense))
             else:
-                err = (check_bits if name == "wavelet_iter" else check_svgf)(name, out_k, out_p)
+                err = (check_svgf if name == "temporal_accum" else check_bits)(name, out_k, out_p)
                 tensors = [a for a in args if isinstance(a, torch.Tensor)]
                 if name == "temporal_accum":  # K3 reads geo7's first 6 planes only
                     tensors[1] = tensors[1][:6]
@@ -744,29 +945,32 @@ def kernel_phase(calls, names=("dense_trace", "coef_fetch", "temporal_accum", "w
                         ((a.view(torch.int32) != b.view(torch.int32))
                          & ~(torch.isnan(a) & torch.isnan(b))).sum())}
                     if BESIDE is not None:
-                        prev = BESIDE.svgf_kernels.temporal_accum(*args, **kw)
-                        torch.cuda.synchronize()
-                        check_svgf(f"{name} (beside)", prev, out_p)
-                        this, older = ab_ms(
-                            [lambda: kern(*args, **kw),
-                             lambda: BESIDE.svgf_kernels.temporal_accum(*args, **kw)], 20)
-                        extra.update(ms_samples=this, beside_ms=statistics.median(older),
-                                     beside_samples=older)
+                        extra.update(beside(name, BESIDE.svgf_kernels.temporal_accum, kern,
+                                            args, kw, out_p,
+                                            lambda a, b: check_svgf(f"{name} (beside)", a, b)))
                 if name == "wavelet_iter":
                     extra = {"stride": args[2], "prev_ms": PREV_K4_MS.get(args[2]),
                              "staged_bytes": wavelet_staged_bytes(H, W, args[2])}
+                if name == "coef_fetch":
+                    extra = {"full_tiles": int(fetch_full_tiles(args[0], *args[2:4]).sum())}
+                    if BESIDE is not None:
+                        extra.update(beside(name, BESIDE.svgf_kernels.coef_fetch, kern, args, kw,
+                                            out_p, lambda a, b: check_bits(name, a, b)))
             ms = statistics.median(extra["ms_samples"]) if "ms_samples" in extra \
                 else cuda_ms(lambda: kern(*args, **kw), 20)
             plain_ms = cuda_ms(lambda: plain(*args, **kw), 3)
             b_ms, b_by = bound_ms(n_bytes, n_ops)
             per.append(dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                            max_abs_err=err, bytes=n_bytes, ops=n_ops, **extra))
+                            ratio=ms / b_ms, max_abs_err=err, bytes=n_bytes, ops=n_ops,
+                            **extra))
             log(f"kernel {name}{tag}: {json.dumps(per[-1])}")
         mean = lambda k: statistics.fmean(p[k] for p in per)
         reports[name] = dict(
             max_abs_err=max(p["max_abs_err"] for p in per), ms=mean("ms"),
             plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
             bound_by=max(per, key=lambda p: p["bound_ms"])["bound_by"])
+        if name == "dense_trace":
+            reports[name]["bound_ms_all_rows"] = mean("bound_ms_all_rows")
     return reports
 
 
@@ -1163,6 +1367,14 @@ def record_k5(args, kw):
     return [(a, k, r) for (a, k), r in zip(calls, rays)]
 
 
+def k5_same(name, got, ref):
+    """K5's (t, row, pk) equal to the plain version's on every lane."""
+    import torch
+
+    if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+        raise AssertionError(f"{name}: differs from the plain version")
+
+
 def k5_hold(name, a, k, check_emulation=False):
     """K5 on one call's inputs (`assigned_test(*a, **k)`) held bit for bit
     (t, row, pk) against `assigned_test_plain` on every lane, its counting
@@ -1234,14 +1446,17 @@ def k5_holds(scene, kind, args, kw, lights=1):
         TI = coef.shape[0]
         name = f"{scene} {kind} call {n}"
         got, counts, ref, plain_ms, n_emu = k5_hold(name, a, k, check_emulation=True)
-        fns = [lambda: WF.assigned_test(*a, **k)]
+        reps = sample_reps(lambda: WF.assigned_test(*a, **k))
         if BESIDE is not None:
-            prev = BESIDE.wavefront.assigned_test(*a)
-            torch.cuda.synchronize()
-            if not all(torch.equal(x, y) for x, y in zip(prev, ref)):
-                raise AssertionError(f"beside K5 {name}: differs from the plain version")
-            fns.append(lambda: BESIDE.wavefront.assigned_test(*a))
-        samples = ab_ms(fns, sample_reps(fns[0]))
+            # the older kernel's own arguments: the keywords its wrapper takes
+            older = BESIDE.wavefront.assigned_test
+            b = beside(f"wavefront_assigned {name}", older, WF.assigned_test, a, k, ref,
+                       lambda x, y: k5_same(f"beside K5 {name}", x, y), reps, older_kw={
+                           n: v for n, v in k.items()
+                           if n in inspect.signature(older).parameters})
+            samples = [b["ms_samples"], b["beside_samples"]]
+        else:
+            samples = ab_ms([lambda: WF.assigned_test(*a, **k)], reps)
         ms = statistics.median(samples[0])
         beside_ms = statistics.median(samples[1]) if BESIDE is not None else None
         spread = lambda x: [x[0], x[-1]]
@@ -2379,6 +2594,8 @@ def main(argv) -> int:
     del calls
     k4_edge_holds()
     k3_edge_holds()
+    k2_edge_holds()
+    k1a_edge_holds()
     torch.cuda.empty_cache()
     elapsed()
 

@@ -19,6 +19,8 @@
 //     are its u and v); outside it the band-widened test.  'dtype'
 //     (LPRT_FLAG_DTYPE): the band-widened test alone.
 //   Plain version: ops/dense_trace.py:m_shift_test and band_accept.
+//   plane_oz_dz and tri_test_oz are its two halves, for a caller that
+//   culls on Oz and Dz before the rest (K1a).
 // - box_entry: the conservative slab test of ops/dense_trace.py:
 //   ray_aabb_entry (0.02 of slop, axes with non-finite slab distances
 //   skipped); box_entry_exact0: the same, exact on a zero direction axis
@@ -100,17 +102,22 @@ __device__ __forceinline__ void make_operand(float ox, float oy, float oz,
   q[5] = round_operand<FORM>(dz);
 }
 
-// c: the row (LPRT_ROW(FORM) floats); q: the ray operand of a sub-f32 form
-// (make_operand; not read otherwise).  -> the acceptance before the
-// distance, skip and finiteness gates; t, u, v through the references.
+// The plane rows of the test: Oz = n[6:9].o + e[2], Dz = n[6:9].d, from
+// p = (n6, n7, n8, e2) (row c's columns 6, 7, 8, 11); t = -Oz / Dz.
+__device__ __forceinline__ void plane_oz_dz(float4 p, float ox, float oy, float oz,
+                                            float dx, float dy, float dz, float& Oz,
+                                            float& Dz) {
+  Oz = p.x * ox + p.y * oy + p.z * oz + p.w;
+  Dz = p.x * dx + p.y * dy + p.z * dz;
+}
+
+// tri_test from its Oz and Dz (plane_oz_dz); the same arithmetic.
 template <int FORM>
-__device__ __forceinline__ bool tri_test(const float* c, float ox, float oy,
-                                         float oz, float dx, float dy,
-                                         float dz, const float* q,
-                                         const Band& b, float& t, float& u,
-                                         float& v) {
-  float Oz = c[6] * ox + c[7] * oy + c[8] * oz + c[11];
-  float Dz = c[6] * dx + c[7] * dy + c[8] * dz;
+__device__ __forceinline__ bool tri_test_oz(const float* c, float ox, float oy,
+                                            float oz, float dx, float dy,
+                                            float dz, const float* q,
+                                            const Band& b, float Oz, float Dz,
+                                            float& t, float& u, float& v) {
   float Ox = c[0] * ox + c[1] * oy + c[2] * oz + c[9];
   float Oy = c[3] * ox + c[4] * oy + c[5] * oz + c[10];
   float Dx = c[0] * dx + c[1] * dy + c[2] * dz;
@@ -173,6 +180,20 @@ __device__ __forceinline__ bool tri_test(const float* c, float ox, float oy,
     v = v32;
   }
   return (u > 0.f) && (v > 0.f) && (u + v < 1.f);
+}
+
+// c: the row (LPRT_ROW(FORM) floats); q: the ray operand of a sub-f32 form
+// (make_operand; not read otherwise).  -> the acceptance before the
+// distance, skip and finiteness gates; t, u, v through the references.
+template <int FORM>
+__device__ __forceinline__ bool tri_test(const float* c, float ox, float oy,
+                                         float oz, float dx, float dy,
+                                         float dz, const float* q,
+                                         const Band& b, float& t, float& u,
+                                         float& v) {
+  float Oz, Dz;
+  plane_oz_dz(make_float4(c[6], c[7], c[8], c[11]), ox, oy, oz, dx, dy, dz, Oz, Dz);
+  return tri_test_oz<FORM>(c, ox, oy, oz, dx, dy, dz, q, b, Oz, Dz, t, u, v);
 }
 
 __host__ __device__ constexpr bool valid_pack_form(int f) {

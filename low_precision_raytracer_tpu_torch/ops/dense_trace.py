@@ -10,7 +10,11 @@ runs the plain version):
 - `dense_trace` (K1a, `csrc/dense_trace.cu`): single-chunk scenes
   (<= 128 instance triangles), closest hit with the fused shadow phase.
   Returns (t, u, v, tri, obj, vis), vis the per-ray bitmask of lights
-  unoccluded from the winner's point (zeros when `lights` is None).
+  unoccluded from the winner's point (zeros when `lights` is None).  The
+  kernel culls (ray, row) pairs by sign and range before the test;
+  `dense_trace_cull_plain` emulates its loops (with `k1a_cull`, `mul_ru`,
+  `next_up` and the lane order `k1a_lane_order`) and counts what they
+  skip, and `k1a_edge_rays` makes the adversarial lanes its holds use.
 - `dense_trace_multi` (K1b, `csrc/dense_multi.cu`): any table size, the
   rows grouped in chunks of 128 with one world AABB each, walked by a
   warp through a 4-ary tree over the chunk boxes (`build_tree`, the stack
@@ -409,6 +413,262 @@ def dense_trace_plain(origins, directions, skip, mind, maxd, coef, tri_ids,
                    & (tri != tri_out[:, None]) & torch.isfinite(t2)).any(dim=1)
         vis = vis | torch.where((tri_out >= 0) & ~blocked, 1 << l, 0).to(torch.int32)
     return t_out, u_out, v_out, tri_out, obj_out, vis
+
+
+def next_up(x):
+    """The next f32 above each value, as the kernel's `next_up` steps it;
+    +Inf stays +Inf here and turns NaN there, which turns the range cull off
+    either way."""
+    return torch.nextafter(x, torch.full_like(x, float("inf")))
+
+
+def mul_ru(a, b):
+    """a * b in f32 rounded toward +Inf (`__fmul_ru`): the exact product in
+    f64 (two f32 significands need 48 bits, and the exponents fit), rounded
+    to nearest in f32, then stepped up where that fell below it."""
+    p = a.double() * b.double()
+    r = p.float()
+    return torch.where(r.double() < p, next_up(r), r)
+
+
+def k1a_cull(Oz, Dz, up, need_pos):
+    """K1a's culls (`csrc/dense_trace.cu:cull`, the proofs there), with
+    w = -Oz sign(Dz) (Dz's sign bit) and P = __fmul_ru(up, |Dz|), up =
+    next_up(U): the range cull w > P (t > U), and where `need_pos` (an
+    accepted t must be > 0) the sign cull, not w > 0.  -> (culled, by the
+    range cull)."""
+    w = torch.where(torch.signbit(Dz), Oz, -Oz)
+    by_range = w > mul_ru(up, Dz.abs())
+    return by_range | (need_pos & ~(w > 0)), by_range
+
+
+K1A_BLOCK = 256  # K1a's rays per block (csrc/dense_trace.cu: LPRT_K1A_BLOCK)
+
+
+def k1a_lane_order(directions, mind, maxd, block: int = K1A_BLOCK):
+    """K1a's lanes: in each block of `block` rays, the live rays grouped by
+    their direction's octant (the x, y, z sign bits), then the dead ones
+    and the slots past R.  -> the ray of each lane slot (-1 past R), in
+    block order and, within an octant, in ray order (the kernel's atomics
+    order a bin's rays in some order; the bins, and so each warp's octants,
+    are the same)."""
+    R = directions.shape[0]
+    dev = directions.device
+    sb = torch.signbit(directions).long()
+    key = torch.where(maxd > mind, sb[:, 0] * 4 + sb[:, 1] * 2 + sb[:, 2], 8)
+    n = -(-R // block) * block
+    key = torch.cat([key, torch.full((n - R,), 9, dtype=key.dtype, device=dev)])
+    blk = torch.arange(n, device=dev) // block
+    order = torch.sort(blk * 16 + key, stable=True).indices
+    return torch.where(order < R, order, -1)
+
+
+class _CullCounts:
+    """(lane, row) pairs of one culled loop: visited, culled by sign, by
+    range, fully tested; and per 32-lane warp (the lanes `k1a_lane_order`
+    gives) the rows it visits with some lane (`warp_steps`) and the rows it
+    tests in full, some lane surviving (`warp_full`)."""
+
+    def __init__(self, slots):
+        self.slots = slots
+        dev = slots.device
+        z = lambda: torch.zeros((), dtype=torch.int64, device=dev)
+        self.n = {k: z() for k in ("tests", "sign_culled", "range_culled", "full",
+                                   "warp_steps", "warp_full")}
+
+    def _warps(self, m):
+        return torch.where(self.slots >= 0, m[self.slots.clamp(min=0)], False).view(-1, 32)
+
+    def add(self, visit, culled, by_range):
+        full = visit & ~culled
+        self.n["tests"] += visit.sum()
+        self.n["sign_culled"] += (visit & culled & ~by_range).sum()
+        self.n["range_culled"] += (visit & by_range).sum()
+        self.n["full"] += full.sum()
+        self.n["warp_steps"] += self._warps(visit).any(1).sum()
+        self.n["warp_full"] += self._warps(full).any(1).sum()
+
+    def result(self):
+        return {k: int(v) for k, v in self.n.items()}
+
+
+def dense_trace_cull_plain(origins, directions, skip, mind, maxd, coef, tri_ids,
+                           obj_ids, lights=None, d_mov: float = 0.0, band: Band = STRICT,
+                           pack: bool = False):
+    """K1a's culled loops (`csrc/dense_trace.cu:dense_trace_kernel`) in plain
+    PyTorch, for every ray at once: the rows in table order, each (ray, row)
+    first through `k1a_cull` against the ray's running bound (the least of
+    maxd and the best t; under `pack` the top of the least key's bucket),
+    the survivors through the test, the best and its bound updated row by
+    row; then per light the shadow ray's any hit, its rows culled against
+    the light's range, the winner's triangle skipped.  -> (the outputs of
+    `dense_trace_plain`, which they equal bit for bit; counts {"primary":
+    ..., "shadow": ...} of `_CullCounts`)."""
+    R, TI = origins.shape[0], coef.shape[0]
+    dev = origins.device
+    f32, i32 = torch.float32, torch.int32
+    ox, oy, oz = origins.unbind(1)
+    dx, dy, dz = directions.unbind(1)
+    live = maxd > mind
+    need_pos = torch.ones_like(live) if pack else mind >= 0
+    bt = torch.full((R,), T_MISS, dtype=f32, device=dev)
+    bu, bv = torch.zeros_like(bt), torch.zeros_like(bt)
+    btri = torch.full((R,), -1, dtype=i32, device=dev)
+    bobj = btri.clone()
+    lmask = (1 << pack_lb(k1a_chunk(TI))) - 1
+    kmin = torch.full((R,), INT32_MAX, dtype=i32, device=dev)
+    up = next_up(maxd if pack else torch.minimum(maxd, bt))
+    slots = k1a_lane_order(directions, mind, maxd)
+    counts = _CullCounts(slots)
+    for k in range(TI):
+        c = coef[k]
+        Oz = c[6] * ox + c[7] * oy + c[8] * oz + c[11]
+        Dz = c[6] * dx + c[7] * dy + c[8] * dz
+        culled, by_range = k1a_cull(Oz, Dz, up, need_pos)
+        counts.add(live, culled, by_range)
+        t, u, v, geom = (x[:, 0] for x in tri_quantities(coef[k : k + 1], origins, directions,
+                                                          band))
+        tri = tri_ids[k]
+        acc = (live & ~culled & geom & (t > mind) & (t < maxd) & (tri != skip)
+               & torch.isfinite(t))
+        if pack:
+            acc = acc & (t > 0)
+            key = (t.view(i32) & ~lmask) | k
+            upd = acc & (key < kmin)
+            kmin = torch.where(upd, key, kmin)
+            bt, bu, bv = (torch.where(upd, a, b) for a, b in ((t, bt), (u, bu), (v, bv)))
+            up = torch.where(acc, next_up(torch.minimum(maxd, (kmin | lmask).view(f32))), up)
+        else:
+            upd = acc & ((t < bt) | ((t == bt) & (tri < btri)))
+            bt, bu, bv = (torch.where(upd, a, b) for a, b in ((t, bt), (u, bu), (v, bv)))
+            btri = torch.where(upd, tri, btri)
+            bobj = torch.where(upd, obj_ids[k], bobj)
+            up = torch.where(upd, next_up(torch.minimum(maxd, bt)), up)
+    out_counts = {"primary": counts.result()}
+    if pack:
+        _check_pack(lights)
+        hit = (kmin != INT32_MAX) & (bt < T_MISS)
+        neg = torch.full((R,), -1, dtype=i32, device=dev)
+        row = torch.where(hit, kmin & lmask, neg)
+        return (torch.where(hit, bt, torch.full_like(bt, T_MISS)), row,
+                torch.where(hit, pack_uv(bu, bv), neg)), out_counts
+
+    vis = torch.zeros((R,), dtype=i32, device=dev)
+    if lights is None:
+        return (bt, bu, bv, btri, bobj, vis), out_counts
+    got = btri >= 0
+    p = origins + bt[:, None] * directions
+    px, py, pz = p.unbind(1)
+    shadow = _CullCounts(slots)
+    for l in range(lights.shape[0]):
+        isdir = lights[l, 0] > 0
+        a = lights[l, 1:4]
+        dvec = a[None, :] - p
+        dist = torch.sqrt(dvec[:, 0] * dvec[:, 0] + dvec[:, 1] * dvec[:, 1]
+                          + dvec[:, 2] * dvec[:, 2])
+        inv = 1.0 / torch.clamp(dist, min=1e-20)
+        sdir = torch.where(isdir, a[None, :].expand(R, 3), dvec * inv[:, None])
+        maxd_l = torch.where(isdir, torch.full_like(dist, 1000.0), dist)
+        up_l = next_up(maxd_l)
+        sx, sy, sz = sdir.unbind(1)
+        blocked = torch.zeros_like(got)
+        for k in range(TI):
+            c = coef[k]
+            visit = got & ~blocked & (tri_ids[k] != btri)
+            Oz = c[6] * px + c[7] * py + c[8] * pz + c[11]
+            Dz = c[6] * sx + c[7] * sy + c[8] * sz
+            culled, by_range = k1a_cull(Oz, Dz, up_l, torch.tensor(d_mov >= 0.0, device=dev))
+            shadow.add(visit, culled, by_range)
+            t2, _u, _v, geom2 = (x[:, 0] for x in tri_quantities(coef[k : k + 1], p, sdir, band))
+            blocked = blocked | (visit & ~culled & geom2 & (t2 > d_mov) & (t2 < maxd_l)
+                                 & torch.isfinite(t2))
+        vis = vis | torch.where(got & ~blocked, 1 << l, 0).to(i32)
+    out_counts["shadow"] = shadow.result()
+    return (bt, bu, bv, btri, bobj, vis), out_counts
+
+
+def k1a_edge_rays(coef, lo, hi, floor_spot, n: int, seed: int = 0):
+    """Adversarial K1a lanes for the holds of its culls (numpy from `seed`,
+    on coef's device), five families of n // 5 lanes each, recentred like
+    the table: (o, d, skip, mind, maxd).
+    - direction components exactly +-0 (one or two axes), against the
+      axis-aligned walls; origins uniform in the box [lo, hi];
+    - origins on a row's plane, Oz == 0 exactly in the kernel's f32 order
+      (searched ulp by ulp along the plane's steepest axis);
+    - mind < 0 (down to -0.5), so rows behind the origin may be accepted;
+    - dead lanes: maxd == mind and maxd < mind;
+    - rays from below `floor_spot` (a point of the floor under a box
+      standing on it) straight up and nearly so, meeting the floor and the
+      box's bottom face in one plane: coplanar ties in t.
+    Every family has mind 0 or 1e-4 and maxd 1e5 unless noted, skip -1 or a
+    random row's id."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    tab = coef.detach().cpu().numpy().astype(f32)
+    lo, hi = np.asarray(lo, f32), np.asarray(hi, f32)
+    m = max(1, n // 5)
+
+    def unit(k):
+        d = rng.normal(size=(k, 3))
+        return (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(f32)
+
+    def inside(k):
+        return (lo + (hi - lo) * rng.random((k, 3))).astype(f32)
+
+    o0, d0 = inside(m), unit(m)
+    for i in range(m):  # one zero axis, or two (an axis-aligned ray)
+        axes = [i % 3] if i % 4 else [i % 3, (i + 1) % 3]
+        for a in axes:
+            d0[i, a] = -0.0 if rng.random() < 0.5 else 0.0
+    d0 /= np.maximum(np.linalg.norm(d0, axis=1, keepdims=True), 1e-30).astype(f32)
+    d0[d0 == 0] = 0.0
+    for i in range(0, m, 2):  # keep signed zeros on half of them
+        d0[i][d0[i] == 0] = -0.0
+
+    o1, d1 = inside(4 * m), unit(4 * m)
+    keep = np.zeros(4 * m, bool)
+    steps = np.arange(-64, 65, dtype=np.int32)
+    for i in range(4 * m):
+        row = tab[rng.integers(len(tab))]
+        pl = np.array([row[6], row[7], row[8]], f32)
+        a = int(np.argmax(np.abs(pl)))
+        if pl[a] == 0:
+            continue
+        rest = sum(float(pl[j]) * float(o1[i, j]) for j in range(3) if j != a)
+        x0 = f32(-(rest + float(row[11])) / float(pl[a]))
+        cand = np.repeat(o1[i][None], len(steps), 0)
+        cand[:, a] = (np.asarray(x0, f32).view(np.int32) + steps).view(f32)
+        Oz = pl[0] * cand[:, 0] + pl[1] * cand[:, 1] + pl[2] * cand[:, 2] + row[11]
+        hit = np.flatnonzero(Oz == 0)
+        if len(hit):
+            o1[i] = cand[hit[0]]
+            keep[i] = True
+    o1, d1 = o1[keep][:m], d1[keep][:m]
+
+    o2, d2 = inside(m), unit(m)
+    o3, d3 = inside(m), unit(m)
+    spot = np.asarray(floor_spot, f32)
+    o4 = (spot + np.array([0.2, 0.0, 0.2], f32) * (rng.random((m, 3)) - 0.5).astype(f32)
+          - np.array([0.0, 0.5, 0.0], f32)).astype(f32)
+    d4 = np.tile(np.array([0.0, 1.0, 0.0], f32), (m, 1))
+    d4[m // 2:] = unit(m - m // 2) * f32(0.02) + np.array([0.0, 1.0, 0.0], f32)
+    d4 /= np.linalg.norm(d4, axis=1, keepdims=True).astype(f32)
+
+    o = np.concatenate([o0, o1, o2, o3, o4]).astype(f32)
+    d = np.concatenate([d0, d1, d2, d3, d4]).astype(f32)
+    R = len(o)
+    mind = np.where(rng.random(R) < 0.5, 0.0, 1e-4).astype(f32)
+    maxd = np.full(R, 1e5, f32)
+    a2 = len(o0) + len(o1)
+    mind[a2 : a2 + m] = -0.5 * rng.random(m).astype(f32)
+    mind[a2 : a2 + m : 7] = -0.0
+    a3 = a2 + m
+    maxd[a3 : a3 + m] = mind[a3 : a3 + m]
+    maxd[a3 + 1 : a3 + m : 2] = mind[a3 + 1 : a3 + m : 2] - rng.random(len(range(a3 + 1, a3 + m, 2))).astype(f32)
+    skip = np.where(rng.random(R) < 0.7, -1, rng.integers(0, len(tab), R)).astype(np.int32)
+    dev = coef.device
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return t(o), t(d), t(skip), t(mind), t(maxd)
 
 
 def _check_pack(lights=None, find_any=False):

@@ -16,7 +16,9 @@ launches the CUDA kernel of `csrc/svgf.cu` on CUDA tensors (or raises).
 The plain versions follow the TPU kernels' arithmetic order.
 `wavelet_tiles` and `wavelet_tile_points` mirror K4's coset tiling (the
 CPU emulation of tests/test_torch_wavelet_tiles.py reads them), and
-`wavelet_staged_bytes` counts what its staging reads.
+`wavelet_staged_bytes` counts what its staging reads.  `fetch_full_tiles`
+and `coef_fetch_tiles_plain` mirror K2's tiles and its finite gate (the
+CPU emulation of tests/test_torch_k2_k1a_culls.py).
 """
 
 from __future__ import annotations
@@ -146,6 +148,62 @@ def coef_fetch_plain(hist, rw, my: int, mx: int):
     den = wk[0] + wk[1] + wk[2] + wk[3]
     den_safe = torch.where(den > 0, den, 1.0)
     out = torch.where(count > 0, num / den_safe, 0.0)
+    return torch.cat([out, count[None]], dim=0)
+
+
+FETCH_TILE = (16, 64)  # K2's tile, rows x columns (csrc/svgf.cu: F_TH, F_TW)
+
+
+def fetch_full_tiles(hist, my: int, mx: int):
+    """K2's finite gate: (tiles_y, tiles_x) bool, True where the tile's
+    staged history window (the tile with a ring of 1 pixel before and 2
+    after in each axis, wrapped and zero-padded as the views read it, all
+    channels) holds a non-finite value, so the kernel sums all 16 views
+    there."""
+    C, H, W = hist.shape
+    TH, TW = FETCH_TILE
+    dev = hist.device
+    bad = ~torch.isfinite(F.pad(hist, (1, 1, 1, 1))).all(dim=0)  # (H + 2, W + 2)
+    span = lambda n, t, m, size: (torch.arange(-(-n // t), device=dev)[:, None] * t
+                                  + torch.arange(t + 3, device=dev)[None, :] + m) % size
+    rows, cols = span(H, TH, my, H + 2), span(W, TW, mx, W + 2)
+    return bad[rows].any(dim=1)[:, cols].any(dim=-1)
+
+
+def coef_fetch_tiles_plain(hist, rw, my: int, mx: int):
+    """K2's loop (`csrc/svgf.cu:coef_fetch_kernel`) in plain PyTorch: on the
+    tiles whose staged window is finite (`fetch_full_tiles`) each pixel sums
+    only the four views its residual selects, w_k times tap k in the order
+    k = 0, 2, 1, 3 from +0 (+0 where the residual is outside the window);
+    elsewhere the 16-view sum of `coef_fetch_plain`.  Equal to it bit for
+    bit (the proof is in the kernel's source)."""
+    C, H, W = hist.shape
+    TH, TW = FETCH_TILE
+    dev = hist.device
+    full = fetch_full_tiles(hist, my, mx)
+    full_px = full.repeat_interleave(TH, 0).repeat_interleave(TW, 1)[:H, :W]
+    P = F.pad(hist, (1, 1, 1, 1))
+    res_y, res_x = rw[0], rw[1]
+    wk = [rw[2 + k] for k in range(4)]
+    count = rw[6]
+    win = lambda r: (r == -1) | (r == 0) | (r == 1)
+    m = win(res_y) & win(res_x)
+    ry = torch.where(m, res_y, 0.0).long()
+    rx = torch.where(m, res_x, 0.0).long()
+    yy = torch.arange(H, device=dev)[:, None]
+    xx = torch.arange(W, device=dev)[None, :]
+
+    def tap(dy, dx):  # view (ry + dy, rx + dx) of every pixel, (C, H, W)
+        return P[:, (yy + 1 + ry + dy + my) % (H + 2), (xx + 1 + rx + dx + mx) % (W + 2)]
+
+    num = torch.zeros_like(hist)
+    for k in (0, 2, 1, 3):
+        num = num + wk[k] * tap(*_TAPS[k])
+    num = torch.where(m, num, 0.0)
+    den = wk[0] + wk[1] + wk[2] + wk[3]
+    den_safe = torch.where(den > 0, den, 1.0)
+    fast = torch.where(count > 0, num / den_safe, 0.0)
+    out = torch.where(full_px, coef_fetch_plain(hist, rw, my, mx)[:C], fast)
     return torch.cat([out, count[None]], dim=0)
 
 

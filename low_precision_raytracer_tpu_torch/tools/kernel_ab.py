@@ -1,0 +1,133 @@
+"""One kernel of this checkout beside the same kernel of other checkouts,
+on recorded 1920x1080 launches of the main path.
+
+    python3 -m low_precision_raytracer_tpu_torch.tools.kernel_ab KERNEL NAME=DIR [NAME=DIR ...]
+
+from the root of this checkout, on one GPU.  KERNEL is
+- `k1a`: K1a on the flagship's launches (Cornell: bf16, fp32, fp16, the
+  packed epilogue, bf16 'both' and 'dtype'), every launch held against the
+  plain version on every ray (`chip_smoke.check_dense`); the bf16 launches
+  also timed without their fused shadow phase (the closest-hit loop alone);
+- `k5`: K5 on colonnade-83k's wavefront launches (bf16, 'rounds' then
+  'oneshot'), every call held bit for bit (`chip_smoke.k5_hold`, with the
+  emulation on a slice), a checkout older than the slice culling called
+  without the slices.
+Each DIR is another checkout of the repository (`git archive` into an
+ignored directory, or such a copy with one source edited); its wrappers
+and kernels are loaded as `chip_smoke.py --beside` loads them, and every
+checkout's result is held like this one's.  All are timed in the order
+this, the others, and back (`chip_smoke.ab_ms`).  One JSON line per launch
+or call: per checkout the median ms and the least and greatest sample;
+the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import inspect
+import json
+import statistics
+import subprocess
+import sys
+
+K1A_CASES = (("bf16", {}), ("fp32", {}), ("fp16", {}), ("bf16", {"dense_epilogue": "pack"}),
+             ("bf16", {"triangle_fallback": "both"}), ("bf16", {"triangle_fallback": "dtype"}))
+
+
+def report(what, fns, samples):
+    print(json.dumps(dict(**what, **{o: [statistics.median(s), s[0], s[-1]]
+                                     for o, s in zip(fns, samples)})), flush=True)
+
+
+def k1a(C, others):
+    """K1a of this checkout and of `others` ({name: beside namespace})."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.models.procedural import cornell_box_scene
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import dense_trace, dense_trace_plain
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    fns = {"this": dense_trace, **{o: m.dense_trace.dense_trace for o, m in others.items()}}
+    for precision, cfg_kw in K1A_CASES:
+        warm = Renderer(cornell_box_scene(), RenderConfig(width=C.W, height=C.H,
+                                                          precision=precision, **cfg_kw))
+        calls = C.capture_inputs(warm, 2)["dense_trace"]
+        del warm
+        for n, (args, kw, _out) in enumerate(calls):
+            ref = dense_trace_plain(*args, **kw)
+            for fn in fns.values():
+                C.check_dense(fn(*args, **kw), ref)
+            runs = [("", args, kw)]
+            if precision == "bf16" and not cfg_kw:  # the closest-hit phase alone
+                runs.append((" no shadow phase", args[:8],
+                             {k: v for k, v in kw.items() if k == "band"}))
+            for what, a, k in runs:
+                samples = C.ab_ms([lambda fn=fn: fn(*a, **k) for fn in fns.values()], 20)
+                report(dict(launch=f"{precision} {cfg_kw} {n}{what}"), fns, samples)
+        del calls
+        torch.cuda.empty_cache()
+
+
+def k5(C, others):
+    """K5 of this checkout and of `others` ({name: beside namespace})."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.ops import wavefront as WF
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    for mode in ("rounds", "oneshot"):
+        warm = Renderer(C.colonnade_83k(), RenderConfig(width=C.W, height=C.H, precision="bf16",
+                                                        wavefront_mode=mode))
+        calls = C.capture_big_launches(warm, 2)
+        del warm
+        for kind, (_n, args, kw) in zip(("gi", "shadow1"), calls[2:]):
+            for n, (a, k, _ray) in enumerate(C.record_k5(args, kw)):
+                name = f"{mode} {kind} call {n}"
+                _got, _counts, ref, _plain_ms, _n_emu = C.k5_hold(name, a, k,
+                                                                  check_emulation=True)
+                fns = {"this": lambda: WF.assigned_test(*a, **k)}
+                for o, mod in others.items():
+                    # a checkout older than the slice culling takes no slices
+                    fn = mod.wavefront.assigned_test
+                    ko = k if "slices" in inspect.signature(fn).parameters else {}
+                    fns[o] = lambda fn=fn, ko=ko: fn(*a, **ko)
+                    C.k5_same(f"{name}: {o}", fns[o](), ref)
+                samples = C.ab_ms(list(fns.values()), C.sample_reps(fns["this"]), rounds=9)
+                report(dict(call=name, lanes=int(a[5].shape[0]), q=int(a[5].shape[1]),
+                            find_any=bool(a[-1])), fns, samples)
+        del calls
+        torch.cuda.empty_cache()
+
+
+# each kernel's runner and the sources built (and reported) before it;
+# None: every source (colonnade-83k's frames run K1b and the schedule too)
+KERNELS = {"k1a": (k1a, ("dense_trace",)), "k5": (k5, None)}
+
+
+def main(argv) -> int:
+    import torch
+
+    if not torch.cuda.is_available() or len(argv) < 2 or argv[0] not in KERNELS:
+        print(f"kernel_ab: needs a CUDA device, a kernel ({' | '.join(KERNELS)}) and NAME=DIR "
+              "arguments", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ".")
+    import chip_smoke as C
+
+    from low_precision_raytracer_tpu_torch.ops import cuda_lib
+
+    run, libs = KERNELS[argv[0]]
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    C.ptxas_report(cuda_lib.build_all() if libs is None else cuda_lib.build_all(libs))
+    others = {}
+    for arg in argv[1:]:
+        name, root = arg.split("=", 1)
+        others[name] = C.load_beside(root)
+    run(C, others)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
