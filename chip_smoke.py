@@ -171,12 +171,27 @@ and after phase 20:
     K1b on the Sponza-class frame's four (2^18-ray slices) and K6 on its
     packet route's four (colonnade-5k with traversal_impl='pallas',
     4,096-ray slices), each exact against its plain version, timed, with
-    its bound, from one warm-up frame each (an any-hit launch's bound counts
-    each blocked ray's rows up to its first accepted row);
+    its bound, from one warm-up frame each.  K1b and K6 walk their trees
+    growing each box for the ray that tests it by the band's reach
+    (`ops/band_pad.py`): each walk is also held bit for bit against the
+    all-row scan kernel (`band_scan`) on every ray, both timed, and its
+    bound counts the grown boxes it enters (at each ray's final best t in
+    closest hit), beside the unpadded boxes' count and the scan's (an
+    any-hit launch's scan count takes each blocked ray's rows up to its
+    first accepted row); the slices (K1b) or leaves (K6) entered per live
+    ray under the grown and the unpadded boxes;
 23. band path phases, 4 frames each: the Sponza-class frame in fp16 'both'
     (K1b 4 per frame), the flagship in bf16 'dtype' (K1a 2), the packet
     route on colonnade-5k in fp16 'both' (K6 4); then the fp32-fallback
     rate of Cornell's primary launch at 256x256 in fp16 and bf16;
+23a. the bands above the old 8,192-triangle cap (`band_big_kernel_phase`):
+    colonnade-83k in bf16 'both' and fp16 'dtype' (the dense route, K1b
+    four times a frame, two sorted) and colonnade-2M in bf16 'both' (the
+    packet route, K6): each launch of one warm-up frame held bit for bit
+    against the scan kernel (every ray on colonnade-83k, a strided 2^16-ray
+    slice on colonnade-2M), both timed, with the slices or leaves entered
+    per live ray; then 3 frames of each path (no band_scan launch on any
+    path phase: the counts hold it at 0);
 24. the packed epilogue (bf16, `dense_epilogue='pack'`, `pack_phases`):
     K1a's packed form on the flagship's two closest-hit launches (every
     ray: t, row, pk exact) and K1b's on the Sponza-class frame's two
@@ -203,8 +218,9 @@ Before the last line it prints a `kernels_fp32` JSON line (K1a, K1b, K6 in
 fp32: launches on the fp32 path phases, the fp32 kernel phases' times), a
 `kernels_fp16` line (K1a in fp16, launches on the fp16 'mxu3' path
 phases), a `kernels_band` line (per acceptance, K1a, K1b and K6: times of
-that acceptance's kernel phase, launches over the band path phases of
-that acceptance, null where none ran it), a `kernels` JSON line (per kernel: launches over every path
+that acceptance's kernel phase, the scan kernel's beside K1b's and K6's
+(`scan_ms`), launches over the band path phases of that acceptance, null
+where none ran it), a `kernels` JSON line (per kernel: launches over every path
 phase, max error against the plain version, time, plain time, the least
 time the work could take on the card and what bounds it; K1b's times are
 those of its bf16 Sponza-class launches, its colonnade-83k and -328k
@@ -214,7 +230,7 @@ colonnade-2M launches) and the nvidia-smi line; the last line is
 K1b's packed forms (their times from phase 24) and the tool's two bodies
 (NCHUNK = 1; launches from phase 26).  Frame times, and K1b's, K4's,
 K6's and the schedule's times per launch, print beside the previous
-tree's (`PREV_*`).  About 11 minutes on an H100, most of it the plain
+tree's (`PREV_*`).  About 13-14 minutes on an H100, most of it the plain
 versions' holds of phases 12 and 19.
 """
 
@@ -232,6 +248,7 @@ W, H = 1920, 1080
 PATH_FRAMES = 8
 REF_SIZE, REF_FRAMES = 64, 5
 SPONZA_REF_FRAMES = 4
+BIG_BAND_FRAMES = 3  # frames of the band path phases above the old 8,192-triangle cap
 CHECK_RAYS = 1 << 18  # K1b: rays per launch held against the plain version
 BIG_CHECK = 1 << 16  # colonnade-83k: rays or lanes held against the plain versions
 HUGE_CHECK = 1 << 12  # colonnade-2M: rays per K6 launch held against the plain version
@@ -1123,7 +1140,7 @@ def capture_sponza_launches(renderer, frames):
 
 
 def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
-              scene="sponza", check_by_kind=None):
+              scene="sponza", check_by_kind=None, scan_rays=None, scan_bound=True):
     """K1b on each recorded launch: timed on the full launch, held against
     the plain version on a strided slice of `check_rays` rays (every output
     exact; `check_by_kind`: another count for some kinds, the plain version
@@ -1133,7 +1150,14 @@ def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
     other persistence (`k1b_launch`); the sorted launches also unsorted and
     with their sort.  `plain_on_slice`: the plain version (an all-pairs
     test) is timed on the slice, beside the kernel on the same slice,
-    instead of on the full launch.  -> report dict."""
+    instead of on the full launch; `check_rays=0`: no plain hold.  Under a
+    widened band the walk grows each box for its ray: the bound counts
+    those (`walk_growth`), beside the unpadded boxes' count and the all-row
+    scan's,
+    with the slices entered per live ray under both, and the walk is held
+    bit for bit against the scan kernel on every ray (or `scan_rays`);
+    `scan_bound=False` leaves out the scan's count (its any-hit count walks
+    the rows of every blocked ray in plain PyTorch).  -> report dict."""
     import torch
 
     from low_precision_raytracer_tpu_torch.ops.dense_trace import (
@@ -1147,46 +1171,51 @@ def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
     per = []
     for kind, args, kw, unsorted in launches:
         R = args[0].shape[0]
-        # the plain version reads no box: the wrapper's slice boxes are not its
-        pkw = {k: v for k, v in kw.items() if k != "slices"}
+        # the plain version reads no box: the wrapper's slice boxes and pads
+        # are not its
+        pkw = {k: v for k, v in kw.items() if k not in ("slices", "pads")}
         n_check = (check_by_kind or {}).get(kind, check_rays)
         big = n_check != check_rays
         out = dense_trace_multi(*args, **kw)
         torch.cuda.synchronize()
-        sel = torch.arange(0, R, max(1, R // n_check), device=args[0].device)[:n_check]
-        sub = [a[sel].contiguous() if a.shape[0] == R else a for a in args]
-        pkw_check = dict(pkw, slab_elems=1 << 26) if big else pkw
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        ref = dense_trace_multi_plain(*sub, **pkw_check)
-        t1.record()
-        t1.synchronize()
-        plain_ms = t0.elapsed_time(t1)
-        err = 0.0
-        for name, a, b in zip(out_names(out), out, ref):
-            a = a[sel]
-            if not torch.equal(a, b):
-                raise AssertionError(f"dense_trace_multi {scene} {kind}: {name} differs from the "
-                                     f"plain version on {int((a != b).sum())} of {sel.numel()} "
-                                     "rays")
-            if a.dtype == torch.float32:
-                err = max(err, float((a - b).abs().max()))
-        del ref
+        plain_ms, err = None, 0.0
+        sel = torch.arange(0, R, max(1, R // max(1, n_check)), device=args[0].device)[:n_check]
+        sub = [a[sel].contiguous() if a.shape[0] == R else a for a in args]
+        if n_check:
+            pkw_check = dict(pkw, slab_elems=1 << 26) if big else pkw
+            t0.record()
+            ref = dense_trace_multi_plain(*sub, **pkw_check)
+            t1.record()
+            t1.synchronize()
+            plain_ms = t0.elapsed_time(t1)
+            for name, a, b in zip(out_names(out), out, ref):
+                a = a[sel]
+                if not torch.equal(a, b):
+                    raise AssertionError(f"dense_trace_multi {scene} {kind}: {name} differs from "
+                                         f"the plain version on {int((a != b).sum())} of "
+                                         f"{sel.numel()} rays")
+                if a.dtype == torch.float32:
+                    err = max(err, float((a - b).abs().max()))
+            del ref
         tri_out = out[1] if kw.get("pack") else out[3]  # the row, or tri
         # the bound: any-hit rays need the boxes up to their closest blocker
         t_final = out[0] if not kw.get("find_any") else torch.where(
             out[3] >= 0, dense_trace_multi(*args, **dict(kw, find_any=False))[0], 1e5)
         blocked = out[3] >= 0 if kw.get("find_any") else None
         band = kw.get("band")
-        walk = not (band is not None and band.widened)
-        n_ops, n_boxes, n_rows, _per_ray = walk_ops(
-            args, t_final, kw["tree"], band, blocked=blocked,
-            slices=kw.get("slices") if walk else None)
-        n_bytes = nbytes(*args, kw["tree"].boxes, kw.get("slices")) + nbytes(*out)
+        widened = band is not None and band.widened
+        tree, slices = kw["tree"], kw.get("slices")
+        growth = walk_growth(args, kw, tree, t_final, slices) if widened else None
+        n_ops, n_boxes, n_rows, per_ray = walk_ops(args, t_final, tree, band, blocked=blocked,
+                                                   slices=slices, growth=growth)
+        n_bytes = nbytes(*args, tree.boxes, slices) + nbytes(*out)
+        if widened:  # the pads the walk reads
+            n_bytes += nbytes(growth[0].tree, growth[0].slices, growth[1])
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         ms = cuda_ms(lambda: dense_trace_multi(*args, **kw), reps)
-        if not plain_on_slice:
+        if n_check and not plain_on_slice:
             torch.cuda.synchronize()
             t0.record()
             dense_trace_multi_plain(*args, **pkw)
@@ -1199,20 +1228,32 @@ def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
                    checked_rays=int(sel.numel()), bytes=n_bytes, ops=n_ops,
                    boxes_entered=n_boxes, rows_tested=n_rows)
         rec["ratio"] = ms / b_ms
-        if walk:  # the chunk-row bound (128 rows a chunk entered), the other persistence
-            c_ops, _b, c_rows, _p = walk_ops(args, t_final, kw["tree"], band, blocked=blocked)
-            rec.update(bound_ms_chunk_rows=bound_ms(n_bytes, c_ops)[0], rows_chunk_rows=c_rows)
-            rec["ratio_chunk_rows"] = ms / rec["bound_ms_chunk_rows"]
-            persist = not kw.get("find_any")  # the wrapper persists in any hit
-            tree, sl = kw["tree"], kw.get("slices")
-            rec["other_persist"] = persist
-            rec["other_persist_ms"] = cuda_ms(lambda: k1b_launch(
-                *args[:8], tree, sl, kw.get("find_any", False), band or STRICT,
-                kw.get("pack", False), persist=persist), reps)
+        live = args[4] > args[3]
+        rec["slices_per_live_ray"] = _quantiles(per_ray[live])
+        if widened:  # beside: the unpadded boxes' count, the all-row scan
+            u_ops, _b, u_rows, u_per = walk_ops(args, t_final, kw["tree"], band,
+                                                blocked=blocked, slices=kw.get("slices"))
+            rec.update(slices_per_live_ray_unpadded=_quantiles(u_per[live]),
+                       rows_tested_unpadded=u_rows, bound_ms_unpadded=bound_ms(n_bytes, u_ops)[0])
+            if scan_bound:
+                s_ops = walk_ops(args, t_final, kw["tree"], band, blocked=blocked, scan=True)[0]
+                rec["bound_ms_scan"] = bound_ms(n_bytes, s_ops)[0]
+            rec.update(scan_hold(f"dense_trace_multi {scene} {kind}", out, args, kw,
+                                 scan_rays))
+        # the chunk-row bound (128 rows a chunk entered), the other persistence
+        c_ops, _b, c_rows, _p = walk_ops(args, t_final, tree, band, blocked=blocked,
+                                         growth=growth)
+        rec.update(bound_ms_chunk_rows=bound_ms(n_bytes, c_ops)[0], rows_chunk_rows=c_rows)
+        rec["ratio_chunk_rows"] = ms / rec["bound_ms_chunk_rows"]
+        persist = not kw.get("find_any")  # the wrapper persists in any hit
+        rec["other_persist"] = persist
+        rec["other_persist_ms"] = cuda_ms(lambda: k1b_launch(
+            *args[:8], kw["tree"], kw.get("slices"), kw.get("find_any", False), band or STRICT,
+            kw.get("pack", False), persist=persist, pads=kw.get("pads")), reps)
         if kw.get("pack"):  # the full epilogue on the same rays, beside it
             rec["reduce5_ms"] = cuda_ms(lambda: dense_trace_multi(*args, **dict(kw, pack=False)),
                                         reps)
-        if plain_on_slice:
+        if plain_on_slice and n_check:
             rec["plain_ms_on"] = "slice"
             rec["slice_ms"] = cuda_ms(lambda: dense_trace_multi(*sub, **kw), reps)
         if unsorted is not None:
@@ -1227,12 +1268,13 @@ def k1b_phase(launches, check_rays=CHECK_RAYS, reps=10, plain_on_slice=False,
             rec["sort_unsort_ms"] = rec["sorted_total_ms"] - ms
         per.append(rec)
         log(f"kernel dense_trace_multi {scene}: {json.dumps(rec)}")
-    mean = lambda k: statistics.fmean(p[k] for p in per)
+    mean = lambda k: statistics.fmean(p[k] for p in per) if per[0].get(k) is not None else None
     log(f"kernel dense_trace_multi {scene}: mean ms {mean('ms')} over {len(per)} launches "
         f"(before: {PREV_MEAN_MS.get(scene)})")
     return dict(max_abs_err=max(p["max_abs_err"] for p in per), ms=mean("ms"),
                 plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
-                bound_by=max(per, key=lambda p: p["bound_ms"])["bound_by"])
+                bound_by=max(per, key=lambda p: p["bound_ms"])["bound_by"],
+                scan_ms=mean("scan_ms"), launches=per)
 
 
 def k1b_edge_holds(launches):
@@ -1258,7 +1300,8 @@ def k1b_edge_holds(launches):
     def hold(what, args, kw):
         out = dense_trace_multi(*args, **kw)
         torch.cuda.synchronize()
-        ref = dense_trace_multi_plain(*args, **{k: v for k, v in kw.items() if k != "slices"})
+        ref = dense_trace_multi_plain(*args, **{k: v for k, v in kw.items()
+                                                if k not in ("slices", "pads")})
         for name, a, b in zip(out_names(out), out, ref):
             if not torch.equal(a, b):
                 raise AssertionError(f"dense_trace_multi edge hold {what}: {name} differs on "
@@ -1892,7 +1935,8 @@ def first_accepts(args, band, rays, step=256, slab_elems=1 << 24):
     return first
 
 
-def walk_ops(args, t_final, tree, band=None, blocked=None, slices=None, exact0=False):
+def walk_ops(args, t_final, tree, band=None, blocked=None, slices=None, exact0=False,
+             scan=False, block=1 << 17, growth=None):
     """Tree-walk operations (K1b, K6) this run's data needs: per live ray,
     one slab test per tree box (internal node or leaf) it enters no later
     than `t_final` (its closest hit, or 1e5), through ancestors it also
@@ -1901,21 +1945,27 @@ def walk_ops(args, t_final, tree, band=None, blocked=None, slices=None, exact0=F
     a slab test per slice of each such leaf and the row test per row of
     the slices it enters no later than `t_final`.  `exact0`: boxes are
     entered by K6's rule (exact on a zero direction axis), else by the slab
-    test alone (`box_entry`).  Counted level by level from the root, in
-    blocks of rays.  Under a widened band the kernels walk no tree: each
+    test alone (`box_entry`).  Under a widened band the walks grow each
+    box for the ray that tests it: `growth` (`walk_growth`) grows them as
+    the kernel does at the ray's final best t (`band_pad.grow`).  Counted level
+    by level from the root, in blocks of rays.  `scan`: the all-row scan's
+    count instead (`band_scan`, the walks' reference on the card): each
     live ray tests the rows in order, all of them, or in an any-hit launch
     (`blocked`, the kernel's result (R,)) a blocked ray up to and including
-    its first accepted row.  -> (ops, boxes entered, rows tested, leaves
-    entered per ray (R,), 0 for a dead ray)."""
+    its first accepted row.  `block`: rays a block (fewer where each ray
+    enters thousands of boxes).  -> (ops, boxes entered, rows tested,
+    slices (with `slices`) or leaves entered per ray (R,), 0 for a dead
+    ray)."""
     import torch
 
+    from low_precision_raytracer_tpu_torch.ops import band_pad
     from low_precision_raytracer_tpu_torch.ops.dense_trace import FAN
 
     o, d, _skip, mind, maxd, coef = args[:6]
     TI = coef.shape[0]
     live = torch.nonzero(maxd > mind)[:, 0]
     per_ray = torch.zeros(o.shape[0], dtype=torch.float32, device=o.device)
-    if band is not None and band.widened:
+    if scan:
         n_rows = live.numel() * TI
         if blocked is not None:
             hit = torch.nonzero(blocked)[:, 0]
@@ -1928,20 +1978,24 @@ def walk_ops(args, t_final, tree, band=None, blocked=None, slices=None, exact0=F
     L = len(tree.sizes)
     offs = tree.levels[:L].tolist()
     n_boxes = n_rows = 0
-    for r0 in range(0, live.numel(), 1 << 17):
-        ray = live[r0:r0 + (1 << 17)]
+    for r0 in range(0, live.numel(), block):
+        ray = live[r0:r0 + block]
         node = torch.zeros_like(ray)
         for lvl in range(L - 1, -1, -1):
             if lvl < L - 1:
                 ch = node[:, None] * FAN + torch.arange(FAN, device=ray.device)[None, :]
                 ok = ch < tree.sizes[lvl]
                 ray, node = ray[:, None].expand(-1, FAN)[ok], ch[ok]
-            e, ok = _pair_entry(tree.boxes[offs[lvl] + node], o[ray], d[ray], maxd[ray], exact0)
+            b = tree.boxes[offs[lvl] + node]
+            if growth is not None:
+                b = band_pad.grow(b, growth[0].tree[offs[lvl] + node], growth[1][ray],
+                                  growth[2][ray], o[ray], d[ray])
+            e, ok = _pair_entry(b, o[ray], d[ray], maxd[ray], exact0)
             keep = ok & (e <= t_final[ray])
             ray, node = ray[keep], node[keep]
             n_boxes += int(keep.sum())
-        per_ray.index_add_(0, ray, torch.ones_like(ray, dtype=torch.float32))
         if slices is None:
+            per_ray.index_add_(0, ray, torch.ones_like(ray, dtype=torch.float32))
             n_rows += int(torch.clamp(TI - node * tree.leaf, max=tree.leaf).sum())
             continue
         per = tree.leaf // 32
@@ -1949,11 +2003,60 @@ def walk_ops(args, t_final, tree, band=None, blocked=None, slices=None, exact0=F
         has = sl * 32 < TI
         ray, sl = ray[:, None].expand(-1, per)[has], sl[has]
         n_boxes += sl.numel()
-        e, ok = _pair_entry(slices[sl], o[ray], d[ray], maxd[ray], exact0)
-        sl = sl[ok & (e <= t_final[ray])]
+        b = slices[sl]
+        if growth is not None:
+            b = band_pad.grow(b, growth[0].slices[sl], growth[1][ray], growth[2][ray], o[ray],
+                              d[ray])
+        e, ok = _pair_entry(b, o[ray], d[ray], maxd[ray], exact0)
+        keep = ok & (e <= t_final[ray])
+        sl = sl[keep]
+        per_ray.index_add_(0, ray[keep], torch.ones_like(sl, dtype=torch.float32))
         n_rows += int(torch.clamp(TI - sl * 32, max=32).sum())
     return (float(n_boxes) * BOX_TEST_OPS + float(n_rows) * row_ops(band), n_boxes, n_rows,
             per_ray)
+
+
+def walk_growth(args, kw, tree, t_final, slices=None):
+    """How a widened band's walk grows the boxes it reads on one launch, for
+    `walk_ops`: (the table's pads, the launch's `kw["pads"]` when the
+    wrapper was given them, else `band_pads` of `tree` and K1b's `slices`;
+    the rays' pads; the |t| each ray's boxes are grown to at its final best
+    t `t_final`, or at its reach in any hit and under pack)."""
+    from low_precision_raytracer_tpu_torch.ops import band_pad
+
+    o, d, _skip, mind, maxd, coef = args[:6]
+    band = kw["band"]
+    pads = kw.get("pads") or band_pad.band_pads(coef, band, tree, slices)
+    ray4 = band_pad.ray_pads(o, d, mind, maxd, band, tree.boxes[0], pads.root)
+    fixed = kw.get("find_any", False) or kw.get("pack", False)
+    return pads, ray4, band_pad.pad_t(ray4, mind, t_final, fixed)
+
+
+def scan_hold(what, out, args, kw, n_rays=None):
+    """A widened band's walk (`out`, the launch's result) held bit for bit
+    against the all-row scan kernel (`band_scan`) on every ray, or on a
+    strided slice of `n_rays`; both timed on those rays (the walk through
+    `launch`, re-run on the slice).  -> report fields."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import band_scan
+
+    R = args[0].shape[0]
+    dev = args[0].device
+    sel = None if n_rays is None or n_rays >= R else \
+        torch.arange(0, R, max(1, R // n_rays), device=dev)[:n_rays]
+    sub = list(args[:8]) if sel is None else \
+        [a[sel].contiguous() for a in args[:5]] + list(args[5:8])
+    skw = dict(find_any=kw.get("find_any", False), band=kw["band"], pack=kw.get("pack", False))
+    ref = band_scan(*sub, **skw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(out_names(out), out, ref):
+        a = a if sel is None else a[sel]
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: the walk's {name} differs from the all-row scan on "
+                                 f"{int((a != b).sum())} of {b.numel()} rays")
+    return dict(scan_checked_rays=int(sub[0].shape[0]),
+                scan_ms=cuda_ms(lambda: band_scan(*sub, **skw), 1))
 
 
 def _quantiles(x):
@@ -2021,7 +2124,8 @@ def face_rays(args, leaves, n, seed=0):
 
 
 def k6_phase(launches, leaves, scene="colonnade-2M", chunks=None, check_rays=HUGE_CHECK,
-             lights=1):
+             lights=1, scan_rays=None, scan_bound=True, count_rays=None, reps=5,
+             full_timing=True):
     """K6 on each recorded launch: timed on the full launch in both
     persistences (the wrapper persists in any hit), held against the plain
     version on `check_rays` rays (a strided slice; with `chunks` also the
@@ -2032,7 +2136,17 @@ def k6_phase(launches, leaves, scene="colonnade-2M", chunks=None, check_rays=HUG
     per ray measured under both box rules (`leaf_split`).  Its bound from
     the data under the kernel's rule (`walk_ops`), the old rule's count
     beside it.  The sorted launches also unsorted, and their key and sort +
-    unsort on their own.  -> report."""
+    unsort on their own.  Under a widened band the walk grows each box for
+    its ray: the bound and the leaves entered per ray count those,
+    the unpadded boxes' count and the all-row scan's beside them, and the
+    walk is held bit for bit against the scan kernel on every ray (or a
+    strided slice of `scan_rays`; `scan_bound=False`: without the scan's
+    count).  `check_rays=0`: no plain hold.  `count_rays`: the bound and
+    the leaves per ray counted on a strided slice of that many rays (a
+    band's grown boxes on colonnade-2M: hundreds of leaves a ray), held
+    beside the walk timed on the same slice.  `reps`: timed calls a launch;
+    `full_timing=False` leaves out the other persistence, the slice and
+    the sorted launches' unsorted, key and sort timings.  -> report."""
     import torch
 
     from low_precision_raytracer_tpu_torch.ops.dense_trace import (
@@ -2067,25 +2181,48 @@ def k6_phase(launches, leaves, scene="colonnade-2M", chunks=None, check_rays=HUG
             t_final = torch.where(m_out[3] >= 0, t_final, 1e5)
         blocked = (out[3] >= 0) if find_any else None
         m_blocked = (m_out[3] >= 0) if find_any else None
+        blk = 1 << 17
+        if count_rays is not None:  # the counts on a strided slice of the rays
+            csel = torch.arange(0, R, max(1, R // count_rays), device=dev)[:count_rays]
+            margs = [a[csel].contiguous() for a in margs[:5]] + list(margs[5:])
+            t_final = t_final[csel]
+            m_blocked = None if m_blocked is None else m_blocked[csel]
+            blk = 1 << 10
+        growth = walk_growth(margs, kw, tree, t_final) if band.widened else None
         n_ops, n_boxes, n_rows, per_new = walk_ops(margs, t_final, tree, band,
-                                                   blocked=m_blocked, exact0=True)
-        o_ops, o_boxes, o_rows, per_old = (n_ops, n_boxes, n_rows, per_new) if band.widened \
-            else walk_ops(margs, t_final, tree, band, blocked=m_blocked)
-        n_bytes = nbytes(*args[:10], tree.boxes) + nbytes(*out)
+                                                   blocked=m_blocked, exact0=True, block=blk,
+                                                   growth=growth)
+        o_ops, o_boxes, o_rows, per_old = walk_ops(margs, t_final, tree, band,
+                                                   blocked=m_blocked, block=blk, growth=growth)
+        n_bytes = nbytes(*margs[:10], tree.boxes) + nbytes(*out) * margs[0].shape[0] // R
+        if growth is not None:  # the pads the walk reads
+            n_bytes += nbytes(growth[0].tree, growth[1])
         b_ms, b_by = bound_ms(n_bytes, n_ops)
         live = margs[4] > margs[3]
+        if count_rays is not None:  # the walk on the rays counted
+            rec.update(counted_rays=int(margs[0].shape[0]), counted_ms=cuda_ms(
+                lambda: packet_trace(*margs[:8], *args[8:10], **kw), 3))
         rec.update(bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, ops=n_ops, boxes_entered=n_boxes,
                    rows_tested=n_rows, bound_ms_box_entry=bound_ms(n_bytes, o_ops)[0],
                    boxes_entered_box_entry=o_boxes, rows_tested_box_entry=o_rows,
                    leaves_per_live_ray=_quantiles(per_new[live]),
                    leaves_per_live_ray_box_entry=_quantiles(per_old[live]))
+        if band.widened:  # beside: the unpadded boxes' count, the all-row scan
+            u_ops, _b, u_rows, u_per = walk_ops(margs, t_final, tree, band, blocked=m_blocked,
+                                                exact0=True, block=blk)
+            rec.update(leaves_per_live_ray_unpadded=_quantiles(u_per[live]),
+                       rows_tested_unpadded=u_rows, bound_ms_unpadded=bound_ms(n_bytes, u_ops)[0])
+            if scan_bound:
+                s_ops = walk_ops(margs, t_final, tree, band, blocked=m_blocked, scan=True)[0]
+                rec["bound_ms_scan"] = bound_ms(n_bytes, s_ops)[0]
+            rec.update(scan_hold(f"packet_trace {scene} {kind}", out, args, kw, scan_rays))
         if chunks is not None:
             rec["leaf_split"] = leaf_split(margs[1], live, per_old, per_new,
                                            lights if find_any else 1,
                                            torch.arange(R, device=dev), R)
 
         # the plain version on the sample
-        sel = torch.arange(0, R, max(1, R // check_rays), device=dev)[:check_rays]
+        sel = torch.arange(0, R, max(1, R // max(1, check_rays)), device=dev)[:check_rays]
         if chunks is not None:  # ... with the rays entering the most leaves (box_entry)
             per_old_k = per_old
             if unsorted is not None:  # in the kernel's order: the sort's permutation
@@ -2095,25 +2232,27 @@ def k6_phase(launches, leaves, scene="colonnade-2M", chunks=None, check_rays=HUG
             top = torch.topk(per_old_k, check_rays // 16).indices
             sel = torch.unique(torch.cat([sel[:check_rays - top.numel()], top]))
         sub = [a[sel].contiguous() for a in args[:5]] + list(args[5:8])
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
-        ref = dense_trace_multi_plain(*sub, find_any=find_any, band=band, slab_elems=1 << 27)
-        t1.record()
-        t1.synchronize()
-        plain_ms = t0.elapsed_time(t1)
-        err = 0.0
-        for name, a, b in zip(("t", "u", "v", "tri", "obj"), out, ref):
-            a = a[sel]
-            if not torch.equal(a, b):
-                raise AssertionError(f"packet_trace {scene} {kind}: {name} differs from the "
-                                     f"plain version on {int((a != b).sum())} of {sel.numel()} "
-                                     "rays")
-            if a.dtype == torch.float32:
-                err = max(err, float((a - b).abs().max()))
+        plain_ms, err = None, 0.0
+        if check_rays:
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            ref = dense_trace_multi_plain(*sub, find_any=find_any, band=band,
+                                          slab_elems=1 << 27)
+            t1.record()
+            t1.synchronize()
+            plain_ms = t0.elapsed_time(t1)
+            for name, a, b in zip(("t", "u", "v", "tri", "obj"), out, ref):
+                a = a[sel]
+                if not torch.equal(a, b):
+                    raise AssertionError(f"packet_trace {scene} {kind}: {name} differs from "
+                                         f"the plain version on {int((a != b).sum())} of "
+                                         f"{sel.numel()} rays")
+                if a.dtype == torch.float32:
+                    err = max(err, float((a - b).abs().max()))
+            del ref
         zero_sel = int((sub[1] == 0).any(dim=1).sum())
         rec.update(plain_ms=plain_ms, plain_ms_on="sample", checked_rays=int(sel.numel()),
                    checked_zero_axis_rays=zero_sel, max_abs_err=err)
-        del ref
         if chunks is not None:
             # face rays: one exact zero axis, the origin on a leaf face
             fargs = face_rays(args, leaves, 1024, seed=len(per))
@@ -2138,13 +2277,14 @@ def k6_phase(launches, leaves, scene="colonnade-2M", chunks=None, check_rays=HUG
             del want
             rec["equal_to_k1b_rays"] = R
             rec["k1b_ms"] = cuda_ms(k1b, 3)
-        ms = cuda_ms(lambda: packet_trace(*args, **kw), 5)
-        other = not find_any  # the wrapper persists in any hit
-        rec.update(ms=ms, prev_ms=PREV_LAUNCH_MS.get((scene, kind)), other_persist=other,
-                   other_persist_ms=cuda_ms(lambda: packet_trace(*args, **dict(kw, persist=other)),
-                                            5),
-                   slice_ms=cuda_ms(lambda: packet_trace(*sub, *args[8:10], **kw), 5))
-        rec["ratio"] = ms / b_ms
+        ms = cuda_ms(lambda: packet_trace(*args, **kw), reps)
+        rec.update(ms=ms, prev_ms=PREV_LAUNCH_MS.get((scene, kind)))
+        rec["ratio"] = rec.get("counted_ms", ms) / b_ms
+        if full_timing:
+            other = not find_any  # the wrapper persists in any hit
+            rec.update(other_persist=other, other_persist_ms=cuda_ms(
+                lambda: packet_trace(*args, **dict(kw, persist=other)), reps),
+                slice_ms=cuda_ms(lambda: packet_trace(*sub, *args[8:10], **kw), reps))
         if unsorted is not None:
             srt = packet_trace_sorted(*unsorted, **kw)
             direct = packet_trace(*unsorted, **kw)
@@ -2152,6 +2292,7 @@ def k6_phase(launches, leaves, scene="colonnade-2M", chunks=None, check_rays=HUG
             if not all(torch.equal(a, b) for a, b in zip(srt, direct)):
                 raise AssertionError(f"packet_trace {kind}: sorted launch differs from the "
                                      "unsorted one")
+        if unsorted is not None and full_timing:
             o, d, mn, mx = unsorted[0], unsorted[1], unsorted[3], unsorted[4]
             key = morton_key(o, d, live=mx > mn)
             rec["unsorted_ms"] = cuda_ms(lambda: packet_trace(*unsorted, **kw), 5)
@@ -2161,12 +2302,13 @@ def k6_phase(launches, leaves, scene="colonnade-2M", chunks=None, check_rays=HUG
             rec["sort_unsort_ms"] = rec["sorted_total_ms"] - ms
         per.append(rec)
         log(f"kernel packet_trace {scene}: {json.dumps(rec)}")
-    mean = lambda k: statistics.fmean(p[k] for p in per)
+    mean = lambda k: statistics.fmean(p[k] for p in per) if per[0].get(k) is not None else None
     log(f"kernel packet_trace {scene}: mean ms {mean('ms')} over {len(per)} launches "
         f"(before: {PREV_MEAN_MS.get(scene)})")
     return dict(max_abs_err=max(p["max_abs_err"] for p in per), ms=mean("ms"),
                 plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
-                bound_by=max(per, key=lambda p: p["bound_ms"])["bound_by"], launches=per)
+                bound_by=max(per, key=lambda p: p["bound_ms"])["bound_by"],
+                scan_ms=mean("scan_ms"), launches=per)
 
 
 def colonnade_328k():
@@ -2509,6 +2651,53 @@ def band_kernel_phase(precision, fallback):
     return reports
 
 
+BIG_BAND_ACCS = (("colonnade-83k", "bf16", "both"), ("colonnade-83k", "fp16", "dtype"),
+                 ("colonnade-2M", "bf16", "both"))
+
+
+def band_big_kernel_phase(name, precision, fallback):
+    """A widened band above the old 8,192-triangle cap, on the launches of
+    one warm-up 1080p frame: colonnade-83k on the dense route (K1b, the GI
+    bounce and round-1 shadows sorted) with its walk held bit for bit
+    against the all-row scan kernel on every ray, or colonnade-2M on the
+    packet route (K6) held so on a strided 2^16-ray slice; both timed, the
+    slices (K1b) or leaves (K6) entered per live ray under the grown boxes
+    beside the unpadded ones (K6: counted on a strided 2^16-ray slice, its
+    bound beside the walk timed on that slice).  No plain hold: the scan
+    kernel is held against the plain version in `band_kernel_phase`.
+    -> report."""
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.ops import trace as T
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    packet = name == "colonnade-2M"
+    scene_fn = colonnade_2m if packet else colonnade_83k
+    tag = f"{name} {precision}-{fallback}"
+    warm = Renderer(scene_fn(), RenderConfig(width=W, height=H, precision=precision,
+                                             triangle_fallback=fallback))
+    want = "pallas" if packet else "dense_pallas"
+    if warm.cfg.traversal_impl != want:
+        raise AssertionError(f"{tag} resolved to {warm.cfg.traversal_impl!r}, want {want!r}")
+    if packet:
+        launches = capture_packet_launches(warm, 1)
+        leaves = T._packet_tables(warm.frame)
+        del warm
+        rep = k6_phase(launches, leaves, scene=tag, check_rays=0, scan_rays=1 << 16,
+                       scan_bound=False, count_rays=1 << 16, reps=1, full_timing=False)
+    else:
+        launches = capture_sponza_launches(warm, 1)
+        del warm
+        rep = k1b_phase(launches, check_rays=0, reps=3, scene=tag, scan_bound=False)
+    del launches
+    per = "leaves_per_live_ray" if packet else "slices_per_live_ray"
+    log(f"band walk {tag} (ms, scan ms, {per} p50/p90/p99/max grown and unpadded): "
+        + json.dumps([dict(kind=r["kind"], ms=r["ms"], scan_ms=r["scan_ms"],
+                           scan_checked_rays=r["scan_checked_rays"], bound_ms=r["bound_ms"],
+                           counted_ms=r.get("counted_ms"), grown=r[per],
+                           unpadded=r[per + "_unpadded"]) for r in rep["launches"]]))
+    return rep
+
+
 def fallback_lines():
     """The fp32-fallback rate of the band test on Cornell's primary launch
     at 256 x 256 (`ops/diagnostics.py`, the form of `bench.py:fallback_rate`:
@@ -2583,7 +2772,7 @@ def main(argv) -> int:
         base = {"dense_trace": 0, "dense_trace_multi": 0, "temporal_accum": 1,
                 "wavelet_iter": 5, "wavefront_schedule": 0, "wavefront_assigned": 0,
                 "packet_trace": 0, "dense_trace_pack": 0, "dense_trace_multi_pack": 0,
-                "mxu_proto_vpu": 0, "mxu_proto_mxu": 0}
+                "mxu_proto_vpu": 0, "mxu_proto_mxu": 0, "band_scan": 0}
         return lambda f: {**base, "coef_fetch": 1 if f > 0 else 0, **kw}
 
     # ---- the flagship (Cornell): K1a, K2, K3, K4
@@ -2776,6 +2965,16 @@ def main(argv) -> int:
     fallback_lines()
     elapsed()
 
+    # ---- the bands above the old 8,192-triangle cap: K1b's walk on
+    # colonnade-83k, K6's on colonnade-2M, each held against the scan kernel
+    for name, precision, fallback in BIG_BAND_ACCS:
+        band_big_kernel_phase(name, precision, fallback)
+        packet = name == "colonnade-2M"
+        run_path(f"{name}-{precision}-{fallback}", colonnade_2m if packet else colonnade_83k,
+                 counts(**{"packet_trace" if packet else "dense_trace_multi": 4}), precision,
+                 frames_n=BIG_BAND_FRAMES, triangle_fallback=fallback)
+        elapsed()
+
     # ---- the packed epilogue (K1a, K1b), the wavefront's 'rounds' mode
     reports.update(pack_phases(run_path, counts))
     elapsed()
@@ -2814,12 +3013,13 @@ def main(argv) -> int:
         profile_frame("flagship-fp16", cornell_box_scene, "fp16")
         profile_frame("colonnade-328k", colonnade_328k)
 
-    def kernel_line(names, reps, launches):
+    def kernel_line(names, reps, launches, extra=()):
         return [dict(name=name, route="cuda", source=KERNELS[name][0],
                      replaces=KERNELS[name][1], launches=launches[name],
                      max_abs_err=reps[name]["max_abs_err"], ms=reps[name]["ms"],
                      plain_ms=reps[name]["plain_ms"], bound_ms=reps[name]["bound_ms"],
-                     bound_by=reps[name]["bound_by"], library_ms=None) for name in names]
+                     bound_by=reps[name]["bound_by"], library_ms=None,
+                     **{k: reps[name].get(k) for k in extra}) for name in names]
 
     for name in KERNELS:
         if totals[name] == 0:
@@ -2828,7 +3028,9 @@ def main(argv) -> int:
     log(json.dumps({"kernels_fp16": kernel_line(reports16, reports16, group_totals["fp16"])}))
     # launches under each acceptance: null where no path phase ran it
     none = dict.fromkeys(cuda_lib.LAUNCHES)
-    log(json.dumps({"kernels_band": {acc: kernel_line(r, r, group_totals.get(acc, none))
+    # the walks' ms beside the all-row scan kernel's on the same launches
+    log(json.dumps({"kernels_band": {acc: kernel_line(r, r, group_totals.get(acc, none),
+                                                      extra=("scan_ms",))
                                      for acc, r in band_reports.items()}}))
     log(json.dumps({"kernels": kernel_line(KERNELS, reports, totals)}))
     log(smi)

@@ -28,10 +28,11 @@
 // accepted row.  The boxes are tested by box_entry_exact0: on a zero
 // direction axis the origin must lie inside the box (with a margin), where
 // box_entry let such a ray enter every box its other slabs cross (the
-// colonnade's sun rays, d_x = 0, entered over 1,500 leaves a ray).  The
-// result equals the plain version's global minimum bit for bit.  The
-// widened forms (sub-f32 bands, 'dtype') scan every row
-// (trace_common.cuh:scan_trace_kernel).
+// colonnade's sun rays, d_x = 0, entered over 1,500 leaves a ray).  Under a
+// widened acceptance (the sub-f32 bands, 'dtype') the walk grows every box
+// for the ray that tests it by the band's proven reach (ops/band_pad.py;
+// the proof, the zero-axis rule's case too, is in chunk_walk.cuh).  The result
+// equals the plain version's global minimum bit for bit.
 //
 // What bounds it on the H100: operations, by the data: per live ray a slab
 // test (34 ops) per box it enters before its hit and ~40 f32 operations per
@@ -47,27 +48,26 @@
 #include "chunk_walk.cuh"
 
 // boxes / levels / n_levels: the chunk tree (the packet tree's levels 1..),
-// slices: the 32-row leaf boxes, lanes: lane_table(coef), stack_cap: the
-// walk's stack entries, persist: resident blocks pulling rays from
-// status[1].  The widened forms read coef and scan every row.
+// slices: the 32-row leaf boxes, lanes: lane_table(coef), box_pads /
+// slice_pads / ray_pads: a widened form's pads (chunk_walk.cuh:WalkPads;
+// null in the other forms), stack_cap: the walk's stack entries, persist:
+// resident blocks pulling rays from status[1].
 extern "C" int lprt_packet_trace(const float* orig, const float* dir,
                                  const int* skip, const float* mind,
-                                 const float* maxd, const float* coef,
-                                 const int* tri_id, const int* obj_id,
-                                 const float* boxes, const int* levels,
-                                 const float* lanes, const float* slices,
-                                 int n_levels, int R, int TI, int find_any,
-                                 int form, int stack_cap, int persist,
+                                 const float* maxd, const int* tri_id,
+                                 const int* obj_id, const float* boxes,
+                                 const int* levels, const float* lanes,
+                                 const float* slices, const float* box_pads,
+                                 const float* slice_pads, const float* ray_pads,
+                                 int n_levels, int R, int TI,
+                                 int find_any, int form, int stack_cap, int persist,
                                  float k0, float k1, float k2,
                                  float* t_out, float* u_out, float* v_out,
                                  int* tri_out, int* obj_out, int* status,
                                  void* stream) {
-  if (LPRT_WIDENED(form))
-    return lprt::launch_scan_trace<false>(orig, dir, skip, mind, maxd, coef, tri_id, obj_id, R,
-                                          TI, find_any, 0, form, k0, k1, k2, t_out, u_out,
-                                          v_out, tri_out, obj_out, stream);
   return lprt::walk::launch_walk_forms<false, true>(
-      orig, dir, skip, mind, maxd, lanes, tri_id, obj_id, boxes, slices, levels, n_levels, R, TI,
+      orig, dir, skip, mind, maxd, lanes, tri_id, obj_id, boxes, slices, levels, box_pads,
+      slice_pads, ray_pads, n_levels, R, TI,
       find_any, 0, form, stack_cap, persist, k0, k1, k2, t_out, u_out, v_out, tri_out, obj_out,
       status, stream);
 }

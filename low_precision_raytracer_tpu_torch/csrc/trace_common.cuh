@@ -26,9 +26,9 @@
 //   skipped); box_entry_exact0: the same, exact on a zero direction axis
 //   (K6's walk).
 // - scan_trace_kernel<FORM, PACK>: closest or any hit of every row under a
-//   widened acceptance, one thread per ray (K1b's and K6's band forms).  The
-//   forms whose acceptance stays inside the triangle walk a tree of boxes
-//   instead (chunk_walk.cuh).
+//   widened acceptance, one thread per ray: the card's reference for K1b's
+//   and K6's walks under a band (chunk_walk.cuh, every form), reached by no
+//   render path.
 //
 // Every expression keeps the plain versions' order of operations, and the
 // sources build with --fmad=false, so a kernel rounds like its plain
@@ -51,7 +51,8 @@
 #define LPRT_KIND(f) ((f) & 3)
 #define LPRT_OPERAND(f) ((f) & (LPRT_OPERAND_BF16 | LPRT_OPERAND_FP16))
 // a widened acceptance (sub-f32, or 'dtype') can accept points outside the
-// triangle's box: K1b and K6 then walk no tree and test every row
+// triangle's box: K1b and K6 then walk boxes grown by its reach
+// (ops/band_pad.py)
 #define LPRT_WIDENED(f) (LPRT_OPERAND(f) || ((f) & LPRT_FLAG_DTYPE))
 // floats per table row: 12 f32 columns, then 16 band rows in sub-f32 forms
 #define LPRT_ROW(f) (LPRT_OPERAND(f) ? 28 : 12)
@@ -247,12 +248,11 @@ struct PackedBest {
   }
 };
 
-// Slab-entry bound of the ray against box b = [lo3 | hi3]; false when the
-// ray's segment [0, maxd) cannot enter it.
-__device__ __forceinline__ bool box_entry(const float* __restrict__ b, float ox,
-                                          float oy, float oz, float ix,
-                                          float iy, float iz, float maxd,
-                                          float* entry) {
+// Slab-entry bound of the ray against a box [lo3 | hi3] whose bound i is
+// b(i); false when the ray's segment [0, maxd) cannot enter it.
+template <class B>
+__device__ __forceinline__ bool box_entry_at(B b, float ox, float oy, float oz, float ix,
+                                             float iy, float iz, float maxd, float* entry) {
   const float big = 3e38f, slop = 0.02f;
   float tmin = -big, tmax = big;
   bool any_fin = false;
@@ -260,8 +260,8 @@ __device__ __forceinline__ bool box_entry(const float* __restrict__ b, float ox,
   const float inv[3] = {ix, iy, iz};
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    float t1 = (__ldg(b + a) - o[a]) * inv[a];
-    float t2 = (__ldg(b + 3 + a) - o[a]) * inv[a];
+    float t1 = (b(a) - o[a]) * inv[a];
+    float t2 = (b(3 + a) - o[a]) * inv[a];
     if (isfinite(t1) && isfinite(t2)) {
       tmin = fmaxf(tmin, fminf(t1, t2));
       tmax = fminf(tmax, fmaxf(t1, t2));
@@ -271,6 +271,15 @@ __device__ __forceinline__ bool box_entry(const float* __restrict__ b, float ox,
   float e = fmaxf(tmin - slop, 0.f);
   *entry = e;
   return any_fin && (tmin <= tmax + slop) && (tmax + slop >= 0.f) && (e < maxd);
+}
+
+// box_entry_at on the box b = [lo3 | hi3] in global memory.
+__device__ __forceinline__ bool box_entry(const float* __restrict__ b, float ox,
+                                          float oy, float oz, float ix,
+                                          float iy, float iz, float maxd,
+                                          float* entry) {
+  return box_entry_at([&](int i) { return __ldg(b + i); }, ox, oy, oz, ix, iy, iz, maxd,
+                      entry);
 }
 
 // box_entry made exact on a zero direction axis (K6's walk only; the
@@ -300,26 +309,35 @@ __device__ __forceinline__ bool box_entry(const float* __restrict__ b, float ox,
 // below it does.  Plain version: ops/packet_trace.py:zero_axis_inside.
 #define LPRT_ZERO_AXIS_MARGIN 1e-4f
 
-__device__ __forceinline__ bool box_entry_exact0(const float* __restrict__ b, float ox,
-                                                 float oy, float oz, float ix, float iy,
-                                                 float iz, float maxd, float* entry) {
+template <class B>
+__device__ __forceinline__ bool box_entry_exact0_at(B b, float ox, float oy, float oz,
+                                                    float ix, float iy, float iz, float maxd,
+                                                    float* entry) {
   const float o[3] = {ox, oy, oz};
   const float inv[3] = {ix, iy, iz};
   const float m = LPRT_ZERO_AXIS_MARGIN * (1.f + fabsf(ox) + fabsf(oy) + fabsf(oz));
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     if (isinf(inv[a])) {
-      if (!(__ldg(b + a) - m <= o[a] && o[a] <= __ldg(b + 3 + a) + m)) {
+      if (!(b(a) - m <= o[a] && o[a] <= b(3 + a) + m)) {
         *entry = 0.f;
         return false;
       }
     }
   }
-  return box_entry(b, ox, oy, oz, ix, iy, iz, maxd, entry);
+  return box_entry_at(b, ox, oy, oz, ix, iy, iz, maxd, entry);
+}
+
+__device__ __forceinline__ bool box_entry_exact0(const float* __restrict__ b, float ox,
+                                                 float oy, float oz, float ix, float iy,
+                                                 float iz, float maxd, float* entry) {
+  return box_entry_exact0_at([&](int i) { return __ldg(b + i); }, ox, oy, oz, ix, iy, iz,
+                             maxd, entry);
 }
 
 // The all-row scan of the widened acceptances (LPRT_WIDENED: the sub-f32
-// forms and 'dtype'), K1b's and K6's.  What it computes, per ray: the
+// forms and 'dtype'), the reference K1b's and K6's walks are held to on the
+// card (dense_multi.cu:lprt_band_scan).  What it computes, per ray: the
 // tri_test<FORM> of every row, a hit also needing mind < t < maxd,
 // tri != skip and a finite t.  Closest hit: the (t, tri, row)-lexicographic
 // minimum, t = 1e5 / ids -1 on a miss.  Any hit: tri = 0 if some row
@@ -327,13 +345,13 @@ __device__ __forceinline__ bool box_entry_exact0(const float* __restrict__ b, fl
 //
 // A widened test can accept a point well outside its triangle (a bf16
 // 'dtype' band reaches tens of percent of the barycentric range on distant
-// hits), so outside every box of a tree: one thread per ray tests every row
-// in order, and the result is the plain version's global minimum.  (The TPU
-// kernels cull such hits by their tiles' boxes, which bound no single ray;
-// the JAX package's all-pairs XLA route, ops/dense.py, keeps them, as this
-// does.  Culling that stays exact under the band is ROADMAP queue 1 item
-// 12.)  Under PACK (K1b's packed epilogue) every LPRT_SCAN_CHUNK rows are a
-// chunk of PackedBest.  Dead lanes (maxd <= mind) test nothing.
+// hits), so outside every unpadded box of a tree: one thread per ray tests
+// every row in order, and the result is the plain version's global minimum.
+// (The TPU kernels cull such hits by their tiles' boxes, which bound no
+// single ray; the JAX package's all-pairs XLA route, ops/dense.py, keeps
+// them, as this does and as the walks over grown boxes do.)  Under PACK
+// (K1b's packed epilogue) every LPRT_SCAN_CHUNK rows are a chunk of
+// PackedBest.  Dead lanes (maxd <= mind) test nothing.
 #define LPRT_SCAN_CHUNK 128
 #define LPRT_SCAN_FORMS(X) X(5) X(6) X(9) X(10) X(13) X(14) X(18) X(22)
 #define LPRT_SCAN_PACK_FORMS(X) X(9) X(13)
@@ -348,7 +366,7 @@ __global__ void scan_trace_kernel(
     float* __restrict__ v_out, int* __restrict__ tri_out, int* __restrict__ obj_out) {
   constexpr int ROW = LPRT_ROW(FORM);
   constexpr int LMASK = LPRT_SCAN_CHUNK - 1;  // the packed key's local-row bits
-  static_assert(LPRT_WIDENED(FORM), "the ordered forms walk a tree (chunk_walk.cuh)");
+  static_assert(LPRT_WIDENED(FORM), "the scan is the reference of the widened forms");
   int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   float ox = orig[3 * r], oy = orig[3 * r + 1], oz = orig[3 * r + 2];

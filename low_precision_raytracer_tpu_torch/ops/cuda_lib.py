@@ -41,7 +41,8 @@ SIGNATURES = {
         "lprt_dense_trace": [P] * 9 + [I, I, I, F] + [I, F, F, F] + [I, I] + [P] * 6 + [P],
     },
     "dense_multi": {
-        "lprt_dense_multi": [P] * 12 + [I] * 8 + [F] * 3 + [P] * 6 + [P],
+        "lprt_dense_multi": [P] * 14 + [I] * 8 + [F] * 3 + [P] * 6 + [P],
+        "lprt_band_scan": [P] * 8 + [I] * 5 + [F] * 3 + [P] * 5 + [P],
     },
     "svgf": {
         "lprt_coef_fetch": [P, P, I, I, I, I, I, P, P],
@@ -57,7 +58,7 @@ SIGNATURES = {
         "lprt_mxu_proto_mxu": [P] * 4 + [I] * 5 + [P] * 3 + [P],
     },
     "packet_trace": {
-        "lprt_packet_trace": [P] * 12 + [I] * 7 + [F] * 3 + [P] * 6 + [P],
+        "lprt_packet_trace": [P] * 14 + [I] * 7 + [F] * 3 + [P] * 6 + [P],
     },
 }
 
@@ -71,7 +72,10 @@ LAUNCHES = {"dense_trace": 0, "dense_trace_multi": 0, "coef_fetch": 0,
             # the packed epilogue's forms of K1a and K1b
             "dense_trace_pack": 0, "dense_trace_multi_pack": 0,
             # the measurement tool's two bodies (tools/mxu_proto.py)
-            "mxu_proto_vpu": 0, "mxu_proto_mxu": 0}
+            "mxu_proto_vpu": 0, "mxu_proto_mxu": 0,
+            # the all-row scan of a widened band: the walks' reference on
+            # the card, on no render path (a render must leave it at 0)
+            "band_scan": 0}
 
 
 def reset_launches() -> None:

@@ -21,6 +21,9 @@ runs the plain version):
   sized by `walk_stack`), each chunk's four 32-row slices culled by their
   own boxes and tested one row a lane (the table re-laid by `lane_table`;
   `k1b_launch`); closest hit or any hit.  Returns (t, u, v, tri, obj).
+  Under a widened acceptance (`Band.widened`) each box is grown for the
+  ray that tests it by the band's proven reach (`ops/band_pad.py`).  Its card
+  reference there is `band_scan`, the all-row scan, on no render path.
 
 Both take the rays recentred by the scene centre, the coefficient table
 as (TI, 12) f32 rows [n (3x3 row-major) | e (3)] (a sub-f32 error-band
@@ -874,15 +877,16 @@ def walk_stack(tree: BoxTree) -> int:
 
 
 def lane_table(coef) -> torch.Tensor:
-    """The (TI, 12) f32 rows re-laid for K1b's walk: per 32-row slice s
-    and float4 part m of a row, the 32 rows' parts side by side, so that
-    lane j's load of part m of row 32 s + j is 16-byte coalesced across the
-    warp.  -> (NC * 4 * 3 * 32, 4) f32, rows past TI zero (NC = ceil(TI /
-    128)); row k's part m sits at [(k // 32) * 96 + 32 m + k % 32]."""
-    TI = coef.shape[0]
+    """The (TI, C) f32 rows (C = 12, or 28 with a sub-f32 form's band rows)
+    re-laid for the warp walk: per 32-row slice s and float4 part m of a
+    row, the 32 rows' parts side by side, so that lane j's load of part m
+    of row 32 s + j is 16-byte coalesced across the warp.  -> (NC * 4 * P *
+    32, 4) f32 with P = C / 4, rows past TI zero (NC = ceil(TI / 128)); row
+    k's part m sits at [(k // 32) * 32 P + 32 m + k % 32]."""
+    TI, C = coef.shape
     n = -(-TI // CHUNK) * CHUNK
-    padded = torch.nn.functional.pad(coef[:, :12], (0, 0, 0, n - TI))
-    return padded.reshape(n // SLICE, SLICE, 3, 4).transpose(1, 2).reshape(-1, 4).contiguous()
+    padded = torch.nn.functional.pad(coef, (0, 0, 0, n - TI))
+    return padded.reshape(n // SLICE, SLICE, C // 4, 4).transpose(1, 2).reshape(-1, 4).contiguous()
 
 
 def chunk_slices(chunk_lo, chunk_hi) -> torch.Tensor:
@@ -893,19 +897,21 @@ def chunk_slices(chunk_lo, chunk_hi) -> torch.Tensor:
 
 def k1b_launch(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids, tree: BoxTree,
                slices, find_any: bool, band: Band, pack: bool = False,
-               stack: int | None = None, persist: bool | None = None):
+               stack: int | None = None, persist: bool | None = None, pads=None):
     """Launch K1b (csrc/dense_multi.cu) on CUDA tensors checked by the
-    caller: the warp walk of `tree` and the (4 NC, 6) `slices` boxes, or
-    under a widened acceptance the all-row scan.  `stack`: the walk's stack
-    entries (default `walk_stack(tree)`; a smaller one makes deep walks
-    overflow, which raises); `persist`: resident blocks pull the rays from
-    a counter, so a lane whose ray ends takes the next (default: in any hit,
-    where rays end at very different depths; in closest hit the lanes keep
-    their neighbouring rays, which share chunks).  -> (t, u, v, tri, obj);
-    under `pack` (t, row, pk)."""
+    caller: the warp walk of `tree` and the (4 NC, 6) `slices` boxes, under
+    a widened acceptance each grown for the ray that tests it by the band's
+    reach (`ops/band_pad.py`; `pads`: `band_pads(coef, band, tree, slices)`
+    when the caller keeps them).  `stack`: the walk's stack entries (default
+    `walk_stack(tree)`; a smaller one makes deep walks overflow, which
+    raises); `persist`: resident blocks pull the rays from a counter, so a
+    lane whose ray ends takes the next (default: in any hit, where rays end
+    at very different depths; in closest hit the lanes keep their
+    neighbouring rays, which share chunks).  -> (t, u, v, tri, obj); under
+    `pack` (t, row, pk)."""
+    from low_precision_raytracer_tpu_torch.ops import band_pad  # it imports this module
+
     dev = origins.device
-    if coef.data_ptr() % 16:
-        raise ValueError("dense_trace_multi: the coefficient table must be 16-byte aligned")
     R, TI = origins.shape[0], coef.shape[0]
     if tree.leaf != CHUNK:
         raise ValueError(f"dense_trace_multi: the tree's leaf boxes hold {tree.leaf} rows, "
@@ -916,7 +922,14 @@ def k1b_launch(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids, tr
                          f"got {slices.dtype} {tuple(slices.shape)}")
     stack = walk_stack(tree) if stack is None else stack
     persist = find_any if persist is None else persist
-    lanes = None if band.widened else lane_table(coef)
+    wide = (None, None, None)
+    if band.widened:
+        if pads is None:
+            pads = band_pad.band_pads(coef, band, tree, slices)
+        ray4 = band_pad.launch_pads(origins, directions, mind, maxd, band, tree, pads,
+                                    find_any or pack)
+        wide = (pads.tree, pads.slices, ray4)
+    lanes = lane_table(coef)
     slices = slices.contiguous()
     t = torch.empty((R,), dtype=torch.float32, device=dev)
     tri = torch.empty((R,), dtype=torch.int32, device=dev)
@@ -927,9 +940,10 @@ def k1b_launch(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids, tr
     ptr = lambda x: None if x is None else x.data_ptr()
     code = cuda_lib.library("dense_multi").lprt_dense_multi(
         origins.data_ptr(), directions.data_ptr(), skip.data_ptr(), mind.data_ptr(),
-        maxd.data_ptr(), coef.data_ptr(), tri_ids.data_ptr(), obj_ids.data_ptr(),
-        tree.boxes.data_ptr(), tree.levels.data_ptr(), ptr(lanes), slices.data_ptr(),
-        len(tree.sizes), R, TI, int(find_any), int(pack), band.form, int(stack), int(persist),
+        maxd.data_ptr(), tri_ids.data_ptr(), obj_ids.data_ptr(),
+        tree.boxes.data_ptr(), tree.levels.data_ptr(), lanes.data_ptr(), slices.data_ptr(),
+        *(ptr(x) for x in wide), len(tree.sizes), R, TI, int(find_any), int(pack), band.form,
+        int(stack), int(persist),
         band.k0, band.k1, band.k2, t.data_ptr(), ptr(u), ptr(v), tri.data_ptr(),
         obj.data_ptr(), status.data_ptr(), cuda_lib.stream_ptr(dev),
     )
@@ -941,7 +955,8 @@ def k1b_launch(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids, tr
 
 def dense_trace_multi(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
                       chunk_lo, chunk_hi, find_any: bool = False, band: Band = STRICT,
-                      tree: BoxTree | None = None, pack: bool = False, slices=None):
+                      tree: BoxTree | None = None, pack: bool = False, slices=None,
+                      pads=None):
     """K1b wrapper: see the module docstring.  origins/directions (R, 3)
     f32, skip (R,) i32, mind/maxd (R,) f32, coef (TI, table_cols(band))
     f32, tri_ids / obj_ids (TI,) i32, chunk_lo/chunk_hi (NC, 3) f32 with NC =
@@ -949,8 +964,9 @@ def dense_trace_multi(origins, directions, skip, mind, maxd, coef, tri_ids, obj_
     (recentred) frame; `tree`: `build_tree(chunk_lo, chunk_hi, TI, 128)`
     when the caller keeps one; `slices` (4 NC, 6) f32 [lo3 | hi3]: the
     AABB of rows [32 s, 32 s + 32), in the same frame (default: each
-    chunk's box, `chunk_slices`).  -> (t, u, v, tri, obj); under `pack`
-    (closest hit) (t, row, pk)."""
+    chunk's box, `chunk_slices`); `pads`: the widened band's pads of
+    `tree` and `slices` (`band_pad.band_pads`) when the caller keeps them.  -> (t, u, v, tri, obj); under `pack` (closest hit)
+    (t, row, pk)."""
     R = origins.shape[0]
     TI = coef.shape[0]
     NC = -(-TI // CHUNK)
@@ -972,9 +988,47 @@ def dense_trace_multi(origins, directions, skip, mind, maxd, coef, tri_ids, obj_
     if slices is None:
         slices = chunk_slices(chunk_lo, chunk_hi)
     out = k1b_launch(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids, tree,
-                     slices, find_any, band, pack)
+                     slices, find_any, band, pack, pads=pads)
     cuda_lib.LAUNCHES["dense_trace_multi_pack" if pack else "dense_trace_multi"] += 1
     return out
+
+
+def band_scan(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
+              find_any: bool = False, band: Band = STRICT, pack: bool = False):
+    """The all-row scan of a widened acceptance (`scan_trace_kernel` in
+    csrc/dense_multi.cu, one thread a ray testing every row in order): the
+    reference the walks of K1b and K6 are held to on the card, under any
+    widened form (dense or packet band) and K1b's packed epilogue.  No
+    render path calls it.  Same arguments and results as
+    `dense_trace_multi_plain`, which it runs on CPU tensors."""
+    R, TI = origins.shape[0], coef.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    _check_args("band_scan", [origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids],
+                [(f32, (R, 3)), (f32, (R, 3)), (i32, (R,)), (f32, (R,)), (f32, (R,)),
+                 (f32, (TI, table_cols(band))), (i32, (TI,)), (i32, (TI,))])
+    if not band.widened:
+        raise ValueError("band_scan: the scan is for the widened forms")
+    if pack:
+        _check_pack(find_any=find_any)
+    if origins.device.type == "cpu":
+        return dense_trace_multi_plain(origins, directions, skip, mind, maxd, coef, tri_ids,
+                                       obj_ids, find_any=find_any, band=band, pack=pack)
+    if coef.data_ptr() % 16:
+        raise ValueError("band_scan: the coefficient table must be 16-byte aligned")
+    dev = origins.device
+    t = torch.empty((R,), dtype=f32, device=dev)
+    tri = torch.empty((R,), dtype=i32, device=dev)
+    obj = torch.empty_like(tri)
+    u, v = (None, None) if pack else (torch.empty_like(t), torch.empty_like(t))
+    ptr = lambda x: None if x is None else x.data_ptr()
+    code = cuda_lib.library("dense_multi").lprt_band_scan(
+        origins.data_ptr(), directions.data_ptr(), skip.data_ptr(), mind.data_ptr(),
+        maxd.data_ptr(), coef.data_ptr(), tri_ids.data_ptr(), obj_ids.data_ptr(), R, TI,
+        int(find_any), int(pack), band.form, band.k0, band.k1, band.k2, t.data_ptr(), ptr(u),
+        ptr(v), tri.data_ptr(), obj.data_ptr(), cuda_lib.stream_ptr(dev))
+    cuda_lib.check(code, "band_scan")
+    cuda_lib.LAUNCHES["band_scan"] += 1
+    return (t, tri, obj) if pack else (t, u, v, tri, obj)
 
 
 def ray_aabb_entry(lo, hi, o, d, maxd):
@@ -1121,7 +1175,8 @@ def sorted_launch(launch, key, origins, directions, skip, mind, maxd, *table, **
 def dense_trace_multi_sorted(origins, directions, skip, mind, maxd, coef, tri_ids,
                              obj_ids, chunk_lo, chunk_hi, find_any: bool = False,
                              key_mode: str = "anchor", band: Band = STRICT,
-                             tree: BoxTree | None = None, pack: bool = False, slices=None):
+                             tree: BoxTree | None = None, pack: bool = False, slices=None,
+                             pads=None):
     """K1b on incoherent rays, coherence recovered
     (`trace_rays_dense_pallas_sorted`): sort the rays by `anchor_key`, or
     by `morton_key` in mode `key_mode` ('beam' / 'origin'), trace them in
@@ -1135,4 +1190,4 @@ def dense_trace_multi_sorted(origins, directions, skip, mind, maxd, coef, tri_id
         key = morton_key(origins, directions, live=live, mode=key_mode)
     return sorted_launch(dense_trace_multi, key, origins, directions, skip, mind, maxd,
                          coef, tri_ids, obj_ids, chunk_lo, chunk_hi, find_any=find_any,
-                         band=band, tree=tree, pack=pack, slices=slices)
+                         band=band, tree=tree, pack=pack, slices=slices, pads=pads)

@@ -31,7 +31,8 @@ nearest entry first, and the warp tests each waiting ray's leaves one row
 a lane.  Its boxes are tested exactly on a zero direction axis
 (`zero_axis_inside`): there the origin must lie in the box, with a margin,
 where the slab test of the other kernels lets such a ray enter every box
-its other slabs cross.  The widened acceptances scan every row.  None of
+its other slabs cross.  Under a widened acceptance each box is grown for
+the ray that tests it by the band's proven reach (`ops/band_pad.py`).  None of
 the TPU kernel's scheduling carries over: its 512-ray packets sharing one
 leaf list, the list rows and their SMEM DMA pipeline, the 7-bit quantised
 bounds, the overflow walk, the leaf groups staged for the MXU, the
@@ -50,7 +51,7 @@ from typing import NamedTuple
 import torch
 
 from low_precision_raytracer_tpu_torch.models.scene import BVH_LEAF_TRIS, DENSE_CHUNK_TRIS
-from low_precision_raytracer_tpu_torch.ops import cuda_lib
+from low_precision_raytracer_tpu_torch.ops import band_pad, cuda_lib
 from low_precision_raytracer_tpu_torch.ops.dense_trace import (
     MAX_LEVELS,
     STRICT,
@@ -90,7 +91,7 @@ class PacketWalk(NamedTuple):
     levels: torch.Tensor  # (2 n_levels,) i32 the chunk tree's [offsets | sizes]
     n_levels: int
     slices: torch.Tensor  # (ceil(TI / 32), 6) f32 the leaf boxes
-    lanes: torch.Tensor  # lane_table(coef): the f32 rows re-laid for the walk
+    lanes: torch.Tensor  # lane_table(coef): the rows re-laid for the walk
     stack: int  # the walk's stack entries, 3 (n_levels - 1) + 1
 
 
@@ -98,7 +99,8 @@ def walk_view(tree: BoxTree, coef) -> PacketWalk:
     """K6's tree for K1b's warp walk: node i of the packet tree's level 1
     is the union of leaves 4i .. 4i + 3, i.e. the box of rows [128 i,
     128 i + 128), so levels 1.. are a chunk tree and the leaves its 32-row
-    slices; a one-leaf tree is its own chunk."""
+    slices; a one-leaf tree is its own chunk.  The boxes are `tree.boxes`
+    itself, the slices a view of its leaf level."""
     L = len(tree.sizes)
     offs = [sum(tree.sizes[lvl + 1:]) for lvl in range(L)]
     n0 = tree.sizes[0]
@@ -118,15 +120,16 @@ def walk_view(tree: BoxTree, coef) -> PacketWalk:
 def packet_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
                  leaf_lo, leaf_hi, find_any: bool = False, band: Band = STRICT,
                  tree: BoxTree | None = None, walk: PacketWalk | None = None,
-                 persist: bool | None = None):
+                 persist: bool | None = None, pads: band_pad.BandPads | None = None):
     """K6 wrapper.  origins/directions (R, 3) f32 (recentred), skip (R,)
     i32, mind/maxd (R,) f32, coef (TI, table_cols(band)) f32, tri_ids /
     obj_ids (TI,) i32, leaf_lo/leaf_hi (NL, 3) f32 with NL = 4 ceil(TI /
     128): the (widened) AABB of rows [32 l, 32 l + 32), in the rays' frame; `band`:
     `STRICT` or a `packet_band`; `tree`: `build_tree(leaf_lo, leaf_hi, TI,
-    LEAF)` and `walk`: `walk_view(tree, coef)`, when the caller keeps them;
-    `persist`: resident blocks pull the rays from a counter (default: in
-    any hit, as K1b).  -> (t, u, v, tri, obj), see the module docstring.
+    LEAF)`, `walk`: `walk_view(tree, coef)` and, under a widened band,
+    `pads`: `band_pad.band_pads(coef, band, tree)`, when the caller keeps
+    them; `persist`: resident blocks pull the rays from a counter (default:
+    in any hit, as K1b).  -> (t, u, v, tri, obj), see the module docstring.
     On CPU tensors it runs the plain version; on CUDA tensors it launches
     the kernel or raises."""
     R, TI = origins.shape[0], coef.shape[0]
@@ -141,14 +144,18 @@ def packet_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
     if origins.device.type == "cpu":
         return dense_trace_multi_plain(origins, directions, skip, mind, maxd, coef,
                                        tri_ids, obj_ids, find_any=find_any, band=band)
-    if coef.data_ptr() % 16:
-        raise ValueError("packet_trace: the coefficient table must be 16-byte aligned")
     if tree is None:
         tree = build_tree(leaf_lo, leaf_hi, TI, LEAF)
     if tree.leaf != LEAF:
         raise ValueError(f"packet_trace: the tree's leaf boxes hold {tree.leaf} rows, not {LEAF}")
-    if walk is None and not band.widened:
+    if walk is None:
         walk = walk_view(tree, coef)
+    wide = (None, None, None)
+    if band.widened:
+        if pads is None:
+            pads = band_pad.band_pads(coef, band, tree)
+        wide = (pads.tree, pads.slices,
+                band_pad.launch_pads(origins, directions, mind, maxd, band, tree, pads, find_any))
     persist = find_any if persist is None else persist
     dev = origins.device
     t = torch.empty((R,), dtype=f32, device=dev)
@@ -156,17 +163,16 @@ def packet_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
     obj = torch.empty_like(tri)
     u, v = torch.empty_like(t), torch.empty_like(t)
     status = torch.zeros((2,), dtype=i32, device=dev)  # overflow, ray counter
-    ptr = lambda x: None if x is None else x.data_ptr()
-    w = walk if walk is not None else PacketWalk(None, None, 0, None, None, 0)
     code = cuda_lib.library("packet_trace").lprt_packet_trace(
         origins.data_ptr(), directions.data_ptr(), skip.data_ptr(), mind.data_ptr(),
-        maxd.data_ptr(), coef.data_ptr(), tri_ids.data_ptr(), obj_ids.data_ptr(),
-        ptr(w.boxes), ptr(w.levels), ptr(w.lanes), ptr(w.slices), w.n_levels, R, TI,
-        int(find_any), band.form, w.stack, int(persist), band.k0, band.k1, band.k2, t.data_ptr(), u.data_ptr(),
-        v.data_ptr(), tri.data_ptr(), obj.data_ptr(), status.data_ptr(),
-        cuda_lib.stream_ptr(dev))
+        maxd.data_ptr(), tri_ids.data_ptr(), obj_ids.data_ptr(), walk.boxes.data_ptr(),
+        walk.levels.data_ptr(), walk.lanes.data_ptr(), walk.slices.data_ptr(),
+        *(None if x is None else x.data_ptr() for x in wide), walk.n_levels,
+        R, TI, int(find_any), band.form, walk.stack, int(persist), band.k0, band.k1, band.k2,
+        t.data_ptr(), u.data_ptr(), v.data_ptr(), tri.data_ptr(), obj.data_ptr(),
+        status.data_ptr(), cuda_lib.stream_ptr(dev))
     cuda_lib.check(code, "packet_trace")
-    if walk is not None and int(status[0].item()):
+    if int(status[0].item()):
         raise RuntimeError("packet_trace: a ray's walk overflowed the kernel's stack")
     cuda_lib.LAUNCHES["packet_trace"] += 1
     return t, u, v, tri, obj
@@ -175,7 +181,7 @@ def packet_trace(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
 def packet_trace_sorted(origins, directions, skip, mind, maxd, coef, tri_ids, obj_ids,
                         leaf_lo, leaf_hi, find_any: bool = False, band: Band = STRICT,
                         tree: BoxTree | None = None, walk: PacketWalk | None = None,
-                        persist: bool | None = None):
+                        persist: bool | None = None, pads: band_pad.BandPads | None = None):
     """K6 on incoherent rays (`trace_rays_packet_sorted`): sort the rays by
     `morton_key(..., mode='beam')` (dead lanes last), trace them in that
     order, scatter the results back.  Same arguments and results as
@@ -183,4 +189,4 @@ def packet_trace_sorted(origins, directions, skip, mind, maxd, coef, tri_ids, ob
     key = morton_key(origins, directions, live=maxd > mind, mode="beam")
     return sorted_launch(packet_trace, key, origins, directions, skip, mind, maxd, coef,
                          tri_ids, obj_ids, leaf_lo, leaf_hi, find_any=find_any, band=band,
-                         tree=tree, walk=walk, persist=persist)
+                         tree=tree, walk=walk, persist=persist, pads=pads)

@@ -31,7 +31,10 @@ The packet BVH (K6, `ops/packet_trace.py`): coherent launches ->
 more than 4096 instance triangles -> `packet_trace_sorted` (the morton
 'beam' key); the tree over the leaf AABBs, and the view of it K6's warp
 walk reads (`walk_view`, with the re-laid rows), are built once per frame
-table.
+table.  Under a widened acceptance (the sub-f32 bands and 'dtype') both
+walks grow each box for the ray that tests it by the band's proven
+reach, from pads built once per frame table and band (`ops/band_pad.py`);
+they return what the all-row scan returns.
 
 `resolve_fallback`, `incoherent_reorders`, `di_fusible` and
 `moveforward_eps` answer as the JAX package does for the resolved route.
@@ -65,6 +68,7 @@ from low_precision_raytracer_tpu_torch.models.scene import (
     FrameInput,
     instance_tris,
 )
+from low_precision_raytracer_tpu_torch.ops.band_pad import band_pads
 from low_precision_raytracer_tpu_torch.ops.dense_trace import (
     CHUNK,
     KIND_STRICT,
@@ -93,10 +97,6 @@ TC = DENSE_CHUNK_TRIS
 # the packet walk sorts incoherent launches above this many instance
 # triangles (`ops/trace.py:414` of the JAX package)
 PACKET_SORT_MIN_TRIS = 4096
-# under a widened acceptance (`Band.widened`) K1b and K6 walk no tree and
-# test every row for every ray, so their time grows with the row count;
-# `check_scene` refuses such a band above this many instance triangles
-BAND_SCAN_MAX_TRIS = 8192
 
 
 class Hit(NamedTuple):
@@ -227,8 +227,7 @@ def fused_moveforward(prec: Precision, band: Band) -> float:
 
 def check_scene(frame: FrameInput, cfg: RenderConfig) -> None:
     """Raise NotImplementedError for scenes whose route the port does not
-    cover: above `packet_bvh_max_tris`, 'auto' resolves to the XLA walk;
-    above `BAND_SCAN_MAX_TRIS`, a widened acceptance would scan every row."""
+    cover: above `packet_bvh_max_tris`, 'auto' resolves to the XLA walk."""
     impl = resolve_impl(frame, cfg)
     ti = instance_tris(frame)
     if impl not in ("dense_pallas", "pallas"):
@@ -236,12 +235,6 @@ def check_scene(frame: FrameInput, cfg: RenderConfig) -> None:
             f"{ti} instance triangles: 'auto' resolves to "
             f"traversal_impl={impl!r}, the XLA BVH walk, which is not ported "
             "(ROADMAP queue 1 item 7)")
-    if ti > BAND_SCAN_MAX_TRIS and acceptance_band(frame, cfg, cfg.prec).widened:
-        raise NotImplementedError(
-            f"triangle_fallback={cfg.triangle_fallback!r} in {cfg.precision} on {ti} "
-            f"instance triangles (more than {BAND_SCAN_MAX_TRIS}): under a widened "
-            "acceptance K1b and K6 test every row for every ray; culling that stays "
-            "exact under the band waits (ROADMAP queue 1 item 12)")
 
 
 def _box_tables(boxes_lo, boxes_hi, frame: FrameInput, leaf: int):
@@ -270,10 +263,20 @@ def _packet_tables(frame: FrameInput):
     return _box_tables(frame.dense_leaf_lo, frame.dense_leaf_hi, frame, LEAF)
 
 
-def _packet_walk(frame: FrameInput, coef, tree):
+def _packet_walk(coef, tree):
     """K6's view of the packet tree for its warp walk (`walk_view`, with
-    the f32 rows re-laid for it), once per frame table."""
-    return per_table(frame.dense_leaf_lo, ("walk",), lambda: walk_view(tree, coef))
+    the rows of `coef` re-laid for it), once per coefficient table (one per
+    frame table and acceptance, `frame_table`)."""
+    return per_table(coef, ("walk",), lambda: walk_view(tree, coef))
+
+
+def _band_pads(coef, tree, band: Band, slices=None):
+    """The pads of a widened band's walk on `tree` (and K1b's `slices`;
+    `band_pad.band_pads`), once per coefficient table and tree; None for
+    the other acceptances."""
+    if not band.widened:
+        return None
+    return per_table(coef, ("pads", tree.leaf), lambda: band_pads(coef, band, tree, slices))
 
 
 def _chunk_tables(frame: FrameInput):
@@ -341,10 +344,11 @@ def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
             max_dist.contiguous(), frame_table(frame, acc), frame.dense_tri, frame.dense_obj)
     if impl == "pallas":
         lo, hi, tree = _packet_tables(frame)
-        walk = None if acc.widened else _packet_walk(frame, rays[5], tree)
+        walk = _packet_walk(rays[5], tree)
         launch = (packet_trace_sorted if not coherent and _sorted_route(frame, cfg)
                   else packet_trace)
-        return Hit(*launch(*rays, lo, hi, find_any=find_any, band=acc, tree=tree, walk=walk))
+        return Hit(*launch(*rays, lo, hi, find_any=find_any, band=acc, tree=tree, walk=walk,
+                           pads=_band_pads(rays[5], tree, acc)))
     if impl != "dense_pallas":
         raise NotImplementedError(
             f"traversal_impl={impl!r} is not ported (ROADMAP queue 1 item 7)")
@@ -371,11 +375,12 @@ def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
         rays = rays[:4] + (cap,) + rays[5:]
     lo, hi, tree = _chunk_tables(frame)
     slices = _slice_table(frame)
+    pads = _band_pads(rays[5], tree, acc, slices)
     if not coherent and _sorted_route(frame, cfg):
         out = dense_trace_multi_sorted(*rays, lo, hi, find_any=find_any,
                                        key_mode=cfg.incoherent_sort, band=acc, tree=tree,
-                                       pack=pack, slices=slices)
+                                       pack=pack, slices=slices, pads=pads)
     else:
         out = dense_trace_multi(*rays, lo, hi, find_any=find_any, band=acc, tree=tree,
-                                pack=pack, slices=slices)
+                                pack=pack, slices=slices, pads=pads)
     return packed(out) if pack else Hit(*out)

@@ -100,6 +100,7 @@ def warp_walk(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, tree, slices, find
     hit)."""
     R, TI = o.shape[0], coef.shape[0]
     lanes = lane_table(coef)
+    P = coef.shape[1] // 4  # float4 parts a row
     cap = walk_stack(tree) if stack is None else stack
     L = len(tree.sizes)
     offs = tree.levels[:L].tolist()
@@ -131,11 +132,11 @@ def warp_walk(o, d, skip, mind, maxd, coef, tri_ids, obj_ids, tree, slices, find
                         ok &= ~(es > best)
                     kmin, ct, cu, cv = INT32_MAX, None, 0.0, 0.0
                     for s in [s for s, keep in zip(sl, ok.tolist()) if keep]:
-                        rows = lanes[s * 96:(s + 1) * 96].reshape(3, SLICE, 4)
-                        rows = rows.transpose(0, 1).reshape(SLICE, 12)
+                        rows = lanes[s * SLICE * P:(s + 1) * SLICE * P].reshape(P, SLICE, 4)
+                        rows = rows.transpose(0, 1).reshape(SLICE, 4 * P)
                         k = s * SLICE + torch.arange(SLICE)
                         kc = k.clamp(max=TI - 1)
-                        t, u, v, geom = m_shift_test([rows[:, i][None, :] for i in range(12)],
+                        t, u, v, geom = m_shift_test([rows[:, i][None, :] for i in range(4 * P)],
                                                      o[r][None, :, None], d[r][None, :, None],
                                                      band)
                         t, u, v, geom = t[0], u[0], v[0], geom[0]
@@ -235,8 +236,9 @@ def test_too_deep_tree_refused(scene):
 
 
 def test_lane_table_layout():
-    """Row k's float4 part m sits at [(k // 32) 96 + 32 m + k % 32]; rows
-    past the table are zero."""
+    """Row k's float4 part m sits at [(k // 32) 32 P + 32 m + k % 32], P
+    the parts a row (3 for the f32 rows, 7 with the band rows); rows past
+    the table are zero."""
     rng = np.random.default_rng(4)
     TI = 300
     coef = torch.tensor(rng.standard_normal((TI, 12)), dtype=torch.float32)
@@ -248,9 +250,15 @@ def test_lane_table_layout():
         got = lanes[(k // SLICE) * 96 + SLICE * m + k % SLICE]
         assert torch.equal(got[:TI], coef[:, 4 * m:4 * m + 4])
         assert bool((got[TI:] == 0).all())
-    # a sub-f32 form's table: the walk re-lays only its 12 f32 columns
-    wide = torch.cat([coef, coef[:, :4] * 3], dim=1)
-    assert torch.equal(lane_table(wide), lanes)
+    # a sub-f32 form's table: the walk re-lays all 28 columns, 7 parts a row
+    wide = torch.cat([coef, torch.tensor(rng.standard_normal((TI, 16)), dtype=torch.float32)],
+                     dim=1)
+    lanes = lane_table(wide)
+    assert tuple(lanes.shape) == (NC * CHUNK * 7, 4)
+    for m in range(7):
+        got = lanes[(k // SLICE) * SLICE * 7 + SLICE * m + k % SLICE]
+        assert torch.equal(got[:TI], wide[:, 4 * m:4 * m + 4])
+        assert bool((got[TI:] == 0).all())
 
 
 def test_slice_table_is_the_packet_leaves(scene):

@@ -171,31 +171,34 @@ def test_uncovered_configs_raise(kw):
         Renderer(cornell_box_scene(), cfg, device="cpu")
 
 
-@pytest.mark.parametrize("precision,fallback,impl,refused", [
+@pytest.mark.parametrize("precision,fallback,impl,widened", [
     ("bf16", "both", "auto", True),
     ("fp16", "dtype", "pallas", True),
     ("fp32", "dtype", "auto", True),
     ("fp32", "both", "auto", False),
     ("bf16", "mxu3", "pallas", False),
 ])
-def test_widened_band_row_cap(precision, fallback, impl, refused):
-    """Under a widened acceptance (every sub-f32 band, and 'dtype') K1b and
-    K6 test every row, so scenes above BAND_SCAN_MAX_TRIS instance
-    triangles are refused on both routes, naming their ROADMAP item;
-    colonnade-8k (8,302) is just above the cap.  fp32 'both' and 'mxu3'
-    walk the tree and stay covered there."""
-    from low_precision_raytracer_tpu_torch.ops.trace import BAND_SCAN_MAX_TRIS
+def test_widened_band_row_cap(precision, fallback, impl, widened):
+    """The widened acceptances (every sub-f32 band, and 'dtype') are no
+    longer capped at 8,192 instance triangles: K1b and K6 walk their trees
+    under them, over boxes grown by the band's reach (ops/band_pad.py).
+    colonnade-8k (8,302, just above the old cap) is accepted under each
+    form on the route the JAX package takes (the dense route under 'auto',
+    the packet BVH under 'pallas'), as are fp32 'both' and 'mxu3'; the
+    table carries the band rows exactly where a sub-f32 form reads them."""
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import table_cols
+    from low_precision_raytracer_tpu_torch.ops.trace import acceptance_band, frame_table
 
     cfg = RenderConfig(width=8, height=8, precision=precision, triangle_fallback=fallback,
                        traversal_impl=impl)
-    host = sponza_like_scene(5, 2)
-    if refused:
-        with pytest.raises(NotImplementedError,
-                           match=rf"more than {BAND_SCAN_MAX_TRIS}.*ROADMAP queue 1 item 12\)"):
-            Renderer(host, cfg, device="cpu")
-    else:
-        assert Renderer(host, cfg, device="cpu").frame.dense_n_f32.shape[0] == 8302
-    # at the measured size (colonnade-5k, 5,314) the band is covered
+    r = Renderer(sponza_like_scene(5, 2), cfg, device="cpu")
+    assert r.frame.dense_n_f32.shape[0] == 8302
+    assert r.cfg.traversal_impl == ("dense_pallas" if impl == "auto" else "pallas")
+    band = acceptance_band(r.frame, r.cfg, r.cfg.prec)
+    assert band.widened == widened
+    assert frame_table(r.frame, band).shape[1] == table_cols(band)
+    assert table_cols(band) == (12 if precision == "fp32" or fallback == "mxu3" else 28)
+    # at colonnade-5k (5,314) too
     assert Renderer(sponza_like_scene(), cfg, device="cpu").frame.dense_n_f32.shape[0] == 5314
 
 
