@@ -39,9 +39,26 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    single-chunk trace K1a runs 2 times, the temporal kernel once, the
    a-trous kernel 5 times, and the history fetch once on the fast path
    (frame 0 has no history: like the JAX package it takes the plain 2x2
-   branch there);
+   branch there).  Every path phase of a still scene also checks that no
+   per-table cache builds after frame 0, though `render()` flattens the
+   scene again on every frame;
 5. flagship reference phase: a 64x64 render on the card against the same
    render through the plain versions on the CPU, same uniforms, 5 frames;
+5a. the interactive path (`animated_scene`: the animated Cornell box, its
+   tall box orbiting and turning and its lamp bobbing, the camera dollying
+   0.02 units a frame toward the box; bf16, `taa_mix_weight=0.3`, frame f
+   at time f / 30): a kernel phase on warm-up frames (8 moving, then one at
+   the last time: the animation paused), each frame's history-fetch branch
+   printed, every kernel held against its plain version as in phase 3 on
+   the last frame whose fetch took K2 (K1a's shadow phase under the moved
+   lamp, K2 bit for bit on history reprojected through the moving box and
+   camera), and the plain 2x2 take timed on the last frame that took it;
+   then the path phase, 8 frames: per frame K1a 2, K3 1, K4 5, and K2 once
+   on a frame whose fetch took its path and never on the others (each
+   frame's branch recorded; the table is rebuilt every frame, since the box
+   moves); the flatten's host time per frame (every path phase prints
+   it); and a 64x64 card render of the same motion against the plain
+   versions on the CPU, same uniforms and TAA bits, 8 frames;
 6. Sponza kernel phase: two warm-up frames of the Sponza-class frame
    (`sponza_like_scene()`, 5,314 instance triangles in 42 chunks, skybox,
    bf16, 1920x1080) record the inputs of its four multi-chunk trace (K1b)
@@ -61,6 +78,10 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    frame 1;
 8. Sponza reference phase: a 64x64 Sponza render on the card against the
    plain versions on the CPU, 4 frames;
+8a. Sponza-class camera path: `sponza_camera_scene` (the still scene, the
+   camera turning 0.5 degrees a frame), 4 frames: K1b 4 per frame, K2 by
+   branch as in 5a, and no per-table build after frame 0 (the frame's
+   tables are the previous frame's tensors);
 9. colonnade-83k kernel phase: two warm-up frames of `sponza_like_scene(8,
    3)` (82,690 instance triangles in 647 chunks, bf16, 1920x1080) record
    its two K1b launches (primary, round-0 shadows) and its two per-ray
@@ -248,6 +269,9 @@ W, H = 1920, 1080
 PATH_FRAMES = 8
 REF_SIZE, REF_FRAMES = 64, 5
 SPONZA_REF_FRAMES = 4
+FPS = 30  # the moving path phases: frame f renders at time f / FPS (as tools/frame_times.py)
+YAW_DEG = 0.5  # the Sponza-class camera phase: degrees a frame
+CAMERA_FRAMES = 4
 BIG_BAND_FRAMES = 3  # frames of the band path phases above the old 8,192-triangle cap
 CHECK_RAYS = 1 << 18  # K1b: rays per launch held against the plain version
 BIG_CHECK = 1 << 16  # colonnade-83k: rays or lanes held against the plain versions
@@ -257,15 +281,16 @@ HUGE_CHECK = 1 << 12  # colonnade-2M: rays per K6 launch held against the plain 
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12  # dense bf16 on the tensor cores
-# The previous tree's figures (K5 testing every row of its chunks, K3 on
-# 32 x 8 tiles), from PERF.md's chip run of it on an NVIDIA H100 80GB HBM3
-# at 700 W, printed beside this run's: frame ms of the path phases, ms per
-# launch of K4 by stride, of K1b, K6 and the schedule by (scene, launch).
+# Older trees' figures from PERF.md's chip runs on an NVIDIA H100 80GB HBM3
+# at 700 W, printed beside this run's: frame ms of the path phases (the
+# tree before the per-frame flatten; Sponza fp32 and colonnade-83k fp16
+# older), ms per launch of K4 by stride, of K1b, K6 and the schedule by
+# (scene, launch).
 # K5 and K3 are compared with an older checkout's on this run's own inputs
 # instead (`--beside DIR`, `load_beside`).
-PREV_FRAME_MS = {"flagship": 37.093, "sponza": 110.849, "colonnade-83k": 72.285,
-                 "colonnade-328k": 91.836, "colonnade-2M": 59.575, "flagship-fp32": 39.528,
-                 "flagship-fp16": 36.711, "sponza-fp32": 116.840, "colonnade-83k-fp16": 76.070}
+PREV_FRAME_MS = {"flagship": 37.149, "sponza": 111.794, "colonnade-83k": 69.548,
+                 "colonnade-328k": 85.421, "colonnade-2M": 59.194, "flagship-fp32": 38.674,
+                 "flagship-fp16": 36.288, "sponza-fp32": 116.840, "colonnade-83k-fp16": 76.070}
 PREV_K4_MS = {1: 0.299, 2: 0.299, 4: 0.307, 8: 0.308, 16: 0.337}
 PREV_LAUNCH_MS = {
     ("sponza", "primary"): 1.381, ("sponza", "shadow0"): 2.430,
@@ -508,9 +533,10 @@ def wavelet_ops(HW):
 # ---------------------------------------------------------------------------
 
 
-def capture_inputs(renderer, frames):
-    """Render `frames` frames and return the wrapper calls of the last one:
-    {name: [(args, kwargs, output), ...]}, recorded at the call sites."""
+def capture_inputs(renderer, frames, times=None):
+    """Render `frames` frames (frame i at `times[i]`, else at time 0) and
+    return the wrapper calls of the last one: {name: [(args, kwargs,
+    output), ...]}, recorded at the call sites."""
     from low_precision_raytracer_tpu_torch.ops import reproject, svgf_kernels, trace
 
     sites = [(trace, "dense_trace"), (reproject, "coef_fetch"),
@@ -529,9 +555,9 @@ def capture_inputs(renderer, frames):
         for mod, name in sites:
             originals.append((mod, name, getattr(mod, name)))
             setattr(mod, name, recorder(name, getattr(mod, name)))
-        for _ in range(frames):
+        for f in range(frames):
             calls.clear()
-            renderer.render()
+            renderer.render(time=times[f] if times else 0.0)
     finally:
         for mod, name, fn in originals:
             setattr(mod, name, fn)
@@ -991,14 +1017,21 @@ def kernel_phase(calls, names=("dense_trace", "coef_fetch", "temporal_accum", "w
     return reports
 
 
-def path_phase(cuda_lib, scene_fn, want_fn, precision="bf16", frames_n=PATH_FRAMES, **cfg_kw):
+def path_phase(cuda_lib, scene_fn, want_fn, precision="bf16", frames_n=PATH_FRAMES,
+               motion=None, **cfg_kw):
     """`frames_n` frames at 1920x1080 through a fresh Renderer (seed 0)
     with the counts zeroed just before; `want_fn(frame)` gives the
-    launches each frame must make.  -> (launch totals, per-frame records,
-    peak GiB, the last image)."""
+    launches each frame must make.  `motion`: None (a still scene at time
+    0: the history fetch takes K2 from frame 1), 'camera' or 'objects'
+    (frame f renders at time f / FPS; K2 launches once on each frame whose
+    fetch took its path and never on the others, and each frame records
+    its branch).  Unless objects move, no per-table cache builds after
+    frame 0 (`dense_trace.TABLE_BUILDS`).  -> (launch totals, per-frame
+    records, peak GiB, the last image)."""
     import torch
 
     from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.ops import dense_trace
     from low_precision_raytracer_tpu_torch.render.renderer import Renderer
 
     renderer = Renderer(scene_fn(), RenderConfig(width=W, height=H, precision=precision,
@@ -1010,25 +1043,32 @@ def path_phase(cuda_lib, scene_fn, want_fn, precision="bf16", frames_n=PATH_FRAM
     img = None
     for f in range(frames_n):
         before = dict(cuda_lib.LAUNCHES)
+        builds = dense_trace.TABLE_BUILDS
         t0 = time.perf_counter()
-        img, aux = renderer.render()
+        img, aux = renderer.render(time=f / FPS if motion else 0.0)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         counts = {k: cuda_lib.LAUNCHES[k] - before[k] for k in before}
-        frames.append(dict(frame=f, ms=ms, n_rays=int(aux["n_rays"]),
-                           fast_fetch=aux["svgf_fast_path"], launches=counts))
+        frames.append(dict(frame=f, ms=ms, flatten_ms=aux["flatten_ms"],
+                           n_rays=int(aux["n_rays"]), fast_fetch=aux["svgf_fast_path"],
+                           table_builds=dense_trace.TABLE_BUILDS - builds, launches=counts))
         log(f"frame {json.dumps(frames[-1])}")
     totals = dict(cuda_lib.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     for rec in frames:
         got, want = rec["launches"], want_fn(rec["frame"])
+        if motion:  # K2 on exactly the frames whose fetch took its path
+            want = {**want, "coef_fetch": 1 if rec["fast_fetch"] else 0}
+        elif rec["fast_fetch"] != (rec["frame"] > 0):
+            raise AssertionError(f"frame {rec['frame']}: history fetch fast path "
+                                 f"{rec['fast_fetch']}")
         if set(got) != set(want) or not all(
                 w(got) if callable(w) else got[k] == w for k, w in want.items()):
             raise AssertionError(f"frame {rec['frame']}: launches {got} != {want}")
-        if rec["fast_fetch"] != (rec["frame"] > 0):
-            raise AssertionError(f"frame {rec['frame']}: history fetch fast path "
-                                 f"{rec['fast_fetch']}")
+        if motion != "objects" and rec["frame"] > 0 and rec["table_builds"]:
+            raise AssertionError(f"frame {rec['frame']}: {rec['table_builds']} per-table "
+                                 "builds, though no object moved")
     if tuple(img.shape) != (H, W, 3) or not bool(torch.isfinite(img).all()):
         raise AssertionError("image is not a finite (H, W, 3) array")
     if float(img.min()) < 0 or float(img.max()) > 1 or float(img.std()) < 1e-3:
@@ -1039,21 +1079,28 @@ def path_phase(cuda_lib, scene_fn, want_fn, precision="bf16", frames_n=PATH_FRAM
 def report_path(name, frames, peak_gib, totals):
     steady = frames[2:]
     frame_ms = statistics.median(f["ms"] for f in steady)
+    flatten_ms = statistics.median(f["flatten_ms"] for f in steady)
     n_rays = statistics.median(f["n_rays"] for f in steady)
     prev = f"  (before: {PREV_FRAME_MS[name]})" if name in PREV_FRAME_MS else ""
+    branches = "".join("-" if f["fast_fetch"] is None else "K" if f["fast_fetch"] else "t"
+                       for f in frames)
     log(f"path {name}: frame_ms(median of frames 3-{len(frames)}) {frame_ms:.3f}{prev}  "
+        f"flatten_ms {flatten_ms:.4f} (frame 0 {frames[0]['flatten_ms']:.3f})  "
         f"Mrays/s {n_rays / frame_ms / 1e3:.3f}  n_rays {n_rays}  "
-        f"peak memory {peak_gib:.3f} GiB  launches {json.dumps(totals)}")
+        f"peak memory {peak_gib:.3f} GiB  fetch per frame {branches} (K: K2, t: the plain "
+        f"2x2 take)  table builds after frame 0 "
+        f"{sum(f['table_builds'] for f in frames[1:])}  launches {json.dumps(totals)}")
 
 
-def reference_phase(scene_fn, frames, precision="bf16", **cfg_kw):
+def reference_phase(scene_fn, frames, precision="bf16", moving=False, **cfg_kw):
     """A small frame on the card against the plain versions on the CPU,
-    same uniforms: PSNR >= 35 dB and validity agreement >= 0.999 on every
-    frame (the port-vs-JAX bars of tests/test_torch_render_e2e.py)."""
+    same uniforms (and TAA bits, where the TAA half runs): PSNR >= 35 dB
+    and validity agreement >= 0.999 on every frame (the port-vs-JAX bars of
+    tests/test_torch_render_e2e.py).  `moving`: frame f at time f / FPS."""
     import torch
 
     from low_precision_raytracer_tpu_torch.config import RenderConfig
-    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer, taa_active
 
     cfg = RenderConfig(width=REF_SIZE, height=REF_SIZE, precision=precision, **cfg_kw)
     gpu = Renderer(scene_fn(), cfg)
@@ -1062,8 +1109,12 @@ def reference_phase(scene_fn, frames, precision="bf16", **cfg_kw):
     psnrs = []
     for f in range(frames):
         us = torch.rand((7 * REF_SIZE * REF_SIZE,), generator=gen)
-        img_g, aux_g = gpu.render(uniforms=[us.cuda()])
-        img_c, aux_c = cpu.render(uniforms=[us])
+        bits = (torch.randint(0, 1 << 32, (REF_SIZE, REF_SIZE), generator=gen,
+                              dtype=torch.int64) if taa_active(cfg) else None)
+        t = f / FPS if moving else 0.0
+        img_g, aux_g = gpu.render(time=t, uniforms=[us.cuda()],
+                                  taa_bits=None if bits is None else bits.cuda())
+        img_c, aux_c = cpu.render(time=t, uniforms=[us], taa_bits=bits)
         mse = float(((img_g.cpu().double() - img_c.double()) ** 2).mean())
         psnr = float("inf") if mse == 0 else 10 * math.log10(1.0 / mse)
         agree = float((aux_g["valid"].cpu() == aux_c["valid"]).float().mean())
@@ -1094,6 +1145,84 @@ def profile_frame(name, scene_fn, precision="bf16"):
     log(f"profile {name}: frame wall {wall:.3f} ms")
     for line in table.splitlines():
         log(f"profile {name}: " + line)
+
+
+# ---------------------------------------------------------------------------
+# The interactive path: animated Cornell with a moving camera and TAA 0.3;
+# the Sponza-class frame with a turning camera
+
+
+def animated_scene():
+    """The animated Cornell box (its tall box orbits and turns, its lamp
+    bobs) with the camera dollying toward the box, 0.02 units a frame at
+    FPS frames a second (`tools/frame_times.py:animated_scene`)."""
+    from low_precision_raytracer_tpu_torch.tools.frame_times import animated_scene as scene
+
+    return scene()
+
+
+def sponza_camera_scene():
+    """The Sponza-class frame, still, with the camera turning YAW_DEG
+    degrees a frame about the vertical axis."""
+    import numpy as np
+
+    from low_precision_raytracer_tpu_torch.models.hierarchy import Sampler
+    from low_precision_raytracer_tpu_torch.models.procedural import sponza_like_scene
+
+    scene = sponza_like_scene()
+    h = math.radians(YAW_DEG * FPS) / 2
+    scene.active_camera.animation.rotation = Sampler(
+        times=np.array([0.0, 1.0], np.float32),
+        values=np.array([[0, 0, 0, 1], [0, math.sin(h), 0, math.cos(h)]], np.float32))
+    return scene
+
+
+def animated_kernel_phase(cfg):
+    """Warm-up frames of the animated path (frame f at time f / FPS, then
+    one frame more at the last time: the animation paused) record each
+    kernel's inputs and the history fetch's branch.  Every kernel is held
+    against its plain version on the last frame whose fetch took K2 (K1a
+    with its shadow phase under the moved lamp, K2 bit for bit on history
+    reprojected through moving objects and camera), and the plain 2x2 take
+    is timed on the inputs of the last frame that took it.  -> reports."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops import reproject
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    warm = Renderer(animated_scene(), cfg)
+    fetches, orig = [], reproject.fetch_weighted_packed
+
+    def rec(*args):
+        out = orig(*args)
+        fetches.append((args, out[1]))
+        return out
+
+    reproject.fetch_weighted_packed = rec
+    fast_calls = slow_args = None
+    times = [f / FPS for f in range(PATH_FRAMES)] + [(PATH_FRAMES - 1) / FPS]
+    try:
+        for t in times:
+            calls = capture_inputs(warm, 1, times=[t])
+            args, fast = fetches[-1]
+            if fast:
+                fast_calls = calls
+            else:
+                slow_args = args
+    finally:
+        reproject.fetch_weighted_packed = orig
+    branches = "".join("K" if fast else "t" for _a, fast in fetches)
+    log(f"animated warm-up: fetch per frame {branches} (times {times})")
+    del warm
+    if fast_calls is None:
+        raise AssertionError("animated: no warm-up frame's history fetch took K2")
+    reports = kernel_phase(fast_calls, tag=" animated")
+    if slow_args is not None:
+        ms = cuda_ms(lambda: orig(*slow_args), 10)
+        log(f"animated: the plain 2x2 take's fetch (with its branch test) {ms:.4f} ms, "
+            f"K2 {reports['coef_fetch']['ms']:.4f} ms on the paused frame")
+    torch.cuda.empty_cache()
+    return reports
 
 
 # ---------------------------------------------------------------------------
@@ -2799,6 +2928,16 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     elapsed()
 
+    # ---- the interactive path: animated Cornell, the camera dollying, TAA 0.3
+    animated_kernel_phase(RenderConfig(width=W, height=H, precision="bf16",
+                                       taa_mix_weight=0.3))
+    run_path("animated", animated_scene, counts(dense_trace=2), motion="objects",
+             taa_mix_weight=0.3)
+    psnrs = reference_phase(animated_scene, PATH_FRAMES, moving=True, taa_mix_weight=0.3)
+    log(f"reference animated: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
+        + " ".join(f"{p:.2f}" for p in psnrs))
+    elapsed()
+
     # ---- the Sponza-class frame: K1b (with K2, K3, K4)
     warm = Renderer(sponza_like_scene(), cfg)
     launches = capture_sponza_launches(warm, 2)
@@ -2817,6 +2956,9 @@ def main(argv) -> int:
     log(f"reference sponza: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
         + " ".join(f"{p:.2f}" for p in psnrs))
     torch.cuda.empty_cache()
+    # the camera turning: the same tables every frame, K1b's launches as still
+    run_path("sponza-camera", sponza_camera_scene, counts(dense_trace_multi=4),
+             frames_n=CAMERA_FRAMES, motion="camera")
     elapsed()
 
     # ---- colonnade-83k: K1b at 647 chunks, the wavefront (K5, schedule)

@@ -1,6 +1,7 @@
 """Procedural scenes: `single_triangle_scene`, `single_mesh_scene`,
-`cornell_box_scene`, `sponza_like_scene` and the unit meshes and sky
-panorama they use, copied from `low_precision_raytracer_tpu/models/procedural.py`."""
+`cornell_box_scene`, `animated_cornell_scene`, `sponza_like_scene` and the
+unit meshes and sky panorama they use, copied from
+`low_precision_raytracer_tpu/models/procedural.py`."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from low_precision_raytracer_tpu_torch.models.hierarchy import (
     LightObject,
     MeshObject,
     Object,
+    Sampler,
 )
 from low_precision_raytracer_tpu_torch.models.materials import Material
 from low_precision_raytracer_tpu_torch.models.scene import HostScene, Mesh, Skybox
@@ -213,6 +215,36 @@ def cornell_box_scene(light_intensity=30.0):
     cam.translation = np.array([0.0131, 0.0077, 3.2], np.float32)
     r.add(cam)
     scene.active_camera = cam
+    return scene
+
+
+def animated_cornell_scene():
+    """The Cornell box with TRS animations (golden config 4): the tall box
+    orbits and turns, the lamp bobs; 4-second loop."""
+    scene = cornell_box_scene()
+    tall = scene.root.search("tall")
+    times = np.array([0.0, 1.0, 2.0, 3.0, 4.0], np.float32)
+    quarter = np.array([0, np.sin(np.pi / 4), 0, np.cos(np.pi / 4)], np.float32)
+    half = np.array([0, 1, 0, 0], np.float32)
+    three_q = np.array([0, np.sin(3 * np.pi / 4), 0, np.cos(3 * np.pi / 4)], np.float32)
+    ident = np.array([0, 0, 0, 1], np.float32)
+    # the loop closes on -ident (the same rotation as ident): three_q . ident
+    # is negative, and the component lerp would otherwise pass near the zero
+    # quaternion over t in (3, 4)
+    tall.animation.rotation = Sampler(
+        times=times, values=np.stack([ident, quarter, half, three_q, -ident])
+    )
+    tall.animation.translation = Sampler(
+        times=np.array([0.0, 2.0, 4.0], np.float32),
+        values=np.array([[-0.35, -0.4, -0.35], [-0.1, -0.4, -0.35], [-0.35, -0.4, -0.35]],
+                        np.float32),
+    )
+    lamp = scene.root.search("lamp")
+    lamp.animation.translation = Sampler(
+        times=np.array([0.0, 1.0, 2.0], np.float32),
+        values=np.array([[0, 0.85, 0], [0.3, 0.85, 0], [0, 0.85, 0]], np.float32),
+    )
+    scene.animated = True
     return scene
 
 

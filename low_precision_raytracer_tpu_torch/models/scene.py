@@ -277,46 +277,77 @@ def _group_aabbs(lo_raw, hi_raw, n_per_group: int):
     return g_lo, g_hi
 
 
-def _dense_coefficients(host: HostScene, flat: FlatScene, t_off):
+def _dense_coefficients(host: HostScene, flat: FlatScene, t_off, prec: Precision, device):
     """World-space per-instance-triangle test coefficients (host float64
-    -> fp32): with the local test m @ (A o + b - v2) and the W2L linear
-    part A, the world-ray form is n.o + e with rows n = m @ A and offsets
-    e = m.(b - v2) + n.c (recentred at the scene centre c).
+    -> fp32) as device tensors: with the local test m @ (A o + b - v2) and
+    the W2L linear part A, the world-ray form is n.o + e with rows n = m @ A
+    and offsets e = m.(b - v2) + n.c (recentred at the scene centre c).
 
-    -> numpy dict (dense_n_f32, dense_e, dense_tri, dense_obj,
+    -> dict (dense_n, dense_n_f32, dense_e, dense_tri, dense_obj,
     dense_center, dense_chunk_lo/hi, dense_leaf_lo/hi, dense_morton).  Above
     one chunk the rows are sorted by the morton code of their world
     centroids, so each 128-row chunk is a compact blob with a tight AABB;
-    single-chunk scenes keep object order."""
-    ti = int(sum(t_off[m + 1] - t_off[m] for m in flat.obj_mesh.tolist()))
+    single-chunk scenes keep object order.
+
+    Two host caches keyed on transform bytes (exact) bound the per-frame
+    cost, as in the JAX package:
+    - the whole frame: when no object transform changed (a static scene,
+      or a frame where only the camera or the lights move) the previous
+      frame's dict comes back, the same device tensors, so every cache
+      keyed on a table tensor (`ops/dense_trace.py:per_table`) keeps its
+      entry;
+    - per object: only objects that moved recompute their (n, e without
+      the recentre term, triangle AABBs) block; n.c is re-applied over the
+      whole table, since c moves with the scene box.  Blocks the current
+      frame does not use are dropped."""
+    n_obj = flat.obj_mesh.shape[0]
+    ti = int(np.sum(t_off[flat.obj_mesh + 1] - t_off[flat.obj_mesh]))
     if ti > DENSE_COEFF_MAX_TRIS:
         raise NotImplementedError(
             f"{ti} instance triangles: above DENSE_COEFF_MAX_TRIS the JAX package "
             "walks its XLA BVH, which is not ported (ROADMAP queue 1 item 7)")
+    cache = getattr(host, "_dense_cache", None)
+    if cache is None or cache["n_tris"] != ti:
+        cache = {"blocks": {}, "key": None, "out": None, "n_tris": ti}
+        host._dense_cache = cache
+    frame_key = (prec.name, str(device), flat.obj_mesh.tobytes(), flat.obj_w2l.tobytes(),
+                 flat.obj_l2w.tobytes())
+    if cache["key"] == frame_key:
+        return cache["out"]
+
     m_f32, v2_f32, verts_f32 = _host_m_cache(host)
     center = (
         (flat.obj_aabb_lo.min(axis=0) + flat.obj_aabb_hi.max(axis=0)) / 2
     ).astype(np.float64)
+    blocks, new_blocks = cache["blocks"], {}
     ns, es, tris, objs, los, his = [], [], [], [], [], []
-    for o in range(flat.obj_mesh.shape[0]):
+    for o in range(n_obj):
         mesh = int(flat.obj_mesh[o])
         t0, t1 = int(t_off[mesh]), int(t_off[mesh + 1])
         if t0 == t1:
             continue
-        w2l = flat.obj_w2l[o].astype(np.float64)
-        A = w2l[:3, :3]
-        b = w2l[:3, 3]
-        m = m_f32[t0:t1].astype(np.float64)  # (T, 3, 3) rows
-        v2 = v2_f32[t0:t1].astype(np.float64)
-        ns.append((m @ A).astype(np.float32))
-        # stays f64: it cancels against n.c below
-        es.append(np.einsum("trk,tk->tr", m, b[None, :] - v2))
-        l2w = flat.obj_l2w[o].astype(np.float64)
-        vw = (verts_f32[t0:t1].astype(np.float64) @ l2w[:3, :3].T + l2w[:3, 3]).astype(np.float32)
-        los.append(vw.min(axis=1))
-        his.append(vw.max(axis=1))
+        bkey = (mesh, flat.obj_w2l[o].tobytes(), flat.obj_l2w[o].tobytes())
+        blk = new_blocks.get(bkey) or blocks.get(bkey)
+        if blk is None:
+            w2l = flat.obj_w2l[o].astype(np.float64)
+            A = w2l[:3, :3]
+            b = w2l[:3, 3]
+            m = m_f32[t0:t1].astype(np.float64)  # (T, 3, 3) rows
+            v2 = v2_f32[t0:t1].astype(np.float64)
+            l2w = flat.obj_l2w[o].astype(np.float64)
+            vw = (verts_f32[t0:t1].astype(np.float64) @ l2w[:3, :3].T
+                  + l2w[:3, 3]).astype(np.float32)
+            # e stays f64: it cancels against n.c below
+            blk = ((m @ A).astype(np.float32), np.einsum("trk,tk->tr", m, b[None, :] - v2),
+                   vw.min(axis=1), vw.max(axis=1))
+        new_blocks[bkey] = blk
+        ns.append(blk[0])
+        es.append(blk[1])
+        los.append(blk[2])
+        his.append(blk[3])
         tris.append(np.arange(t0, t1, dtype=np.int32))
         objs.append(np.full(t1 - t0, o, np.int32))
+    cache["blocks"] = new_blocks
     n_all = np.concatenate(ns)
     e_all = (np.concatenate(es) + n_all.astype(np.float64) @ center).astype(np.float32)
     tri_all = np.concatenate(tris)
@@ -330,18 +361,57 @@ def _dense_coefficients(host: HostScene, flat: FlatScene, t_off):
         lo_raw, hi_raw = lo_raw[order], hi_raw[order]
     chunk_lo, chunk_hi = _group_aabbs(lo_raw, hi_raw, DENSE_CHUNK_TRIS)
     leaf_lo, leaf_hi = _group_aabbs(lo_raw, hi_raw, BVH_LEAF_TRIS)
-    return dict(
-        dense_n_f32=n_all,
-        dense_e=e_all,
-        dense_tri=tri_all,
-        dense_obj=obj_all,
-        dense_center=center.astype(np.float32),
-        dense_chunk_lo=chunk_lo,
-        dense_chunk_hi=chunk_hi,
-        dense_leaf_lo=leaf_lo,
-        dense_leaf_hi=leaf_hi,
-        dense_morton=morton,
-    )
+    f32, i32 = torch.float32, torch.int32
+    out = _upload(dict(
+        dense_n=(n_all, prec.dtype),
+        dense_n_f32=(n_all, f32),
+        dense_e=(e_all, f32),
+        dense_tri=(tri_all, i32),
+        dense_obj=(obj_all, i32),
+        dense_center=(center.astype(np.float32), f32),
+        dense_chunk_lo=(chunk_lo, f32),
+        dense_chunk_hi=(chunk_hi, f32),
+        dense_leaf_lo=(leaf_lo, f32),
+        dense_leaf_hi=(leaf_hi, f32),
+    ), device)
+    out["dense_morton"] = morton
+    cache["key"] = frame_key
+    cache["out"] = out
+    return out
+
+
+# elements between the starts of two arrays that share one upload: 64
+# bytes for 4-byte types, more than the widest vector load of a kernel
+_UPLOAD_ALIGN = 16
+
+
+def _upload(arrays: dict, device, cache: dict | None = None) -> dict:
+    """{name: (numpy array, torch dtype)} -> {name: tensor on `device`}, in
+    one host-to-device copy per numpy dtype: each tensor is a view of that
+    copy, cast to its torch dtype on the device.  With `cache`, an array
+    whose bytes equal the previous upload's under its name gets the
+    previous tensor back and is not copied (a still frame copies nothing)."""
+    out, todo = {}, {}
+    for name, (a, dt) in arrays.items():
+        a = np.ascontiguousarray(a)
+        key = None if cache is None else (a.dtype.str, a.shape, dt, a.tobytes())
+        hit = None if cache is None else cache.get(name)
+        if hit is not None and hit[0] == key:
+            out[name] = hit[1]
+        else:
+            todo.setdefault(a.dtype.str, []).append((name, a, dt, key))
+    for items in todo.values():
+        spans = [-(-max(a.size, 1) // _UPLOAD_ALIGN) * _UPLOAD_ALIGN for _n, a, _d, _k in items]
+        buf = np.zeros(sum(spans), items[0][1].dtype)
+        starts = np.cumsum([0] + spans[:-1]).tolist()
+        for (_n, a, _d, _k), s0 in zip(items, starts):
+            buf[s0:s0 + a.size] = a.reshape(-1)
+        dev = torch.from_numpy(buf).to(device)
+        for (name, a, dt, key), s0 in zip(items, starts):
+            out[name] = dev[s0:s0 + a.size].view(a.shape).to(dt)
+            if cache is not None:
+                cache[name] = (key, out[name])
+    return out
 
 
 def _to_tensor(a, device, dtype=None) -> torch.Tensor:
@@ -408,10 +478,16 @@ def flatten_frame(
     max_direct_lights: int = 4,
     width: int | None = None,
     height: int | None = None,
+    time: float = 0.0,
 ) -> FrameInput:
-    """Host flatten of the (static) hierarchy -> device FrameInput."""
+    """Host flatten of the hierarchy at `time` -> device FrameInput.  An
+    animated scene (or any `time` != 0) samples its animation first; the
+    coefficient table and its boxes are rebuilt only when an object moved
+    (`_dense_coefficients`)."""
     prec = get_precision(prec)
     dt = prec.dtype
+    if host.animated or time != 0.0:
+        host.root.apply_animation(time)
     flat = build_flat_scene(host.root, host.active_camera)
 
     n_l = flat.light_type.shape[0]
@@ -434,47 +510,38 @@ def flatten_frame(
     w2c = (v2c @ flat.cam_w2v).astype(np.float32)
 
     t_off = np.cumsum([0] + [m.n_triangles for m in host.meshes])
-    obj_layout = tuple(
-        (int(m), int(t_off[m]), int(t_off[m + 1])) for m in flat.obj_mesh.tolist()
-    )
-    dense = _dense_coefficients(host, flat, t_off)
+    m = flat.obj_mesh
+    obj_layout = tuple(zip(m.tolist(), t_off[m].tolist(), t_off[m + 1].tolist()))
+    dense = _dense_coefficients(host, flat, t_off, prec, device)
     sky = host.skybox
 
-    as_dt = lambda x: _to_tensor(np.asarray(x, np.float32), device, dt)
-    f32 = lambda x: _to_tensor(np.asarray(x, np.float32), device)
-    i32 = lambda x: _to_tensor(np.asarray(x, np.int32), device)
+    f32, i32 = torch.float32, torch.int32
+    a32 = lambda x: np.asarray(x, np.float32)
+    fields = _upload(dict(
+        obj_l2w=(flat.obj_l2w, dt),
+        obj_l2w_f32=(flat.obj_l2w, f32),
+        obj_w2l_f32=(flat.obj_w2l, f32),
+        obj_mesh=(flat.obj_mesh, i32),
+        obj_material=(flat.obj_material, i32),
+        obj_aabb_lo=(flat.obj_aabb_lo, f32),
+        obj_aabb_hi=(flat.obj_aabb_hi, f32),
+        light_type=(lt, i32),
+        light_pos=(lp, dt),
+        light_dir=(ld, dt),
+        light_intensity=(li, dt),
+        light_valid=(lv, torch.bool),
+        cam_w2c=(w2c, f32),
+        cam_l2w_f32=(a32(flat.cam_l2w), f32),
+        cam_fov_y_f32=(a32(flat.cam_fov_y), f32),
+        sky_delta_x=(a32(sky.delta_x if sky else 0.0), f32),
+        sky_delta_y=(a32(sky.delta_y if sky else 0.0), f32),
+        sky_exposure=(a32(sky.exposure if sky else 1.0), f32),
+    ), device, cache=host.__dict__.setdefault("_upload_cache", {}).setdefault(str(device), {}))
     return FrameInput(
-        obj_l2w=as_dt(flat.obj_l2w),
-        obj_l2w_f32=f32(flat.obj_l2w),
-        obj_w2l_f32=f32(flat.obj_w2l),
-        obj_mesh=i32(flat.obj_mesh),
-        obj_material=i32(flat.obj_material),
-        obj_aabb_lo=f32(flat.obj_aabb_lo),
-        obj_aabb_hi=f32(flat.obj_aabb_hi),
-        light_type=i32(lt),
-        light_pos=as_dt(lp),
-        light_dir=as_dt(ld),
-        light_intensity=as_dt(li),
-        light_valid=_to_tensor(lv, device),
-        cam_w2c=f32(w2c),
-        cam_l2w_f32=f32(flat.cam_l2w),
-        cam_fov_y_f32=f32(flat.cam_fov_y),
-        sky_delta_x=f32(sky.delta_x if sky else 0.0),
-        sky_delta_y=f32(sky.delta_y if sky else 0.0),
-        sky_exposure=f32(sky.exposure if sky else 1.0),
-        dense_n=as_dt(dense["dense_n_f32"]),
-        dense_n_f32=f32(dense["dense_n_f32"]),
-        dense_e=f32(dense["dense_e"]),
-        dense_tri=i32(dense["dense_tri"]),
-        dense_obj=i32(dense["dense_obj"]),
-        dense_center=f32(dense["dense_center"]),
-        dense_chunk_lo=f32(dense["dense_chunk_lo"]),
-        dense_chunk_hi=f32(dense["dense_chunk_hi"]),
-        dense_leaf_lo=f32(dense["dense_leaf_lo"]),
-        dense_leaf_hi=f32(dense["dense_leaf_hi"]),
+        **fields,
         obj_layout=obj_layout,
         n_lights=int(k),
-        dense_morton=dense["dense_morton"],
+        **dense,
     )
 
 

@@ -790,18 +790,23 @@ def dense_trace_multi_plain(origins, directions, skip, mind, maxd, coef, tri_ids
 
 
 _TABLE_CACHE: dict = {}
+# builds `per_table` has run (a frame whose table tensors are the previous
+# frame's, as after a camera-only move, runs none)
+TABLE_BUILDS = 0
 
 
 def per_table(anchor: torch.Tensor, key, build):
     """`build()`, once per frame table and `key`: the result is kept while
     `anchor` (a tensor of that table) lives, and entries whose anchor died
     are dropped."""
+    global TABLE_BUILDS
     k = (id(anchor), key)
     hit = _TABLE_CACHE.get(k)
     if hit is not None and hit[0]() is anchor:
         return hit[1]
     for dead in [d for d, (ref, _) in _TABLE_CACHE.items() if ref() is None]:
         del _TABLE_CACHE[dead]
+    TABLE_BUILDS += 1
     value = build()
     _TABLE_CACHE[k] = (weakref.ref(anchor), value)
     return value

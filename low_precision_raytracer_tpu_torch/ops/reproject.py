@@ -1,7 +1,6 @@
-"""Temporal reprojection, SVGF half (port of
-`low_precision_raytracer_tpu/ops/reproject.py`: `generate_temporal_maps`
-with `packed=True, want_taa=False`, `_footprint`, `_residuals` and
-`fetch_weighted_packed`).
+"""Temporal reprojection (port of `low_precision_raytracer_tpu/ops/reproject.py`:
+`generate_temporal_maps` with `packed=True`, `_footprint`, `_residuals`,
+`fetch_weighted_packed` and, for the TAA half, `fetch_weighted`).
 
 Each pixel's f32 hit position is reprojected through its object's
 composite matrix (last W2C @ last L2W @ current W2L) to last frame's
@@ -11,7 +10,20 @@ takes the fast shifted path (K2, ops/svgf_kernels.coef_fetch) when every
 caring anchor sits within one pixel of pixel + one global motion, else
 the general 2x2 take in plain PyTorch, as the JAX package runs it in XLA.
 Choosing the branch reads one flag from the device (a host sync per
-frame).  The TAA half waits (ROADMAP queue 1 item 6).
+frame).
+
+The TAA half (when the TAA blend runs) reprojects a second footprint
+jittered by a per-pixel word of 32 random bits (16 bits per axis),
+validates its taps by mesh id only (the weights stay bilinear, renormalised
+over the in-bounds taps; a tap of the same mesh only gates the count), and
+fetches the (H, W, 3) colour history weighted, as `fetch_weighted` does.
+The JAX package computes all of this in XLA, outside any Pallas kernel;
+the port computes it in plain PyTorch, and fetches through the general 2x2
+take on every frame.  That take reads the same taps as the JAX package's
+residual fast path; the sums may differ in the last f32 bits, since the fast
+path sums coefficient planes, and a non-finite history value can reach
+different pixels through a zero weight (the blend replaces non-finite
+history by the frame's colour).
 """
 
 from __future__ import annotations
@@ -98,15 +110,40 @@ def fetch_weighted_packed(payload_cm, base_y, base_x, wgt, count, residuals):
     return torch.cat([out, count.to(f32)[None]], dim=0), False
 
 
-def generate_svgf_map(g, frame, state, width: int, height: int, dtype,
-                      position_f32, svgf_payload):
-    """The SVGF temporal map and its packed history fetch.
+def fetch_weighted(payload, base_y, base_x, wgt, count):
+    """Finished weighted fetch of an (H, W, C) history through the general
+    2x2 take: -> (H, W, C) f32 = sum_k w_k tap_k / sum_k w_k, 0 where
+    count == 0."""
+    f32 = torch.float32
+    taps = _gather2x2(payload.permute(2, 0, 1).to(f32), base_y, base_x)  # (4, C, H, W)
+    wk = wgt.to(f32).permute(2, 0, 1)[:, None]  # (4, 1, H, W)
+    num = taps[0] * wk[0] + taps[1] * wk[1] + taps[2] * wk[2] + taps[3] * wk[3]
+    den = wk[0] + wk[1] + wk[2] + wk[3]
+    out = torch.where(count > 0, num / torch.where(den > 0, den, 1.0), 0.0)
+    return out.permute(1, 2, 0)
+
+
+def taa_jitter(bits, dt):
+    """Sub-pixel jitter from a (H, W) word of 32 random bits (int64 in
+    [0, 2^32)): 16 bits per axis, computed in f32, rounded to `dt`."""
+    f32 = torch.float32
+    jx = ((bits & 0xFFFF).to(f32) * (1.0 / 65536.0)).to(dt)
+    jy = ((bits >> 16).to(f32) * (1.0 / 65536.0)).to(dt)
+    return jx, jy
+
+
+def generate_temporal_maps(g, frame, state, width: int, height: int, dtype,
+                           position_f32, svgf_payload, taa_payload=None, taa_bits=None):
+    """The SVGF temporal map and its packed history fetch, and the TAA map
+    and its history fetch when `taa_bits` is given.
     g: G-buffer dict of (H, W, ...) tensors; state: FrameState;
     position_f32: (H, W, 3) f32 hit positions to reproject, or None for
     the G-buffer's position (fp32); svgf_payload: (10, H, W) f32 history in
-    ctr order or None.
+    ctr order or None; taa_payload: (H, W, 3) history or None; taa_bits:
+    (H, W) int64 random words in [0, 2^32) or None (no TAA half).
     -> (svgf_map dict(frame_count, weights, base_y, base_x),
-        ctr (11, H, W) or None, fast_path (bool or None))."""
+        ctr (11, H, W) or None, fast_path (bool or None),
+        taa_map (same keys) or None, taa_pre (H, W, 3) f32 or None)."""
     dt = dtype
     H, W = height, width
     f32 = torch.float32
@@ -142,7 +179,25 @@ def generate_svgf_map(g, frame, state, width: int, height: int, dtype,
     fc = torch.amax(torch.where(tap_ok, tap_count, 0), dim=-1)
     new_count = torch.where(any_ok & valid, torch.clamp(fc + 1, max=255), 0).to(torch.int32)
     svgf_map = dict(frame_count=new_count, weights=w_s, base_y=by, base_x=bx)
-    if svgf_payload is None:
-        return svgf_map, None, None
-    ctr, fast = fetch_weighted_packed(svgf_payload, by, bx, w_s, new_count, res)
-    return svgf_map, ctr, fast
+    ctr = fast = None
+    if svgf_payload is not None:
+        ctr, fast = fetch_weighted_packed(svgf_payload, by, bx, w_s, new_count, res)
+    if taa_bits is None:
+        return svgf_map, ctr, fast, None, None
+
+    # ---- the TAA map: jittered footprint, loose validation
+    jx, jy = taa_jitter(taa_bits, dt)
+    by2, bx2, w2, inb2 = _footprint(g_fx - jx, g_fy - jy, H, W, dt)
+    tap_mesh2 = _gather2x2((state.last_mesh_id + 1)[None], by2, bx2)[:, 0].permute(1, 2, 0) - 1
+    w_t = torch.where(inb2, w2, torch.zeros_like(w2)).to(dt)
+    total2 = torch.sum(w_t, dim=-1)
+    any2 = total2 > 0
+    w_t = torch.where(any2[..., None],
+                      w_t / torch.where(any2, total2, torch.ones_like(total2))[..., None],
+                      torch.zeros_like(w_t))
+    same_obj = torch.any(inb2 & (tap_mesh2 == mesh_p[..., None]), dim=-1)
+    taa_count = (same_obj & valid & any2).to(torch.int32)
+    taa_map = dict(frame_count=taa_count, weights=w_t, base_y=by2, base_x=bx2)
+    taa_pre = (None if taa_payload is None
+               else fetch_weighted(taa_payload, by2, bx2, w_t, taa_count))
+    return svgf_map, ctr, fast, taa_map, taa_pre

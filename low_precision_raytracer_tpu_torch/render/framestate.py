@@ -1,7 +1,8 @@
 """The carried frame state (port of
 `low_precision_raytracer_tpu/render/framestate.py`): everything frame N
-hands to frame N + 1.  The TAA history joins it with the TAA half
-(ROADMAP queue 1 item 6); at mix weight 1 nothing reads it."""
+hands to frame N + 1.  The TAA history is written every frame (the
+frame's colour before tonemapping) and read only when the TAA blend
+runs (mix weight != 1, or `taa_force_full`)."""
 
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ class FrameState:
     # SVGF per-instance temporal state (GI-coloured / GI-white), f32
     svgf_colored: SVGFState
     svgf_white: SVGFState
+    # TAA history colour, f32 (state_f32)
+    taa_history: torch.Tensor  # (H, W, 3)
     # committed SVGF temporal-map frame counts
     svgf_frame_count: torch.Tensor  # (H, W) i32
     # last frame's per-pixel mesh id (-1 = empty) / primitive
@@ -35,6 +38,7 @@ def init_frame_state(cfg: RenderConfig, n_objects: int, device) -> FrameState:
     return FrameState(
         svgf_colored=init_svgf_state(H, W, f32, device),
         svgf_white=init_svgf_state(H, W, f32, device),
+        taa_history=torch.zeros((H, W, 3), dtype=f32, device=device),
         svgf_frame_count=torch.zeros((H, W), dtype=torch.int32, device=device),
         last_mesh_id=torch.full((H, W), -1, dtype=torch.int32, device=device),
         last_prim=torch.zeros((H, W), dtype=torch.int32, device=device),

@@ -5,7 +5,15 @@ One frame, in order: the f32 camera grid; the primary launch and the
 G-buffer; the SVGF temporal map and its packed history fetch (K2); shade
 round 0; its shadow and GI launches; shade round 1 and its shadow launch;
 the clean / demodulated split; the SVGF pair (K3, then K4 per stride);
-compose and tonemap.  TAA at mix weight 1 is the identity and is not run.
+compose; the TAA blend; tonemap.  TAA at mix weight 1 is the identity and
+is not run (unless `taa_force_full`); below 1 the temporal map gains its
+jittered TAA half and the blend runs (plain PyTorch, as the JAX package
+runs it in XLA).
+
+`Renderer.render(time)` flattens the host scene at `time` on every call:
+the animation (objects, lights, the camera) is sampled, and the
+coefficient table is rebuilt only when an object moved
+(`models/scene.py:_dense_coefficients`).
 
 Single-chunk scenes with lights (Cornell) take the fused route: the
 primary launch carries round 0's shadow phase and the GI launch round 1's
@@ -19,6 +27,8 @@ triangles).  Sky radiance (`di_sky`) joins both rounds' intensity.
 """
 
 from __future__ import annotations
+
+import time as _time
 
 import torch
 
@@ -42,7 +52,7 @@ from low_precision_raytracer_tpu_torch.ops.gbuffer import (
     fill_gbuffer,
     interpolate_hit_attributes,
 )
-from low_precision_raytracer_tpu_torch.ops.reproject import generate_svgf_map
+from low_precision_raytracer_tpu_torch.ops.reproject import generate_temporal_maps
 from low_precision_raytracer_tpu_torch.ops.shade import (
     SHADE_COMMON,
     SHADE_INVALID,
@@ -53,6 +63,7 @@ from low_precision_raytracer_tpu_torch.ops.shade import (
 )
 from low_precision_raytracer_tpu_torch.ops.svgf import SVGFState, preprocess_normal_depth
 from low_precision_raytracer_tpu_torch.ops.svgf_kernels import svgf_pair_full
+from low_precision_raytracer_tpu_torch.ops.taa import temporal_anti_aliasing
 from low_precision_raytracer_tpu_torch.ops.trace import (
     Hit,
     check_scene,
@@ -191,14 +202,23 @@ def _trace_di_gi(scene, frame, shade_out, cfg, prec, *, want_gi, coherent):
     return vis * lights.multiplier, _gi_shade_input(scene, frame, shade_out, hit_gi, prec)
 
 
+def taa_active(cfg: RenderConfig) -> bool:
+    """Does the TAA half run?  Not at mix weight exactly 1, where the blend
+    is the identity, unless `taa_force_full` asks for it."""
+    return cfg.taa_on and (cfg.taa_force_full or float(cfg.taa_mix_weight) != 1.0)
+
+
 def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
-                 uniforms=None, generator=None):
+                 uniforms=None, generator=None, taa_bits=None):
     """One full frame.  -> (image (H, W, 3) f32 gamma-encoded, aux, state).
 
     `uniforms`: one (7 H W,) f32 tensor per GI shade round (the JAX
     package's `jax.random.uniform(k_shade, (7R,), f32)`), else drawn from
-    `generator`.  aux["svgf_fast_path"] says whether the history fetch took
-    the K2 path (None with the denoiser off)."""
+    `generator`.  `taa_bits`: when the TAA half runs, the (H, W) jitter
+    words, int64 in [0, 2^32) (the JAX package's `jax.random.bits(k_taa,
+    (H, W), uint32)`), else drawn from `generator` before the uniforms.
+    aux["svgf_fast_path"] says whether the history fetch took the K2 path
+    (None with the denoiser off)."""
     check_supported(cfg)
     fused = di_fusible(frame, cfg)
     prec = cfg.prec
@@ -209,6 +229,10 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
     dev = frame.dense_center.device
     # shade rounds that draw GI uniforms: all but the last
     gi_rounds = cfg.max_bounces - 1 if cfg.gi_on else 0
+    taa = taa_active(cfg)
+    if taa and taa_bits is None:
+        taa_bits = torch.randint(0, 1 << 32, (H, W), generator=generator, dtype=torch.int64,
+                                 device=dev)
     if uniforms is None:
         uniforms = [torch.rand((7 * R,), generator=generator, dtype=f32, device=dev)
                     for _ in range(gi_rounds)]
@@ -238,8 +262,9 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
             sw.color_history[..., 0], sw.color_history[..., 1], sw.color_history[..., 2],
             sc.miu1, sw.miu1, sc.miu2, sw.miu2,
         ])
-    svgf_map, svgf_ctr, fast = generate_svgf_map(
-        g2d, frame, state, W, H, dt, pos32, svgf_payload)
+    svgf_map, svgf_ctr, fast, taa_map, taa_pre = generate_temporal_maps(
+        g2d, frame, state, W, H, dt, pos32, svgf_payload,
+        taa_payload=state.taa_history if taa else None, taa_bits=taa_bits if taa else None)
 
     # ---- shade round 0, then the GI launch carrying round 1's shadows
     sin0 = gbuffer_to_shade_input(
@@ -300,12 +325,15 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
         new_white = SVGFState(*(x[1] for x in st2))
     albedo = out0.albedo.reshape(H, W, 3)
     color = add_denoised_color(clean, mul_c, mul_w, albedo, cfg.demo)
+    if taa:
+        color = temporal_anti_aliasing(color, taa_map, cfg.taa_mix_weight, taa_pre)
     image = tonemap_gamma(color)
 
     valid = g2d["valid"]
     new_state = FrameState(
         svgf_colored=new_colored,
         svgf_white=new_white,
+        taa_history=color.to(state.taa_history.dtype),
         svgf_frame_count=svgf_map["frame_count"],
         last_mesh_id=torch.where(valid, frame.obj_mesh[g2d["obj"].long()], -1).to(torch.int32),
         last_prim=g2d["tri"].to(torch.int32),
@@ -326,34 +354,41 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
 
 
 class Renderer:
-    """Owns the device scene, the frame state and the random generator,
-    and renders frame after frame.  Runs on CUDA unless `device` says
-    otherwise; raises when no card is there."""
+    """Owns the host scene, the device scene, the frame state and the
+    random generator, and renders frame after frame.  Runs on CUDA unless
+    `device` says otherwise; raises when no card is there."""
 
     def __init__(self, host_scene: HostScene, cfg: RenderConfig, device=None,
                  seed: int = 0):
         check_supported(cfg)
         if host_scene.textures:
             raise NotImplementedError("textured scenes wait (ROADMAP queue 1 item 5)")
-        if host_scene.animated:
-            raise NotImplementedError("animated scenes wait (ROADMAP queue 1 item 4)")
+        self.host = host_scene
         self.device = resolve_device(device)
         self.scene = build_scene_arrays(host_scene, cfg.prec, self.device)
-        self.frame = flatten_frame(
-            host_scene, cfg.prec, self.device,
-            max_direct_lights=cfg.max_direct_lights,
-            width=cfg.width, height=cfg.height,
-        )
+        self.frame = self._flatten(cfg, 0.0)
         check_scene(self.frame, cfg)
         # bake the scene's route into the config, as the JAX Renderer does
         self.cfg = resolve_cfg(self.frame, cfg)
         self.state = init_frame_state(cfg, len(self.frame.obj_layout), self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
-    def render(self, uniforms=None):
-        """Render one frame of the static scene.  -> (image, aux)."""
+    def _flatten(self, cfg: RenderConfig, time: float):
+        return flatten_frame(self.host, cfg.prec, self.device,
+                             max_direct_lights=cfg.max_direct_lights,
+                             width=cfg.width, height=cfg.height, time=time)
+
+    def render(self, time: float = 0.0, uniforms=None, taa_bits=None):
+        """Flatten the scene at `time` (`self.frame` is then that frame's
+        input) and render it.  -> (image, aux); aux["flatten_ms"] is the
+        flatten's host time."""
+        t0 = _time.perf_counter()
+        self.frame = self._flatten(self.cfg, time)
+        flatten_ms = (_time.perf_counter() - t0) * 1e3
+        check_scene(self.frame, self.cfg)
         image, aux, self.state = render_frame(
             self.scene, self.frame, self.state, self.cfg, uniforms=uniforms,
-            generator=self.generator,
+            generator=self.generator, taa_bits=taa_bits,
         )
+        aux["flatten_ms"] = flatten_ms
         return image, aux

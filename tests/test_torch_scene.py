@@ -158,8 +158,6 @@ def test_renderer_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("kw", [
     dict(shade_f32=False),
     dict(svgf=SVGFConfig(strides=(1, 2, 4, 8, 32))),
-    dict(taa_mix_weight=0.5),
-    dict(taa_force_full=True),
     dict(traversal_impl="jax"),
     dict(svgf=SVGFConfig(sigma_n=127.5)),
     dict(svgf=SVGFConfig(state_f32=False)),
@@ -169,6 +167,18 @@ def test_uncovered_configs_raise(kw):
     cfg = RenderConfig(width=8, height=8, **{"precision": "bf16", **kw})
     with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \d+\)"):
         Renderer(cornell_box_scene(), cfg, device="cpu")
+
+
+def test_animated_scene_and_taa_construct():
+    """An animated scene and TAA below mix weight 1 (the interactive path)
+    are covered: the Renderer constructs on the CPU and renders a frame."""
+    from low_precision_raytracer_tpu_torch.models.procedural import animated_cornell_scene
+
+    for kw in (dict(taa_mix_weight=0.3), dict(taa_force_full=True)):
+        r = Renderer(animated_cornell_scene(),
+                     RenderConfig(width=8, height=8, precision="bf16", **kw), device="cpu")
+        img, _aux = r.render(time=0.5)
+        assert tuple(img.shape) == (8, 8, 3) and bool(torch.isfinite(img).all())
 
 
 @pytest.mark.parametrize("precision,fallback,impl,widened", [
