@@ -82,6 +82,24 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    camera turning 0.5 degrees a frame), 4 frames: K1b 4 per frame, K2 by
    branch as in 5a, and no per-table build after frame 0 (the frame's
    tables are the previous frame's tensors);
+8b. textured glTF scenes (`textured_phases`; every path phase of a scene
+   with textures logs its atlas size, and here each frame's texture
+   fetches, `sample_texture` on both shade rounds, are timed with CUDA
+   events beside the bytes a fused fetch would move): textured-box
+   (tests/assets/BoxTextured.gltf, a 64x64 sRGB checker, the camera and
+   lamp of tests/test_gltf.py), its load timed, 8 frames with K1a 2, K3 1,
+   K4 5 and K2 from frame 1, the face centre's albedo holding both checker
+   colours, a 64x64 reference with the camera on the face's axis printed
+   (not held: exact hits on the face's diagonal edge) and one held with
+   the camera moved by the flagship's offset, 5 frames; textured-sponza
+   (the `.glb` `tools/textured_scene.py` writes: the Sponza-class geometry,
+   eight 1024^2 atlas entries from seven PNGs), its write and load timed,
+   K1b (2^18-ray slices), K3 and K4 held against their plain versions on
+   its inputs, 8 frames with K1b 4, its albedo differing from the same
+   scene's without texture ids on more than half the valid pixels, a
+   64x64 reference, 4 frames, and a probe of one such frame (`fetch_probe`:
+   the uv components that differ between card and CPU per shade round, and
+   the fetch on the card's own inputs held within 1e-6 of the CPU's);
 9. colonnade-83k kernel phase: two warm-up frames of `sponza_like_scene(8,
    3)` (82,690 instance triangles in 647 chunks, bf16, 1920x1080) record
    its two K1b launches (primary, round-0 shadows) and its two per-ray
@@ -260,9 +278,11 @@ from __future__ import annotations
 import inspect
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 W, H = 1920, 1080
@@ -1018,7 +1038,7 @@ def kernel_phase(calls, names=("dense_trace", "coef_fetch", "temporal_accum", "w
 
 
 def path_phase(cuda_lib, scene_fn, want_fn, precision="bf16", frames_n=PATH_FRAMES,
-               motion=None, **cfg_kw):
+               motion=None, fetch_timer=None, **cfg_kw):
     """`frames_n` frames at 1920x1080 through a fresh Renderer (seed 0)
     with the counts zeroed just before; `want_fn(frame)` gives the
     launches each frame must make.  `motion`: None (a still scene at time
@@ -1026,16 +1046,23 @@ def path_phase(cuda_lib, scene_fn, want_fn, precision="bf16", frames_n=PATH_FRAM
     (frame f renders at time f / FPS; K2 launches once on each frame whose
     fetch took its path and never on the others, and each frame records
     its branch).  Unless objects move, no per-table cache builds after
-    frame 0 (`dense_trace.TABLE_BUILDS`).  -> (launch totals, per-frame
-    records, peak GiB, the last image)."""
+    frame 0 (`dense_trace.TABLE_BUILDS`).  `fetch_timer` (a FetchTimer,
+    installed): each frame records the ms of its texture fetches.  A scene
+    with textures logs its atlas size.  -> (launch totals, per-frame
+    records, peak GiB, the last image, the last frame's aux)."""
     import torch
 
     from low_precision_raytracer_tpu_torch.config import RenderConfig
     from low_precision_raytracer_tpu_torch.ops import dense_trace
+    from low_precision_raytracer_tpu_torch.ops.texture import has_textures
     from low_precision_raytracer_tpu_torch.render.renderer import Renderer
 
     renderer = Renderer(scene_fn(), RenderConfig(width=W, height=H, precision=precision,
                                                  **cfg_kw))
+    if has_textures(renderer.scene):
+        atlas = renderer.scene.tex_data
+        log(f"atlas: {atlas.numel() / 2**20:.3f} MiB on the card, "
+            f"{renderer.scene.tex_width.numel()} textures, {atlas.shape[0]} texels")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
@@ -1052,6 +1079,9 @@ def path_phase(cuda_lib, scene_fn, want_fn, precision="bf16", frames_n=PATH_FRAM
         frames.append(dict(frame=f, ms=ms, flatten_ms=aux["flatten_ms"],
                            n_rays=int(aux["n_rays"]), fast_fetch=aux["svgf_fast_path"],
                            table_builds=dense_trace.TABLE_BUILDS - builds, launches=counts))
+        if fetch_timer is not None:
+            rec = frames[-1]
+            rec["fetch_ms"], rec["fetch_calls"], rec["fetch_bound_ms"] = fetch_timer.take()
         log(f"frame {json.dumps(frames[-1])}")
     totals = dict(cuda_lib.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1073,7 +1103,7 @@ def path_phase(cuda_lib, scene_fn, want_fn, precision="bf16", frames_n=PATH_FRAM
         raise AssertionError("image is not a finite (H, W, 3) array")
     if float(img.min()) < 0 or float(img.max()) > 1 or float(img.std()) < 1e-3:
         raise AssertionError("image is outside [0, 1] or constant")
-    return totals, frames, peak_gib, img
+    return totals, frames, peak_gib, img, aux
 
 
 def report_path(name, frames, peak_gib, totals):
@@ -1084,19 +1114,23 @@ def report_path(name, frames, peak_gib, totals):
     prev = f"  (before: {PREV_FRAME_MS[name]})" if name in PREV_FRAME_MS else ""
     branches = "".join("-" if f["fast_fetch"] is None else "K" if f["fast_fetch"] else "t"
                        for f in frames)
+    fetch = (f"texture fetch ms per frame {statistics.median(f['fetch_ms'] for f in steady):.4f}"
+             f" ({steady[0]['fetch_calls']} calls; bytes bound "
+             f"{steady[0]['fetch_bound_ms']:.4f})  " if "fetch_ms" in frames[0] else "")
     log(f"path {name}: frame_ms(median of frames 3-{len(frames)}) {frame_ms:.3f}{prev}  "
-        f"flatten_ms {flatten_ms:.4f} (frame 0 {frames[0]['flatten_ms']:.3f})  "
+        f"{fetch}flatten_ms {flatten_ms:.4f} (frame 0 {frames[0]['flatten_ms']:.3f})  "
         f"Mrays/s {n_rays / frame_ms / 1e3:.3f}  n_rays {n_rays}  "
         f"peak memory {peak_gib:.3f} GiB  fetch per frame {branches} (K: K2, t: the plain "
         f"2x2 take)  table builds after frame 0 "
         f"{sum(f['table_builds'] for f in frames[1:])}  launches {json.dumps(totals)}")
 
 
-def reference_phase(scene_fn, frames, precision="bf16", moving=False, **cfg_kw):
+def reference_phase(scene_fn, frames, precision="bf16", moving=False, hold=True, **cfg_kw):
     """A small frame on the card against the plain versions on the CPU,
     same uniforms (and TAA bits, where the TAA half runs): PSNR >= 35 dB
     and validity agreement >= 0.999 on every frame (the port-vs-JAX bars of
-    tests/test_torch_render_e2e.py).  `moving`: frame f at time f / FPS."""
+    tests/test_torch_render_e2e.py; `hold=False`: measured, not held).
+    `moving`: frame f at time f / FPS.  -> (PSNRs, agreements)."""
     import torch
 
     from low_precision_raytracer_tpu_torch.config import RenderConfig
@@ -1106,7 +1140,7 @@ def reference_phase(scene_fn, frames, precision="bf16", moving=False, **cfg_kw):
     gpu = Renderer(scene_fn(), cfg)
     cpu = Renderer(scene_fn(), cfg, device="cpu")
     gen = torch.Generator().manual_seed(1)
-    psnrs = []
+    psnrs, agrees = [], []
     for f in range(frames):
         us = torch.rand((7 * REF_SIZE * REF_SIZE,), generator=gen)
         bits = (torch.randint(0, 1 << 32, (REF_SIZE, REF_SIZE), generator=gen,
@@ -1118,10 +1152,11 @@ def reference_phase(scene_fn, frames, precision="bf16", moving=False, **cfg_kw):
         mse = float(((img_g.cpu().double() - img_c.double()) ** 2).mean())
         psnr = float("inf") if mse == 0 else 10 * math.log10(1.0 / mse)
         agree = float((aux_g["valid"].cpu() == aux_c["valid"]).float().mean())
-        if psnr < 35 or agree < 0.999:
+        if hold and (psnr < 35 or agree < 0.999):
             raise AssertionError(f"reference frame {f}: PSNR {psnr:.2f} dB, valid agreement {agree}")
         psnrs.append(psnr)
-    return psnrs
+        agrees.append(agree)
+    return psnrs, agrees
 
 
 def profile_frame(name, scene_fn, precision="bf16"):
@@ -1223,6 +1258,220 @@ def animated_kernel_phase(cfg):
             f"K2 {reports['coef_fetch']['ms']:.4f} ms on the paused frame")
     torch.cuda.empty_cache()
     return reports
+
+
+# ---------------------------------------------------------------------------
+# Textured glTF scenes: the Khronos BoxTextured sample and the textured
+# Sponza-class .glb of tools/textured_scene.py
+
+TEX_SIZE = 1024  # the textured Sponza-class scene's texture side
+BOX_GLTF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "assets",
+                        "BoxTextured.gltf")
+
+
+class FetchTimer:
+    """While entered, times every `sample_texture` call of shade with CUDA
+    events and counts the bytes a fused fetch would move (ids and uv read,
+    four RGBA8 taps a pixel, the RGBA f32 result written); `take()` ->
+    (ms summed since the last take, calls, the bytes' bound in ms)."""
+
+    def __enter__(self):
+        import torch
+
+        from low_precision_raytracer_tpu_torch.ops import shade
+
+        self.events, self.bytes, self.orig = [], 0, shade.sample_texture
+
+        def timed(scene, tex_id, uv):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = self.orig(scene, tex_id, uv)
+            e1.record()
+            self.events.append((e0, e1))
+            self.bytes += nbytes(tex_id, uv, out) + 16 * tex_id.numel()
+            return out
+
+        shade.sample_texture = timed
+        return self
+
+    def __exit__(self, *exc):
+        from low_precision_raytracer_tpu_torch.ops import shade
+
+        shade.sample_texture = self.orig
+
+    def take(self):
+        import torch
+
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in self.events)
+        out = ms, len(self.events), bound_ms(self.bytes, 0)[0]
+        self.events, self.bytes = [], 0
+        return out
+
+
+# the flagship Cornell camera's x / y offset (`models/procedural.py`): it
+# keeps pixel centres off the box face's diagonal edge
+BOX_CAMERA_OFFSET = (0.0131, 0.0077)
+
+
+def box_scene(offset=(0.0, 0.0)):
+    """BoxTextured.gltf (12 triangles, a 64 x 64 sRGB checker PNG) with the
+    camera (z = 2, fov pi/3) and the lamp tests/test_gltf.py gives it, the
+    camera moved by `offset` in x, y."""
+    import numpy as np
+
+    from low_precision_raytracer_tpu_torch.models.gltf import load_gltf
+    from low_precision_raytracer_tpu_torch.models.hierarchy import (
+        LIGHT_POINT,
+        CameraObject,
+        LightObject,
+    )
+
+    scene = load_gltf(BOX_GLTF)
+    cam = CameraObject(name="cam", fov_y=np.pi / 3)
+    cam.translation = np.array([*offset, 2.0], np.float32)
+    scene.root.add(cam)
+    scene.active_camera = cam
+    lamp = LightObject(name="lamp", light_type=LIGHT_POINT,
+                       intensity=np.array([40.0, 40.0, 40.0], np.float32))
+    lamp.translation = np.array([0.0, 0.0, 2.5], np.float32)
+    scene.root.add(lamp)
+    return scene
+
+
+def timed_load(name, load):
+    """-> a scene function handing out copies of `load()`'s scene, the load
+    (parse plus PNG decode) timed once."""
+    import copy
+
+    t0 = time.perf_counter()
+    base = load()
+    seconds = time.perf_counter() - t0
+    log(f"load {name}: {seconds:.3f} s host (parse + decode), {len(base.textures)} textures, "
+        f"{sum(t.nbytes for t in base.textures) / 2**20:.3f} MiB of texels")
+    return lambda: copy.deepcopy(base)
+
+
+def fetch_probe(scene_fn, precision="bf16"):
+    """One 64x64 frame on the card and on the CPU (same uniforms) with
+    every `sample_texture` call recorded: per shade round, how many uv
+    components differ between the two and by how much, and the fetch run
+    on the card's own inputs on the CPU, held within 1e-6 of the card's
+    output (the bar of tests/test_torch_texture.py against the JAX
+    fetch).  It tells a texture's amplification of upstream ulps apart
+    from the fetch's own arithmetic."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.ops import shade
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    cfg = RenderConfig(width=REF_SIZE, height=REF_SIZE, precision=precision)
+    us = torch.rand((7 * REF_SIZE * REF_SIZE,), generator=torch.Generator().manual_seed(1))
+    orig, calls = shade.sample_texture, {"cuda": [], "cpu": []}
+
+    def recorder(into):
+        def rec(*args):
+            out = orig(*args)
+            into.append((args, out))
+            return out
+        return rec
+
+    try:
+        for dev in ("cuda", "cpu"):
+            shade.sample_texture = recorder(calls[dev])
+            Renderer(scene_fn(), cfg, device=dev).render(uniforms=[us.to(dev)])
+    finally:
+        shade.sample_texture = orig
+    for r, (((sc, tid, uv), out), ((_s, tid_c, uv_c), _o)) in enumerate(
+            zip(calls["cuda"], calls["cpu"])):
+        du = (uv.cpu().float() - uv_c.float()).abs()
+        err = float((orig(_s, tid.cpu(), uv.cpu()) - out.cpu()).abs().max())
+        log(f"fetch probe {precision} round {r}: ids equal {torch.equal(tid.cpu(), tid_c)}, uv "
+            f"components differing card vs CPU {int((du > 0).sum())} of {du.numel()} (max "
+            f"{float(du.max()):.3g}); the fetch on the card's inputs, card vs CPU max abs err "
+            f"{err:.3g}")
+        if err > 1e-6:
+            raise AssertionError(f"fetch probe: the card's fetch differs from the CPU's by {err}")
+
+
+def textured_phases(run_path, counts, cfg, tmp):
+    """The two textured paths (bf16, 1920x1080): textured-box (K1a) and
+    textured-sponza (K1b), each loaded once and timed, rendered 8 frames
+    with every texture fetch timed (`FetchTimer`), checked to carry its
+    textures into the frame, and held at 64x64 against the plain versions
+    on the CPU; K1b, K3 and K4 held against their plain versions on
+    textured-sponza's inputs."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.models.materials import NO_TEX
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+    from low_precision_raytracer_tpu_torch.tools.textured_scene import (
+        textured_sponza_scene,
+        write_textured_sponza,
+    )
+
+    box_fn = timed_load("textured-box", box_scene)
+    with FetchTimer() as timer:
+        _t, _img, aux = run_path("textured-box", box_fn, counts(dense_trace=2),
+                                 fetch_timer=timer)
+    # the face centre shows both checker colours: red cells (G << R), white (G ~ R)
+    c = aux["albedo"][H // 2 - 100:H // 2 + 100, W // 2 - 100:W // 2 + 100]
+    ok = aux["valid"][H // 2 - 100:H // 2 + 100, W // 2 - 100:W // 2 + 100]
+    ratio = (c[..., 1] / c[..., 0].clamp(min=1e-6))[ok]
+    log(f"textured-box: face centre G/R of the albedo min {float(ratio.min()):.4f} "
+        f"max {float(ratio.max()):.4f} over {int(ok.sum())} pixels")
+    if not (float(ratio.min()) < 0.25 and float(ratio.max()) > 0.8):
+        raise AssertionError("textured-box: the face centre does not show both checker colours")
+    del aux
+    # With the camera on the face's axis, a 64x64 frame's anti-diagonal pixel
+    # centres aim exactly at the face's diagonal edge, where the strict test
+    # rejects the ray in both triangles and one ulp between the card's and
+    # the CPU's camera grid decides hit or miss (ROADMAP queue 3, "Hits on a
+    # quad's diagonal"): measured and printed, not held.  The held
+    # reference moves the camera by the flagship's offset.
+    psnrs, agree = reference_phase(box_fn, 1, hold=False)
+    log(f"reference textured-box, centred camera (not held): PSNR dB {psnrs[0]:.2f}, "
+        f"valid agreement {agree[0]:.5f}")
+    psnrs, _agree = reference_phase(lambda: box_scene(BOX_CAMERA_OFFSET), REF_FRAMES)
+    log(f"reference textured-box (camera offset {BOX_CAMERA_OFFSET}): {REF_SIZE}x{REF_SIZE} "
+        "card vs plain-on-CPU PSNR dB " + " ".join(f"{p:.2f}" for p in psnrs))
+
+    path = os.path.join(tmp, "textured_sponza.glb")
+    t0 = time.perf_counter()
+    write_textured_sponza(path, tex_size=TEX_SIZE)
+    log(f"textured-sponza: wrote {os.path.getsize(path) / 2**20:.3f} MiB .glb "
+        f"({TEX_SIZE}^2 textures) in {time.perf_counter() - t0:.3f} s")
+    sponza_fn = timed_load("textured-sponza", lambda: textured_sponza_scene(path))
+    warm = Renderer(sponza_fn(), cfg)
+    launches = capture_sponza_launches(warm, 2)
+    calls = capture_inputs(warm, 1)
+    del warm
+    k1b_phase(launches, reps=5, plain_on_slice=True, scene="textured-sponza")
+    kernel_phase(calls, names=("temporal_accum", "wavelet_iter"), tag=" textured-sponza")
+    del launches, calls
+    torch.cuda.empty_cache()
+    with FetchTimer() as timer:
+        _t, _img, aux = run_path("textured-sponza", sponza_fn, counts(dense_trace_multi=4),
+                                 fetch_timer=timer)
+    # the textures reach the frame: the albedo differs from the factors'
+    plain_host = sponza_fn()
+    for m in plain_host.materials:
+        m.tex_color = NO_TEX
+    _img, aux0 = Renderer(plain_host, cfg).render()
+    valid = aux["valid"] & aux0["valid"]
+    differs = ((aux["albedo"] - aux0["albedo"]).abs().amax(dim=-1) > 1e-3)[valid]
+    share = float(differs.float().mean())
+    log(f"textured-sponza: albedo differs from the untextured materials' on {share:.4f} of "
+        f"{int(valid.sum())} valid pixels")
+    if share <= 0.5:
+        raise AssertionError("textured-sponza: the textures do not reach the albedo plane")
+    del aux, aux0
+    torch.cuda.empty_cache()
+    psnrs, _agree = reference_phase(sponza_fn, SPONZA_REF_FRAMES)
+    log(f"reference textured-sponza: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
+        + " ".join(f"{p:.2f}" for p in psnrs))
+    fetch_probe(sponza_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -2624,9 +2873,9 @@ def pack_phases(run_path, counts):
     del calls
     # per frame: K1a packed twice (the primary; round 0's shadows and GI
     # bounce in one launch), round 1's shadows on K1b's any hit, no fused DI
-    _t, _img = run_path("flagship-pack", cornell_box_scene,
-                        counts(dense_trace_pack=2, dense_trace_multi=1), frames_n=4,
-                        dense_epilogue="pack")
+    run_path("flagship-pack", cornell_box_scene,
+             counts(dense_trace_pack=2, dense_trace_multi=1), frames_n=4,
+             dense_epilogue="pack")
     warm = Renderer(sponza_like_scene(), cfg)
     launches = capture_sponza_launches(warm, 2)
     del warm
@@ -2882,8 +3131,8 @@ def main(argv) -> int:
     group_totals = {}
 
     def run_path(name, scene_fn, want_fn, precision="bf16", **kw):
-        p_totals, p_frames, p_peak, img = path_phase(cuda_lib, scene_fn, want_fn, precision,
-                                                     **kw)
+        p_totals, p_frames, p_peak, img, aux = path_phase(cuda_lib, scene_fn, want_fn,
+                                                          precision, **kw)
         report_path(name, p_frames, p_peak, p_totals)
         group = f"{precision}-{kw['triangle_fallback']}" if "triangle_fallback" in kw \
             else precision
@@ -2892,7 +3141,7 @@ def main(argv) -> int:
             totals[k] += n
             g_totals[k] += n
         torch.cuda.empty_cache()
-        return p_totals, img
+        return p_totals, img, aux
 
     def elapsed():
         log(f"elapsed {time.perf_counter() - t_start:.1f} s")
@@ -2917,12 +3166,12 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     elapsed()
 
-    flag_totals, flag_img = run_path("flagship", cornell_box_scene, counts(dense_trace=2))
+    flag_totals, flag_img, _aux = run_path("flagship", cornell_box_scene, counts(dense_trace=2))
     for name in ("dense_trace", "coef_fetch", "temporal_accum", "wavelet_iter"):
         if flag_totals[name] == 0:
             raise AssertionError(f"{name}: no launch on the flagship path")
 
-    psnrs = reference_phase(cornell_box_scene, REF_FRAMES)
+    psnrs, _agree = reference_phase(cornell_box_scene, REF_FRAMES)
     log(f"reference flagship: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
         + " ".join(f"{p:.2f}" for p in psnrs))
     torch.cuda.empty_cache()
@@ -2933,7 +3182,7 @@ def main(argv) -> int:
                                        taa_mix_weight=0.3))
     run_path("animated", animated_scene, counts(dense_trace=2), motion="objects",
              taa_mix_weight=0.3)
-    psnrs = reference_phase(animated_scene, PATH_FRAMES, moving=True, taa_mix_weight=0.3)
+    psnrs, _agree = reference_phase(animated_scene, PATH_FRAMES, moving=True, taa_mix_weight=0.3)
     log(f"reference animated: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
         + " ".join(f"{p:.2f}" for p in psnrs))
     elapsed()
@@ -2952,13 +3201,18 @@ def main(argv) -> int:
     elapsed()
 
     run_path("sponza", sponza_like_scene, counts(dense_trace_multi=4))
-    psnrs = reference_phase(sponza_like_scene, SPONZA_REF_FRAMES)
+    psnrs, _agree = reference_phase(sponza_like_scene, SPONZA_REF_FRAMES)
     log(f"reference sponza: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
         + " ".join(f"{p:.2f}" for p in psnrs))
     torch.cuda.empty_cache()
     # the camera turning: the same tables every frame, K1b's launches as still
     run_path("sponza-camera", sponza_camera_scene, counts(dense_trace_multi=4),
              frames_n=CAMERA_FRAMES, motion="camera")
+    elapsed()
+
+    # ---- textured glTF scenes: BoxTextured (K1a), the textured Sponza-class .glb (K1b)
+    with tempfile.TemporaryDirectory() as tmp:
+        textured_phases(run_path, counts, cfg, tmp)
     elapsed()
 
     # ---- colonnade-83k: K1b at 647 chunks, the wavefront (K5, schedule)
@@ -2973,7 +3227,7 @@ def main(argv) -> int:
     big = counts(dense_trace_multi=2, wavefront_schedule=wavefront_counts,
                  wavefront_assigned=wavefront_counts)
     run_path("colonnade-83k", colonnade_83k, big)
-    psnrs = reference_phase(colonnade_83k, SPONZA_REF_FRAMES)
+    psnrs, _agree = reference_phase(colonnade_83k, SPONZA_REF_FRAMES)
     log(f"reference colonnade-83k: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
         + " ".join(f"{p:.2f}" for p in psnrs))
     log(f"colonnade-83k K1b: {json.dumps(k1b_big)}")
@@ -3005,7 +3259,7 @@ def main(argv) -> int:
     elapsed()
 
     run_path("colonnade-2M", colonnade_2m, counts(packet_trace=4))
-    psnrs = reference_phase(sponza_like_scene, SPONZA_REF_FRAMES, traversal_impl="pallas")
+    psnrs, _agree = reference_phase(sponza_like_scene, SPONZA_REF_FRAMES, traversal_impl="pallas")
     log(f"reference packet route (colonnade-5k): {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU "
         "PSNR dB " + " ".join(f"{p:.2f}" for p in psnrs))
     elapsed()
@@ -3020,14 +3274,15 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     elapsed()
 
-    _t, flag32_img = run_path("flagship-fp32", cornell_box_scene, counts(dense_trace=2), "fp32")
+    _t, flag32_img, _aux = run_path("flagship-fp32", cornell_box_scene,
+                                        counts(dense_trace=2), "fp32")
     from low_precision_raytracer_tpu_torch.utils.image import psnr, ssim
 
     a, b = flag_img.float().cpu().numpy(), flag32_img.float().cpu().numpy()
     log(f"parity flagship 1080p frame {PATH_FRAMES} (seed 0), bf16 vs fp32: "
         f"PSNR {psnr(a, b):.3f} dB, SSIM {ssim(a, b):.5f}")
     del flag_img, a
-    psnrs = reference_phase(cornell_box_scene, REF_FRAMES, "fp32")
+    psnrs, _agree = reference_phase(cornell_box_scene, REF_FRAMES, "fp32")
     log(f"reference flagship-fp32: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
         + " ".join(f"{p:.2f}" for p in psnrs))
     elapsed()
@@ -3040,12 +3295,13 @@ def main(argv) -> int:
     reports16 = kernel_phase(calls, names=("dense_trace",), tag=" fp16")
     del calls
     torch.cuda.empty_cache()
-    _t, flag16_img = run_path("flagship-fp16", cornell_box_scene, counts(dense_trace=2), "fp16")
+    _t, flag16_img, _aux = run_path("flagship-fp16", cornell_box_scene,
+                                        counts(dense_trace=2), "fp16")
     a = flag16_img.float().cpu().numpy()
     log(f"parity flagship 1080p frame {PATH_FRAMES} (seed 0), fp16 vs fp32: "
         f"PSNR {psnr(a, b):.3f} dB, SSIM {ssim(a, b):.5f}")
     del flag16_img, flag32_img, a, b
-    psnrs = reference_phase(cornell_box_scene, REF_FRAMES, "fp16")
+    psnrs, _agree = reference_phase(cornell_box_scene, REF_FRAMES, "fp16")
     log(f"reference flagship-fp16: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
         + " ".join(f"{p:.2f}" for p in psnrs))
     elapsed()
@@ -3129,7 +3385,7 @@ def main(argv) -> int:
         wavefront_assigned=lambda got: got["wavefront_assigned"] >= got["wavefront_schedule"])
     run_path("colonnade-83k-rounds", colonnade_83k, rounds_counts, frames_n=4,
              wavefront_mode="rounds")
-    psnrs = reference_phase(colonnade_83k, 2, wavefront_mode="rounds")
+    psnrs, _agree = reference_phase(colonnade_83k, 2, wavefront_mode="rounds")
     log(f"reference colonnade-83k rounds: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
         + " ".join(f"{p:.2f}" for p in psnrs))
     log("rounds vs oneshot, colonnade-83k 1080p wavefront launches (ms): " + json.dumps(

@@ -177,10 +177,14 @@ class CameraObject(Object):
 
 @dataclass
 class LightObject(Object):
-    """Punctual light node."""
+    """Punctual light node.  The cone angles and the range are loaded from
+    glTF and not rendered: a spot light renders as a point light."""
 
     light_type: int = LIGHT_POINT
     intensity: np.ndarray = field(default_factory=lambda: np.ones(3, np.float32))
+    inner_cone_angle: float = 0.0
+    outer_cone_angle: float = np.pi / 4
+    maximum_distance: float = 1e5
 
 
 @dataclass

@@ -5,16 +5,15 @@
   state (numpy);
 - :class:`SceneArrays` — load-time device tensors the dense path, the
   G-buffer and shade read (per-triangle attribute rows, material table,
-  the quad-packed skybox);
+  the texture atlas, the quad-packed skybox);
 - :class:`FrameInput` — per-frame device tensors: object transforms and
   world AABBs, lights, camera, sky scalars, and the world-space
   coefficient table with its per-chunk and per-leaf AABBs (morton-ordered
   above one chunk, as in the JAX package): the dense route reads the
   chunks, the packet BVH (K6) the leaves.
 
-The BLAS/TLAS and texture-atlas fields of the JAX package are not here:
-the port's traces read no per-mesh BVH (the XLA walk is ROADMAP queue 1
-item 7), and scenes with textures are refused (item 5).
+The BLAS/TLAS fields of the JAX package are not here: the port's traces
+read no per-mesh BVH (the XLA walk is ROADMAP queue 1 item 7).
 
 `scene_from_numpy` carries the JAX package's leaves across (as numpy
 arrays), so a test can run both packages on exactly the same tables.
@@ -111,7 +110,8 @@ class HostScene:
 
     meshes: list = field(default_factory=list)
     materials: list = field(default_factory=list)
-    textures: list = field(default_factory=list)
+    textures: list = field(default_factory=list)  # (H, W, 4) uint8 RGBA arrays
+    texture_srgb: list = field(default_factory=list)  # one bool per texture
     root: Object = field(default_factory=Object)
     active_camera: CameraObject | None = None
     skybox: Skybox | None = None
@@ -137,6 +137,25 @@ class SceneArrays:
     mat_metallic: torch.Tensor  # (M,) dtype
     mat_roughness: torch.Tensor  # (M,) dtype
     mat_double_sided: torch.Tensor  # (M,) bool
+    mat_tex_color: torch.Tensor  # (M,) i32 atlas texture id, NO_TEX = -1
+    mat_uv_color: torch.Tensor  # (M,) i32 uv set
+    # loaded but never sampled, as in the JAX package: shade reads only
+    # the base-colour texture
+    mat_tex_emission: torch.Tensor  # (M,) i32
+    mat_uv_emission: torch.Tensor
+    mat_tex_mr: torch.Tensor
+    mat_uv_mr: torch.Tensor
+    mat_channel_roughness: torch.Tensor
+    mat_channel_metallic: torch.Tensor
+    # texture atlas: every texture's RGBA texels, row-major, one after the
+    # other; texture k starts at texel tex_offset[k].  Without textures one
+    # zero texel, and a real atlas of one texel gets a zero texel more, so
+    # `ops/texture.py:has_textures` (tex_data rows > 1) tells them apart
+    tex_data: torch.Tensor  # (N, 4) uint8
+    tex_offset: torch.Tensor  # (K,) i32
+    tex_width: torch.Tensor  # (K,) i32
+    tex_height: torch.Tensor  # (K,) i32
+    tex_srgb: torch.Tensor  # (K,) bool
     # skybox: the panorama and its quad-packed bilinear footprint rows in
     # the render dtype, row (y, x) = [(y,x), (y,x+1 wrap), (y+1 clamp,x),
     # (y+1 clamp,x+1 wrap)] x RGB; a (1, 1, 3) zero panorama without sky
@@ -427,6 +446,30 @@ def _to_tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device)
 
 
+def _texture_atlas(host: HostScene) -> dict:
+    """The flat RGBA atlas of the host's textures (RGB ones get alpha 255)
+    and its per-texture offset, size and sRGB flag, as numpy arrays."""
+    if not host.textures:
+        return dict(tex_data=np.zeros((1, 4), np.uint8), tex_offset=np.zeros(1, np.int32),
+                    tex_width=np.ones(1, np.int32), tex_height=np.ones(1, np.int32),
+                    tex_srgb=np.zeros(1, np.bool_))
+    flat, offsets, off = [], [], 0
+    for t in host.textures:
+        t = np.asarray(t, np.uint8).reshape(t.shape[0], t.shape[1], -1)
+        if t.shape[2] == 3:
+            t = np.concatenate([t, np.full((*t.shape[:2], 1), 255, np.uint8)], axis=2)
+        offsets.append(off)
+        flat.append(t.reshape(-1, 4))
+        off += t.shape[0] * t.shape[1]
+    tex_data = np.concatenate(flat)
+    if tex_data.shape[0] == 1:  # one texel in all: keep it apart from the placeholder
+        tex_data = np.concatenate([tex_data, np.zeros((1, 4), np.uint8)])
+    return dict(tex_data=tex_data, tex_offset=np.array(offsets, np.int32),
+                tex_width=np.array([t.shape[1] for t in host.textures], np.int32),
+                tex_height=np.array([t.shape[0] for t in host.textures], np.int32),
+                tex_srgb=np.array(host.texture_srgb, np.bool_))
+
+
 def build_scene_arrays(host: HostScene, prec: Precision | str, device) -> SceneArrays:
     """Flatten host meshes/materials into device tensors."""
     prec = get_precision(prec)
@@ -448,6 +491,7 @@ def build_scene_arrays(host: HostScene, prec: Precision | str, device) -> SceneA
     per_vert = np.concatenate([pos, nrm, tan, col, uv0, uv1], axis=1)  # (V, 16)
     tri_attr = per_vert[tri_idx].reshape(n_tris, 48).astype(np.float32)
     mats = pack_materials(host.materials)
+    atlas = _texture_atlas(host)
     sky_valid = host.skybox is not None
     sky_data = (np.asarray(host.skybox.data, np.float32) if sky_valid
                 else np.zeros((1, 1, 3), np.float32))
@@ -464,6 +508,10 @@ def build_scene_arrays(host: HostScene, prec: Precision | str, device) -> SceneA
         mat_metallic=as_dt(mats["metallic"]),
         mat_roughness=as_dt(mats["roughness"]),
         mat_double_sided=_to_tensor(mats["double_sided"], device),
+        **{f"mat_{k}": _to_tensor(mats[k], device)
+           for k in ("tex_color", "uv_color", "tex_emission", "uv_emission", "tex_mr",
+                     "uv_mr", "channel_roughness", "channel_metallic")},
+        **{k: _to_tensor(a, device) for k, a in atlas.items()},
         sky_data=_to_tensor(sky_data, device),
         sky_quad=as_dt(sky_quad),
         n_meshes=len(meshes),

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from low_precision_raytracer_tpu_torch.math.vec import normalize
+from low_precision_raytracer_tpu_torch.ops.texture import has_textures
 from low_precision_raytracer_tpu_torch.ops.trace import Hit, trace
 
 
@@ -22,7 +23,8 @@ def _finish_world(l2w, position, normal, tangent):
 
 def interpolate_hit_attributes(scene, frame, hit: Hit, dtype):
     """Barycentric attribute interpolation + local-to-world transform in
-    `dtype` (misses read triangle/object 0; callers mask them)."""
+    `dtype` (misses read triangle/object 0; callers mask them).  The uv
+    sets are interpolated only in a scene with textures (else None)."""
     dt = dtype
     u = hit.u.to(dt)[..., None]
     v = hit.v.to(dt)[..., None]
@@ -30,8 +32,9 @@ def interpolate_hit_attributes(scene, frame, hit: Hit, dtype):
     tri = torch.clamp(hit.tri, min=0).long()
     obj = torch.clamp(hit.obj, min=0).long()
     a = scene.tri_attr[tri].to(dt)  # (R, 48): 3 vertices x 16 attributes
-    # position, normal, tangent, colour of each vertex (the uv sets wait)
-    attr = u * a[:, 0:12] + v * a[:, 16:28] + w * a[:, 32:44]
+    # position, normal, tangent, colour (and the uv sets) of each vertex
+    k = 16 if has_textures(scene) else 12
+    attr = u * a[:, 0:k] + v * a[:, 16:16 + k] + w * a[:, 32:32 + k]
     # f32 attributes read the f32 L2W copy; a dtype matrix would
     # re-quantize the world transform itself
     l2w_tab = frame.obj_l2w_f32 if dt == torch.float32 else frame.obj_l2w
@@ -43,6 +46,8 @@ def interpolate_hit_attributes(scene, frame, hit: Hit, dtype):
         normal=normal,
         tangent=tangent,
         color=attr[:, 9:12],
+        uv0=attr[:, 12:14] if k == 16 else None,
+        uv1=attr[:, 14:16] if k == 16 else None,
         material=frame.obj_material[obj],
         obj=hit.obj,
         tri=hit.tri,
@@ -76,6 +81,9 @@ def fill_gbuffer(scene, frame, origins, directions, *, cfg, prec, di_lights=None
         depth=torch.where(valid, hit.t, 0.0).to(attr_dt),
         t=hit.t,
     )
+    if attrs["uv0"] is not None:
+        for k in ("uv0", "uv1"):
+            g[k] = torch.where(vz, attrs[k], torch.zeros_like(attrs[k]))
     if di_lights is not None:
         g["di_vis"] = vis
     return g, hit

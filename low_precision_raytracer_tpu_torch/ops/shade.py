@@ -8,8 +8,9 @@ emission/ambient intensity, the GI bounce ray with its BRDF multiplier
 Shading computes in f32 (`cfg.shade_f32`).  The 7*R GI uniforms of a
 round with GI are one f32 draw, passed in by the caller (`uniforms`), so
 tests can feed the JAX package's draws.  With a skybox, `di_sky` carries
-the sky radiance of the pixels no surface covers.  Scenes with textures
-are refused before this stage runs.
+the sky radiance of the pixels no surface covers.  In a scene with
+textures the base colour comes from the material's base-colour texture
+(where it has one) at the uv set it names, on every round.
 """
 
 from __future__ import annotations
@@ -29,7 +30,11 @@ from low_precision_raytracer_tpu_torch.ops.sampling import (
     tangent_to_world,
     uniform_hemisphere_trig,
 )
-from low_precision_raytracer_tpu_torch.ops.texture import sample_skybox
+from low_precision_raytracer_tpu_torch.ops.texture import (
+    has_textures,
+    sample_skybox,
+    sample_texture,
+)
 
 SHADE_INVALID = 0
 SHADE_COMMON = 1
@@ -48,6 +53,9 @@ class ShadeInput(NamedTuple):
     # f32 hit position o32 + t * d32: the light-geometry anchor (None ->
     # position in f32)
     position_f32: torch.Tensor | None = None
+    # (R, 2) uv sets: None in a scene without textures
+    uv0: torch.Tensor | None = None
+    uv1: torch.Tensor | None = None
 
 
 class LightCommands(NamedTuple):
@@ -78,6 +86,8 @@ def gbuffer_to_shade_input(g, position_f32=None) -> ShadeInput:
         normal=g["normal"],
         tangent=g["tangent"],
         color=g["color"],
+        uv0=g.get("uv0"),
+        uv1=g.get("uv1"),
         material=g["material"],
         obj=g["obj"],
         tri=g["tri"],
@@ -92,6 +102,8 @@ def _gather_material(scene, mid):
         metallic=scene.mat_metallic[mid],
         roughness=scene.mat_roughness[mid],
         double_sided=scene.mat_double_sided[mid],
+        tex_color=scene.mat_tex_color[mid],
+        uv_color=scene.mat_uv_color[mid],
     )
 
 
@@ -128,7 +140,15 @@ def shade(scene, frame, sinput: ShadeInput, view_dir, *, cfg: RenderConfig,
     for k in ("color", "emission", "metallic", "roughness"):
         mat[k] = mat[k].to(dt)
 
-    color = mat["color"] * sinput.color
+    # base colour: the texture (where the material has one) replaces the
+    # factor, then the vertex colour multiplies
+    color = mat["color"]
+    if has_textures(scene):
+        tex_uv = torch.where((mat["uv_color"] == 0)[:, None], sinput.uv0.to(dt),
+                             sinput.uv1.to(dt))
+        tex_rgba = sample_texture(scene, mat["tex_color"], tex_uv)
+        color = torch.where((mat["tex_color"] >= 0)[:, None], tex_rgba[:, :3].to(dt), color)
+    color = color * sinput.color
 
     # N, V; double-sided flip or reject
     raw_normal = sinput.normal

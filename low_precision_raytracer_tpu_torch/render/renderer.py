@@ -120,6 +120,8 @@ def _gi_shade_input(scene, frame, shade_out, hit, prec):
         normal=attrs["normal"],
         tangent=attrs["tangent"],
         color=attrs["color"],
+        uv0=attrs["uv0"],
+        uv1=attrs["uv1"],
         material=attrs["material"],
         obj=torch.clamp(hit.obj, min=0),
         tri=torch.clamp(hit.tri, min=0),
@@ -361,8 +363,6 @@ class Renderer:
     def __init__(self, host_scene: HostScene, cfg: RenderConfig, device=None,
                  seed: int = 0):
         check_supported(cfg)
-        if host_scene.textures:
-            raise NotImplementedError("textured scenes wait (ROADMAP queue 1 item 5)")
         self.host = host_scene
         self.device = resolve_device(device)
         self.scene = build_scene_arrays(host_scene, cfg.prec, self.device)

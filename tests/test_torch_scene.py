@@ -213,17 +213,18 @@ def test_widened_band_row_cap(precision, fallback, impl, widened):
 
 
 def test_uncovered_scenes_raise():
-    """Textured scenes, scenes that 'auto' sends to the XLA BVH walk (above
-    packet_bvh_max_tris) and a-trous strides above 16 are refused; a
-    two-chunk scene (130 instance triangles), a skybox, di_fuse='off', the
-    per-ray wavefront (K5, here on colonnade-830 with its threshold
-    lowered) in both its modes, the morton sort keys and the packet BVH
-    (K6, with packet_bvh_min_tris lowered) are covered."""
+    """Scenes that 'auto' sends to the XLA BVH walk (above
+    packet_bvh_max_tris) and a-trous strides above 16 are refused; a scene
+    with a texture, a two-chunk scene (130 instance triangles), a skybox,
+    di_fuse='off', the per-ray wavefront (K5, here on colonnade-830 with
+    its threshold lowered) in both its modes, the morton sort keys and the
+    packet BVH (K6, with packet_bvh_min_tris lowered) are covered."""
     cfg = RenderConfig(width=8, height=8, precision="bf16")
     host = cornell_box_scene()
     host.textures = [np.zeros((2, 2, 4), np.uint8)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer(host, cfg, device="cpu")
+    host.texture_srgb = [True]
+    img, _aux = Renderer(host, cfg, device="cpu").render()
+    assert bool(torch.isfinite(img).all())
     with pytest.raises(NotImplementedError, match=r"XLA BVH walk.*ROADMAP queue 1 item 7\)"):
         Renderer(sponza_like_scene(3, 1), RenderConfig(
             width=8, height=8, precision="bf16", packet_bvh_min_tris=600,
