@@ -160,6 +160,30 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
     launches, the last two sorted) on the card against the plain versions
     on the CPU, 4 frames.  At 2M rows the CPU plain path (an all-pairs
     test) would take hours, so the reference runs on the smaller scene;
+14a. the two-level BVH walk (`traversal_impl='jax'`, csrc/bvh_walk.cu):
+    colonnade-2M on the walk, 3 frames (per frame the walk 3: the
+    primary, round 0's shadows and GI bounce as one closest-hit launch,
+    round 1's shadows; K3 1, K4 5, K2 from frame 1), its frame ms printed
+    beside K6's; the walk kernel phase (`walk_kernel_phase`): colonnade-8M
+    (`sponza_like_scene(10, 6)`, 8,193,202 instance triangles in 201
+    objects: no coefficient table, 'auto' resolves to the walk), the
+    Renderer's host build timed (the BLAS by the native builder, the
+    first TLAS), two warm-up frames record its three walk launches; each
+    is timed with its per-ray counts (steps, triangle tests, objects
+    entered: p50/p90/p99/max steps per live ray, the bound from them) and
+    held bit for bit (t, u, v, ids, counts) against the plain version on
+    2,048 rays of each kind (primary, round-0 shadows, GI bounce, round-1
+    shadows) among those walking at most WALK_CAP steps, the share under
+    the cap printed; then colonnade-5k (`sponza_like_scene()`) under
+    'jax', each kind held on 2^16 rays with no step cap, the 4,096 longest
+    walks among them (the sun's zero-axis rays, ~1,500 steps), the largest
+    held step count printed beside the kind's; Cornell under 'jax' in
+    bf16, fp16 and fp32, 'both' and 'dtype', each launch held on 2^16
+    rays; the colonnade-8M
+    path phase, 8 frames (the walk 3 a frame); a 64x64 card render of
+    colonnade-830 (`sponza_like_scene(3, 1)`) under 'jax' against the CPU,
+    2 frames; one flagship frame on the all-pairs route
+    (`traversal_impl='dense'`, plain PyTorch);
 15. fp32 flagship kernel phase: K1a with the f32 'both' band (and its
     fused shadow phase) on the two 1080p launches of the fp32 flagship,
     held against its plain version on every ray (t, u, v, tri, obj, vis
@@ -264,13 +288,14 @@ phase, max error against the plain version, time, plain time, the least
 time the work could take on the card and what bounds it; K1b's times are
 those of its bf16 Sponza-class launches, its colonnade-83k and -328k
 launches are on their own lines; K6's are the mean of its four
-colonnade-2M launches) and the nvidia-smi line; the last line is
+colonnade-2M launches, the walk's of its three colonnade-8M launches) and
+the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}.  The `kernels` line also has K1a's and
 K1b's packed forms (their times from phase 24) and the tool's two bodies
 (NCHUNK = 1; launches from phase 26).  Frame times, and K1b's, K4's,
 K6's and the schedule's times per launch, print beside the previous
-tree's (`PREV_*`).  About 13-14 minutes on an H100, most of it the plain
-versions' holds of phases 12 and 19.
+tree's (`PREV_*`).  About 16 minutes on an H100, most of it the plain
+versions' holds of phases 12, 14a and 19.
 """
 
 from __future__ import annotations
@@ -296,6 +321,8 @@ BIG_BAND_FRAMES = 3  # frames of the band path phases above the old 8,192-triang
 CHECK_RAYS = 1 << 18  # K1b: rays per launch held against the plain version
 BIG_CHECK = 1 << 16  # colonnade-83k: rays or lanes held against the plain versions
 HUGE_CHECK = 1 << 12  # colonnade-2M: rays per K6 launch held against the plain version
+WALK_2M_FRAMES = 3  # colonnade-2M on the BVH walk
+WALK_REF_FRAMES = 2  # the walk route's 64x64 reference
 # H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s
 # outside the tensor cores (exp/sqrt/div counted as one operation each)
 HBM_BPS = 3.35e12
@@ -348,6 +375,9 @@ KERNELS = {  # wrapper name -> (source, TPU kernel it replaces)
                          TPU + "dense_pallas.py:130"),
     "dense_trace_multi_pack": ("low_precision_raytracer_tpu_torch/csrc/dense_multi.cu",
                                TPU + "dense_pallas.py:130"),
+    # the JAX package's XLA walk (`trace_rays`), not a Pallas kernel
+    "bvh_walk": ("low_precision_raytracer_tpu_torch/csrc/bvh_walk.cu",
+                 TPU + "traversal.py:79"),
     # the Q2.4 measurement tool's two bodies
     "mxu_proto_vpu": ("low_precision_raytracer_tpu_torch/csrc/mxu_proto.cu",
                       "tools/bench_mxu_proto.py:31"),
@@ -1107,7 +1137,7 @@ def path_phase(cuda_lib, scene_fn, want_fn, precision="bf16", frames_n=PATH_FRAM
 
 
 def report_path(name, frames, peak_gib, totals):
-    steady = frames[2:]
+    steady = frames[2:] or frames
     frame_ms = statistics.median(f["ms"] for f in steady)
     flatten_ms = statistics.median(f["flatten_ms"] for f in steady)
     n_rays = statistics.median(f["n_rays"] for f in steady)
@@ -1117,7 +1147,8 @@ def report_path(name, frames, peak_gib, totals):
     fetch = (f"texture fetch ms per frame {statistics.median(f['fetch_ms'] for f in steady):.4f}"
              f" ({steady[0]['fetch_calls']} calls; bytes bound "
              f"{steady[0]['fetch_bound_ms']:.4f})  " if "fetch_ms" in frames[0] else "")
-    log(f"path {name}: frame_ms(median of frames 3-{len(frames)}) {frame_ms:.3f}{prev}  "
+    log(f"path {name}: frame_ms(median of frames {len(frames) - len(steady) + 1}-{len(frames)}) "
+        f"{frame_ms:.3f}{prev}  "
         f"{fetch}flatten_ms {flatten_ms:.4f} (frame 0 {frames[0]['flatten_ms']:.3f})  "
         f"Mrays/s {n_rays / frame_ms / 1e3:.3f}  n_rays {n_rays}  "
         f"peak memory {peak_gib:.3f} GiB  fetch per frame {branches} (K: K2, t: the plain "
@@ -2689,6 +2720,248 @@ def k6_phase(launches, leaves, scene="colonnade-2M", chunks=None, check_rays=HUG
                 scan_ms=mean("scan_ms"), launches=per)
 
 
+# ---------------------------------------------------------------------------
+# the two-level BVH walk (traversal_impl='jax'; ops/traversal.py,
+# csrc/bvh_walk.cu)
+
+WALK_CHECK = 2048  # colonnade-8M: rays of each held slice
+WALK_CHECK_SMALL = 1 << 16  # Cornell, colonnade-5k: rays of each held slice
+# colonnade-8M's held rays are a strided sample of those whose walk takes
+# at most this many steps: the plain loop steps every held lane together,
+# ~9 ms an iteration on the card, and a sun ray of colonnade-8M takes up
+# to ~70,000 steps; the share of rays under the cap is printed.  The long
+# zero-axis walks are held on colonnade-5k, uncapped (its longest ~1,500
+# steps), its slices joined by each kind's WALK_CHECK_SMALL // 16 longest
+WALK_CAP = 1024
+# per step a slab test (BOX_TEST_OPS); per triangle the dtype test's f32
+# operations: O 3, the x / y rows 20, Oz / Dz 10, t 3, t Dx / t Dy 2, u v
+# 2, the four error sums 32, error_u / error_v 14, w 2, compares 12 (the
+# f32 re-test inside the band not counted); per object entered the
+# transform 40
+WALK_TRI_OPS = 100
+WALK_ENTER_OPS = 40
+# what a walk with no cache would read: a node's box and links (24 + 20
+# bytes) per step, a triangle's id and dtype row (4 + 48) per test
+WALK_NODE_BYTES = 44
+WALK_TRI_BYTES = 52
+
+
+def colonnade_8m():
+    from low_precision_raytracer_tpu_torch.models.procedural import sponza_like_scene
+
+    return sponza_like_scene(10, 6)
+
+
+def capture_walk_launches(renderer, frames):
+    """Render `frames` frames; -> the last frame's walk launches in order,
+    [(args, kwargs)] of `ops/traversal.py:trace_rays`."""
+    from low_precision_raytracer_tpu_torch.ops import trace
+
+    calls = []
+    orig = trace.trace_rays
+
+    def rec(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+
+    try:
+        trace.trace_rays = rec
+        for _ in range(frames):
+            calls.clear()
+            renderer.render()
+    finally:
+        trace.trace_rays = orig
+    return list(calls)
+
+
+def walk_slices(renderer, launches):
+    """The held kinds of a frame's walk launches (the routes that never
+    reorder: the primary, round 0's shadows and GI bounce as one
+    closest-hit launch of L + 1 lanes a pixel, lane-major, round 1's
+    shadows): -> [(kind, launch index, first ray, end ray)]."""
+    R = renderer.cfg.width * renderer.cfg.height
+    L = launches[2][0][2].shape[0] // R
+    kinds = [("primary", 0, 0, R), ("shadow0", 1, 0, L * R), ("gi", 1, L * R, (L + 1) * R),
+             ("shadow1", 2, 0, L * R)]
+    got = [kw.get("find_any", False) for _a, kw in launches]
+    if got != [False, False, True] or launches[1][0][2].shape[0] != (L + 1) * R:
+        raise AssertionError(f"walk launches (find_any) {got}, want primary, round 0 "
+                             "(L + 1 lanes), round 1 shadows")
+    return kinds
+
+
+def walk_phase(scene, renderer, launches, check=WALK_CHECK, reps=3, cap=WALK_CAP, top=0):
+    """The walk kernel on each recorded launch: timed (CUDA events), its
+    per-ray counts read (with the warps' efficiency, the share of a warp's
+    lane-steps that walk, and the live rays split by an exact zero
+    direction component), and held bit for bit (t, u, v bits, ids and the
+    counts) against the plain version on each kind's slice of `check` rays
+    (a strided sample of the rays taking at most `cap` steps, all rays when
+    `cap` is None, joined by the kind's `top` longest walks), the kinds of
+    one launch in one plain call (`plain_ms`: the mean of those calls);
+    each held slice prints its largest step count beside the kind's.  The
+    bound
+    from the counts: the slab tests, triangle tests and transforms over
+    f32 peak, the rays, the outputs and the tables once over HBM; beside
+    it the bytes a walk without cache would read.  -> report."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops.traversal import (
+        N_STATS,
+        trace_rays,
+        trace_rays_plain,
+    )
+
+    per, held, plains = [], [], []
+    kinds = walk_slices(renderer, launches)
+    for i, (args, kw) in enumerate(launches):
+        scene_t, frame = args[0], args[1]
+        R = args[2].shape[0]
+        dev = args[2].device
+        st = torch.zeros((R, N_STATS), dtype=torch.int32, device=dev)
+        out = trace_rays(*args, **kw, stats=st)
+        torch.cuda.synchronize()
+        steps = (st[:, 0] + st[:, 1]).double()
+        tables = nbytes(*(getattr(scene_t, k) for k in (
+            "blas_lo", "blas_hi", "blas_parent", "blas_lc", "blas_rc", "blas_leaf_offset",
+            "blas_leaf_count", "blas_prim", "blas_root", "tri_v2", "tri_m", "tri_v2_f32",
+            "tri_m_f32")), frame.obj_w2l, frame.obj_mesh, frame.tlas_lo, frame.tlas_hi,
+            frame.tlas_parent)
+        ray_bytes = R * (3 * 4 * 2 + 4 + 4 + 4) + nbytes(*out)
+        n_steps, n_tri, n_enter = float(steps.sum()), float(st[:, 2].double().sum()), \
+            float(st[:, 3].double().sum())
+        n_ops = n_steps * BOX_TEST_OPS + n_tri * WALK_TRI_OPS + n_enter * WALK_ENTER_OPS
+        b_ms, b_by = bound_ms(tables + ray_bytes, n_ops)
+        ms = cuda_ms(lambda: trace_rays(*args, **kw), reps)
+        maxd = kw["max_dist"]
+        live = (torch.as_tensor(maxd, device=dev) > torch.as_tensor(kw["min_dist"], device=dev)
+                ).expand(R)
+        # divergence: the steps a warp of 32 consecutive rays runs are its
+        # longest ray's; the share of those lane-steps doing work
+        pad = (-R) % 32
+        warps = torch.nn.functional.pad(steps, (0, pad)).view(-1, 32)
+        zero = (args[3] == 0).any(dim=1) & live
+        split = {name: dict(rays=int(m.sum()), mean_steps=float(steps[m].mean()),
+                            mean_objects_entered=float(st[m, 3].double().mean()))
+                 for name, m in (("zero_axis", zero), ("other", live & ~zero)) if m.any()}
+        rec = dict(launch=i, rays=R, live=int(live.sum()), hits=int((out[3] >= 0).sum()),
+                   find_any=kw.get("find_any", False), ms=ms, bound_ms=b_ms, bound_by=b_by,
+                   ratio=ms / b_ms, steps=n_steps, tri_tests=n_tri, objects_entered=n_enter,
+                   warp_efficiency=n_steps / (32 * float(warps.max(dim=1).values.sum())),
+                   live_rays_by_direction=split,
+                   steps_per_live_ray=_quantiles(steps[live].float()),
+                   mean_steps_per_live_ray=float(steps[live].mean()),
+                   cacheless_bytes_ms=(n_steps * WALK_NODE_BYTES + n_tri * WALK_TRI_BYTES)
+                   / HBM_BPS * 1e3, max_abs_err=0.0)
+        per.append(rec)
+        log(f"kernel bvh_walk {scene} launch {i}: {json.dumps(rec)}")
+        mine = [(kind, a, b) for kind, li, a, b in kinds if li == i]
+        sels = []
+        for _kind, a, b in mine:
+            rng = torch.arange(a, b, device=dev)
+            ok = rng if cap is None else rng[steps[a:b] <= cap]
+            sel = ok[torch.arange(0, ok.numel(), max(1, ok.numel() // check),
+                                  device=dev)[:check - top]]
+            if top:
+                sel = torch.unique(torch.cat([sel, a + torch.topk(steps[a:b], top).indices]))
+            sels.append(sel)
+        # one plain call holds every kind of the launch: it takes as many
+        # iterations as its longest held walk has steps, whatever the lanes
+        sel = torch.cat(sels)
+        pick = lambda x: x[sel] if torch.is_tensor(x) and x.dim() > 0 else x
+        pkw = {k: pick(v) for k, v in kw.items()}
+        pst = torch.zeros((sel.numel(), N_STATS), dtype=torch.int32, device=dev)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ref = trace_rays_plain(scene_t, frame, args[2][sel], args[3][sel], **pkw, stats=pst)
+        e1.record()
+        e1.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+        plains.append(plain_ms)
+        bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+        n0 = 0
+        for (kind, a, b), ks in zip(mine, sels):
+            part = slice(n0, n0 + ks.numel())
+            n0 += ks.numel()
+            for name, x, y in zip(("t", "u", "v", "tri", "obj", "counts"), (*out, st),
+                                  (*ref, pst)):
+                if not torch.equal(bits(x[ks]), bits(y[part])):
+                    raise AssertionError(f"bvh_walk {scene} {kind}: {name} differs from the "
+                                         f"plain version")
+            held_steps = pst[part, 0] + pst[part, 1]
+            held_zero = (args[3][ks] == 0).any(dim=1)
+            h = dict(kind=kind, rays=b - a, held=int(ks.numel()), cap=cap,
+                     share_under_cap=1.0 if cap is None else
+                     float((steps[a:b] <= cap).float().mean()),
+                     plain_ms_launch=plain_ms,
+                     max_held_steps=int(held_steps.max()) if ks.numel() else 0,
+                     max_steps=int(steps[a:b].max()),
+                     held_zero_axis=int(held_zero.sum()),
+                     max_held_steps_zero_axis=int(held_steps[held_zero].max())
+                     if held_zero.any() else 0,
+                     steps_per_live_ray=_quantiles(steps[a:b][live[a:b]].float()),
+                     zero_axis_rays=int((args[3][a:b] == 0).any(dim=1).sum()))
+            held.append(h)
+            log(f"kernel bvh_walk {scene} {kind} held: {json.dumps(h)}")
+    mean = lambda k: statistics.fmean(p[k] for p in per)
+    return dict(max_abs_err=0.0, ms=mean("ms"), plain_ms=statistics.fmean(plains),
+                bound_ms=mean("bound_ms"),
+                bound_by=max(per, key=lambda p: p["bound_ms"])["bound_by"], launches=per,
+                held=held)
+
+
+def walk_kernel_phase():
+    """colonnade-8M (bf16, 1080p): the Renderer's host build (the BLAS by
+    the native builder, the first TLAS), then the walk held on the
+    launches of a warm frame (`walk_phase`); colonnade-5k under
+    traversal_impl='jax' (bf16, 1080p), held with no step cap; Cornell under
+    traversal_impl='jax' in bf16, fp16 and fp32, 'both' and 'dtype', held
+    on every kind of its launches.  -> colonnade-8M's report."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.models import scene as S
+    from low_precision_raytracer_tpu_torch.models.procedural import (
+        cornell_box_scene,
+        sponza_like_scene,
+    )
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    t0 = time.perf_counter()
+    warm = Renderer(colonnade_8m(), RenderConfig(width=W, height=H, precision="bf16"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if warm.cfg.traversal_impl != "jax" or warm.frame.dense_n is not None:
+        raise AssertionError(f"colonnade-8M resolved to {warm.cfg.traversal_impl!r}")
+    log(f"colonnade-8M: {S.instance_tris(warm.frame)} instance triangles in "
+        f"{len(warm.frame.obj_layout)} objects, {warm.scene.tri_v2.shape[0]} triangles on the "
+        f"host, {warm.scene.blas_parent.shape[0]} BLAS nodes, "
+        f"{warm.frame.tlas_parent.shape[0]} TLAS nodes; host seconds: Renderer {build_s:.3f} "
+        f"(BLAS build, native {S.HOST_SECONDS['blas']:.4f}; first TLAS build "
+        f"{S.HOST_SECONDS['tlas']:.6f})")
+    launches = capture_walk_launches(warm, 2)
+    report = walk_phase("colonnade-8M", warm, launches)
+    del warm, launches
+    torch.cuda.empty_cache()
+    # the long zero-axis walks (the sun's rays enter every box their y and
+    # z slabs cross), uncapped, on colonnade-5k
+    r = Renderer(sponza_like_scene(), RenderConfig(width=W, height=H, precision="bf16",
+                                                   traversal_impl="jax"))
+    walk_phase("colonnade-5k", r, capture_walk_launches(r, 2), check=WALK_CHECK_SMALL, cap=None,
+               top=WALK_CHECK_SMALL // 16)
+    del r
+    for precision in ("bf16", "fp16", "fp32"):
+        for fallback in ("both", "dtype"):
+            r = Renderer(cornell_box_scene(), RenderConfig(
+                width=W, height=H, precision=precision, traversal_impl="jax",
+                triangle_fallback=fallback))
+            walk_phase(f"cornell-{precision}-{fallback}", r, capture_walk_launches(r, 1),
+                       check=WALK_CHECK_SMALL, reps=3)
+            del r
+    torch.cuda.empty_cache()
+    return report
+
+
 def colonnade_328k():
     from low_precision_raytracer_tpu_torch.models.procedural import sponza_like_scene
 
@@ -3130,10 +3403,13 @@ def main(argv) -> int:
     # ... by acceptance: "fp32", "fp16" ('auto'), "<precision>-<fallback>"
     group_totals = {}
 
+    path_ms = {}  # the median frame ms of each path phase
+
     def run_path(name, scene_fn, want_fn, precision="bf16", **kw):
         p_totals, p_frames, p_peak, img, aux = path_phase(cuda_lib, scene_fn, want_fn,
                                                           precision, **kw)
         report_path(name, p_frames, p_peak, p_totals)
+        path_ms[name] = statistics.median(f["ms"] for f in (p_frames[2:] or p_frames))
         group = f"{precision}-{kw['triangle_fallback']}" if "triangle_fallback" in kw \
             else precision
         g_totals = group_totals.setdefault(group, dict.fromkeys(cuda_lib.LAUNCHES, 0))
@@ -3150,7 +3426,7 @@ def main(argv) -> int:
         base = {"dense_trace": 0, "dense_trace_multi": 0, "temporal_accum": 1,
                 "wavelet_iter": 5, "wavefront_schedule": 0, "wavefront_assigned": 0,
                 "packet_trace": 0, "dense_trace_pack": 0, "dense_trace_multi_pack": 0,
-                "mxu_proto_vpu": 0, "mxu_proto_mxu": 0, "band_scan": 0}
+                "mxu_proto_vpu": 0, "mxu_proto_mxu": 0, "band_scan": 0, "bvh_walk": 0}
         return lambda f: {**base, "coef_fetch": 1 if f > 0 else 0, **kw}
 
     # ---- the flagship (Cornell): K1a, K2, K3, K4
@@ -3262,6 +3538,23 @@ def main(argv) -> int:
     psnrs, _agree = reference_phase(sponza_like_scene, SPONZA_REF_FRAMES, traversal_impl="pallas")
     log(f"reference packet route (colonnade-5k): {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU "
         "PSNR dB " + " ".join(f"{p:.2f}" for p in psnrs))
+    # the same scene on the two-level BVH walk, beside K6's frames
+    run_path("colonnade-2M-walk", colonnade_2m, counts(bvh_walk=3), frames_n=WALK_2M_FRAMES,
+             traversal_impl="jax")
+    log(f"colonnade-2M 1080p bf16 frame ms: BVH walk {path_ms['colonnade-2M-walk']:.3f}, "
+        f"packet BVH (K6) {path_ms['colonnade-2M']:.3f}")
+    elapsed()
+
+    # ---- colonnade-8M: above packet_bvh_max_tris, 'auto' takes the BVH walk
+    reports["bvh_walk"] = walk_kernel_phase()
+    elapsed()
+    run_path("colonnade-8M", colonnade_8m, counts(bvh_walk=3))
+    psnrs, _agree = reference_phase(lambda: sponza_like_scene(3, 1), WALK_REF_FRAMES,
+                                    traversal_impl="jax")
+    log(f"reference walk route (colonnade-830, traversal_impl='jax'): {REF_SIZE}x{REF_SIZE} "
+        "card vs plain-on-CPU PSNR dB " + " ".join(f"{p:.2f}" for p in psnrs))
+    # the all-pairs route (plain PyTorch): one Cornell frame
+    run_path("flagship-dense", cornell_box_scene, counts(), frames_n=1, traversal_impl="dense")
     elapsed()
 
     # ---- fp32 (the f32 'both' band): the flagship's K1a

@@ -115,7 +115,8 @@ class RenderConfig:
     # 'auto' resolves per scene as the JAX package does on the TPU: the
     # dense route ('dense_pallas') up to packet_bvh_min_tris instance
     # triangles, the packet BVH ('pallas') up to packet_bvh_max_tris, the
-    # XLA walk ('jax', not ported) above
+    # two-level BVH walk ('jax', ops/traversal.py) above; 'dense' is the
+    # all-pairs route (ops/dense.py), taken only when named
     traversal_impl: str = "auto"
     packet_bvh_min_tris: int = 1 << 20
     packet_bvh_max_tris: int = 4 << 20
@@ -148,6 +149,8 @@ class RenderConfig:
         if self.max_bounces < 1:
             raise ValueError("max_bounces counts the primary shade round")
         for name, allowed in (("triangle_fallback", ("auto", "both", "dtype", "mxu3")),
+                              ("traversal_impl", ("auto", "dense_pallas", "pallas", "jax",
+                                                  "dense")),
                               ("incoherent_sort", ("anchor", "beam", "origin", "none")),
                               ("incoherent_impl", ("tile", "wavefront")),
                               ("wavefront_mode", ("auto", "rounds", "oneshot")),
@@ -171,11 +174,6 @@ def check_supported(cfg: RenderConfig) -> None:
     if cfg.mesh is not None:
         raise NotImplementedError(
             "cfg.mesh: multiple GPUs wait (ROADMAP queue 1 item 10)")
-    if cfg.traversal_impl not in ("auto", "dense_pallas", "pallas"):
-        raise NotImplementedError(
-            f"traversal_impl={cfg.traversal_impl!r}: only the dense route and the "
-            "packet BVH are ported; the XLA BVH walk ('jax') and the XLA "
-            "all-pairs path ('dense') wait (ROADMAP queue 1 item 7)")
     if not cfg.shade_f32 or not cfg.svgf.state_f32:
         raise NotImplementedError(
             "shade_f32=False / state_f32=False ablations wait (ROADMAP queue 1 item 9)")

@@ -5,15 +5,19 @@
   state (numpy);
 - :class:`SceneArrays` — load-time device tensors the dense path, the
   G-buffer and shade read (per-triangle attribute rows, material table,
-  the texture atlas, the quad-packed skybox);
+  the texture atlas, the quad-packed skybox), and on the BVH walk's route
+  only (`walk=True`) its per-triangle M-shift data and packed BLAS
+  (`models/bvh.py`, LEAF_SIZE triangles a leaf);
 - :class:`FrameInput` — per-frame device tensors: object transforms and
-  world AABBs, lights, camera, sky scalars, and the world-space
-  coefficient table with its per-chunk and per-leaf AABBs (morton-ordered
-  above one chunk, as in the JAX package): the dense route reads the
-  chunks, the packet BVH (K6) the leaves.
+  world AABBs, lights, camera, sky scalars, on the walk's route the TLAS
+  over the objects (rebuilt when an object's world AABB changed, behind a
+  byte-keyed cache), and the world-space coefficient table with its per-chunk and
+  per-leaf AABBs (morton-ordered above one chunk, as in the JAX package):
+  the dense route reads the chunks, the packet BVH (K6) the leaves.  Above
+  DENSE_COEFF_MAX_TRIS instance triangles there is no table (its fields
+  are None), as in the JAX package: such scenes take the BVH walk.
 
-The BLAS/TLAS fields of the JAX package are not here: the port's traces
-read no per-mesh BVH (the XLA walk is ROADMAP queue 1 item 7).
+`HOST_SECONDS` keeps the host seconds of the last BLAS and TLAS builds.
 
 `scene_from_numpy` carries the JAX package's leaves across (as numpy
 arrays), so a test can run both packages on exactly the same tables.
@@ -21,6 +25,7 @@ arrays), so a test can run both packages on exactly the same tables.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field, fields
 
 import numpy as np
@@ -38,6 +43,13 @@ from low_precision_raytracer_tpu_torch.models.hierarchy import (
     Object,
     build_flat_scene,
 )
+from low_precision_raytracer_tpu_torch.models.bvh import (
+    LEAF_SIZE,
+    build_blas,
+    build_tlas,
+    bvh_aabbs_for_dtype,
+    pack_blas,
+)
 from low_precision_raytracer_tpu_torch.models.materials import pack_materials
 
 # triangles per kernel chunk in the JAX package's dense kernel; a scene
@@ -49,8 +61,11 @@ DENSE_MORTON = True
 # chunks and leaves share the table's padding)
 BVH_LEAF_TRIS = 32
 # the coefficient table's instance-triangle cap (covers packet_bvh_max_tris);
-# above it the JAX package builds no table and walks its XLA BVH
+# above it no table is built and the scene takes the BVH walk
 DENSE_COEFF_MAX_TRIS = 4 << 20
+# host seconds of the last BLAS build (build_scene_arrays) and the last TLAS
+# build (flatten_frame; a frame served from the TLAS cache builds none)
+HOST_SECONDS = {"blas": 0.0, "tlas": 0.0}
 
 
 @dataclass
@@ -161,19 +176,49 @@ class SceneArrays:
     # (y+1 clamp,x+1 wrap)] x RGB; a (1, 1, 3) zero panorama without sky
     sky_data: torch.Tensor  # (h, w, 3) f32
     sky_quad: torch.Tensor  # (h*w, 12) dtype
+    # the BVH walk's tables, None off its route (`walk_arrays`).
+    # per-triangle M-shift data: the third vertex and the shear/inverse
+    # matrix, in the render dtype and their f32 shadows
+    tri_v2: torch.Tensor  # (T, 3) dtype
+    tri_v2_f32: torch.Tensor  # (T, 3) f32
+    tri_m: torch.Tensor  # (T, 3, 3) dtype
+    tri_m_f32: torch.Tensor  # (T, 3, 3) f32
+    # packed BLAS: every mesh's tree, global node ids (roots' parents -1),
+    # boxes widened to the render dtype
+    blas_lo: torch.Tensor  # (NB, 3) dtype
+    blas_hi: torch.Tensor  # (NB, 3) dtype
+    blas_parent: torch.Tensor  # (NB,) i32
+    blas_lc: torch.Tensor  # (NB,) i32
+    blas_rc: torch.Tensor  # (NB,) i32
+    blas_leaf_offset: torch.Tensor  # (NB,) i32
+    blas_leaf_count: torch.Tensor  # (NB,) i32 (0: an internal node)
+    blas_prim: torch.Tensor  # (P,) i32 global triangle ids in leaf order
+    blas_root: torch.Tensor  # (n_meshes,) i32
     n_meshes: int = 0  # static
     sky_valid: bool = False  # static
+    leaf_size: int = LEAF_SIZE  # static: the BLAS's triangles per leaf
 
 
 @dataclass(frozen=True)
 class FrameInput:
     obj_l2w: torch.Tensor  # (O, 4, 4) dtype
+    obj_w2l: torch.Tensor  # (O, 4, 4) dtype (the BVH walk's object transform)
     obj_l2w_f32: torch.Tensor  # (O, 4, 4) f32
     obj_w2l_f32: torch.Tensor  # (O, 4, 4) f32
     obj_mesh: torch.Tensor  # (O,) i32
     obj_material: torch.Tensor  # (O,) i32
     obj_aabb_lo: torch.Tensor  # (O, 3) f32 world AABBs
     obj_aabb_hi: torch.Tensor  # (O, 3) f32
+    # TLAS over the objects' world AABBs (leaf size 1, prim -> object id),
+    # boxes widened to the render dtype; None off the walk's route
+    tlas_lo: torch.Tensor  # (NT, 3) dtype
+    tlas_hi: torch.Tensor  # (NT, 3) dtype
+    tlas_parent: torch.Tensor  # (NT,) i32
+    tlas_lc: torch.Tensor  # (NT,) i32
+    tlas_rc: torch.Tensor  # (NT,) i32
+    tlas_leaf_offset: torch.Tensor  # (NT,) i32
+    tlas_leaf_count: torch.Tensor  # (NT,) i32
+    tlas_prim: torch.Tensor  # (O,) i32
     # lights, padded to max_direct_lights
     light_type: torch.Tensor  # (Lmax,) i32
     light_pos: torch.Tensor  # (Lmax, 3) dtype
@@ -191,7 +236,8 @@ class FrameInput:
     # dense route: per-instance-triangle world-space test coefficients,
     # rows n = m @ A (A = W2L linear part), offsets e = m.(b - v2) + n.c,
     # recentred at the scene centre c; the rows also rounded to the render
-    # dtype (the sub-f32 error-band tests' dtype rows)
+    # dtype (the sub-f32 error-band tests' dtype rows).  None, with the
+    # chunk and leaf AABBs, above DENSE_COEFF_MAX_TRIS
     dense_n: torch.Tensor  # (TI, 3, 3) dtype
     dense_n_f32: torch.Tensor  # (TI, 3, 3) f32
     dense_e: torch.Tensor  # (TI, 3) f32
@@ -213,7 +259,7 @@ class FrameInput:
     dense_morton: bool = False
 
 
-_STATIC = ("n_meshes", "sky_valid", "obj_layout", "n_lights", "dense_morton")
+_STATIC = ("n_meshes", "sky_valid", "leaf_size", "obj_layout", "n_lights", "dense_morton")
 
 
 def tensor_fields(cls) -> list[str]:
@@ -303,10 +349,12 @@ def _dense_coefficients(host: HostScene, flat: FlatScene, t_off, prec: Precision
     and offsets e = m.(b - v2) + n.c (recentred at the scene centre c).
 
     -> dict (dense_n, dense_n_f32, dense_e, dense_tri, dense_obj,
-    dense_center, dense_chunk_lo/hi, dense_leaf_lo/hi, dense_morton).  Above
-    one chunk the rows are sorted by the morton code of their world
-    centroids, so each 128-row chunk is a compact blob with a tight AABB;
-    single-chunk scenes keep object order.
+    dense_center, dense_chunk_lo/hi, dense_leaf_lo/hi, dense_morton), each
+    tensor None for a scene of no or more than DENSE_COEFF_MAX_TRIS
+    instance triangles (the JAX package's rule).  Above one chunk the rows
+    are sorted by the morton code of their world centroids, so each 128-row
+    chunk is a compact blob with a tight AABB; single-chunk scenes keep
+    object order.
 
     Two host caches keyed on transform bytes (exact) bound the per-frame
     cost, as in the JAX package:
@@ -321,10 +369,11 @@ def _dense_coefficients(host: HostScene, flat: FlatScene, t_off, prec: Precision
       frame does not use are dropped."""
     n_obj = flat.obj_mesh.shape[0]
     ti = int(np.sum(t_off[flat.obj_mesh + 1] - t_off[flat.obj_mesh]))
-    if ti > DENSE_COEFF_MAX_TRIS:
-        raise NotImplementedError(
-            f"{ti} instance triangles: above DENSE_COEFF_MAX_TRIS the JAX package "
-            "walks its XLA BVH, which is not ported (ROADMAP queue 1 item 7)")
+    if ti == 0 or ti > DENSE_COEFF_MAX_TRIS:
+        return dict(dense_n=None, dense_n_f32=None, dense_e=None, dense_tri=None,
+                    dense_obj=None, dense_center=None, dense_chunk_lo=None,
+                    dense_chunk_hi=None, dense_leaf_lo=None, dense_leaf_hi=None,
+                    dense_morton=False)
     cache = getattr(host, "_dense_cache", None)
     if cache is None or cache["n_tris"] != ti:
         cache = {"blocks": {}, "key": None, "out": None, "n_tris": ti}
@@ -470,8 +519,43 @@ def _texture_atlas(host: HostScene) -> dict:
                 tex_srgb=np.array(host.texture_srgb, np.bool_))
 
 
-def build_scene_arrays(host: HostScene, prec: Precision | str, device) -> SceneArrays:
-    """Flatten host meshes/materials into device tensors."""
+WALK_SCENE_FIELDS = ("tri_v2", "tri_v2_f32", "tri_m", "tri_m_f32", "blas_lo", "blas_hi",
+                     "blas_parent", "blas_lc", "blas_rc", "blas_leaf_offset",
+                     "blas_leaf_count", "blas_prim", "blas_root")
+TLAS_FIELDS = ("tlas_lo", "tlas_hi", "tlas_parent", "tlas_lc", "tlas_rc", "tlas_leaf_offset",
+               "tlas_leaf_count", "tlas_prim")
+
+
+def walk_arrays(host: HostScene, prec: Precision | str, device) -> dict:
+    """The BVH walk's scene tables (WALK_SCENE_FIELDS): the per-triangle
+    M-shift rows and the packed BLAS of LEAF_SIZE triangles a leaf, its
+    boxes widened to the render dtype; the build's host seconds go to
+    HOST_SECONDS["blas"]."""
+    dt = get_precision(prec).dtype
+    meshes = host.meshes
+    m_f32, v2_f32, _ = _host_m_cache(host)
+    t0 = time.perf_counter()
+    t_off = np.cumsum([0] + [m.n_triangles for m in meshes]).astype(np.int32)
+    blas = pack_blas([build_blas(m.positions, m.indices, leaf_size=LEAF_SIZE) for m in meshes],
+                     t_off[:-1])
+    blas_lo, blas_hi = bvh_aabbs_for_dtype(blas.aabb_lo, blas.aabb_hi, dt)
+    HOST_SECONDS["blas"] = time.perf_counter() - t0
+    as_dt = lambda x: _to_tensor(np.asarray(x, np.float32), device, dt)
+    return dict(
+        tri_v2=as_dt(v2_f32),
+        tri_v2_f32=_to_tensor(v2_f32, device),
+        tri_m=as_dt(m_f32),
+        tri_m_f32=_to_tensor(m_f32, device),
+        blas_lo=blas_lo.to(device),
+        blas_hi=blas_hi.to(device),
+        **{f"blas_{k}": _to_tensor(np.asarray(getattr(blas, k), np.int32), device)
+           for k in ("parent", "lc", "rc", "leaf_offset", "leaf_count", "prim", "root")})
+
+
+def build_scene_arrays(host: HostScene, prec: Precision | str, device,
+                       walk: bool = False) -> SceneArrays:
+    """Flatten host meshes/materials into device tensors; with `walk` also
+    the BVH walk's tables (`walk_arrays`), else those fields are None."""
     prec = get_precision(prec)
     dt = prec.dtype
     meshes = host.meshes
@@ -514,6 +598,7 @@ def build_scene_arrays(host: HostScene, prec: Precision | str, device) -> SceneA
         **{k: _to_tensor(a, device) for k, a in atlas.items()},
         sky_data=_to_tensor(sky_data, device),
         sky_quad=as_dt(sky_quad),
+        **(walk_arrays(host, prec, device) if walk else dict.fromkeys(WALK_SCENE_FIELDS)),
         n_meshes=len(meshes),
         sky_valid=sky_valid,
     )
@@ -527,11 +612,13 @@ def flatten_frame(
     width: int | None = None,
     height: int | None = None,
     time: float = 0.0,
+    walk: bool = False,
 ) -> FrameInput:
     """Host flatten of the hierarchy at `time` -> device FrameInput.  An
     animated scene (or any `time` != 0) samples its animation first; the
     coefficient table and its boxes are rebuilt only when an object moved
-    (`_dense_coefficients`)."""
+    (`_dense_coefficients`).  With `walk` the frame carries the TLAS
+    (`_tlas`), else its fields are None."""
     prec = get_precision(prec)
     dt = prec.dtype
     if host.animated or time != 0.0:
@@ -561,18 +648,26 @@ def flatten_frame(
     m = flat.obj_mesh
     obj_layout = tuple(zip(m.tolist(), t_off[m].tolist(), t_off[m + 1].tolist()))
     dense = _dense_coefficients(host, flat, t_off, prec, device)
+    tlas = {}
+    if walk:
+        tree, (lo, hi) = _tlas(host, flat, dt)
+        tlas = dict(tlas_lo=(lo, dt), tlas_hi=(hi, dt),
+                    **{f"tlas_{k}": (getattr(tree, k), torch.int32)
+                       for k in ("parent", "lc", "rc", "leaf_offset", "leaf_count", "prim")})
     sky = host.skybox
 
     f32, i32 = torch.float32, torch.int32
     a32 = lambda x: np.asarray(x, np.float32)
     fields = _upload(dict(
         obj_l2w=(flat.obj_l2w, dt),
+        obj_w2l=(flat.obj_w2l, dt),
         obj_l2w_f32=(flat.obj_l2w, f32),
         obj_w2l_f32=(flat.obj_w2l, f32),
         obj_mesh=(flat.obj_mesh, i32),
         obj_material=(flat.obj_material, i32),
         obj_aabb_lo=(flat.obj_aabb_lo, f32),
         obj_aabb_hi=(flat.obj_aabb_hi, f32),
+        **tlas,
         light_type=(lt, i32),
         light_pos=(lp, dt),
         light_dir=(ld, dt),
@@ -586,11 +681,30 @@ def flatten_frame(
         sky_exposure=(a32(sky.exposure if sky else 1.0), f32),
     ), device, cache=host.__dict__.setdefault("_upload_cache", {}).setdefault(str(device), {}))
     return FrameInput(
-        **fields,
+        **{**dict.fromkeys(TLAS_FIELDS), **fields},
         obj_layout=obj_layout,
         n_lights=int(k),
         **dense,
     )
+
+
+def _tlas(host: HostScene, flat: FlatScene, dt: torch.dtype):
+    """The TLAS over the objects' world AABBs and its boxes widened to
+    `dt` (f32 numpy values), rebuilt only when the boxes' bytes changed
+    (the JAX package's `_tlas_cache`); the build's host seconds go to
+    HOST_SECONDS["tlas"]."""
+    key = (flat.obj_aabb_lo.tobytes(), flat.obj_aabb_hi.tobytes())
+    cache = getattr(host, "_tlas_cache", None)
+    if cache is None or cache[0] != key:
+        t0 = time.perf_counter()
+        cache = (key, build_tlas(flat.obj_aabb_lo, flat.obj_aabb_hi), {})
+        HOST_SECONDS["tlas"] = time.perf_counter() - t0
+        host._tlas_cache = cache
+    tlas, boxes = cache[1], cache[2]
+    if dt not in boxes:
+        boxes[dt] = tuple(x.float().numpy()
+                          for x in bvh_aabbs_for_dtype(tlas.aabb_lo, tlas.aabb_hi, dt))
+    return tlas, boxes[dt]
 
 
 def scene_from_numpy(scene_np: dict, frame_np: dict, device):
@@ -598,11 +712,14 @@ def scene_from_numpy(scene_np: dict, frame_np: dict, device):
     as numpy arrays, keyed by field name.  Static fields come as plain
     Python values: `n_meshes` and `sky_valid` in scene_np, `obj_layout`,
     `n_lights` and `dense_morton` in frame_np (a missing one takes its
-    default).  Extra keys are ignored; bfloat16 arrays carry over bit for
-    bit."""
+    default); `leaf_size` in scene_np.  A None (the coefficient table of a
+    scene above DENSE_COEFF_MAX_TRIS, the walk's tables off its route)
+    stays None.  Extra keys are ignored;
+    bfloat16 arrays carry over bit for bit."""
 
     def build(cls, src):
-        kw = {f: _to_tensor(src[f], device) for f in tensor_fields(cls)}
+        kw = {f: None if src[f] is None else _to_tensor(src[f], device)
+              for f in tensor_fields(cls)}
         kw.update({f: src[f] for f in _STATIC if f in src and f in cls.__dataclass_fields__})
         return cls(**kw)
 

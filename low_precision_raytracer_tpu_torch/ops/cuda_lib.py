@@ -26,7 +26,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("dense_trace", "dense_multi", "svgf", "wavefront", "packet_trace", "mxu_proto")
+SOURCES = ("dense_trace", "dense_multi", "svgf", "wavefront", "packet_trace", "mxu_proto",
+           "bvh_walk")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no contraction into FMA: the kernels round like their plain versions
@@ -60,6 +61,9 @@ SIGNATURES = {
     "packet_trace": {
         "lprt_packet_trace": [P] * 14 + [I] * 7 + [F] * 3 + [P] * 6 + [P],
     },
+    "bvh_walk": {
+        "lprt_bvh_walk": [P] * 16 + [I] * 5 + [F] * 6 + [P] * 6 + [P],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -75,7 +79,9 @@ LAUNCHES = {"dense_trace": 0, "dense_trace_multi": 0, "coef_fetch": 0,
             "mxu_proto_vpu": 0, "mxu_proto_mxu": 0,
             # the all-row scan of a widened band: the walks' reference on
             # the card, on no render path (a render must leave it at 0)
-            "band_scan": 0}
+            "band_scan": 0,
+            # the two-level BVH walk (traversal_impl='jax')
+            "bvh_walk": 0}
 
 
 def reset_launches() -> None:

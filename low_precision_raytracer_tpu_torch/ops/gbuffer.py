@@ -61,9 +61,9 @@ def fill_gbuffer(scene, frame, origins, directions, *, cfg, prec, di_lights=None
     also returns round-0 shadow visibility in g["di_vis"]."""
     if di_lights is not None:
         hit, vis = trace(frame, origins, directions, cfg=cfg, prec=prec,
-                         di_lights=di_lights)
+                         di_lights=di_lights, scene=scene)
     else:
-        hit = trace(frame, origins, directions, cfg=cfg, prec=prec)
+        hit = trace(frame, origins, directions, cfg=cfg, prec=prec, scene=scene)
     attr_dt = torch.float32 if cfg.shade_f32 else prec.dtype
     attrs = interpolate_hit_attributes(scene, frame, hit, attr_dt)
     valid = hit.tri >= 0

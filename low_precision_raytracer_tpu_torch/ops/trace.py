@@ -1,13 +1,21 @@
-"""Trace dispatch (port of `low_precision_raytracer_tpu/ops/trace.py` for
-the dense route and the packet BVH).
+"""Trace dispatch (port of `low_precision_raytracer_tpu/ops/trace.py`).
 
 `resolve_impl` resolves `traversal_impl='auto'` as the JAX package does
 on the TPU: the dense route ('dense_pallas') up to `packet_bvh_min_tris`
 instance triangles, the packet BVH ('pallas') up to `packet_bvh_max_tris`,
-the XLA walk ('jax', refused: ROADMAP queue 1 item 7) above.  `trace`
-prepares the kernels' inputs (recentred rays, the coefficient table, the
-chunk or leaf AABBs, the light rows) the way the JAX wrappers prepare them
-outside their kernels, then dispatches as the JAX package does.
+the two-level BVH walk ('jax') above.  `trace` prepares the kernels'
+inputs (recentred rays, the coefficient table, the chunk or leaf AABBs,
+the light rows) the way the JAX wrappers prepare them outside their
+kernels, then dispatches as the JAX package does.
+
+The BVH walk ('jax', `ops/traversal.py`, the kernel `csrc/bvh_walk.cu`)
+and the all-pairs route ('dense', `ops/dense.py`, plain PyTorch) take
+`cfg.triangle_fallback` with 'mxu3' resolved to 'both' (`resolve_fallback`
+on these routes), the dtype epsilon on every secondary launch, no fused
+shadow phase and no reordering of incoherent launches, as in the JAX
+package.  The walk reads the scene's BLAS and triangle rows and the
+frame's TLAS, which are built only on that route (`walk=True`): `trace`
+takes the scene (`scene=`) there.
 
 The dense route:
 - closest-hit launches on single-chunk scenes (<= 128 instance
@@ -69,6 +77,7 @@ from low_precision_raytracer_tpu_torch.models.scene import (
     instance_tris,
 )
 from low_precision_raytracer_tpu_torch.ops.band_pad import band_pads
+from low_precision_raytracer_tpu_torch.ops.dense import trace_rays_dense
 from low_precision_raytracer_tpu_torch.ops.dense_trace import (
     CHUNK,
     KIND_STRICT,
@@ -91,6 +100,7 @@ from low_precision_raytracer_tpu_torch.ops.packet_trace import (
     packet_trace_sorted,
     walk_view,
 )
+from low_precision_raytracer_tpu_torch.ops.traversal import trace_rays
 from low_precision_raytracer_tpu_torch.ops.wavefront import trace_rays_wavefront
 
 TC = DENSE_CHUNK_TRIS
@@ -107,12 +117,13 @@ class Hit(NamedTuple):
     obj: torch.Tensor  # (R,) i32, -1 on a miss
 
 
-def resolve_fallback(fb: str, prec: Precision) -> str:
-    """'auto' -> 'mxu3' for sub-fp32 dtypes on the dense route; fp32 gets
-    the exact-reference 'both'."""
+def resolve_fallback(fb: str, prec: Precision, impl: str = "dense_pallas") -> str:
+    """'auto' -> 'mxu3' for sub-fp32 dtypes on the kernel routes ('mxu3'
+    exists only there); fp32 and the 'jax' / 'dense' routes get the
+    exact-reference 'both'."""
     if fb == "auto":
         fb = "mxu3"
-    if fb == "mxu3" and prec.is_f32:
+    if fb == "mxu3" and (prec.is_f32 or impl not in ("dense_pallas", "pallas")):
         return "both"
     return fb
 
@@ -121,10 +132,11 @@ def acceptance_band(frame: FrameInput, cfg: RenderConfig, prec: Precision) -> Ba
     """The acceptance every kernel of this route runs: the strict test for
     'mxu3'; for 'both' and 'dtype' the error band of the resolved route
     (the dense kernels' or the packet kernel's) in `prec`."""
-    fb = resolve_fallback(cfg.triangle_fallback, prec)
+    impl = resolve_impl(frame, cfg)
+    fb = resolve_fallback(cfg.triangle_fallback, prec, impl)
     if fb == "mxu3":
         return STRICT
-    if resolve_impl(frame, cfg) == "pallas":
+    if impl == "pallas":
         return packet_band(prec, fb)
     return dense_band(prec, fb)
 
@@ -137,12 +149,14 @@ def resolve_impl(frame: FrameInput, cfg: RenderConfig) -> str:
     ('dense' / 'jax', `ops/trace.py:34-38`) only because Mosaic has no f16
     type; the card has no such gap.  The port's fp16 computes what the JAX
     package computes with the route named (`traversal_impl='dense_pallas'`
-    or `'pallas'`)."""
+    or `'pallas'`).  A frame without a coefficient table (above
+    DENSE_COEFF_MAX_TRIS, which the default packet_bvh_max_tris equals)
+    takes the walk."""
     impl = cfg.traversal_impl
     if impl != "auto":
         return impl
     ti = instance_tris(frame)
-    if ti > 0:
+    if ti > 0 and frame.dense_n is not None:
         if ti <= cfg.packet_bvh_min_tris and len(frame.obj_layout) > 0:
             return "dense_pallas"
         if ti <= cfg.packet_bvh_max_tris:
@@ -171,9 +185,11 @@ def _sorted_route(frame: FrameInput, cfg: RenderConfig) -> bool:
     """Would an incoherent launch that does not go to the wavefront be
     sorted (the dense route's sorted K1b, the packet walk's sorted launch)?"""
     n_obj, ti = len(frame.obj_layout), instance_tris(frame)
-    if resolve_impl(frame, cfg) == "pallas":
+    impl = resolve_impl(frame, cfg)
+    if impl == "pallas":
         return n_obj > 1 and ti > PACKET_SORT_MIN_TRIS
-    return n_obj > 1 and ti > 4 * TC and cfg.incoherent_sort != "none"
+    return (impl == "dense_pallas" and n_obj > 1 and ti > 4 * TC
+            and cfg.incoherent_sort != "none")
 
 
 def incoherent_reorders(frame: FrameInput, cfg: RenderConfig, prec: Precision) -> bool:
@@ -207,7 +223,8 @@ def moveforward_eps(frame: FrameInput, cfg: RenderConfig, prec: Precision,
     exactly on the mxu3 dense route, so only the test's own t error needs
     clearing (`ray_moveforward_t_exact`); the wavefront re-quantizes its
     origins and keeps the dtype epsilon, and so does every launch of the
-    packet BVH (as in the JAX package, `ops/trace.py:135-136`)."""
+    packet BVH, the BVH walk and the all-pairs route (as in the JAX
+    package, `ops/trace.py:135-136`)."""
     if (prec.is_f32 or resolve_impl(frame, cfg) != "dense_pallas"
             or resolve_fallback(cfg.triangle_fallback, prec) != "mxu3"):
         return prec.ray_moveforward_t
@@ -226,15 +243,15 @@ def fused_moveforward(prec: Precision, band: Band) -> float:
 
 
 def check_scene(frame: FrameInput, cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for scenes whose route the port does not
-    cover: above `packet_bvh_max_tris`, 'auto' resolves to the XLA walk."""
+    """Raise ValueError when the scene's route reads the coefficient table
+    and the frame has none (above DENSE_COEFF_MAX_TRIS instance triangles,
+    where 'auto' takes the BVH walk, which needs no table)."""
     impl = resolve_impl(frame, cfg)
-    ti = instance_tris(frame)
-    if impl not in ("dense_pallas", "pallas"):
-        raise NotImplementedError(
-            f"{ti} instance triangles: 'auto' resolves to "
-            f"traversal_impl={impl!r}, the XLA BVH walk, which is not ported "
-            "(ROADMAP queue 1 item 7)")
+    if impl != "jax" and frame.dense_n is None:
+        raise ValueError(
+            f"traversal_impl={impl!r} reads the coefficient table, which a scene of "
+            f"{instance_tris(frame)} instance triangles does not have (above "
+            "DENSE_COEFF_MAX_TRIS); take traversal_impl='jax' or 'auto'")
 
 
 def _box_tables(boxes_lo, boxes_hi, frame: FrameInput, leaf: int):
@@ -300,16 +317,17 @@ def di_light_rows(frame: FrameInput, di_lights: dict) -> torch.Tensor:
 
 def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
           prec: Precision, find_any: bool = False, skip_tri=None, min_dist=0.0,
-          max_dist=1e5, coherent: bool = True, lane_k: int = 1, di_lights=None):
+          max_dist=1e5, coherent: bool = True, lane_k: int = 1, di_lights=None,
+          scene=None):
     """One trace launch.  -> Hit, or (Hit, vis (R,) i32) when `di_lights`
     asks for the fused shadow phase (single-chunk dense route only).
+    `scene` (the SceneArrays): needed on the BVH walk's route.
 
     `coherent=False` marks rays not in screen order (GI bounces, bounce
     shadows).  `lane_k=K`: the caller packed K command lanes per pixel,
     pixel-major (row i*K + l = pixel i's lane l); the launch runs them
     lane-major (K blocks of pixel-ordered rays, so the dead lanes of one
     light cluster) and returns them pixel-major."""
-    acc = acceptance_band(frame, cfg, prec)
     f32 = torch.float32
     dev = origins.device
     R = origins.shape[0]
@@ -326,10 +344,23 @@ def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
         t1 = lambda x: x.reshape(R0, K).T.reshape(R)
         hit = trace(frame, t3(origins), t3(directions), cfg=cfg, prec=prec,
                     find_any=find_any, skip_tri=t1(skip_tri), min_dist=t1(min_dist),
-                    max_dist=t1(max_dist), coherent=coherent)
+                    max_dist=t1(max_dist), coherent=coherent, scene=scene)
         return Hit(*(x.reshape(K, R0).T.reshape(R) for x in hit))
 
     impl = resolve_impl(frame, cfg)
+    if impl in ("jax", "dense"):
+        if di_lights is not None:
+            raise ValueError("the fused shadow phase rides single-chunk closest-hit launches")
+        kw = dict(prec=prec, find_any=find_any,
+                  fallback=resolve_fallback(cfg.triangle_fallback, prec, impl),
+                  skip_tri=skip_tri, min_dist=min_dist, max_dist=max_dist)
+        if impl == "dense":
+            return Hit(*trace_rays_dense(frame, origins, directions, **kw))
+        if scene is None or scene.blas_parent is None or frame.tlas_parent is None:
+            raise ValueError("the BVH walk ('jax') needs the scene (trace(..., scene=)) and "
+                             "its tables: build_scene_arrays / flatten_frame with walk=True")
+        return Hit(*trace_rays(scene, frame, origins, directions, **kw))
+    acc = acceptance_band(frame, cfg, prec)
     if di_lights is not None and (find_any or instance_tris(frame) > TC
                                   or impl != "dense_pallas"):
         raise ValueError("the fused shadow phase rides single-chunk closest-hit launches")
@@ -349,9 +380,6 @@ def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
                   else packet_trace)
         return Hit(*launch(*rays, lo, hi, find_any=find_any, band=acc, tree=tree, walk=walk,
                            pads=_band_pads(rays[5], tree, acc)))
-    if impl != "dense_pallas":
-        raise NotImplementedError(
-            f"traversal_impl={impl!r} is not ported (ROADMAP queue 1 item 7)")
     pack = use_pack(cfg, prec, find_any)
     if pack and di_lights is not None:
         raise ValueError("the packed epilogue has no fused shadow phase (di_fusible)")

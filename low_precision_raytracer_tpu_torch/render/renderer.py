@@ -23,7 +23,10 @@ multi-chunk, multi-object scene that is four launches, the primary, round
 incoherent): on K1b, the last two sorted by `anchor_key` (Sponza-class),
 or on the per-ray wavefront (colonnade-83k); on the packet BVH K6, the
 last two sorted by `morton_key` (colonnade-2M, above 2^20 instance
-triangles).  Sky radiance (`di_sky`) joins both rounds' intensity.
+triangles).  Routes that never reorder (the BVH walk above 4M instance
+triangles, colonnade-8M; the all-pairs route) run round 0's shadows and GI
+bounce as one closest-hit launch of L + 1 lanes a pixel: three launches.
+Sky radiance (`di_sky`) joins both rounds' intensity.
 """
 
 from __future__ import annotations
@@ -79,7 +82,7 @@ from low_precision_raytracer_tpu_torch.render.framestate import (
 )
 
 
-def _trace_di(frame, source, lights, skip_tri, cfg, prec, coherent=True):
+def _trace_di(scene, frame, source, lights, skip_tri, cfg, prec, coherent=True):
     """Any-hit shadow ray per (pixel, light) command; invalid slots get
     max_dist 0 and cost nothing.  -> di_intensity (R, L, 3) in the render
     dtype."""
@@ -95,7 +98,7 @@ def _trace_di(frame, source, lights, skip_tri, cfg, prec, coherent=True):
     skips = skip_tri[:, None].expand(R, L).reshape(R * L)
     hit = trace(frame, o, d, cfg=cfg, prec=prec, find_any=True, skip_tri=skips,
                 min_dist=moveforward_eps(frame, cfg, prec, coherent), max_dist=maxt,
-                coherent=coherent, lane_k=L)
+                coherent=coherent, lane_k=L, scene=scene)
     visible = hit.tri.reshape(R, L) < 0
     vis = (visible & lights.valid).to(dt)[..., None]
     return vis * lights.multiplier
@@ -156,7 +159,7 @@ def _trace_gi_fused_di(scene, frame, shade_out, cfg, prec, di_spec):
     hit, vis = trace(
         frame, shade_out.source, shade_out.gi_direction, cfg=cfg, prec=prec,
         skip_tri=shade_out.skip_tri, min_dist=moveforward_eps(frame, cfg, prec, False),
-        max_dist=maxt, di_lights=di_spec,
+        max_dist=maxt, di_lights=di_spec, scene=scene,
     )
     return _gi_shade_input(scene, frame, shade_out, hit, prec), vis
 
@@ -175,14 +178,14 @@ def _trace_di_gi(scene, frame, shade_out, cfg, prec, *, want_gi, coherent):
     lights = shade_out.lights
     eps = moveforward_eps(frame, cfg, prec, False)
     if not want_gi or L == 0 or (coherent and incoherent_reorders(frame, cfg, prec)):
-        di = _trace_di(frame, shade_out.source, lights, shade_out.skip_tri, cfg, prec,
+        di = _trace_di(scene, frame, shade_out.source, lights, shade_out.skip_tri, cfg, prec,
                        coherent=coherent)
         sin_next = None
         if want_gi:
             maxt = torch.where(shade_out.gi_valid, 1e5, 0.0).to(torch.float32)
             hit = trace(frame, shade_out.source, shade_out.gi_direction, cfg=cfg,
                         prec=prec, skip_tri=shade_out.skip_tri, min_dist=eps,
-                        max_dist=maxt, coherent=False)
+                        max_dist=maxt, coherent=False, scene=scene)
             sin_next = _gi_shade_input(scene, frame, shade_out, hit, prec)
         return di, sin_next
 
@@ -197,7 +200,7 @@ def _trace_di_gi(scene, frame, shade_out, cfg, prec, *, want_gi, coherent):
     maxt = torch.cat([maxt_sh, maxt_gi[:, None]], dim=1).reshape(R * K)
     skips = shade_out.skip_tri[:, None].expand(R, K).reshape(R * K)
     hit = trace(frame, o, d, cfg=cfg, prec=prec, skip_tri=skips, min_dist=eps,
-                max_dist=maxt, coherent=False, lane_k=K)
+                max_dist=maxt, coherent=False, lane_k=K, scene=scene)
     tri_rk = hit.tri.reshape(R, K)
     vis = ((tri_rk[:, :L] < 0) & lights.valid).to(prec.dtype)[..., None]
     hit_gi = Hit(*(x.reshape(R, K)[:, L] for x in hit))
@@ -228,7 +231,7 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
     f32 = torch.float32
     H, W = cfg.height, cfg.width
     R = H * W
-    dev = frame.dense_center.device
+    dev = frame.obj_l2w_f32.device
     # shade rounds that draw GI uniforms: all but the last
     gi_rounds = cfg.max_bounces - 1 if cfg.gi_on else 0
     taa = taa_active(cfg)
@@ -365,18 +368,23 @@ class Renderer:
         check_supported(cfg)
         self.host = host_scene
         self.device = resolve_device(device)
-        self.scene = build_scene_arrays(host_scene, cfg.prec, self.device)
         self.frame = self._flatten(cfg, 0.0)
         check_scene(self.frame, cfg)
         # bake the scene's route into the config, as the JAX Renderer does
         self.cfg = resolve_cfg(self.frame, cfg)
+        # the BVH walk's tables (BLAS, TLAS) only on its route
+        walk = self.cfg.traversal_impl == "jax"
+        self.scene = build_scene_arrays(host_scene, cfg.prec, self.device, walk=walk)
+        if walk and self.frame.tlas_parent is None:
+            self.frame = self._flatten(self.cfg, 0.0)
         self.state = init_frame_state(cfg, len(self.frame.obj_layout), self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
     def _flatten(self, cfg: RenderConfig, time: float):
         return flatten_frame(self.host, cfg.prec, self.device,
                              max_direct_lights=cfg.max_direct_lights,
-                             width=cfg.width, height=cfg.height, time=time)
+                             width=cfg.width, height=cfg.height, time=time,
+                             walk=cfg.traversal_impl == "jax")
 
     def render(self, time: float = 0.0, uniforms=None, taa_bits=None):
         """Flatten the scene at `time` (`self.frame` is then that frame's

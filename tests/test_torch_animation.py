@@ -74,16 +74,17 @@ def test_animated_frame_tables_match_jax(precision):
     port through its per-object and whole-frame caches: every table column
     equal to the JAX package's and to a fresh flatten."""
     port, ref = animated_cornell_scene(), jax_anim()
-    s_port = tscene.build_scene_arrays(port, precision, "cpu")
+    s_port = tscene.build_scene_arrays(port, precision, "cpu", walk=True)
     s_ref = jax_scene_arrays(ref, jax_precision(precision))
     prev = None
     for t in ANIM_TIMES:
-        f_port = tscene.flatten_frame(port, precision, "cpu", width=W, height=H, time=t)
+        f_port = tscene.flatten_frame(port, precision, "cpu", width=W, height=H, time=t,
+                                      walk=True)
         f_ref = jax_flatten(ref, jax_precision(precision), time=t, max_direct_lights=4,
                             width=W, height=H)
         _assert_tables_equal(s_port, f_port, s_ref, f_ref)
         fresh = tscene.flatten_frame(animated_cornell_scene(), precision, "cpu", width=W,
-                                     height=H, time=t)
+                                     height=H, time=t, walk=True)
         for name in tscene.tensor_fields(tscene.FrameInput):
             assert np.array_equal(_bits(getattr(f_port, name)), _bits(getattr(fresh, name)),
                                   equal_nan=True), (t, name)
@@ -127,17 +128,17 @@ def test_moved_object_matches_fresh_flatten():
     and whole-frame caches: each frame equals a fresh flatten of the moved
     scene, and the stacked object arrays are read-only."""
     host = sponza_like_scene(3, 1)
-    tscene.flatten_frame(host, "bf16", "cpu", width=W, height=H)
+    tscene.flatten_frame(host, "bf16", "cpu", width=W, height=H, walk=True)
     ball = host.root.search("ball1_1")
     for move in ("assign", "in_place"):
         if move == "assign":
             ball.translation = ball.translation + np.float32(0.25)
         else:
             ball.translation[1] -= np.float32(0.5)
-        cached = tscene.flatten_frame(host, "bf16", "cpu", width=W, height=H)
+        cached = tscene.flatten_frame(host, "bf16", "cpu", width=W, height=H, walk=True)
         fresh_host = sponza_like_scene(3, 1)
         fresh_host.root.search("ball1_1").translation = ball.translation.copy()
-        fresh = tscene.flatten_frame(fresh_host, "bf16", "cpu", width=W, height=H)
+        fresh = tscene.flatten_frame(fresh_host, "bf16", "cpu", width=W, height=H, walk=True)
         for name in tscene.tensor_fields(tscene.FrameInput):
             assert np.array_equal(_bits(getattr(cached, name)), _bits(getattr(fresh, name))), \
                 (move, name)

@@ -79,8 +79,9 @@ def test_fp16_tables_match_jax_bitwise(args):
     host_j = jax_cornell() if args is None else jax_sponza(*args)
     host_t = cornell_box_scene() if args is None else sponza_like_scene(*args)
     s_jax, f_jax = _jax_tables("fp16", host_j)
-    s = tscene.build_scene_arrays(host_t, "fp16", "cpu")
-    f = tscene.flatten_frame(host_t, "fp16", "cpu", max_direct_lights=4, width=64, height=48)
+    s = tscene.build_scene_arrays(host_t, "fp16", "cpu", walk=True)
+    f = tscene.flatten_frame(host_t, "fp16", "cpu", max_direct_lights=4, width=64, height=48,
+                             walk=True)
     _assert_tables_equal(s, f, s_jax, f_jax)
     assert f.dense_n.dtype == s.tri_attr.dtype == s.sky_quad.dtype == torch.float16
     assert bool((f.dense_n.float() != f.dense_n_f32).any())

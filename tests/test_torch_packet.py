@@ -28,6 +28,7 @@ accepted row), emulated here in PyTorch, equals the plain version's global
 leaves too.  Routes: `resolve_impl` and the gates that read it."""
 
 import torch_threads  # noqa: F401  (caps the CPU threads per test process)
+import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -579,8 +580,9 @@ def test_routes(setup):
 def test_auto_resolution():
     """'auto' on colonnade-5k (5,314 instance triangles): the dense route
     by default, the packet BVH once packet_bvh_min_tris is below the count
-    (the Renderer bakes it in), the XLA walk, refused, once
-    packet_bvh_max_tris is below it too."""
+    (the Renderer bakes it in), the BVH walk once packet_bvh_max_tris is
+    below it too; a frame without a coefficient table takes the walk under
+    'auto', and a route that reads the table is refused it."""
     tf = tscene.flatten_frame(sponza_like_scene(), "bf16", "cpu")
     base = RenderConfig(width=8, height=8, precision="bf16")
     assert resolve_impl(tf, base) == "dense_pallas"
@@ -595,5 +597,10 @@ def test_auto_resolution():
     xla = RenderConfig(width=8, height=8, precision="bf16", packet_bvh_min_tris=4000,
                        packet_bvh_max_tris=5000)
     assert resolve_impl(tf, xla) == "jax"
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 7\)"):
-        check_scene(tf, xla)
+    check_scene(tf, xla)  # the walk reads no coefficient table
+    bare = dataclasses.replace(tf, dense_n=None)
+    assert resolve_impl(bare, packet) == "jax"
+    check_scene(bare, packet)
+    with pytest.raises(ValueError, match="coefficient table"):
+        check_scene(bare, RenderConfig(width=8, height=8, precision="bf16",
+                                       traversal_impl="pallas"))

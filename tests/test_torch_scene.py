@@ -2,7 +2,8 @@
 equal the JAX package's tables leaf for leaf, bit for bit (morton order,
 chunk and leaf AABBs, the quad-packed sky); `scene_from_numpy` carries the JAX
 leaves across unchanged; the port imports no JAX; the entry points refuse
-what they do not cover."""
+what they do not cover and render what they do (the BVH walk and the
+all-pairs route among them)."""
 
 import torch_threads  # noqa: F401  (caps the CPU threads per test process)
 import subprocess
@@ -64,8 +65,9 @@ def test_host_copy_matches_jax_bitwise(precision):
     matrices, dense coefficients, materials) gives bit-identical tables."""
     s_jax, f_jax = _jax_tables(precision)
     host = cornell_box_scene()
-    s = tscene.build_scene_arrays(host, precision, "cpu")
-    f = tscene.flatten_frame(host, precision, "cpu", max_direct_lights=4, width=W, height=H)
+    s = tscene.build_scene_arrays(host, precision, "cpu", walk=True)
+    f = tscene.flatten_frame(host, precision, "cpu", max_direct_lights=4, width=W, height=H,
+                             walk=True)
     _assert_tables_equal(s, f, s_jax, f_jax)
     assert tscene.instance_tris(f) == 34
 
@@ -77,8 +79,9 @@ def test_sponza_tables_match_jax_bitwise(args):
     per-chunk AABBs, the quad-packed sky in bf16 and the sky scalars."""
     s_jax, f_jax = _jax_tables("bf16", jax_sponza(*args))
     host = sponza_like_scene(*args)
-    s = tscene.build_scene_arrays(host, "bf16", "cpu")
-    f = tscene.flatten_frame(host, "bf16", "cpu", max_direct_lights=4, width=W, height=H)
+    s = tscene.build_scene_arrays(host, "bf16", "cpu", walk=True)
+    f = tscene.flatten_frame(host, "bf16", "cpu", max_direct_lights=4, width=W, height=H,
+                             walk=True)
     _assert_tables_equal(s, f, s_jax, f_jax)
     ti = {(3, 1): 830, (4, 2): 5314, (8, 3): 82690}[args]
     assert tscene.instance_tris(f) == ti and f.dense_chunk_lo.shape == (-(-ti // 128), 3)
@@ -102,11 +105,23 @@ def test_leaf_aabbs_match_jax_bitwise(args):
 
 
 def test_coefficient_table_cap(monkeypatch):
-    """Above DENSE_COEFF_MAX_TRIS the JAX package builds no table (its XLA
-    walk takes over); the port refuses the scene instead."""
+    """Above DENSE_COEFF_MAX_TRIS no table is built (as in the JAX package),
+    'auto' resolves to the BVH walk, and the scene renders; a route that
+    reads the table is refused on such a frame."""
+    from low_precision_raytracer_tpu_torch.ops.trace import check_scene, resolve_impl
+
     monkeypatch.setattr(tscene, "DENSE_COEFF_MAX_TRIS", 100)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 7\)"):
-        tscene.flatten_frame(sponza_like_scene(2, 1), "bf16", "cpu")
+    f = tscene.flatten_frame(sponza_like_scene(2, 1), "bf16", "cpu")
+    assert tscene.instance_tris(f) > 100
+    assert f.dense_n is None and f.dense_chunk_lo is None and not f.dense_morton
+    cfg = RenderConfig(width=8, height=8, precision="bf16")
+    assert resolve_impl(f, cfg) == "jax"
+    r = Renderer(sponza_like_scene(2, 1), cfg, device="cpu")
+    assert r.cfg.traversal_impl == "jax" and r.frame.dense_n is None
+    img, _aux = r.render()
+    assert tuple(img.shape) == (8, 8, 3) and bool(torch.isfinite(img).all())
+    with pytest.raises(ValueError, match="coefficient table"):
+        check_scene(f, RenderConfig(width=8, height=8, precision="bf16", traversal_impl="pallas"))
 
 
 def test_scene_from_numpy_carries_jax_leaves():
@@ -158,15 +173,26 @@ def test_renderer_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("kw", [
     dict(shade_f32=False),
     dict(svgf=SVGFConfig(strides=(1, 2, 4, 8, 32))),
-    dict(traversal_impl="jax"),
     dict(svgf=SVGFConfig(sigma_n=127.5)),
     dict(svgf=SVGFConfig(state_f32=False)),
-    dict(traversal_impl="dense"),
 ])
 def test_uncovered_configs_raise(kw):
     cfg = RenderConfig(width=8, height=8, **{"precision": "bf16", **kw})
     with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \d+\)"):
         Renderer(cornell_box_scene(), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("impl", ["jax", "dense"])
+def test_walk_and_all_pairs_configs_render(impl):
+    """traversal_impl='jax' (the BVH walk) and 'dense' (the all-pairs
+    route) construct and render."""
+    cfg = RenderConfig(width=8, height=8, precision="bf16", traversal_impl=impl)
+    r = Renderer(cornell_box_scene(), cfg, device="cpu")
+    assert r.cfg.traversal_impl == impl
+    img, _aux = r.render()
+    assert tuple(img.shape) == (8, 8, 3) and bool(torch.isfinite(img).all())
+    with pytest.raises(ValueError, match="traversal_impl"):
+        RenderConfig(traversal_impl="xla")
 
 
 def test_animated_scene_and_taa_construct():
@@ -213,9 +239,8 @@ def test_widened_band_row_cap(precision, fallback, impl, widened):
 
 
 def test_uncovered_scenes_raise():
-    """Scenes that 'auto' sends to the XLA BVH walk (above
-    packet_bvh_max_tris) and a-trous strides above 16 are refused; a scene
-    with a texture, a two-chunk scene (130 instance triangles), a skybox,
+    """A-trous strides above 16 are refused; a scene that 'auto' sends to
+    the BVH walk (above packet_bvh_max_tris), a scene with a texture, a two-chunk scene (130 instance triangles), a skybox,
     di_fuse='off', the per-ray wavefront (K5, here on colonnade-830 with
     its threshold lowered) in both its modes, the morton sort keys and the
     packet BVH (K6, with packet_bvh_min_tris lowered) are covered."""
@@ -225,10 +250,11 @@ def test_uncovered_scenes_raise():
     host.texture_srgb = [True]
     img, _aux = Renderer(host, cfg, device="cpu").render()
     assert bool(torch.isfinite(img).all())
-    with pytest.raises(NotImplementedError, match=r"XLA BVH walk.*ROADMAP queue 1 item 7\)"):
-        Renderer(sponza_like_scene(3, 1), RenderConfig(
-            width=8, height=8, precision="bf16", packet_bvh_min_tris=600,
-            packet_bvh_max_tris=700), device="cpu")
+    walk = Renderer(sponza_like_scene(3, 1), RenderConfig(
+        width=8, height=8, precision="bf16", packet_bvh_min_tris=600,
+        packet_bvh_max_tris=700), device="cpu")
+    assert walk.cfg.traversal_impl == "jax"
+    assert bool(torch.isfinite(walk.render()[0]).all())
     for kw in (dict(packet_bvh_min_tris=600), dict(incoherent_sort="beam"),
                dict(incoherent_sort="origin")):
         img, _aux = Renderer(sponza_like_scene(3, 1), RenderConfig(
