@@ -168,18 +168,31 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
     (`sponza_like_scene(10, 6)`, 8,193,202 instance triangles in 201
     objects: no coefficient table, 'auto' resolves to the walk), the
     Renderer's host build timed (the BLAS by the native builder, the
-    first TLAS), two warm-up frames record its three walk launches; each
-    is timed with its per-ray counts (steps, triangle tests, objects
-    entered: p50/p90/p99/max steps per live ray, the bound from them) and
-    held bit for bit (t, u, v, ids, counts) against the plain version on
+    first TLAS), two warm-up frames record its three walk launches; on
+    each the walk (`trace_rays`: the short stack, dead rays unwalked, on
+    incoherent launches the live rays packed, the exact zero-axis rule on
+    BLAS boxes) and its reference, the walk's first form
+    (`trace_rays_reference`, on no render path), are timed in turns (on
+    incoherent launches the walk in place, the walk on rays sorted by
+    `morton_key` and the packing's `launch_order` too), each with its
+    per-ray counts (steps, triangle tests, objects
+    entered: p50/p90/p99/max steps per live ray, the warps' efficiency on
+    its launched order, the bound from them; the walk's dead rays count
+    0), and the walk is held bit for bit (t, u, v, ids) against the
+    reference on every ray; the reference (t, u, v, ids, counts) and the
+    walk (t, u, v, ids) are held bit for bit against the plain version on
     2,048 rays of each kind (primary, round-0 shadows, GI bounce, round-1
-    shadows) among those walking at most WALK_CAP steps, the share under
-    the cap printed; then colonnade-5k (`sponza_like_scene()`) under
-    'jax', each kind held on 2^16 rays with no step cap, the 4,096 longest
-    walks among them (the sun's zero-axis rays, ~1,500 steps), the largest
-    held step count printed beside the kind's; Cornell under 'jax' in
+    shadows) among those its counts take at most WALK_CAP steps, the share
+    under the cap printed; then colonnade-5k (`sponza_like_scene()`) under
+    'jax', each kind held on 2^16 rays with no step cap, its 4,096 longest
+    walks and its 4,096 longest zero-axis walks (the sun's rays, ~1,500
+    steps) among them, the largest held step count printed beside the
+    kind's (and required equal to it), and Cornell under 'jax' in
     bf16, fp16 and fp32, 'both' and 'dtype', each launch held on 2^16
-    rays; the colonnade-8M
+    rays: there both the reference and the walk against the plain
+    version, and the walk against the reference on every ray; colonnade-2M
+    under 'jax' (two frames' launches): the walk against the reference on
+    every ray, both timed; the colonnade-8M
     path phase, 8 frames (the walk 3 a frame); a 64x64 card render of
     colonnade-830 (`sponza_like_scene(3, 1)`) under 'jax' against the CPU,
     2 frames; one flagship frame on the all-pairs route
@@ -288,7 +301,8 @@ phase, max error against the plain version, time, plain time, the least
 time the work could take on the card and what bounds it; K1b's times are
 those of its bf16 Sponza-class launches, its colonnade-83k and -328k
 launches are on their own lines; K6's are the mean of its four
-colonnade-2M launches, the walk's of its three colonnade-8M launches) and
+colonnade-2M launches, the walk's and its reference's (`bvh_walk_ref`, on
+no path: 0 launches) of its three colonnade-8M launches) and
 the nvidia-smi line; the last line is
 {"ok": true, "device": {...}}.  The `kernels` line also has K1a's and
 K1b's packed forms (their times from phase 24) and the tool's two bodies
@@ -378,12 +392,19 @@ KERNELS = {  # wrapper name -> (source, TPU kernel it replaces)
     # the JAX package's XLA walk (`trace_rays`), not a Pallas kernel
     "bvh_walk": ("low_precision_raytracer_tpu_torch/csrc/bvh_walk.cu",
                  TPU + "traversal.py:79"),
+    # its first form, the walk's reference on the card: on no path
+    "bvh_walk_ref": ("low_precision_raytracer_tpu_torch/csrc/bvh_walk.cu",
+                     TPU + "traversal.py:79"),
     # the Q2.4 measurement tool's two bodies
     "mxu_proto_vpu": ("low_precision_raytracer_tpu_torch/csrc/mxu_proto.cu",
                       "tools/bench_mxu_proto.py:31"),
     "mxu_proto_mxu": ("low_precision_raytracer_tpu_torch/csrc/mxu_proto.cu",
                       "tools/bench_mxu_proto.py:103"),
 }
+
+
+# kernels of the kernels line that no render path runs (a reference)
+OFF_PATH = ("bvh_walk_ref",)
 
 
 def log(*a):
@@ -433,14 +454,16 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def load_beside(root):
-    """The K5, K3, K2 and K1a wrappers of an older checkout of this
-    repository at `root` (`git archive` of another commit), bound to that
-    checkout's own kernels (its csrc/, built into its own _build/), for
-    timing beside this tree's kernels on the same inputs.  Each wrapper
-    module is loaded with the older `ops/cuda_lib.py` standing in for this
-    tree's while it is imported; its other imports are this tree's.  ->
-    namespace(wavefront, svgf_kernels, dense_trace)."""
+def load_beside(root, modules=("wavefront", "svgf_kernels", "dense_trace"),
+                libs=("wavefront", "svgf", "dense_trace")):
+    """The K5, K3, K2 and K1a wrappers (`modules` of ops/, built from
+    `libs`) of an older checkout of this repository at `root` (`git
+    archive` of another commit), bound to that checkout's own kernels (its
+    csrc/, built into its own _build/), for timing beside this tree's
+    kernels on the same inputs.  Each wrapper module is loaded with the
+    older `ops/cuda_lib.py` standing in for this tree's while it is
+    imported; its other imports are this tree's.  -> namespace(wavefront,
+    svgf_kernels, dense_trace), one attribute a module."""
     import importlib.util
     import types
     from pathlib import Path
@@ -464,13 +487,12 @@ def load_beside(root):
     lib = load("beside_cuda_lib", pkg / "ops" / "cuda_lib.py")
     sys.modules[key] = ops_pkg.cuda_lib = lib
     try:
-        mods = {m: load(f"beside_{m}", pkg / "ops" / f"{m}.py")
-                for m in ("wavefront", "svgf_kernels", "dense_trace")}
+        mods = {m: load(f"beside_{m}", pkg / "ops" / f"{m}.py") for m in modules}
     finally:
         sys.modules[key] = ops_pkg.cuda_lib = own
     t0 = time.perf_counter()
-    lib.build_all(("wavefront", "svgf", "dense_trace"))
-    log(f"beside {root}: K5, K3, K2 and K1a built in {time.perf_counter() - t0:.2f} s")
+    lib.build_all(libs)
+    log(f"beside {root}: {', '.join(libs)} built in {time.perf_counter() - t0:.2f} s")
     return types.SimpleNamespace(**mods)
 
 
@@ -2790,133 +2812,258 @@ def walk_slices(renderer, launches):
     return kinds
 
 
-def walk_phase(scene, renderer, launches, check=WALK_CHECK, reps=3, cap=WALK_CAP, top=0):
-    """The walk kernel on each recorded launch: timed (CUDA events), its
-    per-ray counts read (with the warps' efficiency, the share of a warp's
-    lane-steps that walk, and the live rays split by an exact zero
-    direction component), and held bit for bit (t, u, v bits, ids and the
-    counts) against the plain version on each kind's slice of `check` rays
-    (a strided sample of the rays taking at most `cap` steps, all rays when
-    `cap` is None, joined by the kind's `top` longest walks), the kinds of
-    one launch in one plain call (`plain_ms`: the mean of those calls);
-    each held slice prints its largest step count beside the kind's.  The
-    bound
-    from the counts: the slab tests, triangle tests and transforms over
-    f32 peak, the rays, the outputs and the tables once over HBM; beside
-    it the bytes a walk without cache would read.  -> report."""
+def walk_counts(st, live, order=None):
+    """A walk launch's per-ray counts (R, N_STATS) read: -> (steps per ray
+    (double), a record of the sums, the steps per live ray, and the warps'
+    efficiency, the share of a warp's lane-steps that walk, the steps a warp
+    of 32 consecutively launched rays runs being its longest ray's;
+    `order`: the launched rays in launch order, else every ray in the
+    caller's)."""
+    import torch
+
+    steps = (st[:, 0] + st[:, 1]).double()
+    launched = steps if order is None else steps[order]
+    pad = (-launched.numel()) % 32
+    warps = torch.nn.functional.pad(launched, (0, pad)).view(-1, 32)
+    n_steps = float(steps.sum())
+    return steps, dict(
+        steps=n_steps, tri_tests=float(st[:, 2].double().sum()),
+        objects_entered=float(st[:, 3].double().sum()),
+        warp_efficiency=n_steps / max(1.0, 32 * float(warps.max(dim=1).values.sum())),
+        steps_per_live_ray=_quantiles(steps[live].float()),
+        mean_steps_per_live_ray=float(steps[live].mean()) if live.any() else 0.0)
+
+
+def walk_bound(counts, tables, ray_bytes):
+    """The bound from a walk's counts: the slab tests, triangle tests and
+    transforms over f32 peak, the rays, the outputs and the tables once
+    over HBM."""
+    n_ops = (counts["steps"] * BOX_TEST_OPS + counts["tri_tests"] * WALK_TRI_OPS
+             + counts["objects_entered"] * WALK_ENTER_OPS)
+    return bound_ms(tables + ray_bytes, n_ops)
+
+
+def walk_sorted(args, kw):
+    """The walk (`trace_rays`) on a launch's rays sorted by `morton_key` in
+    its 'beam' mode (dead rays last; a stable sort) and its results
+    scattered back, as `sorted_launch` sorts K1b's: the sort lever, on no
+    render path."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import morton_key
+    from low_precision_raytracer_tpu_torch.ops.traversal import _rays, trace_rays
+
+    o, d, skip, mind, maxd = _rays(args[2], args[3], kw.get("skip_tri"), kw["min_dist"],
+                                   kw["max_dist"], kw["prec"].dtype)
+    order = torch.sort(morton_key(o, d, live=maxd > mind, mode="beam"), stable=True).indices
+    outs = trace_rays(args[0], args[1], o[order], d[order],
+                      **{**kw, "skip_tri": skip[order], "min_dist": mind[order],
+                         "max_dist": maxd[order]})
+    back = []
+    for x in outs:
+        y = torch.empty_like(x)
+        y[order] = x
+        back.append(y)
+    return back
+
+
+def walk_phase(scene, renderer, launches, check=WALK_CHECK, reps=3, cap=WALK_CAP, top=0,
+               plain=True):
+    """The walk on each recorded launch beside its reference, its first
+    form (`trace_rays_reference`: the JAX machine, one thread a ray in the
+    caller's order, no rule): both timed in turns (a b b a, CUDA events),
+    on an incoherent launch (whose live rays the walk packs) with the walk
+    in place (`coherent=True`), the walk on the rays sorted
+    (`walk_sorted`, held bit for bit too) and the packing's `launch_order`
+    alone, so each lever's cost and gain show; their
+    per-ray counts read (steps p50 / p90 / p99 / max per live ray, triangle
+    tests, objects entered, the warps' efficiency on each one's launched
+    order, the live rays split by an exact zero direction component; the
+    walk's dead rays count 0), the bound from each one's counts; the walk
+    held bit for bit (t, u, v bits, ids) against the reference on every
+    ray.  The reference is held bit for bit (t, u, v, ids and the counts)
+    against the plain version on each kind's slice of `check` rays (a
+    strided sample of the rays its counts take at most `cap` steps, all
+    rays when `cap` is None, joined by the kind's `top` longest walks and
+    its `top` longest walks of rays with an exact zero direction axis), the
+    kinds of one launch in one plain call (`plain_ms`: the mean of those
+    calls); the walk is held against the same plain results too.  Each
+    held slice prints its largest step count beside the kind's.  `plain=False`: no hold against the plain version (the
+    whole-launch hold against the reference only).  -> (the walk's report,
+    the reference's)."""
     import torch
 
     from low_precision_raytracer_tpu_torch.ops.traversal import (
         N_STATS,
+        _rays,
+        launch_order,
         trace_rays,
         trace_rays_plain,
+        trace_rays_reference,
     )
 
     per, held, plains = [], [], []
     kinds = walk_slices(renderer, launches)
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
     for i, (args, kw) in enumerate(launches):
         scene_t, frame = args[0], args[1]
         R = args[2].shape[0]
         dev = args[2].device
-        st = torch.zeros((R, N_STATS), dtype=torch.int32, device=dev)
+        coherent = kw.get("coherent", True)
+        rkw = {k: v for k, v in kw.items() if k != "coherent"}
+        st_ref = torch.zeros((R, N_STATS), dtype=torch.int32, device=dev)
+        st = torch.full((R, N_STATS), -1, dtype=torch.int32, device=dev)
+        ref = trace_rays_reference(*args, **rkw, stats=st_ref)
         out = trace_rays(*args, **kw, stats=st)
         torch.cuda.synchronize()
-        steps = (st[:, 0] + st[:, 1]).double()
+        for name, x, y in zip(("t", "u", "v", "tri", "obj"), out, ref):
+            if not torch.equal(bits(x), bits(y)):
+                n_bad = int((bits(x) != bits(y)).sum())
+                raise AssertionError(f"bvh_walk {scene} launch {i}: {name} differs from the "
+                                     f"reference walk on {n_bad} of {R} rays")
         tables = nbytes(*(getattr(scene_t, k) for k in (
             "blas_lo", "blas_hi", "blas_parent", "blas_lc", "blas_rc", "blas_leaf_offset",
             "blas_leaf_count", "blas_prim", "blas_root", "tri_v2", "tri_m", "tri_v2_f32",
             "tri_m_f32")), frame.obj_w2l, frame.obj_mesh, frame.tlas_lo, frame.tlas_hi,
             frame.tlas_parent)
         ray_bytes = R * (3 * 4 * 2 + 4 + 4 + 4) + nbytes(*out)
-        n_steps, n_tri, n_enter = float(steps.sum()), float(st[:, 2].double().sum()), \
-            float(st[:, 3].double().sum())
-        n_ops = n_steps * BOX_TEST_OPS + n_tri * WALK_TRI_OPS + n_enter * WALK_ENTER_OPS
-        b_ms, b_by = bound_ms(tables + ray_bytes, n_ops)
-        ms = cuda_ms(lambda: trace_rays(*args, **kw), reps)
-        maxd = kw["max_dist"]
-        live = (torch.as_tensor(maxd, device=dev) > torch.as_tensor(kw["min_dist"], device=dev)
-                ).expand(R)
-        # divergence: the steps a warp of 32 consecutive rays runs are its
-        # longest ray's; the share of those lane-steps doing work
-        pad = (-R) % 32
-        warps = torch.nn.functional.pad(steps, (0, pad)).view(-1, 32)
+        prec = kw["prec"]
+        o_w, d_w, _skip, mind, maxd = _rays(args[2], args[3], kw.get("skip_tri"),
+                                            kw["min_dist"], kw["max_dist"], prec.dtype)
+        order = None if coherent else launch_order(mind, maxd).long()
+        live = maxd > mind
+        steps_ref, c_ref = walk_counts(st_ref, live)
+        steps, c_new = walk_counts(st, live, order)
+        b_ms, b_by = walk_bound(c_new, tables, ray_bytes)
+        rb_ms, rb_by = walk_bound(c_ref, tables, ray_bytes)
+        fns = [lambda: trace_rays(*args, **kw), lambda: trace_rays_reference(*args, **rkw)]
+        if not coherent:
+            for name, x, y in zip(("t", "u", "v", "tri", "obj"), walk_sorted(args, kw), ref):
+                if not torch.equal(bits(x), bits(y)):
+                    raise AssertionError(f"bvh_walk {scene} launch {i}, sorted: {name} "
+                                         "differs from the reference walk")
+            fns += [lambda: trace_rays(*args, **{**kw, "coherent": True}),
+                    lambda: walk_sorted(args, kw), lambda: launch_order(mind, maxd)]
+        samples = [statistics.fmean(x) for x in ab_ms(fns, reps, rounds=1)]
+        ms, ref_ms = samples[0], samples[1]
+        levers = {} if coherent else dict(in_place_ms=samples[2], sorted_ms=samples[3],
+                                          launch_order_ms=samples[4])
         zero = (args[3] == 0).any(dim=1) & live
-        split = {name: dict(rays=int(m.sum()), mean_steps=float(steps[m].mean()),
-                            mean_objects_entered=float(st[m, 3].double().mean()))
-                 for name, m in (("zero_axis", zero), ("other", live & ~zero)) if m.any()}
-        rec = dict(launch=i, rays=R, live=int(live.sum()), hits=int((out[3] >= 0).sum()),
-                   find_any=kw.get("find_any", False), ms=ms, bound_ms=b_ms, bound_by=b_by,
-                   ratio=ms / b_ms, steps=n_steps, tri_tests=n_tri, objects_entered=n_enter,
-                   warp_efficiency=n_steps / (32 * float(warps.max(dim=1).values.sum())),
-                   live_rays_by_direction=split,
-                   steps_per_live_ray=_quantiles(steps[live].float()),
-                   mean_steps_per_live_ray=float(steps[live].mean()),
-                   cacheless_bytes_ms=(n_steps * WALK_NODE_BYTES + n_tri * WALK_TRI_BYTES)
-                   / HBM_BPS * 1e3, max_abs_err=0.0)
+        split = lambda sts, stp: {
+            name: dict(rays=int(m.sum()), mean_steps=float(stp[m].mean()),
+                       mean_objects_entered=float(sts[m, 3].double().mean()))
+            for name, m in (("zero_axis", zero), ("other", live & ~zero)) if m.any()}
+        rec = dict(launch=i, rays=R, live=int(live.sum()), coherent=coherent,
+                   hits=int((out[3] >= 0).sum()), find_any=kw.get("find_any", False),
+                   ms=ms, ref_ms=ref_ms, speedup=ref_ms / ms, **levers,
+                   bound_ms=b_ms, bound_by=b_by,
+                   ratio=ms / b_ms, ref_bound_ms=rb_ms, ref_bound_by=rb_by, **c_new,
+                   live_rays_by_direction=split(st, steps),
+                   dead_rays_count_zero=bool((st[~live] == 0).all()),
+                   ref={**c_ref, "live_rays_by_direction": split(st_ref, steps_ref)},
+                   cacheless_bytes_ms=(c_new["steps"] * WALK_NODE_BYTES
+                                       + c_new["tri_tests"] * WALK_TRI_BYTES) / HBM_BPS * 1e3,
+                   held_against_reference="every ray", max_abs_err=0.0)
+        if not rec["dead_rays_count_zero"]:
+            raise AssertionError(f"bvh_walk {scene} launch {i}: a dead ray has counts")
         per.append(rec)
         log(f"kernel bvh_walk {scene} launch {i}: {json.dumps(rec)}")
+        if not plain:
+            continue
         mine = [(kind, a, b) for kind, li, a, b in kinds if li == i]
-        sels = []
+        sels, tops = [], []
         for _kind, a, b in mine:
             rng = torch.arange(a, b, device=dev)
-            ok = rng if cap is None else rng[steps[a:b] <= cap]
+            ok = rng if cap is None else rng[steps_ref[a:b] <= cap]
             sel = ok[torch.arange(0, ok.numel(), max(1, ok.numel() // check),
-                                  device=dev)[:check - top]]
+                                  device=dev)[:check - 2 * top]]
+            n_zero = int(zero[a:b].sum())
             if top:
-                sel = torch.unique(torch.cat([sel, a + torch.topk(steps[a:b], top).indices]))
+                # the kind's longest walks, and its longest zero-axis walks
+                longest = a + torch.topk(steps_ref[a:b], top).indices
+                zs = torch.where(zero[a:b], steps_ref[a:b], -1.0)
+                longest_zero = a + torch.topk(zs, min(top, n_zero)).indices
+                sel = torch.unique(torch.cat([sel, longest, longest_zero]))
+                tops.append((top, min(top, n_zero)))
+            else:
+                tops.append((0, 0))
             sels.append(sel)
         # one plain call holds every kind of the launch: it takes as many
         # iterations as its longest held walk has steps, whatever the lanes
         sel = torch.cat(sels)
         pick = lambda x: x[sel] if torch.is_tensor(x) and x.dim() > 0 else x
-        pkw = {k: pick(v) for k, v in kw.items()}
+        pkw = {k: pick(v) for k, v in rkw.items()}
         pst = torch.zeros((sel.numel(), N_STATS), dtype=torch.int32, device=dev)
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        ref = trace_rays_plain(scene_t, frame, args[2][sel], args[3][sel], **pkw, stats=pst)
+        plain_out = trace_rays_plain(scene_t, frame, args[2][sel], args[3][sel], **pkw,
+                                     stats=pst)
         e1.record()
         e1.synchronize()
         plain_ms = e0.elapsed_time(e1)
         plains.append(plain_ms)
-        bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
         n0 = 0
-        for (kind, a, b), ks in zip(mine, sels):
+        for (kind, a, b), ks, (n_top, n_top_zero) in zip(mine, sels, tops):
             part = slice(n0, n0 + ks.numel())
             n0 += ks.numel()
-            for name, x, y in zip(("t", "u", "v", "tri", "obj", "counts"), (*out, st),
-                                  (*ref, pst)):
+            for name, x, y in zip(("t", "u", "v", "tri", "obj", "counts"), (*ref, st_ref),
+                                  (*plain_out, pst)):
+                if not torch.equal(bits(x[ks]), bits(y[part])):
+                    raise AssertionError(f"bvh_walk_ref {scene} {kind}: {name} differs from "
+                                         "the plain version")
+            for name, x, y in zip(("t", "u", "v", "tri", "obj"), out, plain_out):
                 if not torch.equal(bits(x[ks]), bits(y[part])):
                     raise AssertionError(f"bvh_walk {scene} {kind}: {name} differs from the "
-                                         f"plain version")
+                                         "plain version")
             held_steps = pst[part, 0] + pst[part, 1]
             held_zero = (args[3][ks] == 0).any(dim=1)
             h = dict(kind=kind, rays=b - a, held=int(ks.numel()), cap=cap,
+                     longest_held=n_top, longest_zero_axis_held=n_top_zero,
                      share_under_cap=1.0 if cap is None else
-                     float((steps[a:b] <= cap).float().mean()),
+                     float((steps_ref[a:b] <= cap).float().mean()),
                      plain_ms_launch=plain_ms,
                      max_held_steps=int(held_steps.max()) if ks.numel() else 0,
-                     max_steps=int(steps[a:b].max()),
+                     max_steps=int(steps_ref[a:b].max()),
                      held_zero_axis=int(held_zero.sum()),
                      max_held_steps_zero_axis=int(held_steps[held_zero].max())
                      if held_zero.any() else 0,
+                     steps_per_live_ray_ref=_quantiles(steps_ref[a:b][live[a:b]].float()),
                      steps_per_live_ray=_quantiles(steps[a:b][live[a:b]].float()),
                      zero_axis_rays=int((args[3][a:b] == 0).any(dim=1).sum()))
+            if top and h["max_held_steps"] != h["max_steps"]:
+                raise AssertionError(f"bvh_walk_ref {scene} {kind}: the longest walk was not "
+                                     "held")
             held.append(h)
             log(f"kernel bvh_walk {scene} {kind} held: {json.dumps(h)}")
     mean = lambda k: statistics.fmean(p[k] for p in per)
-    return dict(max_abs_err=0.0, ms=mean("ms"), plain_ms=statistics.fmean(plains),
+    walk = dict(max_abs_err=0.0, ms=mean("ms"),
+                plain_ms=statistics.fmean(plains) if plains else None,
                 bound_ms=mean("bound_ms"),
-                bound_by=max(per, key=lambda p: p["bound_ms"])["bound_by"], launches=per,
+                bound_by=max(per, key=lambda p: p["bound_ms"])["bound_by"],
+                ref_ms=mean("ref_ms"), ref_bound_ms=mean("ref_bound_ms"), launches=per,
                 held=held)
+    ref = dict(max_abs_err=0.0, ms=mean("ref_ms"), plain_ms=walk["plain_ms"],
+               bound_ms=mean("ref_bound_ms"),
+               bound_by=max(per, key=lambda p: p["ref_bound_ms"])["ref_bound_by"])
+    log(f"kernel bvh_walk {scene} summary: " + json.dumps(dict(
+        ms=[p["ms"] for p in per], ref_ms=[p["ref_ms"] for p in per],
+        in_place_ms=[p.get("in_place_ms") for p in per],
+        sorted_ms=[p.get("sorted_ms") for p in per],
+        launch_order_ms=[p.get("launch_order_ms") for p in per],
+        bound_ms=[p["bound_ms"] for p in per], ref_bound_ms=[p["ref_bound_ms"] for p in per],
+        plain_ms=walk["plain_ms"])))
+    return walk, ref
 
 
 def walk_kernel_phase():
     """colonnade-8M (bf16, 1080p): the Renderer's host build (the BLAS by
     the native builder, the first TLAS), then the walk held on the
-    launches of a warm frame (`walk_phase`); colonnade-5k under
-    traversal_impl='jax' (bf16, 1080p), held with no step cap; Cornell under
-    traversal_impl='jax' in bf16, fp16 and fp32, 'both' and 'dtype', held
-    on every kind of its launches.  -> colonnade-8M's report."""
+    launches of a warm frame (`walk_phase`);
+    colonnade-2M under traversal_impl='jax', the walk against its reference
+    on every ray; colonnade-5k under traversal_impl='jax' (bf16, 1080p),
+    held with no step cap; Cornell under traversal_impl='jax' in bf16,
+    fp16 and fp32, 'both' and 'dtype', held on every kind of its launches.
+    -> colonnade-8M's reports (the walk's, the reference's)."""
     import torch
 
     from low_precision_raytracer_tpu_torch.config import RenderConfig
@@ -2940,8 +3087,15 @@ def walk_kernel_phase():
         f"(BLAS build, native {S.HOST_SECONDS['blas']:.4f}; first TLAS build "
         f"{S.HOST_SECONDS['tlas']:.6f})")
     launches = capture_walk_launches(warm, 2)
-    report = walk_phase("colonnade-8M", warm, launches)
+    report, ref_report = walk_phase("colonnade-8M", warm, launches, reps=2)
     del warm, launches
+    torch.cuda.empty_cache()
+    # colonnade-2M on the walk: every ray against the reference (its path
+    # phase ran before)
+    r = Renderer(colonnade_2m(), RenderConfig(width=W, height=H, precision="bf16",
+                                              traversal_impl="jax"))
+    walk_phase("colonnade-2M", r, capture_walk_launches(r, 2), reps=2, plain=False)
+    del r
     torch.cuda.empty_cache()
     # the long zero-axis walks (the sun's rays enter every box their y and
     # z slabs cross), uncapped, on colonnade-5k
@@ -2959,7 +3113,7 @@ def walk_kernel_phase():
                        check=WALK_CHECK_SMALL, reps=3)
             del r
     torch.cuda.empty_cache()
-    return report
+    return report, ref_report
 
 
 def colonnade_328k():
@@ -3426,7 +3580,8 @@ def main(argv) -> int:
         base = {"dense_trace": 0, "dense_trace_multi": 0, "temporal_accum": 1,
                 "wavelet_iter": 5, "wavefront_schedule": 0, "wavefront_assigned": 0,
                 "packet_trace": 0, "dense_trace_pack": 0, "dense_trace_multi_pack": 0,
-                "mxu_proto_vpu": 0, "mxu_proto_mxu": 0, "band_scan": 0, "bvh_walk": 0}
+                "mxu_proto_vpu": 0, "mxu_proto_mxu": 0, "band_scan": 0, "bvh_walk": 0,
+                "bvh_walk_ref": 0}
         return lambda f: {**base, "coef_fetch": 1 if f > 0 else 0, **kw}
 
     # ---- the flagship (Cornell): K1a, K2, K3, K4
@@ -3546,7 +3701,7 @@ def main(argv) -> int:
     elapsed()
 
     # ---- colonnade-8M: above packet_bvh_max_tris, 'auto' takes the BVH walk
-    reports["bvh_walk"] = walk_kernel_phase()
+    reports["bvh_walk"], reports["bvh_walk_ref"] = walk_kernel_phase()
     elapsed()
     run_path("colonnade-8M", colonnade_8m, counts(bvh_walk=3))
     psnrs, _agree = reference_phase(lambda: sponza_like_scene(3, 1), WALK_REF_FRAMES,
@@ -3713,6 +3868,10 @@ def main(argv) -> int:
                      **{k: reps[name].get(k) for k in extra}) for name in names]
 
     for name in KERNELS:
+        if name in OFF_PATH:
+            if totals[name]:
+                raise AssertionError(f"{name}: launched on a path phase")
+            continue
         if totals[name] == 0:
             raise AssertionError(f"{name}: no launch on any path phase")
     log(json.dumps({"kernels_fp32": kernel_line(reports32, reports32, group_totals["fp32"])}))

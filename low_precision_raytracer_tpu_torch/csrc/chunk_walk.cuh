@@ -58,7 +58,7 @@
 //    the vertex range of the f32 row's triangle against the true one.
 // 2. du: the kernel's u (tri_test_oz) is within dev_u of P's exact u:
 //    the band rows b differ from the f32 rows n by |b_i - n_i| (read from
-//    the table), the operand q from the ray by eps_q |o_i| + eta (2^-9
+//    the table), the operand q from the ray by eps_q |o_i| + eta (2^-8
 //    bf16, 2^-11 fp16, 0 in fp32; eta the type's subnormal half-spacing),
 //    every product of the sub-f32 forms is exact in f32 and every sum rounds
 //    in f32 (gamma_8), so dev_u = sum_i c_i (|o_i| + |t d_i|) + constants,

@@ -28,7 +28,7 @@ with, per row, b the operand's u row (the band rows of a sub-f32 form; in
 fp32 the f32 row itself, so b = n and b3 = e0), and per ray O_i >= |o_i|
 and |q_i| (q the ray rounded to the operand type), T_i >= |t| |d_i| and
 |t| |q_i'| (q' the rounded direction), T_t >= |t|: eps_q the operand
-type's unit roundoff (2^-9 bf16, 2^-11 fp16, 0 f32), eta its subnormal
+type's unit roundoff (2^-8 bf16, 2^-11 fp16, 0 f32), eta its subnormal
 half-spacing (|q_i - o_i| <= eps_q |o_i| + eta), g = gamma_8 of f32 (every
 sum of the test rounds in f32; the sub-f32 products are exact in f32).
 
@@ -130,8 +130,8 @@ PLANE_COLS = [6, 7, 8, 11]  # t = -Oz / Dz reads these columns alone
 def operand_eps(band: Band):
     """(eps_q, eta) of the form's ray operand: unit roundoff and subnormal
     half-spacing of its type; (0, 0) for f32 rows."""
-    if band.operand is torch.bfloat16:
-        return 2.0**-9, 2.0**-134
+    if band.operand is torch.bfloat16:  # 8 significant bits: 1 + 2^-8 rounds to 1
+        return 2.0**-8, 2.0**-134
     if band.operand is torch.float16:
         return 2.0**-11, 2.0**-25
     return 0.0, 0.0

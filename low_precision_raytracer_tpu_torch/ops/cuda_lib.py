@@ -63,6 +63,7 @@ SIGNATURES = {
     },
     "bvh_walk": {
         "lprt_bvh_walk": [P] * 16 + [I] * 5 + [F] * 6 + [P] * 6 + [P],
+        "lprt_bvh_walk_stack": [P] * 18 + [I] * 5 + [F] * 6 + [P] * 6 + [P],
     },
 }
 
@@ -81,7 +82,10 @@ LAUNCHES = {"dense_trace": 0, "dense_trace_multi": 0, "coef_fetch": 0,
             # the card, on no render path (a render must leave it at 0)
             "band_scan": 0,
             # the two-level BVH walk (traversal_impl='jax')
-            "bvh_walk": 0}
+            "bvh_walk": 0,
+            # its first form, the walk's reference on the card: on no render
+            # path (a render must leave it at 0)
+            "bvh_walk_ref": 0}
 
 
 def reset_launches() -> None:

@@ -359,7 +359,7 @@ def trace(frame: FrameInput, origins, directions, *, cfg: RenderConfig,
         if scene is None or scene.blas_parent is None or frame.tlas_parent is None:
             raise ValueError("the BVH walk ('jax') needs the scene (trace(..., scene=)) and "
                              "its tables: build_scene_arrays / flatten_frame with walk=True")
-        return Hit(*trace_rays(scene, frame, origins, directions, **kw))
+        return Hit(*trace_rays(scene, frame, origins, directions, **kw, coherent=coherent))
     acc = acceptance_band(frame, cfg, prec)
     if di_lights is not None and (find_any or instance_tris(frame) > TC
                                   or impl != "dense_pallas"):

@@ -21,14 +21,21 @@ iteration.  -> (t, u, v, tri, obj): f32 t/u/v, i32 ids; t = 1e5 and ids
 -1 on a miss (any hit: the accepted hit's record).
 
 The plain version runs the JAX loop in lockstep over the rays, masked as
-in the JAX package.  The kernel runs one thread a ray through
-the same state machine in the ray's own order.  Both round every render-
-dtype operation to the dtype and fuse nothing (the kernel builds with
---fmad=false; its fused multiply-adds are the plain version's float64
-form), so they agree bit for bit.  `transform_ray`'s `rot @ o` is the
-f32 multiply-add chain of XLA's matrix product on the CPU, rounded once.  Rays with an exact zero direction
+in the JAX package.  The reference kernel (`trace_rays_reference`, the
+walk's first form, on no render path) runs one thread a ray through the
+same state machine in the ray's own order.  The walk (`trace_rays`) keeps
+every result with fewer steps: the same depth-first order on a short
+stack, dead rays unwalked, on `coherent=False` launches the live rays
+packed (`launch_order`), and the exact zero-axis rule on BLAS boxes
+(`ops/walk_pad.py`; `trace_rays_plain(..., exact0=True)` applies it too).
+All round every render-dtype operation to the dtype and fuse nothing (the
+kernels build with --fmad=false; their fused multiply-adds are the plain
+version's float64 form), so they agree bit for bit.
+`transform_ray`'s `rot @ o` is the f32 multiply-add chain of XLA's matrix
+product on the CPU, rounded once.  Rays with an exact zero direction
 component skip that axis in every box test (the JAX rule), so they enter
-every box their other slabs cross: the colonnade's sun rays (d_x = 0).
+every box their other slabs cross (the colonnade's sun rays, d_x = 0)
+unless the rule proves a BLAS box holds nothing they can accept.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ from __future__ import annotations
 import torch
 
 from low_precision_raytracer_tpu_torch.config import Precision
-from low_precision_raytracer_tpu_torch.ops import cuda_lib
+from low_precision_raytracer_tpu_torch.ops import cuda_lib, walk_pad
 from low_precision_raytracer_tpu_torch.ops.aabb import (
     OBJECT_SLOP,
     SCENE_SLOP,
@@ -104,13 +111,15 @@ def _rays(origins, directions, skip_tri, min_dist, max_dist, dt):
 
 def trace_rays_plain(scene, frame, origins, directions, *, prec: Precision,
                      find_any: bool = False, fallback: str = "both", skip_tri=None,
-                     min_dist=0.0, max_dist=1e5, stats=None):
+                     min_dist=0.0, max_dist=1e5, stats=None, exact0: bool = False):
     """The plain version: the JAX loop in lockstep, every lane masked, the
     finished lanes dropped now and then (which changes no lane's result); a
     leaf's triangles are tested together (`ray_triangle_parts`) and taken
     in leaf order against the running best_t (`accept_against`), which is
     the JAX loop's sequential update.  `stats`: an (R, N_STATS) i32 tensor
-    to fill with each ray's counts, or None."""
+    to fill with each ray's counts, or None.  `exact0`: the BLAS box test
+    also takes the walk's exact zero-axis rule (`walk_pad.rule_enters`,
+    where the form has one), which changes the counts and no result."""
     leaf_size = scene.leaf_size
     dt = prec.dtype
     f32, i32 = torch.float32, torch.int32
@@ -130,6 +139,8 @@ def trace_rays_plain(scene, frame, origins, directions, *, prec: Precision,
               best_v=out_v.clone(), best_tri=out_tri.clone(), best_obj=out_obj.clone(),
               done=full(False, torch.bool), counts=counts.clone())
     ks = torch.arange(leaf_size, device=dev)
+    pad4 = (node_pads(scene, prec, fallback)
+            if exact0 and walk_pad.rule_form(dt, fallback) else None)
 
     def nxt(hit_from_parent, is_leaf, from_lc, lc, rc, parent):
         desc_target = torch.where(lc >= 0, lc, torch.where(rc >= 0, rc, parent))
@@ -184,6 +195,10 @@ def trace_rays_plain(scene, frame, origins, directions, *, prec: Precision,
         leaf_off, leaf_cnt = scene.blas_leaf_offset[bi], scene.blas_leaf_count[bi]
         hit, tmin, tmax = ray_aabb_object(o_loc, d_loc, scene.blas_lo[bi], scene.blas_hi[bi])
         hit = hit & (tmin.to(f32) < best_t) & (tmin < maxd_dt) & (tmax > mind_dt)
+        if pad4 is not None:
+            reach = walk_pad.ray_reach(o_loc, d_loc, mind, maxd)
+            hit = hit & walk_pad.rule_enters(o_loc, d_loc, scene.blas_lo[bi], scene.blas_hi[bi],
+                                             pad4[bi], reach, best_t, find_any)
         from_parent = bl == parent
         proc = bm & from_parent & hit & (leaf_cnt > 0)
         from_lc = ~from_parent & (bl == lc)
@@ -229,7 +244,7 @@ def _scene_rows(scene):
     """The kernel's view of the scene tables, f32 and i32: BLAS boxes (N,
     6) [lo | hi] and links (N, 5) [parent, lc, rc, leaf_offset,
     leaf_count], triangle rows (T, 12) [v2 | m row-major] in the render
-    dtype's values and in f32."""
+    dtype's values and in f32, and the BLAS's depth."""
     from low_precision_raytracer_tpu_torch.ops.dense_trace import per_table
 
     def build():
@@ -239,9 +254,19 @@ def _scene_rows(scene):
         return (_boxes(scene.blas_lo, scene.blas_hi),
                 _links(scene.blas_parent, scene.blas_lc, scene.blas_rc,
                        scene.blas_leaf_offset, scene.blas_leaf_count),
-                rows(scene.tri_v2, scene.tri_m), rows(scene.tri_v2_f32, scene.tri_m_f32))
+                rows(scene.tri_v2, scene.tri_m), rows(scene.tri_v2_f32, scene.tri_m_f32),
+                int(walk_pad.node_depth(scene.blas_parent).max()))
 
     return per_table(scene.blas_parent, ("walk_rows",), build)
+
+
+def node_pads(scene, prec: Precision, fallback: str) -> torch.Tensor:
+    """`walk_pad.node_pads` of the scene's BLAS, once per table and form."""
+    from low_precision_raytracer_tpu_torch.ops.dense_trace import per_table
+
+    return per_table(scene.blas_parent, ("walk_pads", prec.dtype, prec.delta1, prec.delta2,
+                                         fallback),
+                     lambda: walk_pad.node_pads(scene, prec, fallback))
 
 
 def _boxes(lo, hi):
@@ -252,54 +277,143 @@ def _links(*cols):
     return torch.stack(cols, 1).to(torch.int32).contiguous()
 
 
-def trace_rays(scene, frame, origins, directions, *, prec: Precision, find_any: bool = False,
-               fallback: str = "both", skip_tri=None, min_dist=0.0, max_dist=1e5,
-               stats=None):
-    """The walk's wrapper (the JAX `trace_rays`' arguments): origins /
-    directions (R, 3) in any float type (cast to the render dtype, as the
-    JAX package casts them), skip_tri (R,) i32 or None, min_dist /
-    max_dist scalars or (R,) f32; `fallback` 'both' or 'dtype'; `stats`:
-    an (R, N_STATS) i32 tensor for each ray's counts, or None.  On CPU
-    tensors it runs the plain version; on CUDA tensors it launches the
-    kernel or raises.  -> (t, u, v, tri, obj)."""
-    if fallback not in ("both", "dtype"):
-        raise ValueError(f"trace_rays: fallback {fallback!r} is not 'both' or 'dtype'")
-    kw = dict(prec=prec, find_any=find_any, fallback=fallback, skip_tri=skip_tri,
-              min_dist=min_dist, max_dist=max_dist, stats=stats)
-    if origins.device.type == "cpu":
-        return trace_rays_plain(scene, frame, origins, directions, **kw)
+# the walk's stack (csrc/bvh_walk.cu:kStack): one right child a level of
+# the TLAS and the BLAS
+STACK = 64
+
+
+def launch_order(mind, maxd) -> torch.Tensor:
+    """An incoherent launch's order: (R,) i32, the live rays (maxd > mind)
+    first and the dead ones (maxd <= mind, or a NaN) after them, each in
+    the caller's order, so the live ones fill whole warps.  No host
+    synchronisation."""
+    live = maxd > mind
+    n = torch.cumsum(live.to(torch.int64), 0)
+    n_live = n[-1:] if n.numel() else n.new_zeros(1)
+    idx = torch.arange(live.numel(), device=live.device)
+    order = torch.empty_like(idx)
+    order[torch.where(live, n - 1, n_live + idx - n)] = idx
+    return order.to(torch.int32)
+
+
+def trace_rays_packed_plain(scene, frame, origins, directions, *, coherent: bool = True,
+                            stats=None, **kw):
+    """The walk's launch around the plain version (any device): a dead ray
+    (maxd <= mind, or a NaN) accepts nothing, since every accept needs mind
+    < t < maxd, so it gets the miss record (t = 1e5, u = v = 0, ids -1) and
+    zero counts unwalked; the live ones are walked by `trace_rays_plain`
+    (kw: its keywords) packed by `launch_order` where `coherent` is False,
+    and their results written back at their own places, as the kernel
+    writes them.  Equal to `trace_rays_plain` on the unpacked rays."""
+    prec = kw["prec"]
+    o_w, d_w, skip, mind, maxd = _rays(origins, directions, kw.pop("skip_tri", None),
+                                       kw.pop("min_dist", 0.0), kw.pop("max_dist", 1e5),
+                                       prec.dtype)
+    R, dev = o_w.shape[0], o_w.device
+    order = torch.arange(R, device=dev) if coherent else launch_order(mind, maxd).long()
+    sel = order[(maxd > mind)[order]]
+    full = lambda v, t: torch.full((R,), v, dtype=t, device=dev)
+    f32, i32 = torch.float32, torch.int32
+    out = (full(1e5, f32), full(0.0, f32), full(0.0, f32), full(INVALID, i32), full(INVALID, i32))
+    pst = None
+    if stats is not None:
+        stats.zero_()
+        pst = torch.zeros((sel.numel(), N_STATS), dtype=i32, device=dev)
+    got = trace_rays_plain(scene, frame, o_w[sel], d_w[sel], skip_tri=skip[sel],
+                           min_dist=mind[sel], max_dist=maxd[sel], stats=pst, **kw)
+    for x, y in zip(out, got):
+        x[sel] = y
+    if stats is not None:
+        stats[sel] = pst
+    return out
+
+
+def _launch(scene, frame, origins, directions, prec, find_any, fallback, skip_tri, min_dist,
+            max_dist, stats, walk: bool, coherent: bool):
+    """The kernel launch of `trace_rays` (walk=True) and
+    `trace_rays_reference`."""
     dt = prec.dtype
     f32, i32 = torch.float32, torch.int32
+    if fallback not in ("both", "dtype"):
+        raise ValueError(f"trace_rays: fallback {fallback!r} is not 'both' or 'dtype'")
     o_w, d_w, skip, mind, maxd = _rays(origins, directions, skip_tri, min_dist, max_dist, dt)
     R, dev = o_w.shape[0], o_w.device
     if scene.blas_parent.device != dev or frame.tlas_parent.device != dev:
-        raise ValueError("trace_rays: the scene and frame tables must lie on the rays' device")
+        raise ValueError("trace_rays: the scene, the frame and the rays must share a device")
     if stats is not None and (stats.shape != (R, N_STATS) or stats.dtype != i32
                               or not stats.is_contiguous() or stats.device != dev):
         raise ValueError(f"trace_rays: stats must be a contiguous ({R}, {N_STATS}) int32 "
                          "tensor on the rays' device")
-    blas_box, blas_link, tri_dt, tri_f32 = _scene_rows(scene)
+    blas_box, blas_link, tri_dt, tri_f32, blas_depth = _scene_rows(scene)
     tlas_box = _boxes(frame.tlas_lo, frame.tlas_hi)
     tlas_link = _links(frame.tlas_parent, frame.tlas_lc, frame.tlas_rc,
                        frame.tlas_leaf_offset, frame.tlas_leaf_count)
     w2l = frame.obj_w2l.reshape(-1, 16).to(f32).contiguous()
     c = lambda x: float(dtype_const(x, dt))
-    t = torch.empty((R,), dtype=f32, device=dev)
-    u, v = torch.empty_like(t), torch.empty_like(t)
-    tri = torch.empty((R,), dtype=i32, device=dev)
-    obj = torch.empty_like(tri)
+    out = tuple(torch.empty((R,), dtype=t, device=dev) for t in (f32, f32, f32, i32, i32))
     # every operand bound to a name, alive until the launch is queued
     ins = [o_w.to(f32).contiguous(), d_w.to(f32).contiguous(), skip.contiguous(), mind, maxd,
            tlas_box, tlas_link, frame.tlas_prim.to(i32).contiguous(), w2l,
            frame.obj_mesh.to(i32).contiguous(), scene.blas_root.to(i32).contiguous(),
            blas_box, blas_link, scene.blas_prim.to(i32).contiguous(), tri_dt, tri_f32]
-    code = cuda_lib.library("bvh_walk").lprt_bvh_walk(
-        *(x.data_ptr() for x in ins),
-        R, _DT[dt], int(find_any), int(fallback == "dtype"), max_iters(scene, frame),
-        c(SCENE_SLOP), c(OBJECT_SLOP), c(prec.delta1), c(prec.delta2),
-        c(0.2), c(torch.finfo(f32).max),
-        t.data_ptr(), u.data_ptr(), v.data_ptr(), tri.data_ptr(), obj.data_ptr(),
-        None if stats is None else stats.data_ptr(), cuda_lib.stream_ptr(dev))
-    cuda_lib.check(code, "bvh_walk")
-    cuda_lib.LAUNCHES["bvh_walk"] += 1
-    return t, u, v, tri, obj
+    lib = cuda_lib.library("bvh_walk")
+    ptr = lambda x: None if x is None else x.data_ptr()
+    consts = (max_iters(scene, frame), c(SCENE_SLOP), c(OBJECT_SLOP), c(prec.delta1),
+              c(prec.delta2), c(0.2), c(torch.finfo(f32).max))
+    mode = (R, _DT[dt], int(find_any), int(fallback == "dtype"))
+    if walk:
+        from low_precision_raytracer_tpu_torch.ops.dense_trace import per_table
+
+        tlas_depth = per_table(frame.tlas_parent, ("tlas_depth",),
+                               lambda: int(walk_pad.node_depth(frame.tlas_parent).max()))
+        if tlas_depth + blas_depth + 1 > STACK:
+            raise ValueError(f"trace_rays: the TLAS ({tlas_depth}) and BLAS ({blas_depth}) are "
+                             f"deeper than the walk's stack of {STACK} entries allows")
+        order = None if coherent else launch_order(mind, maxd)
+        pad4 = node_pads(scene, prec, fallback) if walk_pad.rule_form(dt, fallback) else None
+        code = lib.lprt_bvh_walk_stack(*(x.data_ptr() for x in ins), ptr(order), ptr(pad4),
+                                       *mode, *consts, *(x.data_ptr() for x in out), ptr(stats),
+                                       cuda_lib.stream_ptr(dev))
+        name = "bvh_walk"
+    else:
+        code = lib.lprt_bvh_walk(*(x.data_ptr() for x in ins), *mode, *consts,
+                                 *(x.data_ptr() for x in out), ptr(stats),
+                                 cuda_lib.stream_ptr(dev))
+        name = "bvh_walk_ref"
+    cuda_lib.check(code, name)
+    cuda_lib.LAUNCHES[name] += 1
+    return out
+
+
+def trace_rays(scene, frame, origins, directions, *, prec: Precision, find_any: bool = False,
+               fallback: str = "both", skip_tri=None, min_dist=0.0, max_dist=1e5,
+               stats=None, coherent: bool = True):
+    """The walk's wrapper (the JAX `trace_rays`' arguments): origins /
+    directions (R, 3) in any float type (cast to the render dtype, as the
+    JAX package casts them), skip_tri (R,) i32 or None, min_dist /
+    max_dist scalars or (R,) f32; `fallback` 'both' or 'dtype'; `stats`:
+    an (R, N_STATS) i32 tensor for each ray's counts, or None (dead rays
+    count 0); `coherent=False` packs the live rays (`launch_order`).  On
+    CPU tensors it runs the plain version; on CUDA tensors it launches the
+    walk kernel or raises.  -> (t, u, v, tri, obj)."""
+    if fallback not in ("both", "dtype"):
+        raise ValueError(f"trace_rays: fallback {fallback!r} is not 'both' or 'dtype'")
+    if origins.device.type == "cpu":
+        return trace_rays_plain(scene, frame, origins, directions, prec=prec, find_any=find_any,
+                                fallback=fallback, skip_tri=skip_tri, min_dist=min_dist,
+                                max_dist=max_dist, stats=stats)
+    return _launch(scene, frame, origins, directions, prec, find_any, fallback, skip_tri,
+                   min_dist, max_dist, stats, True, coherent)
+
+
+def trace_rays_reference(scene, frame, origins, directions, *, prec: Precision,
+                         find_any: bool = False, fallback: str = "both", skip_tri=None,
+                         min_dist=0.0, max_dist=1e5, stats=None):
+    """The walk's reference on the card, on no render path: the kernel's
+    first form (the JAX machine, one thread a ray in the caller's order, no
+    rule).  `trace_rays`' arguments; CUDA tensors only."""
+    if origins.device.type != "cuda":
+        raise ValueError("trace_rays_reference: a kernel on the card; the CPU's reference is "
+                         "trace_rays_plain")
+    return _launch(scene, frame, origins, directions, prec, find_any, fallback, skip_tri,
+                   min_dist, max_dist, stats, False, True)

@@ -11,7 +11,12 @@ from the root of this checkout, on one GPU.  KERNEL is
 - `k5`: K5 on colonnade-83k's wavefront launches (bf16, 'rounds' then
   'oneshot'), every call held bit for bit (`chip_smoke.k5_hold`, with the
   emulation on a slice), a checkout older than the slice culling called
-  without the slices.
+  without the slices;
+- `walk`: the BVH walk (`trace_rays`) on the launches of Cornell under
+  'jax' (fp32 'both', fp16 'both' and 'dtype', bf16 'both'), colonnade-5k
+  under 'jax' and colonnade-8M (bf16), every launch of every checkout held
+  bit for bit against this checkout's reference walk
+  (`trace_rays_reference`), which is timed beside them.
 Each DIR is another checkout of the repository (`git archive` into an
 ignored directory, or such a copy with one source edited); its wrappers
 and kernels are loaded as `chip_smoke.py --beside` loads them, and every
@@ -100,9 +105,57 @@ def k5(C, others):
         torch.cuda.empty_cache()
 
 
-# each kernel's runner and the sources built (and reported) before it;
-# None: every source (colonnade-83k's frames run K1b and the schedule too)
-KERNELS = {"k1a": (k1a, ("dense_trace",)), "k5": (k5, None)}
+WALK_CASES = (("cornell", "fp32", "both"), ("cornell", "fp16", "both"),
+              ("cornell", "fp16", "dtype"), ("cornell", "bf16", "both"),
+              ("colonnade-5k", "bf16", None), ("colonnade-8M", "bf16", None))
+
+
+def walk(C, others):
+    """The walk of this checkout and of `others` ({name: beside namespace})."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.models.procedural import (
+        cornell_box_scene,
+        sponza_like_scene,
+    )
+    from low_precision_raytracer_tpu_torch.ops.traversal import trace_rays, trace_rays_reference
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+    fns = {"this": trace_rays, **{o: m.traversal.trace_rays for o, m in others.items()}}
+    for scene, precision, fallback in WALK_CASES:
+        host = (cornell_box_scene() if scene == "cornell" else sponza_like_scene()
+                if scene == "colonnade-5k" else C.colonnade_8m())
+        cfg = dict(width=C.W, height=C.H, precision=precision, traversal_impl="jax")
+        warm = Renderer(host, RenderConfig(**cfg, **({"triangle_fallback": fallback}
+                                                     if fallback else {})))
+        launches = C.capture_walk_launches(warm, 1 if scene == "cornell" else 2)
+        del warm
+        big = scene == "colonnade-8M"
+        for n, (args, kw) in enumerate(launches):
+            rkw = {k: v for k, v in kw.items() if k != "coherent"}
+            ref = trace_rays_reference(*args, **rkw)
+            for o, fn in fns.items():
+                for x, y in zip(fn(*args, **kw), ref):
+                    if not torch.equal(bits(x), bits(y)):
+                        raise AssertionError(f"walk {o}: {scene} launch {n} differs from "
+                                             "the reference walk")
+            runs = {**fns, "reference": None}
+            calls = [lambda fn=fn: fn(*args, **kw) for fn in fns.values()]
+            calls.append(lambda: trace_rays_reference(*args, **rkw))
+            samples = C.ab_ms(calls, 1 if big else 5, rounds=1 if big else 3)
+            report(dict(launch=f"{scene} {precision} {fallback} {n}",
+                        coherent=kw.get("coherent", True)), runs, samples)
+        del launches
+        torch.cuda.empty_cache()
+
+
+# each kernel's runner, the sources built (and reported) before it (None:
+# every source; colonnade-83k's frames run K1b and the schedule too) and
+# the other checkouts' modules and sources (`chip_smoke.load_beside`)
+KERNELS = {"k1a": (k1a, ("dense_trace",), {}), "k5": (k5, None, {}),
+           "walk": (walk, ("bvh_walk",), dict(modules=("traversal",), libs=("bvh_walk",)))}
 
 
 def main(argv) -> int:
@@ -117,14 +170,14 @@ def main(argv) -> int:
 
     from low_precision_raytracer_tpu_torch.ops import cuda_lib
 
-    run, libs = KERNELS[argv[0]]
+    run, libs, beside = KERNELS[argv[0]]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     C.ptxas_report(cuda_lib.build_all() if libs is None else cuda_lib.build_all(libs))
     others = {}
     for arg in argv[1:]:
         name, root = arg.split("=", 1)
-        others[name] = C.load_beside(root)
+        others[name] = C.load_beside(root, **beside)
     run(C, others)
     return 0
 

@@ -35,7 +35,13 @@ and outside its slice box (the accepted points an unpadded walk misses):
   tolerance), and inside its slice box grown as the kernel grows it;
 - the wrappers, K1b's and K6's, on CPU tensors return the plain version
   under every widened form (the kernels themselves are held on the card by
-  chip_smoke.py)."""
+  chip_smoke.py);
+- (c) the slice boxes' pads by brute force, with rays of an exact zero
+  axis: aimed just past a triangle's extreme (every accepted point inside
+  its slice box grown as the walk grows it), and two f32 ulps outside a
+  grown face (left out by the box, accepted by no row of it);
+- the operand's unit roundoff in the pads is bf16's and fp16's own (2^-8,
+  2^-11)."""
 
 import torch_threads  # noqa: F401  (caps the CPU threads per test process)
 import pytest
@@ -46,6 +52,7 @@ import chip_smoke
 from low_precision_raytracer_tpu_torch.config import RenderConfig, get_precision
 from low_precision_raytracer_tpu_torch.models.procedural import sponza_like_scene
 from low_precision_raytracer_tpu_torch.ops import band_pad as BP
+from low_precision_raytracer_tpu_torch.ops import walk_pad
 from low_precision_raytracer_tpu_torch.ops import trace as T
 from low_precision_raytracer_tpu_torch.ops.camera import primary_ray_grid
 from low_precision_raytracer_tpu_torch.ops.dense_trace import (
@@ -498,3 +505,119 @@ def test_wrappers_on_cpu(scene, kind):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert not hasattr(T, "BAND_SCAN_MAX_TRIS")
+
+
+def _edge_rays(tri, g):
+    """Rays with an exact zero axis a, aimed at each triangle's centroid
+    from an origin pushed past its extreme on a by 1e-4 .. 0.1 of its
+    extent (so only a widened test can accept them): -> (o, d) f32."""
+    f64 = torch.float64
+    n = tri.shape[0]
+    cen = tri.mean(dim=1)
+    lo, hi = tri.amin(dim=1), tri.amax(dim=1)
+    os_, ds_ = [], []
+    for a in range(3):
+        span = hi[:, a] - lo[:, a] + 1e-3
+        for off in (1e-4, 1e-3, 1e-2, 1e-1):
+            for side in (0, 1):
+                o = cen + 2 * torch.randn((n, 3), generator=g, dtype=f64)
+                o[:, a] = lo[:, a] - off * span if side == 0 else hi[:, a] + off * span
+                dd = cen - o
+                dd[:, a] = 0.0
+                os_.append(o.float())
+                ds_.append(_unit(dd).float())
+    return torch.cat(os_), torch.cat(ds_)
+
+
+def _accepts(coef, o, d, mind, maxd, band):
+    t, _u, _v, geom = tri_quantities(coef, o, d, band)
+    return t, geom & (t > mind[:, None]) & (t < maxd[:, None]) & torch.isfinite(t)
+
+
+@pytest.mark.parametrize("precision,fallback,kind", FORMS)
+def test_pad_holds_by_brute_force(scene, precision, fallback, kind):
+    """The slice boxes' pads by brute force, with rays of an exact zero
+    axis a (every point they accept has o_a on a): rays aimed past a
+    triangle's extreme on a, tested against 256 rows (theirs among them),
+    every accepted point inside its slice box grown for the ray at the
+    point's |t| (`grow`, as the walk grows it); and rays whose origins sit
+    on the grown face of a slice box on a (at the ray's reach, its own pad's
+    fixed point) and two f32 ulps outside it: the grown box leaves out the
+    ray outside, and no row of the slice accepts it."""
+    band = _band(precision, fallback, kind)
+    f = scene["frames"][precision]
+    coef = T.frame_table(f, band)
+    tree, slices, bp, _exact0, _args = _walk_tables(f, coef, kind, scene["rays"], band)
+    g = torch.Generator().manual_seed(band.form)
+    root = tree.boxes[0]
+    live_rows = torch.nonzero(torch.isfinite(coef[:, BP.PLANE_COLS]).all(dim=1)).flatten()
+    rows = live_rows[torch.randperm(live_rows.numel(), generator=g)[:256]]
+    tab = coef[rows]
+    o, d = _edge_rays(_triangles(tab), g)
+    n = o.shape[0]
+    mind, maxd = torch.full((n,), 1e-4), torch.full((n,), 1e5)
+    t, acc = _accepts(tab, o, d, mind, maxd, band)
+    ray, j = torch.nonzero(acc, as_tuple=True)
+    assert ray.numel() > 0
+    ray4 = BP.ray_pads(o, d, mind, maxd, band, root, bp.root)
+    sl = rows[j] // SLICE
+    grown = BP.grow(slices[sl], bp.slices[sl], ray4[ray], t[ray, j].abs(), o[ray], d[ray])
+    p = o[ray].double() + t[ray, j].double()[:, None] * d[ray].double()
+    zero = d[ray] == 0
+    inside = (p >= grown[:, :3].double()) & (p <= grown[:, 3:].double())
+    assert bool(inside[zero].all()), f"{int((~inside[zero]).sum())} points outside"
+    # on and two ulps outside the grown faces of 48 slice boxes
+    ns = slices.shape[0]
+    s = torch.randperm(ns, generator=g)[:48].repeat_interleave(6)
+    axis = torch.arange(3).repeat_interleave(2).repeat(48)
+    side = torch.arange(2).repeat(3 * 48)
+    m = s.numel()
+    box = slices[s].double()
+    o = (box[:, :3] + (box[:, 3:] - box[:, :3]) * torch.rand((m, 3), generator=g,
+                                                               dtype=torch.float64)).float()
+    d = torch.randn((m, 3), generator=g)
+    d[torch.arange(m), axis] = 0.0
+    d = _unit(d)
+    mind, maxd = torch.full((m,), 1e-4), torch.full((m,), 1e5)
+    col = axis + 3 * side
+    for _ in range(40):  # the pad depends on o: iterate to its fixed point
+        ray4 = BP.ray_pads(o, d, mind, maxd, band, root, bp.root)
+        face = BP.grow(slices[s], bp.slices[s], ray4, ray4[:, 2], o, d)
+        edge = face[torch.arange(m), col].float()
+        fixed = edge == o[torch.arange(m), axis]
+        if bool(fixed.all()):
+            break
+        o[torch.arange(m), axis] = edge
+    # where the pad grows with |o| by less than a quarter of it, two ulps
+    # outward move o past the face
+    fixed = fixed & (bp.slices[s, 1] < 0.25)
+    assert int(fixed.sum()) >= 0.5 * m
+    out = o.clone()
+    step = torch.where(side == 1, float("inf"), float("-inf"))
+    for _ in range(2):  # the face is rounded outward to f32: it moves by an ulp with o
+        out[torch.arange(m), axis] = torch.nextafter(out[torch.arange(m), axis], step)
+    ray4 = BP.ray_pads(out, d, mind, maxd, band, root, bp.root)
+    face = BP.grow(slices[s], bp.slices[s], ray4, ray4[:, 2], out, d)
+    oa = out[torch.arange(m), axis]
+    beyond = torch.where(side == 1, oa > face[torch.arange(m), col],
+                         oa < face[torch.arange(m), col])
+    assert bool(beyond[fixed].all())
+    _t, acc = _accepts(coef, out, d, mind, maxd, band)
+    own = (torch.arange(coef.shape[0])[None, :] // SLICE) == s[:, None]
+    assert not bool((acc & own)[fixed].any())
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp16"])
+def test_operand_eps_is_unit_roundoff(precision):
+    """The ray operand's unit roundoff in the pads (`operand_eps`, and the
+    walk's `walk_pad.ROUNDING`) bounds the relative rounding of every value
+    of [1, 2) on a 2^-16 grid to the type, and that rounding comes within
+    2^-16 of it (bf16 keeps 8 significant bits: 2^-8, fp16 11: 2^-11)."""
+    band = _band(precision, "dtype", "packet")
+    assert band.operand is get_precision(precision).dtype
+    eps_q, _eta = BP.operand_eps(band)
+    assert (eps_q, _eta) == walk_pad.ROUNDING[band.operand]
+    x = 1 + torch.arange(1 << 16, dtype=torch.float64) * 2.0**-16
+    rel = ((x.float().to(band.operand).double() - x).abs() / x).max()
+    assert float(rel) <= eps_q
+    assert float(rel) >= eps_q * (1 - 2.0**-16) / (1 + eps_q)
