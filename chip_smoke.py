@@ -44,6 +44,27 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    scene again on every frame;
 5. flagship reference phase: a 64x64 render on the card against the same
    render through the plain versions on the CPU, same uniforms, 5 frames;
+5b. the command line (`cli_phase`): `cli.main(["render", "cornell", ...,
+   "--frames", "8", "--profile", "--out", PNG])` at 1920x1080 bf16; the PNG
+   decodes (utils/png.py) to exactly `to_uint8` of a Renderer(seed=0)'s 8th
+   frame rendered in the same process; the 12 stage times (`--profile`,
+   render/profile.py) on one line beside phase 4's frame ms; `parity` at
+   1080p (bf16 against fp32, 8 frames, and the fp32-fallback rate);
+5c. checkpoint / resume (`checkpoint_phase`): 4 flagship frames, saved; a
+   fresh Renderer with another seed loads the file; frames 5-8 rendered
+   both ways agree bit for bit (image and carried state);
+5d. the explorer (`explorer_phase`): `serve` on 127.0.0.1 at a free port in
+   a thread, 30 flagship frames at 1080p bf16, TAA 0.3, over HTTP (key and
+   mouse events moving the camera, one settings round trip); frames/s and
+   ms a frame beside the Renderer's own frame time in the same call (the
+   viewer's host overhead);
+5e. the last render options (`options_phase`): `shade_f32=False`,
+   `state_f32=False`, sigma_n = 127.5 (K3's and K4's `powf` form) and
+   a-trous strides to 64 on the 1080p bf16 flagship: K3 and K4 held against
+   their plain versions on a warm-up frame's inputs (K4 bit for bit at
+   every stride, the float exponent too; K3 at rtol 1e-4 / atol 1e-5),
+   timed by stride, then 4 frames of each path (K4 once a stride).  The
+   launches of phases 5b-5e join the kernels line's;
 5a. the interactive path (`animated_scene`: the animated Cornell box, its
    tall box orbiting and turning and its lamp bobbing, the camera dollying
    0.02 units a frame toward the box; bf16, `taa_mix_weight=0.3`, frame f
@@ -308,8 +329,15 @@ the nvidia-smi line; the last line is
 K1b's packed forms (their times from phase 24) and the tool's two bodies
 (NCHUNK = 1; launches from phase 26).  Frame times, and K1b's, K4's,
 K6's and the schedule's times per launch, print beside the previous
-tree's (`PREV_*`).  About 16 minutes on an H100, most of it the plain
-versions' holds of phases 12, 14a and 19.
+tree's (`PREV_*`).  About 11 minutes on an H100, most of it the plain
+versions' holds of phases 12, 14a and 19, cut to fit the new phases:
+colonnade-2M's K6 hold 2^16 -> 2^14 rays a launch (HUGE_CHECK), BIG_CHECK
+2^16 -> 2^14, colonnade-328k's round-0 shadow hold 2^20 -> 2^18 rays,
+colonnade-8M's walk slices 2,048 -> 1,024 rays (WALK_CHECK) and the
+Cornell / colonnade-5k walk slices 2^16 -> 2^15 (WALK_CHECK_SMALL).  The
+`kernels` line's K3 and K4 carry their float-exponent times
+(`ms_sigma_n_float`) and K4 its times at strides up to 64
+(`ms_by_stride_wide`).
 """
 
 from __future__ import annotations
@@ -333,8 +361,10 @@ YAW_DEG = 0.5  # the Sponza-class camera phase: degrees a frame
 CAMERA_FRAMES = 4
 BIG_BAND_FRAMES = 3  # frames of the band path phases above the old 8,192-triangle cap
 CHECK_RAYS = 1 << 18  # K1b: rays per launch held against the plain version
-BIG_CHECK = 1 << 16  # colonnade-83k: rays or lanes held against the plain versions
-HUGE_CHECK = 1 << 12  # colonnade-2M: rays per K6 launch held against the plain version
+BIG_CHECK = 1 << 14  # colonnade-83k / -328k: rays or lanes held against the plain versions
+HUGE_CHECK = 1 << 14  # colonnade-2M: rays per K6 launch held against the plain version
+PACKET_CHECK = 1 << 12  # the fp32 packet route (Sponza-class): rays per K6 launch held
+SHADOW_328K_CHECK = 1 << 18  # colonnade-328k's round-0 shadows: rays held
 WALK_2M_FRAMES = 3  # colonnade-2M on the BVH walk
 WALK_REF_FRAMES = 2  # the walk route's 64x64 reference
 # H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s
@@ -1083,7 +1113,7 @@ def kernel_phase(calls, names=("dense_trace", "coef_fetch", "temporal_accum", "w
         reports[name] = dict(
             max_abs_err=max(p["max_abs_err"] for p in per), ms=mean("ms"),
             plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
-            bound_by=max(per, key=lambda p: p["bound_ms"])["bound_by"])
+            bound_by=max(per, key=lambda p: p["bound_ms"])["bound_by"], per=per)
         if name == "dense_trace":
             reports[name]["bound_ms_all_rows"] = mean("bound_ms_all_rows")
     return reports
@@ -2554,7 +2584,7 @@ def face_rays(args, leaves, n, seed=0):
             mx.contiguous()] + list(args[5:])
 
 
-def k6_phase(launches, leaves, scene="colonnade-2M", chunks=None, check_rays=HUGE_CHECK,
+def k6_phase(launches, leaves, scene="colonnade-2M", chunks=None, check_rays=PACKET_CHECK,
              lights=1, scan_rays=None, scan_bound=True, count_rays=None, reps=5,
              full_timing=True):
     """K6 on each recorded launch: timed on the full launch in both
@@ -2746,8 +2776,8 @@ def k6_phase(launches, leaves, scene="colonnade-2M", chunks=None, check_rays=HUG
 # the two-level BVH walk (traversal_impl='jax'; ops/traversal.py,
 # csrc/bvh_walk.cu)
 
-WALK_CHECK = 2048  # colonnade-8M: rays of each held slice
-WALK_CHECK_SMALL = 1 << 16  # Cornell, colonnade-5k: rays of each held slice
+WALK_CHECK = 1024  # colonnade-8M: rays of each held slice
+WALK_CHECK_SMALL = 1 << 15  # Cornell, colonnade-5k: rays of each held slice
 # colonnade-8M's held rays are a strided sample of those whose walk takes
 # at most this many steps: the plain loop steps every held lane together,
 # ~9 ms an iteration on the card, and a sun ray of colonnade-8M takes up
@@ -3125,7 +3155,7 @@ def colonnade_328k():
 def colonnade_328k_kernel_phase(cfg):
     """K1b on colonnade-328k's primary and round-0 shadow launches (2,567
     chunks), held to the plain version on a strided slice of BIG_CHECK rays
-    (primary) and of 2^20 rays (the shadows); the schedule kernel on its
+    (primary) and of SHADOW_328K_CHECK rays (the shadows); the schedule kernel on its
     two wavefront launches (`schedule_holds`), and K5 (s_group = 2) on
     every call they make (`k5_holds`) and its edge cases
     (`k5_edge_holds`).  -> (K1b report, schedule reports)."""
@@ -3145,7 +3175,7 @@ def colonnade_328k_kernel_phase(cfg):
     rep = k1b_phase([(kind, a, kw, None) for kind, (_n, a, kw)
                      in zip(("primary", "shadow0"), calls[:2])],
                     check_rays=BIG_CHECK, reps=3, plain_on_slice=True, scene="colonnade-328k",
-                    check_by_kind={"shadow0": 1 << 20})
+                    check_by_kind={"shadow0": SHADOW_328K_CHECK})
     sched = [schedule_holds("colonnade-328k", kind, a, kw)
              for kind, (_n, a, kw) in zip(("gi", "shadow1"), calls[2:])]
     k5 = []
@@ -3503,6 +3533,255 @@ def band_big_kernel_phase(name, precision, fallback):
     return rep
 
 
+# ---------------------------------------------------------------------------
+# The user entry points (the CLI, checkpoint / resume, the explorer) and the
+# last render options
+
+
+def cli_phase(path_ms):
+    """The CLI on the flagship at 1080p bf16, 8 frames with --profile: its
+    PNG decodes (utils/png.py) to exactly `to_uint8` of a Renderer(seed=0)'s
+    8th frame rendered here; the 12 stage times on one line beside the
+    path phase's frame ms; `parity` at 1080p.  -> (launch counts of the
+    render command, the parity JSON)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from low_precision_raytracer_tpu_torch import cli
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.models.procedural import cornell_box_scene
+    from low_precision_raytracer_tpu_torch.ops import cuda_lib
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+    from low_precision_raytracer_tpu_torch.utils.image import to_uint8
+    from low_precision_raytracer_tpu_torch.utils.png import decode_png
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "cornell.png")
+        err = io.StringIO()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["render", "cornell", "--width", str(W), "--height", str(H),
+                           "--precision", "bf16", "--frames", str(PATH_FRAMES), "--profile",
+                           "--out", png])
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_lib.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"cli render: exit {rc}\n{err.getvalue()}")
+        with open(png, "rb") as fh:
+            rgba = decode_png(fh.read())
+    r = Renderer(cornell_box_scene(), RenderConfig(width=W, height=H, precision="bf16"))
+    for f in range(PATH_FRAMES):
+        img, _aux = r.render(time=f * (1 / 30))  # the CLI's --time-step
+    want = to_uint8(img)[::-1]
+    if rgba.shape != (H, W, 4) or not (rgba[..., :3] == want).all():
+        diff = int((rgba[..., :3] != want).any(axis=-1).sum()) if rgba.shape == (H, W, 4) \
+            else rgba.shape
+        raise AssertionError(f"cli render: the PNG differs from the Renderer's frame ({diff})")
+    stages = {}
+    for line in err.getvalue().splitlines():  # --profile: "<stage>: <ms> ms"
+        if line.endswith(" ms") and ":" in line:
+            name, val = line.rsplit(":", 1)
+            stages[name.strip()] = float(val.split()[0])
+    del r, img
+    torch.cuda.empty_cache()
+    log(f"cli render cornell 1080p bf16 {PATH_FRAMES} frames --profile: exit 0, {wall:.2f} s, "
+        f"the PNG equal to the Renderer's frame {PATH_FRAMES}; launches {json.dumps(launches)}")
+    log("cli profile stage ms (1080p bf16 flagship): " + json.dumps(
+        {**stages, "path_frame_ms": path_ms.get("flagship")}))
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(["parity", "cornell", "--width", str(W), "--height", str(H),
+                  "--frames", str(PATH_FRAMES)])
+    parity = json.loads(out.getvalue())
+    log(f"cli parity cornell 1080p ({time.perf_counter() - t0:.2f} s): {json.dumps(parity)}")
+    return launches, parity
+
+
+def checkpoint_phase():
+    """4 flagship frames (1080p bf16), saved; a fresh Renderer (another
+    seed) loads the file; frames 5-8 rendered both ways agree bit for bit,
+    image and carried state.  -> launch counts of the two runs."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.models.procedural import cornell_box_scene
+    from low_precision_raytracer_tpu_torch.ops import cuda_lib
+    from low_precision_raytracer_tpu_torch.render.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    cfg = RenderConfig(width=W, height=H, precision="bf16")
+    cuda_lib.reset_launches()
+    a = Renderer(cornell_box_scene(), cfg)
+    for f in range(4):
+        a.render()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ck.npz")
+        t0 = time.perf_counter()
+        save_checkpoint(path, a.state, a.generator, a.frame_index)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        b = Renderer(cornell_box_scene(), cfg, seed=12345)
+        t0 = time.perf_counter()
+        b.state, b.generator, b.frame_index = load_checkpoint(path)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    for f in range(4, 8):
+        ia, _ = a.render()
+        ib, _ = b.render()
+        sa, sb = a.state, b.state
+        same = torch.equal(ia, ib) and all(torch.equal(x, y) for x, y in zip(
+            (*sa.svgf_colored, *sa.svgf_white, sa.taa_history, sa.svgf_frame_count),
+            (*sb.svgf_colored, *sb.svgf_white, sb.taa_history, sb.svgf_frame_count)))
+        if not same:
+            raise AssertionError(f"checkpoint: frame {f + 1} differs after resuming")
+    launches = dict(cuda_lib.LAUNCHES)
+    if b.frame_index != 8:
+        raise AssertionError(f"checkpoint: frame index {b.frame_index}")
+    log(f"checkpoint cornell 1080p bf16: saved after frame 4 ({size / 2**20:.3f} MiB, save "
+        f"{t_save:.3f} s, load {t_load:.3f} s); frames 5-8 resumed bit for bit (image and "
+        f"state); launches {json.dumps(launches)}")
+    del a, b
+    torch.cuda.empty_cache()
+    return launches
+
+
+EXPLORER_FRAMES = 30
+
+
+def explorer_phase():
+    """`serve` on 127.0.0.1 at a free port in a thread; 30 frames of the
+    flagship at 1080p bf16, TAA 0.3, over HTTP with key and mouse events
+    moving the camera and one settings round trip; frames/s and ms a frame
+    (the client's round trip and the explorer's `render_frame`) beside the
+    Renderer's own frame time in this call.  -> launch counts."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.gui.viewer import SceneExplorer, serve
+    from low_precision_raytracer_tpu_torch.models.procedural import cornell_box_scene
+    from low_precision_raytracer_tpu_torch.ops import cuda_lib
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    cfg = RenderConfig(width=W, height=H, precision="bf16", taa_mix_weight=0.3)
+    # the Renderer alone: its frame time on the same configuration
+    r = Renderer(cornell_box_scene(), cfg)
+    own = []
+    for f in range(10):
+        t0 = time.perf_counter()
+        r.render()
+        torch.cuda.synchronize()
+        own.append((time.perf_counter() - t0) * 1e3)
+    del r
+    cuda_lib.reset_launches()
+    ex = SceneExplorer(cornell_box_scene(), cfg)
+    srv = serve(ex, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    rt_ms, ex_ms, moved = [], [], None
+    try:
+        page = urllib.request.urlopen(base + "/", timeout=60).read()
+        if b"lprt explorer" not in page:
+            raise AssertionError("explorer: the page is missing")
+        rig0 = ex.rig.translation.copy()
+        for f in range(EXPLORER_FRAMES):
+            inp = {"keys": ["w"] if f < 10 else ["d"] if f < 20 else [],
+                   "mouse": [10 * f, 5], "right": 20 <= f < 25, "wheel": 0}
+            if f == 25:
+                inp["settings"] = {"add_gi_white": False}
+            if f == 26:
+                inp["settings"] = {"add_gi_white": True}
+            req = urllib.request.Request(base + "/frame", data=json.dumps(inp).encode(),
+                                         method="POST")
+            t0 = time.perf_counter()
+            resp = urllib.request.urlopen(req, timeout=120)
+            body = resp.read()
+            rt_ms.append((time.perf_counter() - t0) * 1e3)
+            stats = json.loads(resp.headers["x-stats"])
+            ex_ms.append(stats["ms"])
+            if len(body) != H * W * 3:
+                raise AssertionError(f"explorer frame {f}: {len(body)} bytes")
+            if any("failed" in m for m in stats["messages"]):
+                raise AssertionError(f"explorer frame {f}: {stats['messages']}")
+            if f == 25 and stats["settings"]["add_gi_white"] is not False:
+                raise AssertionError("explorer: the settings round trip did not apply")
+            if f == 26 and stats["settings"]["add_gi_white"] is not True:
+                raise AssertionError("explorer: the settings round trip did not return")
+        moved = ex.rig.translation - rig0
+        if float(abs(moved).sum()) == 0:
+            raise AssertionError("explorer: the key events did not move the camera")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    launches = dict(cuda_lib.LAUNCHES)
+    steady = rt_ms[5:]
+    log(f"explorer cornell 1080p bf16 TAA 0.3 over HTTP, {EXPLORER_FRAMES} frames (median of "
+        f"frames 6-{EXPLORER_FRAMES}): {1e3 / statistics.median(steady):.2f} frames/s, "
+        f"{statistics.median(steady):.3f} ms a frame round trip, render_frame "
+        f"{statistics.median(ex_ms[5:]):.1f} ms; the Renderer alone "
+        f"{statistics.median(own[2:]):.3f} ms a frame (median of frames 3-10); host overhead "
+        f"{statistics.median(steady) - statistics.median(own[2:]):.3f} ms a frame; the rig "
+        f"moved {[round(float(x), 4) for x in moved]}; launches {json.dumps(launches)}")
+    del ex
+    torch.cuda.empty_cache()
+    return launches
+
+
+SIGMA_N_FLOAT = 127.5
+WIDE_STRIDES = (1, 2, 4, 8, 16, 32, 64)
+
+
+def option_cases():
+    """The four options of ROADMAP queue 1 item 9: name -> RenderConfig
+    keywords."""
+    from low_precision_raytracer_tpu_torch.config import SVGFConfig
+
+    return {"shade_f32=False": dict(shade_f32=False),
+            "state_f32=False": dict(svgf=SVGFConfig(state_f32=False)),
+            f"sigma_n={SIGMA_N_FLOAT}": dict(svgf=SVGFConfig(sigma_n=SIGMA_N_FLOAT)),
+            "strides to 64": dict(svgf=SVGFConfig(strides=WIDE_STRIDES))}
+
+
+def options_phase(run_path, counts):
+    """Each option on the 1080p bf16 flagship: K3 and K4 held against their
+    plain versions on the card on a warm-up frame's inputs (K4 bit for bit
+    at every stride, the float exponent included; K3 at rtol 1e-4 / atol
+    1e-5), timed, then 4 frames of the path with its launches checked (K4
+    once a stride).  -> {case: {name: report}} (the per-launch reports
+    under "per")."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.models.procedural import cornell_box_scene
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    reports = {}
+    for case, kw in option_cases().items():
+        warm = Renderer(cornell_box_scene(), RenderConfig(width=W, height=H, precision="bf16",
+                                                          **kw))
+        calls = capture_inputs(warm, 2)
+        del warm
+        reports[case] = kernel_phase(calls, names=("temporal_accum", "wavelet_iter"),
+                                     tag=f" {case}")
+        del calls
+        torch.cuda.empty_cache()
+        strides = kw["svgf"].strides if "svgf" in kw else (1, 2, 4, 8, 16)
+        run_path(f"flagship-{case}", cornell_box_scene,
+                 counts(dense_trace=2, wavelet_iter=len(strides)), frames_n=4, **kw)
+    return reports
+
+
 def fallback_lines():
     """The fp32-fallback rate of the band test on Cornell's primary launch
     at 256 x 256 (`ops/diagnostics.py`, the form of `bench.py:fallback_rate`:
@@ -3608,6 +3887,26 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     elapsed()
 
+    # ---- the user entry points: the CLI, checkpoint / resume, the explorer
+    entry = {"cli": cli_phase(path_ms)[0], "checkpoint": checkpoint_phase(),
+             "explorer": explorer_phase()}
+    for what, got in entry.items():
+        for name in ("dense_trace", "coef_fetch", "temporal_accum", "wavelet_iter"):
+            if got[name] == 0:
+                raise AssertionError(f"{name}: no launch in the {what} phase")
+        for name, n in got.items():
+            totals[name] += n
+    elapsed()
+
+    # ---- the last render options: K3 and K4 held on each, 4 frames each
+    option_reports = options_phase(run_path, counts)
+    for case, reps in option_reports.items():
+        log(f"options {case}: K4 ms by stride " + json.dumps(
+            {p["stride"]: p["ms"] for p in reps["wavelet_iter"]["per"]})
+            + f", K3 ms {reps['temporal_accum']['ms']:.4f}, frame ms "
+            f"{path_ms[f'flagship-{case}']:.3f} (flagship {path_ms['flagship']:.3f})")
+    elapsed()
+
     # ---- the interactive path: animated Cornell, the camera dollying, TAA 0.3
     animated_kernel_phase(RenderConfig(width=W, height=H, precision="bf16",
                                        taa_mix_weight=0.3))
@@ -3683,7 +3982,7 @@ def main(argv) -> int:
     chunks = (c_lo, c_hi, c_tree, T._slice_table(warm.frame))
     log(f"colonnade-2M: K1b's chunk tree levels {c_tree.sizes}")
     del warm
-    reports["packet_trace"] = k6_phase(launches, leaves, chunks=chunks, check_rays=1 << 16,
+    reports["packet_trace"] = k6_phase(launches, leaves, chunks=chunks, check_rays=HUGE_CHECK,
                                        lights=2)
     del launches, leaves, chunks
     torch.cuda.empty_cache()
@@ -3882,7 +4181,18 @@ def main(argv) -> int:
     log(json.dumps({"kernels_band": {acc: kernel_line(r, r, group_totals.get(acc, none),
                                                       extra=("scan_ms",))
                                      for acc, r in band_reports.items()}}))
-    log(json.dumps({"kernels": kernel_line(KERNELS, reports, totals)}))
+    # K3's and K4's new forms: the float exponent and the strides above 16
+    sig = option_reports[f"sigma_n={SIGMA_N_FLOAT}"]
+    wide = option_reports["strides to 64"]["wavelet_iter"]["per"]
+    reports["temporal_accum"]["ms_sigma_n_float"] = sig["temporal_accum"]["ms"]
+    reports["wavelet_iter"]["ms_sigma_n_float"] = sig["wavelet_iter"]["ms"]
+    reports["wavelet_iter"]["ms_by_stride_wide"] = {p["stride"]: p["ms"] for p in wide}
+    for name in ("temporal_accum", "wavelet_iter"):
+        reports[name]["max_abs_err"] = max(
+            [reports[name]["max_abs_err"]]
+            + [r[name]["max_abs_err"] for r in option_reports.values()])
+    log(json.dumps({"kernels": kernel_line(KERNELS, reports, totals, extra=(
+        "ms_sigma_n_float", "ms_by_stride_wide"))}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -70,7 +70,8 @@ class SVGFConfig:
     moments_mix_weight: float = 0.1
     # frames below this use the spatial (bilateral) moments estimate
     spatial_moments_below: int = 4
-    # carried temporal state and denoiser arithmetic in f32
+    # carried temporal state in f32 (False: in the render dtype; the
+    # kernels compute in f32 either way)
     state_f32: bool = True
 
 
@@ -105,7 +106,8 @@ class RenderConfig:
     # run the TAA half even at mix weight 1, where the renderer elides it
     # as the identity (a test hook: elided and full frames are bitwise equal)
     taa_force_full: bool = False
-    # shading computes in f32 even in bf16 / fp16 mode
+    # shading computes in f32 even in bf16 / fp16 mode (False: the dtype
+    # shader, in the render dtype)
     shade_f32: bool = True
     # 'auto' resolves to 'mxu3' (f32-grade u/v, strict acceptance) for
     # bf16 and fp16, and to 'both' for fp32.  'both': the dtype test with
@@ -174,13 +176,6 @@ def check_supported(cfg: RenderConfig) -> None:
     if cfg.mesh is not None:
         raise NotImplementedError(
             "cfg.mesh: multiple GPUs wait (ROADMAP queue 1 item 10)")
-    if not cfg.shade_f32 or not cfg.svgf.state_f32:
-        raise NotImplementedError(
-            "shade_f32=False / state_f32=False ablations wait (ROADMAP queue 1 item 9)")
-    if not float(cfg.svgf.sigma_n).is_integer() or max(cfg.svgf.strides) > 16:
-        raise NotImplementedError(
-            "non-integer svgf.sigma_n / a-trous strides above 16 wait "
-            "(ROADMAP queue 1 item 9)")
 
 
 def resolve_device(device=None) -> torch.device:

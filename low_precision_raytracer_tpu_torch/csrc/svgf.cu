@@ -68,11 +68,14 @@ __device__ __forceinline__ float gauss_g(int a, int b) {
   return (float)(g[a < 0 ? -a : a] * g[b < 0 ? -b : b]);
 }
 
-// pow_int with the exponent known at compile time (N >= 0), or at run
-// time (N < 0): the same multiply chain either way
+// max(0, n.n')^sigma_n in three forms: pow_int's multiply chain with the
+// exponent known at compile time (N >= 0) or an integer at run time
+// (N == -1), the same chain either way; or a non-integer exponent (N == -2):
+// powf, as the plain version's torch.pow and the TPU kernels' `**`
 template <int N>
-__device__ __forceinline__ float pow_n(float x, int n) {
-  if (N < 0) return pow_int(x, n);
+__device__ __forceinline__ float pow_n(float x, float sn) {
+  if (N == -2) return powf(x, sn);
+  if (N < 0) return pow_int(x, (int)sn);
   if (N == 0) return 1.f;
   float result = 0.f, base = x;
   bool have = false;
@@ -306,7 +309,8 @@ int launch_coef_fetch(const float* hist, const float* rw, int C, int H, int W, i
 // the 32 x 8 tile of one channel at a time took twenty.  Shared memory:
 // ~84 KB a block, two blocks (1,024 threads) an SM.  Every pixel keeps the
 // plain version's term order, IEEE division, expf and pow_int's multiply
-// chain (unrolled for the configured sigma_n = 128).
+// chain (unrolled for the configured sigma_n = 128; powf for a non-integer
+// sigma_n).
 //
 // What bounds it: bytes (24 planes in, 20 out: 0.36 GB at 1920x1080,
 // 109 us at 3.35 TB/s); the row and column sums (~80 f32 operations a pixel
@@ -334,7 +338,7 @@ __global__ void __launch_bounds__(T_TW* T_TY, 2)
     temporal_kernel(const float* __restrict__ col6,
                     const float* __restrict__ geo7,
                     const float* __restrict__ ctr11, int H, int W, int vec,
-                    float color_w, float moments_w, float below, int sigma_n,
+                    float color_w, float moments_w, float below, float sigma_n,
                     float eps_z, float* __restrict__ cv,
                     float* __restrict__ ext, float* __restrict__ mst) {
   extern __shared__ float4 smem_raw[];
@@ -546,7 +550,7 @@ __global__ void __launch_bounds__(T_TW* T_TY, 2)
 
 template <int SN>
 int launch_temporal(const float* col6, const float* geo7, const float* ctr11, int H, int W,
-                    float color_w, float moments_w, float below, int sigma_n, float eps_z,
+                    float color_w, float moments_w, float below, float sigma_n, float eps_z,
                     float* cv, float* ext, float* mst, cudaStream_t s) {
   const size_t smem = sizeof(TemporalSmem);
   cudaError_t e = cudaFuncSetAttribute(
@@ -588,7 +592,11 @@ int launch_temporal(const float* col6, const float* geo7, const float* ctr11, in
 // staged point serving both, was slower on the H100: fewer resident warps).
 // Every pixel keeps the plain version's term order (tj outer, ti inner),
 // IEEE division, expf and pow_int's multiply chain (unrolled for the
-// configured sigma_n = 128), so NaN and Inf travel as they do there.  One
+// configured sigma_n = 128; powf for a non-integer sigma_n), so NaN and
+// Inf travel as they do there.  Any stride takes the same tiles: above
+// WT_KMAX a block still covers 4 column cosets (`groups` blocks across a
+// tile), so the staged ring and the shared memory (46,080 bytes) are
+// those of s = 4 at s = 16, 32 or 64.  One
 // shortcut: an instance whose centre is dead (pen > 0) skips its taps, as
 // its result is its raw value whatever they hold (den is 0, so every
 // quotient is non-finite); a pixel with both dead (sky) skips the loop.
@@ -616,7 +624,7 @@ struct WavePixel {
 // q2 = (r0, g0, b0, v0), q3 = (fc1, fv1, r1, g1), q4 = (b1, v1, -, -)
 template <int SN>
 __device__ __forceinline__ void wavelet_tap(WavePixel& a, int ti, int tj, int stride,
-                                            const float4* q, int sigma_n,
+                                            const float4* q, float sigma_n,
                                             float eps_z) {
   if (!a.live[0] && !a.live[1]) return;
   const int di = ti * stride, dj = tj * stride;
@@ -649,7 +657,7 @@ __device__ __forceinline__ void wavelet_tap(WavePixel& a, int ti, int tj, int st
 template <int SN>
 __global__ void __launch_bounds__(WT_X * WT_Y)
 wavelet_kernel(const float* __restrict__ geo, const float* __restrict__ cvin,
-               int H, int W, int stride, int sigma_n, float sigma_l, float eps,
+               int H, int W, int stride, float sigma_n, float sigma_l, float eps,
                float eps_z, float* __restrict__ cvout) {
   extern __shared__ float4 s_pts[];  // [row][col] points, 5 float4 each
   const int k = min(stride, WT_KMAX);
@@ -780,7 +788,7 @@ wavelet_kernel(const float* __restrict__ geo, const float* __restrict__ cvin,
 
 template <int SN>
 int launch_wavelet(const float* geo, const float* cvin, int H, int W,
-                   int stride, int sigma_n, float sigma_l, float eps,
+                   int stride, float sigma_n, float sigma_l, float eps,
                    float eps_z, float* cvout, cudaStream_t s) {
   const int k = min(stride, WT_KMAX);
   const int groups = (stride + k - 1) / k;
@@ -800,6 +808,12 @@ int launch_wavelet(const float* geo, const float* cvin, int H, int W,
   return (int)cudaGetLastError();
 }
 
+// an exponent pow_int's chain takes (ops/svgf.py:pow_sigma_n's rule,
+// float(sigma_n).is_integer(), within int range)
+bool is_int_exponent(float sn) {
+  return sn == floorf(sn) && fabsf(sn) < 2147483648.f;
+}
+
 }  // namespace
 
 extern "C" int lprt_coef_fetch(const float* hist, const float* rw, int C,
@@ -815,27 +829,32 @@ extern "C" int lprt_coef_fetch(const float* hist, const float* rw, int C,
 
 extern "C" int lprt_temporal(const float* col6, const float* geo7,
                              const float* ctr11, int H, int W, float color_w,
-                             float moments_w, float below, int sigma_n,
+                             float moments_w, float below, float sigma_n,
                              float eps_z, float* cv, float* ext, float* mst,
                              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   // the configured sigma_n (128) with pow_int's chain unrolled; any other
-  // exponent runs the loop
-  if (sigma_n == 128)
+  // integer exponent runs the loop, a non-integer one powf
+  if (sigma_n == 128.f)
     return launch_temporal<128>(col6, geo7, ctr11, H, W, color_w, moments_w, below, sigma_n,
                                 eps_z, cv, ext, mst, s);
+  if (!is_int_exponent(sigma_n))
+    return launch_temporal<-2>(col6, geo7, ctr11, H, W, color_w, moments_w, below, sigma_n,
+                               eps_z, cv, ext, mst, s);
   return launch_temporal<-1>(col6, geo7, ctr11, H, W, color_w, moments_w, below, sigma_n,
                              eps_z, cv, ext, mst, s);
 }
 
 extern "C" int lprt_wavelet(const float* geo, const float* cvin, int H, int W,
-                            int stride, int sigma_n, float sigma_l, float eps,
+                            int stride, float sigma_n, float sigma_l, float eps,
                             float eps_z, float* cvout, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (stride < 1) return (int)cudaErrorInvalidValue;
   // the configured sigma_n (128) with pow_int's chain unrolled; any other
-  // exponent runs the loop
-  if (sigma_n == 128)
+  // integer exponent runs the loop, a non-integer one powf
+  if (sigma_n == 128.f)
     return launch_wavelet<128>(geo, cvin, H, W, stride, sigma_n, sigma_l, eps, eps_z, cvout, s);
+  if (!is_int_exponent(sigma_n))
+    return launch_wavelet<-2>(geo, cvin, H, W, stride, sigma_n, sigma_l, eps, eps_z, cvout, s);
   return launch_wavelet<-1>(geo, cvin, H, W, stride, sigma_n, sigma_l, eps, eps_z, cvout, s);
 }

@@ -6,7 +6,17 @@ Dtype-preserving: each helper computes in the dtype its inputs carry.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
+
+
+@lru_cache(maxsize=None)
+def const(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype`, as the JAX package's
+    `jnp.asarray(value, dtype)`, kept a Python float so that it stays a
+    scalar operand (in f32 the same value torch takes for the float)."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 def dot(a, b):

@@ -113,6 +113,26 @@ class Object:
             node = node.parent
         return m
 
+    def insert_parent(self) -> "Object":
+        """Re-parent through a fresh node carrying this node's TRS (the
+        explorer's free camera: the holder moves, this node looks)."""
+        holder = Object(name=self.name + "_holder")
+        holder.translation = self.translation
+        holder.rotation = self.rotation
+        holder.scale = self.scale
+        self.translation = np.zeros(3, np.float32)
+        self.rotation = np.array([0, 0, 0, 1], np.float32)
+        self.scale = np.ones(3, np.float32)
+        old_parent = self.parent
+        holder.children = [self]
+        self.parent = holder
+        holder.parent = old_parent
+        if old_parent is not None:
+            old_parent.children = [
+                holder if c is self else c for c in old_parent.children
+            ]
+        return holder
+
     def search(self, name: str) -> "Object | None":
         if self.name == name:
             return self

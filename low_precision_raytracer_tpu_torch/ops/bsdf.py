@@ -2,7 +2,8 @@
 
 glTF metallic-roughness BRDF split into a ``(colored, white)`` pair: the
 reflectance for base colour ``c`` is ``c * colored + white``.  Elementwise
-over (...,) lanes in the dtype of the inputs.
+over (...,) lanes in the dtype of the inputs, its constants rounded to
+that dtype as the JAX package rounds them.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from low_precision_raytracer_tpu_torch.math.vec import dot, normalize, pow5
+from low_precision_raytracer_tpu_torch.math.vec import const, dot, normalize, pow5
 
 
 class BRDF(NamedTuple):
@@ -36,8 +37,9 @@ def specular_brdf(V, H, L, N, alpha):
     div2 = anv + torch.sqrt(torch.clamp(a2 + (1.0 - a2) * anv * anv, min=0.0))
     nh2 = nh * nh
     denom = (1.0 - nh2) + nh2 * a2
-    d_val = a2 / (math.pi * torch.clamp(denom * denom, min=1e-12))
-    out = d_val / torch.clamp(div1, min=1e-12) / torch.clamp(div2, min=1e-12)
+    eps = const(1e-12, a2.dtype)
+    d_val = a2 / (const(math.pi, a2.dtype) * torch.clamp(denom * denom, min=eps))
+    out = d_val / torch.clamp(div1, min=eps) / torch.clamp(div2, min=eps)
     bad = (nh <= 0) | (hl <= 0) | (hv <= 0)
     return torch.where(bad, torch.zeros_like(out), out)
 
@@ -50,10 +52,11 @@ def material_brdf(metallic, roughness, V, L, N) -> BRDF:
     alpha = roughness * roughness
     layer = specular_brdf(V, H, L, N, alpha)
 
-    f0 = 0.04
-    dielectric_fr = f0 + (1.0 - f0) * p5
+    dt = p5.dtype
+    f0 = const(0.04, dt)
+    dielectric_fr = f0 + const(1.0 - f0, dt) * p5
     dielectric_white = dielectric_fr * layer
-    dielectric_colored = (1.0 - dielectric_fr) * (1.0 / math.pi)
+    dielectric_colored = (1.0 - dielectric_fr) * const(1.0 / math.pi, dt)
 
     metal_white = layer * p5
     metal_colored = layer * (1.0 - p5)
@@ -72,8 +75,8 @@ def glassy_brdf(metallic, V, L, N) -> BRDF:
     vh = dot(V, H)
     p5 = pow5(torch.clamp(1.0 - torch.abs(vh), min=0.0))
 
-    f0 = 0.04
-    dielectric_white = f0 + (1.0 - f0) * p5
+    f0 = const(0.04, p5.dtype)
+    dielectric_white = f0 + const(1.0 - f0, p5.dtype) * p5
     colored = (1.0 - p5) * metallic
     white = p5 * metallic + dielectric_white * (1.0 - metallic)
 

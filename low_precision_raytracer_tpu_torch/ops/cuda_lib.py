@@ -47,8 +47,8 @@ SIGNATURES = {
     },
     "svgf": {
         "lprt_coef_fetch": [P, P, I, I, I, I, I, P, P],
-        "lprt_temporal": [P, P, P, I, I, F, F, F, I, F, P, P, P, P],
-        "lprt_wavelet": [P, P, I, I, I, I, F, F, F, P, P],
+        "lprt_temporal": [P, P, P, I, I, F, F, F, F, F, P, P, P, P],
+        "lprt_wavelet": [P, P, I, I, I, F, F, F, F, P, P],
     },
     "wavefront": {
         "lprt_wavefront_schedule": [P] * 6 + [I] * 6 + [P] * 3 + [P],

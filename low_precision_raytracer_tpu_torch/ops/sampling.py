@@ -9,13 +9,15 @@ import math
 
 import torch
 
+from low_precision_raytracer_tpu_torch.math.vec import const
+
 
 def sample_ggx(a2, u1, u2):
     """GGX half-vector sample in tangent space (z = cos theta), with the
     cancellation-free denominator (1 - u1) + a2*u1.  a2 = roughness^4."""
     z = torch.sqrt((1.0 - u1) / ((1.0 - u1) + a2 * u1))
     r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
-    phi = (2.0 * math.pi) * u2
+    phi = const(2.0 * math.pi, u2.dtype) * u2
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
@@ -23,7 +25,7 @@ def d_ggx_opti(nh, a2):
     """pi * tmp^2 with tmp = (1 - NH^2) + NH^2*a2 (cancellation-free)."""
     nh2 = nh * nh
     tmp = (1.0 - nh2) + nh2 * a2
-    return math.pi * tmp * tmp
+    return const(math.pi, nh.dtype) * tmp * tmp
 
 
 def pdf_ggx_reflect(nh, a2):
@@ -39,7 +41,7 @@ def uniform_hemisphere_trig(normal, tangent, bitangent, u1, u2):
     frame: z = u1, phi = 2*pi*u2.  Returns (dir, cosine = z)."""
     z = u1.to(normal.dtype)
     r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
-    phi = (2.0 * math.pi) * u2.to(normal.dtype)
+    phi = const(2.0 * math.pi, normal.dtype) * u2.to(normal.dtype)
     x = r * torch.cos(phi)
     y = r * torch.sin(phi)
     v = tangent * x[..., None] + bitangent * y[..., None] + normal * z[..., None]

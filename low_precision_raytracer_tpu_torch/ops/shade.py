@@ -5,9 +5,12 @@ on the first round, the bounce hits after it) and emits the round's
 emission/ambient intensity, the GI bounce ray with its BRDF multiplier
 (NaN demodulation tag on round 0), and one shadow-ray command per light.
 
-Shading computes in f32 (`cfg.shade_f32`).  The 7*R GI uniforms of a
-round with GI are one f32 draw, passed in by the caller (`uniforms`), so
-tests can feed the JAX package's draws.  With a skybox, `di_sky` carries
+Shading computes in f32 under `cfg.shade_f32` (the default), else in the
+render dtype (the dtype shader: inputs, material values, the GI lobes and
+their uniforms in bf16 or fp16; the direct-light geometry and its BRDF stay
+f32 either way, as in the JAX package).  The 7*R GI uniforms of a round
+with GI are one draw in that dtype, passed in by the caller (`uniforms`),
+so tests can feed the JAX package's draws.  With a skybox, `di_sky` carries
 the sky radiance of the pixels no surface covers.  In a scene with
 textures the base colour comes from the material's base-colour texture
 (where it has one) at the uv set it names, on every round.
@@ -21,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from low_precision_raytracer_tpu_torch.config import SKYBOX_COLOR, RenderConfig
-from low_precision_raytracer_tpu_torch.math.vec import dot, normalize, reflect
+from low_precision_raytracer_tpu_torch.math.vec import const, dot, normalize, reflect
 from low_precision_raytracer_tpu_torch.models.hierarchy import LIGHT_DIRECTIONAL
 from low_precision_raytracer_tpu_torch.ops.bsdf import glassy_brdf, material_brdf
 from low_precision_raytracer_tpu_torch.ops.sampling import (
@@ -109,10 +112,10 @@ def _gather_material(scene, mid):
 
 def shade(scene, frame, sinput: ShadeInput, view_dir, *, cfg: RenderConfig,
           first_round: bool, no_gi: bool, uniforms=None) -> ShadeOutputs:
-    """One shade pass over R pixels.  `uniforms`: (7 R,) f32 in [0, 1),
-    required unless `no_gi`."""
+    """One shade pass over R pixels.  `uniforms`: (7 R,) in [0, 1) in the
+    shade dtype, required unless `no_gi`."""
     f32 = torch.float32
-    dt = f32  # cfg.shade_f32 (check_supported refuses the dtype shader)
+    dt = f32 if cfg.shade_f32 else cfg.prec.dtype
     up = lambda x: x.to(dt)
     sinput = sinput._replace(
         position=up(sinput.position), normal=up(sinput.normal),
@@ -164,7 +167,7 @@ def shade(scene, frame, sinput: ShadeInput, view_dir, *, cfg: RenderConfig,
 
     if no_gi:  # the NO_GI fake ambient replaces emission
         skyc = torch.tensor(SKYBOX_COLOR, dtype=dt, device=dev)
-        intensity = skyc * color * 0.5
+        intensity = skyc * color * const(0.5, dt)
     else:
         intensity = mat["emission"]
     intensity = torch.where(valid[:, None], intensity, zero3)
@@ -179,7 +182,7 @@ def shade(scene, frame, sinput: ShadeInput, view_dir, *, cfg: RenderConfig,
         metallic = mat["metallic"]
         roughness = mat["roughness"]
         mirror_dir = normalize(reflect(view_dir, normal))
-        lo_rough = roughness < 0.1
+        lo_rough = roughness < const(0.1, dt)
 
         # one hemisphere draw serves both roughness branches
         diff_dir, cos_diff = uniform_hemisphere_trig(normal, tangent, bitangent, uh1, uh2)
@@ -187,9 +190,9 @@ def shade(scene, frame, sinput: ShadeInput, view_dir, *, cfg: RenderConfig,
         # low-roughness lobes: metallic russian-roulette mirror, glassy specular
         g_mirror = glassy_brdf(metallic, view_dir, mirror_dir, normal)
         mult_a = g_mirror.get_brdf(color) / metallic[:, None]
-        pdf_b = (1.0 - metallic) * 0.6
+        pdf_b = (1.0 - metallic) * const(0.6, dt)
         take_a = r_mirror < metallic
-        take_b = ~take_a & (r_spec < 0.6)
+        take_b = ~take_a & (r_spec < const(0.6, dt))
 
         # high-roughness lobes: GGX importance / uniform hemisphere mix
         a = roughness * roughness
@@ -197,9 +200,9 @@ def shade(scene, frame, sinput: ShadeInput, view_dir, *, cfg: RenderConfig,
         h_t = sample_ggx(a2, u_ggx1, u_ggx2)
         h_w = normalize(tangent_to_world(h_t, normal, tangent, bitangent))
         ggx_dir = reflect(view_dir, h_w)
-        ggx_cos = torch.clamp(dot(ggx_dir, h_w), min=0.05)
+        ggx_cos = torch.clamp(dot(ggx_dir, h_w), min=const(0.05, dt))
         pdf_ggx = pdf_ggx_reflect(h_t[..., 2], a2) * metallic / (4 * ggx_cos)
-        pdf_diff = (0.5 / math.pi) * (1.0 - metallic)
+        pdf_diff = const(0.5 / math.pi, dt) * (1.0 - metallic)
 
         take_ggx = r_metal < metallic
         dir_hi = normalize(torch.where(take_ggx[:, None], ggx_dir, diff_dir))
@@ -212,7 +215,7 @@ def shade(scene, frame, sinput: ShadeInput, view_dir, *, cfg: RenderConfig,
 
         # the reference's low-roughness hemisphere lobe uses cos * 2pi
         # without the lobe-selection probability (reproduced as is)
-        mult_c_scalar = cos_diff * (2.0 * math.pi)
+        mult_c_scalar = cos_diff * const(2.0 * math.pi, dt)
         mult_hi_scalar = cos_sel / pdf_sel
         e_scalar = torch.where(lo_rough, mult_c_scalar, mult_hi_scalar)
         if first_round:
@@ -240,7 +243,7 @@ def shade(scene, frame, sinput: ShadeInput, view_dir, *, cfg: RenderConfig,
     # direct-light commands: light geometry in f32 from the f32 hit position
     pos32 = sinput.position_f32 if sinput.position_f32 is not None else sinput.position.to(f32)
     n32 = normal.to(f32)
-    rough_di = torch.clamp(mat["roughness"], min=0.10)
+    rough_di = torch.clamp(mat["roughness"], min=const(0.10, dt))
     up_z = torch.tensor([0.0, 0.0, 1.0], dtype=f32, device=dev).expand(R, 3)
     l_valid, l_dir, l_maxt, l_mult = [], [], [], []
     for i in range(L):

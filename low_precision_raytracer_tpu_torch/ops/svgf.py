@@ -1,8 +1,8 @@
 """SVGF state and helpers (port of the parts of
 `low_precision_raytracer_tpu/ops/svgf.py` the fused path uses): the
 per-instance temporal state, the depth-gradient preprocess and the
-binary-squaring integer power.  The denoiser itself is the fused kernel
-chain of ops/svgf_kernels.py."""
+edge-stopping power (the binary-squaring chain for an integer sigma_n).
+The denoiser itself is the fused kernel chain of ops/svgf_kernels.py."""
 
 from __future__ import annotations
 
@@ -27,6 +27,15 @@ def _pow_int(x, n: int):
         base = base * base
         n >>= 1
     return result
+
+
+def pow_sigma_n(x, sigma_n: float):
+    """x**sigma_n as the kernels take it: an integer exponent by
+    `_pow_int`'s chain, any other by `torch.pow` (the JAX package's `**`
+    in f32)."""
+    if float(sigma_n).is_integer():
+        return _pow_int(x, int(sigma_n))
+    return torch.pow(x, float(sigma_n))
 
 
 class SVGFState(NamedTuple):

@@ -34,7 +34,7 @@ from low_precision_raytracer_tpu_torch.ops.svgf import (
     GAUSS_G,
     WAVELET_H,
     SVGFState,
-    _pow_int,
+    pow_sigma_n,
 )
 
 BIG = 1e30  # sentinel: exp(-BIG) == 0
@@ -284,7 +284,6 @@ def temporal_accum_plain(col6, geo7, ctr11, cfg: SVGFConfig, color_w: float,
     geop = F.pad(geo7, (2, 2, 2, 2))
     depth_p, gx, gy, nx_p, ny_p, nz_p = (geo7[c] for c in range(6))
     eps1 = cfg.sigma_z * cfg.eps
-    sn = int(cfg.sigma_n)
     num = [torch.zeros_like(depth_p) for _ in (0, 1)]
     num2 = [torch.zeros_like(depth_p) for _ in (0, 1)]
     wsum = [torch.zeros_like(depth_p) for _ in (0, 1)]
@@ -295,7 +294,7 @@ def temporal_accum_plain(col6, geo7, ctr11, cfg: SVGFConfig, color_w: float,
             dd = gx * float(ti) + gy * float(tj)
             t1 = torch.abs(depth_p - q(geop[C_DEPTH])) / torch.abs(dd + eps1)
             ndot = nx_p * q(geop[C_NX]) + ny_p * q(geop[C_NY]) + nz_p * q(geop[C_NZ])
-            w_n = _pow_int(torch.clamp(ndot, min=0.0), sn)
+            w_n = pow_sigma_n(torch.clamp(ndot, min=0.0), cfg.sigma_n)
             hw = hval * torch.exp(-t1) * w_n
             for i in (0, 1):
                 hm = hw * q(fil[i])
@@ -346,7 +345,7 @@ def temporal_accum(col6, geo7, ctr11, cfg: SVGFConfig, color_w: float,
     code = cuda_lib.library("svgf").lprt_temporal(
         col6.data_ptr(), geo7.data_ptr(), ctr11.data_ptr(), H, W,
         float(color_w), float(moments_w), float(cfg.spatial_moments_below),
-        int(cfg.sigma_n), float(cfg.sigma_z * cfg.eps), cv.data_ptr(),
+        float(cfg.sigma_n), float(cfg.sigma_z * cfg.eps), cv.data_ptr(),
         ext.data_ptr(), mst.data_ptr(), cuda_lib.stream_ptr(dev))
     cuda_lib.check(code, "temporal_accum")
     cuda_lib.LAUNCHES["temporal_accum"] += 1
@@ -368,7 +367,6 @@ def wavelet_iter_plain(geo, cv, stride: int, cfg: SVGFConfig):
     depth_p, gx, gy, nx_p, ny_p, nz_p = (geo[c] for c in range(6))
     il_p = [geo[C_IL0], geo[C_IL1]]
     eps1 = cfg.sigma_z * cfg.eps
-    sn = int(cfg.sigma_n)
 
     gnum = [torch.zeros_like(depth_p) for _ in (0, 1)]
     gden = torch.zeros_like(depth_p)
@@ -395,7 +393,7 @@ def wavelet_iter_plain(geo, cv, stride: int, cfg: SVGFConfig):
             dd = gx * float(di) + gy * float(dj)
             t1 = torch.abs(depth_p - q(gp[C_DEPTH])) / torch.abs(dd + eps1)
             ndot = nx_p * q(gp[C_NX]) + ny_p * q(gp[C_NY]) + nz_p * q(gp[C_NZ])
-            hvn = hval * _pow_int(torch.clamp(ndot, min=0.0), sn)
+            hvn = hval * pow_sigma_n(torch.clamp(ndot, min=0.0), cfg.sigma_n)
             for i, b in enumerate((0, N_CVI)):
                 t2 = torch.abs(il_p[i] - q(gp[C_IL0 + i])) * recip2[i]
                 hw = hvn * torch.exp(-(t1 + t2))
@@ -495,7 +493,7 @@ def wavelet_iter(geo, cv, stride: int, cfg: SVGFConfig):
         return wavelet_iter_plain(geo, cv, stride, cfg)
     out = torch.empty_like(cv)
     code = cuda_lib.library("svgf").lprt_wavelet(
-        geo.data_ptr(), cv.data_ptr(), H, W, int(stride), int(cfg.sigma_n),
+        geo.data_ptr(), cv.data_ptr(), H, W, int(stride), float(cfg.sigma_n),
         float(cfg.sigma_l), float(cfg.eps), float(cfg.sigma_z * cfg.eps),
         out.data_ptr(), cuda_lib.stream_ptr(dev))
     cuda_lib.check(code, "wavelet_iter")
@@ -513,7 +511,8 @@ def svgf_pair_full(color2, ctr11, depth, grad, normal, cfg: SVGFConfig,
     chain (K4 per stride); the first stride's output is next frame's
     colour history.  color2 (2, H, W, 3); ctr11 (11, H, W) the fetched
     history (K2).  -> (out_color2 (2, H, W, 3) f32, SVGFState with
-    (2, ...) f32 leaves)."""
+    (2, ...) leaves: f32 under `state_f32`, else color2's dtype, as the JAX
+    package rounds them)."""
     f32 = torch.float32
     _, H, W, _ = color2.shape
     geo7 = pack_geometry_base(depth, grad, normal, cfg)
@@ -528,5 +527,7 @@ def svgf_pair_full(color2, ctr11, depth, grad, normal, cfg: SVGFConfig,
     out2, _ = unpack_cv_pair(cv)
     if history2 is None:
         history2 = out2
-    state2 = SVGFState(miu1=mst[0:2], miu2=mst[2:4], color_history=history2)
+    sdt = f32 if cfg.state_f32 else color2.dtype
+    state2 = SVGFState(miu1=mst[0:2].to(sdt), miu2=mst[2:4].to(sdt),
+                       color_history=history2.to(sdt))
     return out2, state2

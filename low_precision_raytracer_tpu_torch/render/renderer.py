@@ -80,6 +80,7 @@ from low_precision_raytracer_tpu_torch.render.framestate import (
     FrameState,
     init_frame_state,
 )
+from low_precision_raytracer_tpu_torch.utils.rng import render_generator
 
 
 def _trace_di(scene, frame, source, lights, skip_tri, cfg, prec, coherent=True):
@@ -217,8 +218,9 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
                  uniforms=None, generator=None, taa_bits=None):
     """One full frame.  -> (image (H, W, 3) f32 gamma-encoded, aux, state).
 
-    `uniforms`: one (7 H W,) f32 tensor per GI shade round (the JAX
-    package's `jax.random.uniform(k_shade, (7R,), f32)`), else drawn from
+    `uniforms`: one (7 H W,) tensor per GI shade round in the shade dtype,
+    f32 under `shade_f32`, else the render dtype (the JAX package's
+    `jax.random.uniform(k_shade, (7R,), dt)`), else drawn from
     `generator`.  `taa_bits`: when the TAA half runs, the (H, W) jitter
     words, int64 in [0, 2^32) (the JAX package's `jax.random.bits(k_taa,
     (H, W), uint32)`), else drawn from `generator` before the uniforms.
@@ -239,7 +241,8 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
         taa_bits = torch.randint(0, 1 << 32, (H, W), generator=generator, dtype=torch.int64,
                                  device=dev)
     if uniforms is None:
-        uniforms = [torch.rand((7 * R,), generator=generator, dtype=f32, device=dev)
+        shade_dt = f32 if cfg.shade_f32 else dt
+        uniforms = [torch.rand((7 * R,), generator=generator, dtype=shade_dt, device=dev)
                     for _ in range(gi_rounds)]
     if len(uniforms) != gi_rounds:
         raise ValueError(f"render_frame: {gi_rounds} GI rounds need as many "
@@ -266,7 +269,7 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
             sc.color_history[..., 0], sc.color_history[..., 1], sc.color_history[..., 2],
             sw.color_history[..., 0], sw.color_history[..., 1], sw.color_history[..., 2],
             sc.miu1, sw.miu1, sc.miu2, sw.miu2,
-        ])
+        ]).to(f32)  # the render dtype's zeros on frame 0 under state_f32=False
     svgf_map, svgf_ctr, fast, taa_map, taa_pre = generate_temporal_maps(
         g2d, frame, state, W, H, dt, pos32, svgf_payload,
         taa_payload=state.taa_history if taa else None, taa_bits=taa_bits if taa else None)
@@ -360,7 +363,8 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
 
 class Renderer:
     """Owns the host scene, the device scene, the frame state and the
-    random generator, and renders frame after frame.  Runs on CUDA unless
+    random generator (`utils/rng.py:render_generator`), and renders frame
+    after frame, counting them in `frame_index`.  Runs on CUDA unless
     `device` says otherwise; raises when no card is there."""
 
     def __init__(self, host_scene: HostScene, cfg: RenderConfig, device=None,
@@ -378,7 +382,8 @@ class Renderer:
         if walk and self.frame.tlas_parent is None:
             self.frame = self._flatten(self.cfg, 0.0)
         self.state = init_frame_state(cfg, len(self.frame.obj_layout), self.device)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = render_generator(seed, self.device)
+        self.frame_index = 0
 
     def _flatten(self, cfg: RenderConfig, time: float):
         return flatten_frame(self.host, cfg.prec, self.device,
@@ -399,4 +404,5 @@ class Renderer:
             generator=self.generator, taa_bits=taa_bits,
         )
         aux["flatten_ms"] = flatten_ms
+        self.frame_index += 1
         return image, aux

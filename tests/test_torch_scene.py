@@ -175,11 +175,19 @@ def test_renderer_without_cuda_raises(monkeypatch):
     dict(svgf=SVGFConfig(strides=(1, 2, 4, 8, 32))),
     dict(svgf=SVGFConfig(sigma_n=127.5)),
     dict(svgf=SVGFConfig(state_f32=False)),
+    dict(mesh=object()),
 ])
 def test_uncovered_configs_raise(kw):
+    """The options the port once refused (ROADMAP queue 1 item 9) construct
+    and render a finite frame; a device mesh (multiple GPUs, item 10) is
+    still refused, naming its item."""
     cfg = RenderConfig(width=8, height=8, **{"precision": "bf16", **kw})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item \d+\)"):
-        Renderer(cornell_box_scene(), cfg, device="cpu")
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 10\)"):
+            Renderer(cornell_box_scene(), cfg, device="cpu")
+        return
+    img, _aux = Renderer(cornell_box_scene(), cfg, device="cpu").render()
+    assert tuple(img.shape) == (8, 8, 3) and bool(torch.isfinite(img).all())
 
 
 @pytest.mark.parametrize("impl", ["jax", "dense"])
@@ -239,7 +247,7 @@ def test_widened_band_row_cap(precision, fallback, impl, widened):
 
 
 def test_uncovered_scenes_raise():
-    """A-trous strides above 16 are refused; a scene that 'auto' sends to
+    """A-trous strides above 16 render; a scene that 'auto' sends to
     the BVH walk (above packet_bvh_max_tris), a scene with a texture, a two-chunk scene (130 instance triangles), a skybox,
     di_fuse='off', the per-ray wavefront (K5, here on colonnade-830 with
     its threshold lowered) in both its modes, the morton sort keys and the
@@ -260,10 +268,10 @@ def test_uncovered_scenes_raise():
         img, _aux = Renderer(sponza_like_scene(3, 1), RenderConfig(
             width=8, height=8, precision="bf16", **kw), device="cpu").render()
         assert bool(torch.isfinite(img).all())
-    with pytest.raises(NotImplementedError, match=r"strides above 16.*ROADMAP queue 1 item 9\)"):
-        Renderer(sponza_like_scene(3, 1), RenderConfig(
-            width=8, height=8, precision="bf16",
-            svgf=SVGFConfig(strides=(1, 2, 4, 8, 16, 32))), device="cpu")
+    img, _aux = Renderer(sponza_like_scene(3, 1), RenderConfig(
+        width=8, height=8, precision="bf16",
+        svgf=SVGFConfig(strides=(1, 2, 4, 8, 16, 32))), device="cpu").render()
+    assert bool(torch.isfinite(img).all())
     for mode in ("auto", "rounds"):
         img, _aux = Renderer(sponza_like_scene(3, 1), RenderConfig(
             width=8, height=8, precision="bf16", wavefront_min_tris=600, wavefront_mode=mode),
