@@ -64,7 +64,24 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    their plain versions on a warm-up frame's inputs (K4 bit for bit at
    every stride, the float exponent too; K3 at rtol 1e-4 / atol 1e-5),
    timed by stride, then 4 frames of each path (K4 once a stride).  The
-   launches of phases 5b-5e join the kernels line's;
+   launches of phases 5b-5f join the kernels line's;
+5f. the row-sharded frame (`sharded_phase`, `parallel/`): the unsharded
+   frames of the flagship (8), the animated path (8, the camera dollying,
+   TAA 0.3) and the Sponza-class frame (4) rendered here (Renderer seed 0,
+   1080p bf16); then the three over 2 ranks and the flagship over 4,
+   started by `parallel/launch.py:spawn` (the kernels built in phase 2;
+   a rank never builds), every rank on this card under gloo; with two
+   cards or more the flagship once more under NCCL, a card a rank, else a
+   line saying NCCL was not run.  Every frame, each rank's image rows and
+   state rows (a SHA-256 a pixel leaf) equal the unsharded frame's bit for
+   bit (or, logged as a queue 3 fault, >= 60 dB with the differing pixels
+   counted); each rank's launches a frame: K1a 2 (K1b 4 on Sponza), K3 1,
+   K4 5, K2 0.  Printed per case: each rank's frame ms beside the
+   unsharded frame's (ranks sharing one card measure correctness, not
+   scaling), the exchanges, bytes and their ms a frame, the anchors that
+   left the halo a frame, and the whole frame's draw; and whether the
+   frame's batched products give the same bits on N row blocks
+   (`batch_probe`, queue 3 F3);
 5a. the interactive path (`animated_scene`: the animated Cornell box, its
    tall box orbiting and turning and its lamp bobbing, the camera dollying
    0.02 units a frame toward the box; bf16, `taa_mix_weight=0.3`, frame f
@@ -3803,6 +3820,187 @@ def fallback_lines():
         log(f"fallback_rate cornell primary {n}x{n} {name}: {json.dumps(rate)}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5f: the row-sharded frame over several ranks (parallel/)
+
+SHARDED_CASES = {  # name -> (scene factory, RenderConfig keywords, frames, moving)
+    "flagship": ("low_precision_raytracer_tpu_torch.models.procedural:cornell_box_scene",
+                 {}, PATH_FRAMES, False),
+    "animated": ("low_precision_raytracer_tpu_torch.tools.frame_times:animated_scene",
+                 {"taa_mix_weight": 0.3}, PATH_FRAMES, True),
+    "sponza": ("low_precision_raytracer_tpu_torch.models.procedural:sponza_like_scene",
+               {}, 4, False),
+}
+SHARDED_RUNS = (  # (ranks, backend, cases)
+    (2, "gloo", ("flagship", "animated", "sponza")),
+    (4, "gloo", ("flagship",)),
+)
+SHARDED_PSNR_FAULT = 60.0  # dB: the bar of a case logged as a batch-size fault
+
+
+def sharded_phase(totals):
+    """Phase 5f (`parallel/`): the unsharded frames of each case rendered
+    here (Renderer seed 0, 1080p bf16), then the cases over N ranks started
+    by `parallel/launch.py:spawn`, every rank on this card under gloo (or,
+    with two cards or more, the flagship once more under NCCL, a card a
+    rank); each rank's image rows and state rows (SHA-256 a pixel leaf)
+    held bit for bit against the unsharded frame's every frame, its launches
+    a frame (K1a 2 or K1b 4, K3 1, K4 5, K2 0) and the whole frame's ray
+    count checked; printed per case: each rank's frame ms beside the
+    unsharded frame's, the exchanges, bytes and their ms a frame, the
+    anchors that left the halo a frame, and the whole frame's draw.  The
+    ranks' launches join `totals`."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.ops import cuda_lib
+    from low_precision_raytracer_tpu_torch.parallel.launch import (
+        _factory,
+        render_rank,
+        spawn,
+        state_digest,
+    )
+    from low_precision_raytracer_tpu_torch.parallel.tiling import PixelMesh, shard_state
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+    from low_precision_raytracer_tpu_torch.utils.image import psnr
+
+    batch_probe()
+    n_cards = torch.cuda.device_count()
+    runs = list(SHARDED_RUNS)
+    if n_cards >= 2:
+        runs.append((min(4, n_cards), "nccl", ("flagship",)))
+        log(f"sharded: NCCL runs, {runs[-1][0]} ranks on {n_cards} cards")
+    else:
+        log(f"sharded: NCCL not run: {n_cards} card on this machine (it needs 2 or more); "
+            "the ranks share the one card under gloo, which measures correctness, not "
+            "scaling")
+    want_n = {}
+    for n, _backend, names in runs:
+        for name in names:
+            want_n.setdefault(name, set()).add(n)
+    dev = torch.device("cuda:0")
+    ref = {}
+    for name, (scene, kw, frames_n, moving) in SHARDED_CASES.items():
+        r = Renderer(_factory(scene)(), RenderConfig(width=W, height=H, precision="bf16", **kw),
+                     seed=0)
+        frames = []
+        for f in range(frames_n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            image, aux = r.render(time=f / FPS if moving else 0.0)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            digests = {(n, k): state_digest(shard_state(r.state, PixelMesh(k, n, None, dev,
+                                                                            "gloo")))
+                       for n in want_n[name] for k in range(n)}
+            frames.append(dict(image=image.cpu(), ms=ms, n_rays=int(aux["n_rays"]),
+                               digests=digests))
+        ref[name] = frames
+        del r
+        torch.cuda.empty_cache()
+    for n, backend, names in runs:
+        cases = [dict(name=name, scene=SHARDED_CASES[name][0], keep="digest",
+                      cfg=dict(width=W, height=H, precision="bf16", **SHARDED_CASES[name][1]),
+                      frames=SHARDED_CASES[name][2],
+                      times=[f / FPS for f in range(SHARDED_CASES[name][2])]
+                      if SHARDED_CASES[name][3] else None) for name in names]
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as out:
+            spawn(n, render_rank, backend, "cuda:0" if backend == "gloo" else None,
+                  args=(dict(cases=cases, out=out),))
+            ranks = [torch.load(os.path.join(out, f"rank{k}.pt")) for k in range(n)]
+        log(f"sharded {n} ranks {backend}: spawn to last rank's exit "
+            f"{time.perf_counter() - t0:.1f} s")
+        for case in cases:
+            name = case["name"]
+            recs = [rk[name] for rk in ranks]
+            sharded_case_report(name, n, backend, recs, ref[name], totals, cuda_lib, psnr)
+
+
+def batch_probe():
+    """Whether the frame's per-pixel batched products give the same bits
+    on a block of rows as on the whole frame, as a shard computes them:
+    the reprojection's (4, 4) @ (4, 1) a pixel (`ops/reproject.py`) and the
+    G-buffer's (3, 3) @ (3, 1) a hit (`ops/gbuffer.py`), on random 1080p
+    operands, the frame cut into N row blocks (ROADMAP queue 3, F3)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a4 = torch.randn((H, W, 4, 4), generator=gen, device="cuda")
+    x4 = torch.randn((H, W, 4, 1), generator=gen, device="cuda")
+    a3 = torch.randn((H * W, 3, 3), generator=gen, device="cuda")
+    x3 = torch.randn((H * W, 3, 1), generator=gen, device="cuda")
+    whole4, whole3 = a4 @ x4, a3 @ x3
+    out = {}
+    for n in (2, 3, 4, 8):
+        h = H // n
+        same4 = all(torch.equal(a4[k * h:(k + 1) * h] @ x4[k * h:(k + 1) * h],
+                                whole4[k * h:(k + 1) * h]) for k in range(n))
+        p = h * W
+        same3 = all(torch.equal(a3[k * p:(k + 1) * p] @ x3[k * p:(k + 1) * p],
+                                whole3[k * p:(k + 1) * p]) for k in range(n))
+        out[n] = {"4x4 @ 4x1": same4, "3x3 @ 3x1": same3}
+    log(f"sharded: batched products on N row blocks equal to the whole frame's: "
+        f"{json.dumps(out)}")
+
+
+def sharded_case_report(name, n, backend, recs, ref, totals, cuda_lib, psnr):
+    """Hold one case's ranks against the unsharded frames and print its
+    lines (see `sharded_phase`)."""
+    import torch
+
+    h = H // n
+    k1 = "dense_trace_multi" if name == "sponza" else "dense_trace"
+    want = {k1: 4 if name == "sponza" else 2, "temporal_accum": 1, "wavelet_iter": 5,
+            "coef_fetch": 0}
+    tag = f"sharded {name} {n} ranks {backend}"
+    for f, rf in enumerate(ref):
+        diff_px, misses = 0, recs[0]["halo_misses"][f]
+        rows_equal = True
+        for k, rec in enumerate(recs):
+            got, mine = rec["images"][f], rf["image"][k * h:(k + 1) * h]
+            if not torch.equal(got, mine):
+                rows_equal = False
+                diff_px += int((got != mine).any(dim=-1).sum())
+            bad = [leaf for leaf, d in rec["states"][f].items()
+                   if d != rf["digests"][(n, k)][leaf]]
+            if bad:
+                rows_equal = False
+                log(f"{tag} frame {f} rank {k}: state rows differ in {bad}")
+            for kern, cnt in want.items():
+                if rec["launches"][f][kern] != cnt:
+                    raise AssertionError(f"{tag} frame {f} rank {k}: {kern} launched "
+                                         f"{rec['launches'][f][kern]} times, want {cnt}")
+            if rec["n_rays"][f] != rf["n_rays"]:
+                raise AssertionError(f"{tag} frame {f} rank {k}: n_rays {rec['n_rays'][f]} "
+                                     f"!= {rf['n_rays']}")
+            if rec["halo_misses"][f] != misses:
+                raise AssertionError(f"{tag}: the ranks' halo-miss counts differ")
+        if not rows_equal:
+            whole = torch.cat([rec["images"][f] for rec in recs])
+            p = psnr(whole.numpy(), rf["image"].numpy())
+            log(f"{tag} frame {f}: NOT bit for bit: {diff_px} pixels differ, PSNR {p:.2f} dB "
+                f"against the unsharded frame, {misses} anchors left the halo")
+            if p < SHARDED_PSNR_FAULT:
+                raise AssertionError(f"{tag} frame {f}: {p:.2f} dB < {SHARDED_PSNR_FAULT}")
+    for rec in recs:
+        for kern in cuda_lib.LAUNCHES:
+            totals[kern] += sum(fr[kern] for fr in rec["launches"])
+    med = lambda xs: statistics.median(xs[2:] or xs)
+    ex = recs[0]["exchanges"]
+    shared = " (ranks sharing one card: correctness, not scaling)" if backend == "gloo" else ""
+    log(f"{tag}: {len(ref)} frames held (image rows and state rows of every rank); frame ms "
+        f"median per rank {[round(med(r['frame_ms']), 3) for r in recs]} beside the "
+        f"unsharded {med([fr['ms'] for fr in ref]):.3f}{shared}")
+    log(f"{tag}: per frame per rank {ex[-1]['calls']} exchanges, "
+        f"{[r['exchanges'][-1]['bytes'] for r in recs]} bytes sent, exchange ms "
+        f"{[round(med([e['ms'] for e in r['exchanges']]), 3) for r in recs]}, "
+        f"{ex[-1]['all_reduces']} all-reduce; anchors outside the halo per frame "
+        f"{recs[0]['halo_misses']} (frame 0 reprojects through the initial identity "
+        f"matrices into an all-zero history); the whole frame's draw "
+        f"{[round(r['draw_ms'], 4) for r in recs]} ms per rank")
+
+
 def main(argv) -> int:
     import torch
 
@@ -3905,6 +4103,10 @@ def main(argv) -> int:
             {p["stride"]: p["ms"] for p in reps["wavelet_iter"]["per"]})
             + f", K3 ms {reps['temporal_accum']['ms']:.4f}, frame ms "
             f"{path_ms[f'flagship-{case}']:.3f} (flagship {path_ms['flagship']:.3f})")
+    elapsed()
+
+    # ---- the row-sharded frame: N ranks, halo exchanges, every kernel per rank
+    sharded_phase(totals)
     elapsed()
 
     # ---- the interactive path: animated Cornell, the camera dollying, TAA 0.3

@@ -6,7 +6,9 @@ refuses, with `NotImplementedError`, every configuration this port does
 not cover yet; it never approximates one.
 
 `resolve_device` is the one place an entry point picks its device: CUDA
-unless the caller asks for the CPU, and an error when no card is there.
+unless the caller asks for the CPU, and an error when no card is there;
+a rank of a row mesh (`cfg.mesh`, `parallel/tiling.py:PixelMesh`) takes
+its mesh's device.
 It also pins float32 matmuls and convolutions to true f32 (no TF32): the
 JAX package runs its f32 math at `highest` precision.
 """
@@ -142,7 +144,8 @@ class RenderConfig:
     # and fp16 closest hit; fp32 ignores it) picks each chunk's winner by a
     # packed (t bits | row) key and quantizes u/v to 2^-14
     dense_epilogue: str = "auto"
-    # multi-device mesh (JAX: jax.sharding.Mesh); not ported
+    # the row mesh this process renders one shard of
+    # (parallel/tiling.py:PixelMesh; JAX: a jax.sharding.Mesh), or None
     mesh: object = None
 
     def __post_init__(self):
@@ -160,6 +163,12 @@ class RenderConfig:
                               ("dense_epilogue", ("auto", "reduce5", "pack"))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name}={getattr(self, name)!r} not in {allowed}")
+        if self.mesh is not None:
+            from low_precision_raytracer_tpu_torch.parallel.tiling import PixelMesh
+
+            if not isinstance(self.mesh, PixelMesh):
+                raise TypeError(f"cfg.mesh takes a PixelMesh (parallel/tiling.py), "
+                                f"got {type(self.mesh).__name__}")
 
     @property
     def prec(self) -> Precision:
@@ -172,18 +181,26 @@ SKYBOX_COLOR = (0.0, 0.0, 0.0)
 
 def check_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError for configurations the port does not
-    cover yet; each message names the ROADMAP queue-1 item that adds it."""
+    cover yet, naming the ROADMAP queue-1 item that adds each.  Every
+    RenderConfig the port can construct renders (a JPEG texture, item 14,
+    is refused where the image is decoded); a row mesh needs a height
+    that divides over its ranks."""
     if cfg.mesh is not None:
-        raise NotImplementedError(
-            "cfg.mesh: multiple GPUs wait (ROADMAP queue 1 item 10)")
+        cfg.mesh.rows(cfg.height)
 
 
-def resolve_device(device=None) -> torch.device:
-    """CUDA unless the caller passes a device; raises when CUDA is asked
-    for (explicitly or by default) and no card is present.  Also turns
-    TF32 off for f32 matmuls and convolutions."""
+def resolve_device(device=None, mesh=None) -> torch.device:
+    """CUDA unless the caller passes a device; a rank of `mesh` takes the
+    mesh's device (`cuda:{LOCAL_RANK}` under NCCL, the one its caller
+    named under gloo), and a different `device` raises.  Raises when CUDA
+    is asked for (explicitly or by default) and no card is present.  Also
+    turns TF32 off for f32 matmuls and convolutions."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if mesh is not None:
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+        return mesh.device
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

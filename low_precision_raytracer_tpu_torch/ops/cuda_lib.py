@@ -135,11 +135,23 @@ def build_all(names=SOURCES) -> dict[str, str]:
     return logs
 
 
+# set in the ranks of a row-sharded run (parallel/launch.py): a rank loads
+# the libraries its parent built and never builds one itself
+NO_BUILD_ENV = "LPRT_NO_BUILD"
+
+
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built on first use."""
+    """The loaded library for csrc/<name>.cu, built on first use (in a
+    rank of a row-sharded run, where NO_BUILD_ENV is set, a missing
+    library raises instead)."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_all((name,))
+        if os.environ.get(NO_BUILD_ENV):
+            if not _target(name).exists():
+                raise RuntimeError(f"csrc/{name}.cu is not built, and a rank does not "
+                                   "build kernels: build them first (cuda_lib.build_all())")
+        else:
+            build_all((name,))
         lib = ctypes.CDLL(str(_target(name)))
         for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes

@@ -35,7 +35,9 @@ from low_precision_raytracer_tpu_torch.ops.svgf import (
     WAVELET_H,
     SVGFState,
     pow_sigma_n,
+    preprocess_normal_depth,
 )
+from low_precision_raytracer_tpu_torch.parallel.halo import extend_rows
 
 BIG = 1e30  # sentinel: exp(-BIG) == 0
 
@@ -522,6 +524,97 @@ def svgf_pair_full(color2, ctr11, depth, grad, normal, cfg: SVGFConfig,
     history2 = None
     for it, s in enumerate(cfg.strides):
         cv = wavelet_iter(geo, cv, s, cfg)
+        if it == 0:
+            history2, _ = unpack_cv_pair(cv)
+    out2, _ = unpack_cv_pair(cv)
+    if history2 is None:
+        history2 = out2
+    sdt = f32 if cfg.state_f32 else color2.dtype
+    state2 = SVGFState(miu1=mst[0:2].to(sdt), miu2=mst[2:4].to(sdt),
+                       color_history=history2.to(sdt))
+    return out2, state2
+
+
+# ---------------------------------------------------------------------------
+# the pair chain under a row mesh
+
+# Rows beyond a pixel that each kernel reads (csrc/svgf.cu).  K3: stage 1
+# runs on the pixel's 2-pixel ring, each stage-1 value a 9x9 box of colour
+# (4 rows more: 6 in all) beside the history at that point (2); the 5x5
+# moments read depth and normal 2 rows away.  K4 at stride s: the 5x5 taps
+# 2 s rows away (the 3x3 variance prefilter, 1 row, lies inside).
+K3_REACH = {"col": 6, "ctr": 2, "geo": 2}
+
+
+def k4_reach(stride: int) -> int:
+    return 2 * stride
+
+
+def svgf_pair_full_sharded(color2, ctr11, depth, normal, cfg: SVGFConfig,
+                           color_w: float, moments_w: float, mesh):
+    """`svgf_pair_full` on one rank's rows of a row mesh (counterpart of
+    the JAX package's `svgf_pallas_pair_full_sharded`; the port has no
+    separate wavelet-chain caller, so this function's K4 stages also stand
+    for `wavelet_chain_pallas_pair_sharded`).  color2 (2, h, W, 3), ctr11
+    (11, h, W), depth (h, W), normal (h, W, 3): the rank's rows; `mesh`
+    has `rank`, `size` and `exchange(planes, top, bottom)`
+    (`parallel/halo.py:exchange_rows`).
+
+    K3 runs once and K4 once per stride, each on the rank's rows extended
+    by that stage's reach of neighbouring rows (`K3_REACH`, `k4_reach`),
+    and the rank keeps its own rows.  The first and last ranks take no rows
+    past the image edge, where the kernels' own zero read stands in for
+    them; the in-image indicator C_ONE travels in the strips as data.  The
+    kernels' arithmetic does not change, so the rows equal those of the
+    unsharded `svgf_pair_full` bit for bit.  Exchanges, each sized by the
+    reach of the kernel that reads it: depth and normal once (the depth
+    gradient and every stage's geometry: the largest reach and one row
+    more above, for the gradient's backward difference), K3's colour and
+    history, K3's illuminance and penalty planes once for every K4 stage,
+    and K4's colour and variance before each stride: 4 + len(strides).
+    Each stage recomputes its reach's rows on either side, 2 k4_reach(s)
+    rows at stride s (64 at s = 16)."""
+    f32 = torch.float32
+    _, h, W, _ = color2.shape
+    g4 = k4_reach(max(cfg.strides, default=0))  # the widest K4 reach
+    G = max(K3_REACH["col"], g4)
+
+    def own(x, top):
+        return x[:, top:top + h]
+
+    # depth and normal: geometry of rows [r0 - g_t, r1 + g_b), g = G
+    dn = torch.cat([depth.to(f32)[None], normal.to(f32).permute(2, 0, 1)]).contiguous()
+    above, below = mesh.exchange(dn, G + 1, G)
+    r0 = mesh.rank * h
+    d_t = min(G + 1, r0)
+    g_b = min(G, (mesh.size - 1 - mesh.rank) * h)
+    dn = torch.cat([above[:, G + 1 - d_t:], dn, below[:, :g_b]], dim=1)
+    depth_e = dn[0].to(depth.dtype)
+    normal_e = dn[1:].permute(1, 2, 0).to(normal.dtype)
+    grad_e = preprocess_normal_depth(normal_e, depth_e)
+    g_t = min(G, r0)
+    geo7 = pack_geometry_base(depth_e, grad_e, normal_e, cfg)[:, d_t - g_t:]
+
+    # K3 on the colour's reach: colour exchanged 6 rows, history 2 rows (zero
+    # beyond, which K3 does not read for the rank's rows), geometry from geo7
+    col6 = color2.to(f32).permute(0, 3, 1, 2).reshape(6, h, W).contiguous()
+    col_e, t3 = extend_rows(col6, K3_REACH["col"], mesh)
+    b3 = col_e.shape[1] - h - t3
+    ctr_e, tc = extend_rows(ctr11.contiguous(), K3_REACH["ctr"], mesh)
+    ctr_e = F.pad(ctr_e, (0, 0, t3 - tc, b3 - (ctr_e.shape[1] - h - tc)))
+    geo7_3 = geo7[:, g_t - t3:g_t + h + b3]
+    cv, ext, mst = temporal_accum(col_e.contiguous(), geo7_3.contiguous(),
+                                  ctr_e.contiguous(), cfg, color_w, moments_w)
+    cv, ext, mst = own(cv, t3), own(ext, t3), own(mst, t3)
+
+    # K3's illuminance and penalty planes on the widest K4 reach
+    ext_e, te = extend_rows(ext.contiguous(), g4, mesh)
+    geo = torch.cat([geo7[:, g_t - te:g_t - te + ext_e.shape[1]], ext_e], dim=0)
+    history2 = None
+    for it, s in enumerate(cfg.strides):
+        cv_e, t = extend_rows(cv.contiguous(), k4_reach(s), mesh)
+        geo_s = geo[:, te - t:te - t + cv_e.shape[1]].contiguous()
+        cv = own(wavelet_iter(geo_s, cv_e.contiguous(), s, cfg), t)
         if it == 0:
             history2, _ = unpack_cv_pair(cv)
     out2, _ = unpack_cv_pair(cv)

@@ -40,7 +40,13 @@ class FrameState:
 
 
 def init_frame_state(cfg: RenderConfig, n_objects: int, device) -> FrameState:
-    H, W = cfg.height, cfg.width
+    """Frame 0's state: of the whole frame, or under a row mesh
+    (`cfg.mesh`) of this rank's rows (`parallel/tiling.py:shard_state`)."""
+    from low_precision_raytracer_tpu_torch.parallel.tiling import active_mesh
+
+    mesh = active_mesh(cfg.mesh)
+    r0, r1 = (0, cfg.height) if mesh is None else mesh.rows(cfg.height)
+    H, W = r1 - r0, cfg.width
     f32 = torch.float32
     sdt = f32 if cfg.svgf.state_f32 else cfg.prec.dtype
     eye = torch.eye(4, dtype=f32, device=device)

@@ -27,10 +27,21 @@ triangles).  Routes that never reorder (the BVH walk above 4M instance
 triangles, colonnade-8M; the all-pairs route) run round 0's shadows and GI
 bounce as one closest-hit launch of L + 1 lanes a pixel: three launches.
 Sky radiance (`di_sky`) joins both rounds' intensity.
+
+Under a row mesh (`cfg.mesh`, a `parallel/tiling.py:PixelMesh` of more
+than one rank) the frame is one rank's rows: the camera grid's rows, its
+pixels' elements of the whole frame's GI uniforms and TAA bits (every
+rank draws the whole frame from the same seeded generator, so a shard
+sees what the unsharded frame sees), the halo history fetch (no K2), the
+sharded SVGF pair (`ops/svgf_kernels.py:svgf_pair_full_sharded`) and one
+all-reduce of the ray and halo-miss counts.  Every trace launch takes
+only the rank's rays: any contiguous partition of the rays is valid, as
+the JAX package's `ops/trace.py` notes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time as _time
 
 import torch
@@ -65,7 +76,10 @@ from low_precision_raytracer_tpu_torch.ops.shade import (
     shade,
 )
 from low_precision_raytracer_tpu_torch.ops.svgf import SVGFState, preprocess_normal_depth
-from low_precision_raytracer_tpu_torch.ops.svgf_kernels import svgf_pair_full
+from low_precision_raytracer_tpu_torch.ops.svgf_kernels import (
+    svgf_pair_full,
+    svgf_pair_full_sharded,
+)
 from low_precision_raytracer_tpu_torch.ops.taa import temporal_anti_aliasing
 from low_precision_raytracer_tpu_torch.ops.trace import (
     Hit,
@@ -76,6 +90,8 @@ from low_precision_raytracer_tpu_torch.ops.trace import (
     resolve_cfg,
     trace,
 )
+from low_precision_raytracer_tpu_torch.parallel.halo import all_reduce_sum
+from low_precision_raytracer_tpu_torch.parallel.tiling import active_mesh
 from low_precision_raytracer_tpu_torch.render.framestate import (
     FrameState,
     init_frame_state,
@@ -224,34 +240,46 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
     `generator`.  `taa_bits`: when the TAA half runs, the (H, W) jitter
     words, int64 in [0, 2^32) (the JAX package's `jax.random.bits(k_taa,
     (H, W), uint32)`), else drawn from `generator` before the uniforms.
+    Under a row mesh both are the whole frame's draws and the image, aux
+    planes and state are the rank's rows.
     aux["svgf_fast_path"] says whether the history fetch took the K2 path
-    (None with the denoiser off)."""
+    (None with the denoiser off); under a mesh aux["halo_misses"] counts
+    the anchors of the whole frame that left the halo."""
     check_supported(cfg)
+    mesh = active_mesh(cfg.mesh)
     fused = di_fusible(frame, cfg)
     prec = cfg.prec
     dt = prec.dtype
     f32 = torch.float32
-    H, W = cfg.height, cfg.width
+    H_img, W = cfg.height, cfg.width
+    r0, r1 = (0, H_img) if mesh is None else mesh.rows(H_img)
+    H = r1 - r0  # the rows this process renders
     R = H * W
     dev = frame.obj_l2w_f32.device
     # shade rounds that draw GI uniforms: all but the last
     gi_rounds = cfg.max_bounces - 1 if cfg.gi_on else 0
     taa = taa_active(cfg)
     if taa and taa_bits is None:
-        taa_bits = torch.randint(0, 1 << 32, (H, W), generator=generator, dtype=torch.int64,
-                                 device=dev)
+        taa_bits = torch.randint(0, 1 << 32, (H_img, W), generator=generator,
+                                 dtype=torch.int64, device=dev)
     if uniforms is None:
         shade_dt = f32 if cfg.shade_f32 else dt
-        uniforms = [torch.rand((7 * R,), generator=generator, dtype=shade_dt, device=dev)
-                    for _ in range(gi_rounds)]
+        uniforms = [torch.rand((7 * H_img * W,), generator=generator, dtype=shade_dt,
+                               device=dev) for _ in range(gi_rounds)]
     if len(uniforms) != gi_rounds:
         raise ValueError(f"render_frame: {gi_rounds} GI rounds need as many "
                          f"uniform tensors, got {len(uniforms)}")
+    if mesh is not None:  # the rank's pixels of the whole frame's draws
+        if taa:
+            taa_bits = taa_bits[r0:r1]
+        uniforms = [u.reshape(7, H_img * W)[:, r0 * W:r1 * W].reshape(-1) for u in uniforms]
 
     # ---- primary rays (f32 grid in every mode) + G-buffer, with the
     # round-0 shadow phase fused into the launch on single-chunk scenes
     di_spec = _di_light_spec(frame, cfg) if fused else None
-    o32g, d32g = primary_ray_grid(frame.cam_l2w_f32, frame.cam_fov_y_f32, W, H, f32)
+    o32g, d32g = primary_ray_grid(frame.cam_l2w_f32, frame.cam_fov_y_f32, W, H_img, f32)
+    if mesh is not None:  # the grid's rows, bit for bit those of the whole grid
+        o32g, d32g = o32g[r0:r1], d32g[r0:r1]
     d32 = d32g.reshape(R, 3)
     g_flat, _ = fill_gbuffer(scene, frame, o32g.reshape(R, 3), d32, cfg=cfg,
                              prec=prec, di_lights=di_spec)
@@ -271,8 +299,9 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
             sc.miu1, sw.miu1, sc.miu2, sw.miu2,
         ]).to(f32)  # the render dtype's zeros on frame 0 under state_f32=False
     svgf_map, svgf_ctr, fast, taa_map, taa_pre = generate_temporal_maps(
-        g2d, frame, state, W, H, dt, pos32, svgf_payload,
-        taa_payload=state.taa_history if taa else None, taa_bits=taa_bits if taa else None)
+        g2d, frame, state, W, H_img, dt, pos32, svgf_payload,
+        taa_payload=state.taa_history if taa else None, taa_bits=taa_bits if taa else None,
+        mesh=mesh)
 
     # ---- shade round 0, then the GI launch carrying round 1's shadows
     sin0 = gbuffer_to_shade_input(
@@ -324,10 +353,15 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
     new_colored, new_white = state.svgf_colored, state.svgf_white
     if cfg.demo.svgf:
         normal2d, depth2d = g2d["normal"], g2d["depth"]
-        grad = preprocess_normal_depth(normal2d, depth2d)
-        out2, st2 = svgf_pair_full(
-            torch.stack([mul_c, mul_w]), svgf_ctr, depth2d, grad, normal2d,
-            cfg.svgf, cfg.svgf.color_mix_weight, cfg.svgf.moments_mix_weight)
+        if mesh is None:
+            grad = preprocess_normal_depth(normal2d, depth2d)
+            out2, st2 = svgf_pair_full(
+                torch.stack([mul_c, mul_w]), svgf_ctr, depth2d, grad, normal2d,
+                cfg.svgf, cfg.svgf.color_mix_weight, cfg.svgf.moments_mix_weight)
+        else:
+            out2, st2 = svgf_pair_full_sharded(
+                torch.stack([mul_c, mul_w]), svgf_ctr, depth2d, normal2d, cfg.svgf,
+                cfg.svgf.color_mix_weight, cfg.svgf.moments_mix_weight, mesh)
         mul_c, mul_w = out2[0].to(mul_c.dtype), out2[1].to(mul_w.dtype)
         new_colored = SVGFState(*(x[0] for x in st2))
         new_white = SVGFState(*(x[1] for x in st2))
@@ -358,6 +392,10 @@ def render_frame(scene, frame, state: FrameState, cfg: RenderConfig,
         n_rays=n_rays,
         svgf_fast_path=fast,
     )
+    if mesh is not None:  # the whole frame's counts: one all-reduce
+        misses = svgf_map.get("halo_misses", torch.zeros((), dtype=torch.int64, device=dev))
+        tot = all_reduce_sum(torch.stack([n_rays.to(torch.int64), misses]), mesh)
+        aux["n_rays"], aux["halo_misses"] = tot[0], tot[1]
     return image, aux, new_state
 
 
@@ -365,13 +403,18 @@ class Renderer:
     """Owns the host scene, the device scene, the frame state and the
     random generator (`utils/rng.py:render_generator`), and renders frame
     after frame, counting them in `frame_index`.  Runs on CUDA unless
-    `device` says otherwise; raises when no card is there."""
+    `device` says otherwise; raises when no card is there.  With `mesh`
+    (a `parallel/tiling.py:PixelMesh`, or `cfg.mesh`) it is one rank of a
+    row-sharded frame: the mesh's device, the rank's rows of the state and
+    of each frame (`render` returns the image rows)."""
 
     def __init__(self, host_scene: HostScene, cfg: RenderConfig, device=None,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
+        if mesh is not None:
+            cfg = dataclasses.replace(cfg, mesh=mesh)
         check_supported(cfg)
         self.host = host_scene
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, cfg.mesh)
         self.frame = self._flatten(cfg, 0.0)
         check_scene(self.frame, cfg)
         # bake the scene's route into the config, as the JAX Renderer does

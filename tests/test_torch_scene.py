@@ -6,6 +6,7 @@ what they do not cover and render what they do (the BVH walk and the
 all-pairs route among them)."""
 
 import torch_threads  # noqa: F401  (caps the CPU threads per test process)
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -176,17 +177,46 @@ def test_renderer_without_cuda_raises(monkeypatch):
     dict(svgf=SVGFConfig(sigma_n=127.5)),
     dict(svgf=SVGFConfig(state_f32=False)),
     dict(mesh=object()),
+    dict(mesh="one-rank gloo mesh"),
 ])
-def test_uncovered_configs_raise(kw):
-    """The options the port once refused (ROADMAP queue 1 item 9) construct
-    and render a finite frame; a device mesh (multiple GPUs, item 10) is
-    still refused, naming its item."""
-    cfg = RenderConfig(width=8, height=8, **{"precision": "bf16", **kw})
-    if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 10\)"):
-            Renderer(cornell_box_scene(), cfg, device="cpu")
+def test_uncovered_configs_raise(kw, tmp_path):
+    """The options the port once refused (ROADMAP queue 1 items 9 and 10)
+    construct and render a finite frame: a one-rank gloo mesh
+    (`parallel/tiling.py:PixelMesh`, multiple GPUs) renders the unsharded
+    frame bit for bit.  `cfg.mesh` takes only a PixelMesh."""
+    if kw.get("mesh") is not None and not isinstance(kw["mesh"], str):
+        with pytest.raises(TypeError, match="PixelMesh"):
+            RenderConfig(width=8, height=8, precision="bf16", **kw)
         return
-    img, _aux = Renderer(cornell_box_scene(), cfg, device="cpu").render()
+    if "mesh" in kw:
+        import torch.distributed as dist
+
+        from low_precision_raytracer_tpu_torch.parallel.tiling import (
+            make_pixel_mesh,
+            render_frame_sharded,
+            shard_state,
+        )
+        from low_precision_raytracer_tpu_torch.utils.rng import render_generator
+
+        dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_pixel_mesh("gloo", "cpu")
+            cfg = RenderConfig(width=8, height=8, precision="bf16", mesh=mesh)
+            r = Renderer(cornell_box_scene(), cfg, device="cpu")
+            state0 = r.state
+            img, _aux = r.render()
+            again, _aux, _state = render_frame_sharded(
+                mesh, r.scene, r.frame, shard_state(state0, mesh),
+                dataclasses.replace(r.cfg, mesh=None), generator=render_generator(0, "cpu"))
+        finally:
+            dist.destroy_process_group()
+        plain, _aux = Renderer(cornell_box_scene(), RenderConfig(
+            width=8, height=8, precision="bf16"), device="cpu").render()
+        assert torch.equal(img, plain) and torch.equal(again, plain)
+    else:
+        cfg = RenderConfig(width=8, height=8, **{"precision": "bf16", **kw})
+        img, _aux = Renderer(cornell_box_scene(), cfg, device="cpu").render()
     assert tuple(img.shape) == (8, 8, 3) and bool(torch.isfinite(img).all())
 
 
