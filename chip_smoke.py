@@ -68,7 +68,7 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
 5f. the row-sharded frame (`sharded_phase`, `parallel/`): the unsharded
    frames of the flagship (8), the animated path (8, the camera dollying,
    TAA 0.3) and the Sponza-class frame (4) rendered here (Renderer seed 0,
-   1080p bf16); then the three over 2 ranks and the flagship over 4,
+   1080p bf16); then the three over 2 ranks and the flagship over 3 and 4,
    started by `parallel/launch.py:spawn` (the kernels built in phase 2;
    a rank never builds), every rank on this card under gloo; with two
    cards or more the flagship once more under NCCL, a card a rank, else a
@@ -79,9 +79,11 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    K4 5, K2 0.  Printed per case: each rank's frame ms beside the
    unsharded frame's (ranks sharing one card measure correctness, not
    scaling), the exchanges, bytes and their ms a frame, the anchors that
-   left the halo a frame, and the whole frame's draw; and whether the
-   frame's batched products give the same bits on N row blocks
-   (`batch_probe`, queue 3 F3);
+   left the halo a frame, and the whole frame's draw; first, whether the
+   frame's per-pixel products give the same bits on N = 2, 3, 4, 8 row
+   blocks (`batch_probe`, queue 3 F3: the fixed-order forms must, beside
+   them the batched `@` they replaced and the all-pairs route's
+   products);
 5a. the interactive path (`animated_scene`: the animated Cornell box, its
    tall box orbiting and turning and its lamp bobbing, the camera dollying
    0.02 units a frame toward the box; bf16, `taa_mix_weight=0.3`, frame f
@@ -138,6 +140,17 @@ Phases, in order (any failed check raises, so the exit code is non-zero):
    64x64 reference, 4 frames, and a probe of one such frame (`fetch_probe`:
    the uv components that differ between card and CPU per shade round, and
    the fetch on the card's own inputs held within 1e-6 of the CPU's);
+8c. JPEG images: each committed JPEG (`tests/assets/jpeg_expected.json`)
+   decoded by the port on the host (`jpeg_decode_phase`: markers, the C++
+   entropy decode built with g++, the numpy reconstruction, each timed),
+   its RGBA SHA-256 held against PIL's recorded one; the JPEG-textured
+   cube (`BoxTexturedJpeg.glb`, a 1024^2 progressive JPEG base colour, the
+   camera moved by the flagship's offset; `jpeg_scene_phase`), its load
+   timed, 5 frames with K1a 2, K3 1, K4 5 and K2 from frame 1, then 5
+   frames bit for bit against the same scene rebuilt with its texels as a
+   PNG; `cli.py render cornell --skybox <the 2048x1024 JPEG panorama>` at
+   1080p, its PNG equal to the Renderer's frame (`cli_skybox_phase`; its
+   launches join the kernels line's);
 9. colonnade-83k kernel phase: two warm-up frames of `sponza_like_scene(8,
    3)` (82,690 instance triangles in 647 chunks, bf16, 1920x1080) record
    its two K1b launches (primary, round-0 shadows) and its two per-ray
@@ -1414,10 +1427,11 @@ class FetchTimer:
 BOX_CAMERA_OFFSET = (0.0131, 0.0077)
 
 
-def box_scene(offset=(0.0, 0.0)):
-    """BoxTextured.gltf (12 triangles, a 64 x 64 sRGB checker PNG) with the
-    camera (z = 2, fov pi/3) and the lamp tests/test_gltf.py gives it, the
-    camera moved by `offset` in x, y."""
+def box_scene(offset=(0.0, 0.0), path=BOX_GLTF):
+    """BoxTextured.gltf (12 triangles, a 64 x 64 sRGB checker PNG), or
+    another file of its cube at `path`, with the camera (z = 2, fov pi/3)
+    and the lamp tests/test_gltf.py gives it, the camera moved by `offset`
+    in x, y."""
     import numpy as np
 
     from low_precision_raytracer_tpu_torch.models.gltf import load_gltf
@@ -1427,7 +1441,7 @@ def box_scene(offset=(0.0, 0.0)):
         LightObject,
     )
 
-    scene = load_gltf(BOX_GLTF)
+    scene = load_gltf(path)
     cam = CameraObject(name="cam", fov_y=np.pi / 3)
     cam.translation = np.array([*offset, 2.0], np.float32)
     scene.root.add(cam)
@@ -1572,6 +1586,185 @@ def textured_phases(run_path, counts, cfg, tmp):
     log(f"reference textured-sponza: {REF_SIZE}x{REF_SIZE} card vs plain-on-CPU PSNR dB "
         + " ".join(f"{p:.2f}" for p in psnrs))
     fetch_probe(sponza_fn)
+
+
+# ---------------------------------------------------------------------------
+# JPEG images: the decoder, the JPEG-textured cube, a JPEG panorama as sky
+
+ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "assets")
+JPEG_GLB = os.path.join(ASSETS, "BoxTexturedJpeg.glb")
+JPEG_SKY = os.path.join(ASSETS, "jpeg_sky_2048x1024_rst420.jpg")
+JPEG_FRAMES = 5
+
+
+def jpeg_decode_phase():
+    """Each committed JPEG (`tests/assets/jpeg_expected.json`) decoded by
+    the port on the host: the markers, the C++ entropy decode and the numpy
+    reconstruction timed apart (median of 3), the RGBA bytes' SHA-256 held
+    against the hash of PIL's `convert("RGBA")` recorded beside them (this
+    machine has no PIL).  The C++ library's build is timed first."""
+    import hashlib
+
+    from low_precision_raytracer_tpu_torch.utils import jpeg
+    from low_precision_raytracer_tpu_torch.utils.host_build import build_host_library
+
+    t0 = time.perf_counter()
+    build_host_library("jpeg_entropy")
+    log(f"jpeg: csrc/jpeg_entropy.cpp built and loaded in {time.perf_counter() - t0:.2f} s "
+        "(g++, host)")
+    with open(os.path.join(ASSETS, "jpeg_expected.json")) as fh:
+        expected = json.load(fh)
+    for name, want in sorted(expected.items()):
+        with open(os.path.join(ASSETS, name), "rb") as fh:
+            data = fh.read()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            frame = jpeg.parse(data)
+            t1 = time.perf_counter()
+            coefs = jpeg.entropy_decode(frame)
+            t2 = time.perf_counter()
+            rgba = jpeg.reconstruct(frame, coefs)
+            t3 = time.perf_counter()
+            times.append((t1 - t0, t2 - t1, t3 - t2))
+        parse_s, entropy_s, recon_s = (statistics.median(t[k] for t in times) for k in range(3))
+        digest = hashlib.sha256(rgba.tobytes()).hexdigest()
+        if list(rgba.shape) != want["shape"] or digest != want["sha256"]:
+            raise AssertionError(f"jpeg {name}: the decode differs from PIL's recorded bytes")
+        total = parse_s + entropy_s + recon_s
+        form = ("progressive" if frame.progressive else "baseline") + \
+            f" {frame.color} {'/'.join(f'{c.h}x{c.v}' for c in frame.comps)}" + \
+            f" restart {frame.scans[0].restart}"
+        log(f"jpeg {name} ({form}, {len(data)} bytes, {rgba.shape[1]}x{rgba.shape[0]}): "
+            f"SHA-256 equal to PIL's; host ms markers {parse_s * 1e3:.3f}, entropy (C++) "
+            f"{entropy_s * 1e3:.3f}, reconstruction (numpy) {recon_s * 1e3:.3f}, total "
+            f"{total * 1e3:.3f}: {len(data) / total / 1e6:.3f} MB/s of file, "
+            f"{rgba.shape[0] * rgba.shape[1] / total / 1e6:.3f} Mpixel/s")
+
+
+def glb_with_png(src, dst):
+    """Rewrite the `.glb` at `src` with each JPEG image replaced by a PNG of
+    the port's decode of it (`utils/png.py:encode_png`, RGBA), to `dst`."""
+    import struct
+
+    from low_precision_raytracer_tpu_torch.utils.jpeg import decode_jpeg
+    from low_precision_raytracer_tpu_torch.utils.png import encode_png
+
+    with open(src, "rb") as fh:
+        raw = fh.read()
+    (n_json,) = struct.unpack_from("<I", raw, 12)
+    gltf = json.loads(raw[20:20 + n_json])
+    binary = bytearray(raw[20 + n_json + 8:])
+    for img in gltf["images"]:
+        if img.get("mimeType") != "image/jpeg":
+            continue
+        view = gltf["bufferViews"][img["bufferView"]]
+        jpg = bytes(binary[view.get("byteOffset", 0):][:view["byteLength"]])
+        png = encode_png(decode_jpeg(jpg), color_type=6)
+        binary += b"\0" * ((-len(binary)) % 4)
+        gltf["bufferViews"].append({"buffer": 0, "byteOffset": len(binary),
+                                    "byteLength": len(png)})
+        binary += png
+        img.update(bufferView=len(gltf["bufferViews"]) - 1, mimeType="image/png")
+    binary += b"\0" * ((-len(binary)) % 4)
+    gltf["buffers"] = [{"byteLength": len(binary)}]
+    text = json.dumps(gltf).encode()
+    text += b" " * ((-len(text)) % 4)
+    body = (struct.pack("<II", len(text), 0x4E4F534A) + text
+            + struct.pack("<II", len(binary), 0x004E4942) + bytes(binary))
+    with open(dst, "wb") as fh:
+        fh.write(struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body)
+
+
+def jpeg_scene_phase(run_path, counts, cfg, tmp):
+    """The JPEG-textured cube (`BoxTexturedJpeg.glb`: BoxTextured's cube, a
+    1024^2 progressive 4:2:0 JPEG base colour; the camera moved by the
+    flagship's offset), its load timed (parse + JPEG decode), 5 path frames
+    at 1080p bf16 (K1a 2, K3 1, K4 5, K2 from frame 1), then 5 frames each
+    of it and of the same scene rebuilt here with its texels as a PNG
+    (`glb_with_png`), held bit for bit frame by frame.  -> the path
+    phase's launch totals."""
+    import hashlib
+
+    import torch
+
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+
+    with open(os.path.join(ASSETS, "jpeg_expected.json")) as fh:
+        want = json.load(fh)["jpeg_texture_1024_prog420.jpg"]["sha256"]
+    jpeg_fn = timed_load("textured-box-jpeg", lambda: box_scene(BOX_CAMERA_OFFSET, JPEG_GLB))
+    texels = jpeg_fn().textures[0]
+    if hashlib.sha256(texels.tobytes()).hexdigest() != want:
+        raise AssertionError("textured-box-jpeg: the loaded texels differ from PIL's bytes")
+    png_path = os.path.join(tmp, "box_png.glb")
+    glb_with_png(JPEG_GLB, png_path)
+    png_fn = timed_load("textured-box-jpeg rebuilt as PNG",
+                        lambda: box_scene(BOX_CAMERA_OFFSET, png_path))
+    with FetchTimer() as timer:
+        p_totals, _img, _aux = run_path("textured-box-jpeg", jpeg_fn, counts(dense_trace=2),
+                                        frames_n=JPEG_FRAMES, fetch_timer=timer)
+    renderers = [Renderer(fn(), cfg, seed=0) for fn in (jpeg_fn, png_fn)]
+    for f in range(JPEG_FRAMES):
+        a, b = (r.render()[0] for r in renderers)
+        if not torch.equal(a, b):
+            raise AssertionError(f"textured-box-jpeg frame {f}: differs from the PNG scene's "
+                                 f"on {int((a != b).any(dim=-1).sum())} pixels")
+    log(f"textured-box-jpeg: {JPEG_FRAMES} frames bit for bit equal to the same scene rebuilt "
+        "with its texels as a PNG")
+    del renderers
+    torch.cuda.empty_cache()
+    return p_totals
+
+
+def cli_skybox_phase():
+    """`cli.main(["render", "cornell", ..., "--skybox", <the JPEG
+    panorama>])` once at 1080p bf16: exit 0, its PNG equal to a Renderer's
+    frame of Cornell under that sky (`load_hdr_equirect`).  -> the
+    command's launch counts."""
+    import contextlib
+    import io
+
+    import torch
+
+    from low_precision_raytracer_tpu_torch import cli
+    from low_precision_raytracer_tpu_torch.config import RenderConfig
+    from low_precision_raytracer_tpu_torch.models.procedural import cornell_box_scene
+    from low_precision_raytracer_tpu_torch.models.scene import Skybox
+    from low_precision_raytracer_tpu_torch.ops import cuda_lib
+    from low_precision_raytracer_tpu_torch.render.renderer import Renderer
+    from low_precision_raytracer_tpu_torch.utils.image import load_hdr_equirect, to_uint8
+    from low_precision_raytracer_tpu_torch.utils.png import decode_png
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "sky.png")
+        err = io.StringIO()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["render", "cornell", "--width", str(W), "--height", str(H),
+                           "--precision", "bf16", "--frames", "1", "--skybox", JPEG_SKY,
+                           "--out", png])
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_lib.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"cli render --skybox: exit {rc}\n{err.getvalue()}")
+        with open(png, "rb") as fh:
+            rgba = decode_png(fh.read())
+    t0 = time.perf_counter()
+    sky = load_hdr_equirect(JPEG_SKY)
+    load_s = time.perf_counter() - t0
+    scene = cornell_box_scene()
+    scene.skybox = Skybox(data=sky, exposure=1.0)
+    img, _aux = Renderer(scene, RenderConfig(width=W, height=H, precision="bf16")).render()
+    want = to_uint8(img)[::-1]
+    if rgba.shape != (H, W, 4) or not (rgba[..., :3] == want).all():
+        raise AssertionError("cli render --skybox: the PNG differs from the Renderer's frame")
+    del img
+    torch.cuda.empty_cache()
+    log(f"cli render cornell 1080p bf16 --skybox {os.path.basename(JPEG_SKY)}: exit 0, "
+        f"{wall:.2f} s, the PNG equal to the Renderer's frame; the panorama's "
+        f"load_hdr_equirect {load_s:.3f} s host; launches {json.dumps(launches)}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3833,6 +4026,7 @@ SHARDED_CASES = {  # name -> (scene factory, RenderConfig keywords, frames, movi
 }
 SHARDED_RUNS = (  # (ranks, backend, cases)
     (2, "gloo", ("flagship", "animated", "sponza")),
+    (3, "gloo", ("flagship",)),  # 360-row shards: the block size F3 broke
     (4, "gloo", ("flagship",)),
 )
 SHARDED_PSNR_FAULT = 60.0  # dB: the bar of a case logged as a batch-size fault
@@ -3918,30 +4112,62 @@ def sharded_phase(totals):
 
 
 def batch_probe():
-    """Whether the frame's per-pixel batched products give the same bits
-    on a block of rows as on the whole frame, as a shard computes them:
-    the reprojection's (4, 4) @ (4, 1) a pixel (`ops/reproject.py`) and the
-    G-buffer's (3, 3) @ (3, 1) a hit (`ops/gbuffer.py`), on random 1080p
-    operands, the frame cut into N row blocks (ROADMAP queue 3, F3)."""
+    """Whether the frame's per-pixel products give the same bits on a
+    block of rows as on the whole frame, as a shard computes them (ROADMAP
+    queue 3, F3), the frame cut into N = 2, 3, 4, 8 row blocks, on random
+    1080p operands: the forms the frame runs, the reprojection's clip
+    product (`vec.matvec` plus the translation column, `ops/reproject.py`)
+    and the G-buffer's world transform (`ops/gbuffer.py:_finish_world`, f32
+    and bf16), each of which must equal the whole frame's bits on every N;
+    beside them the batched `@` they replaced, and the all-pairs route's
+    per-ray products (`ops/dense.py`: (rays, 3) @ (3, TI) over slices of
+    2^24 pairs, each block sliced from its own start as a rank slices its
+    rays): TI = 34 (Cornell) on the frame's rays, TI = 5,314 (the
+    Sponza-class table) on 98,304 rays."""
     import torch
 
+    from low_precision_raytracer_tpu_torch.math.vec import matvec
+    from low_precision_raytracer_tpu_torch.ops import dense
+    from low_precision_raytracer_tpu_torch.ops.gbuffer import _finish_world
+
     gen = torch.Generator(device="cuda").manual_seed(0)
-    a4 = torch.randn((H, W, 4, 4), generator=gen, device="cuda")
-    x4 = torch.randn((H, W, 4, 1), generator=gen, device="cuda")
-    a3 = torch.randn((H * W, 3, 3), generator=gen, device="cuda")
-    x3 = torch.randn((H * W, 3, 1), generator=gen, device="cuda")
-    whole4, whole3 = a4 @ x4, a3 @ x3
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    a4, x4 = rnd(H, W, 4, 4), rnd(H, W, 3) * 5
+    l2w, pos, nrm, tan = rnd(H * W, 4, 4), rnd(H * W, 3), rnd(H * W, 3), rnd(H * W, 3)
+    bf = [t.bfloat16() for t in (l2w, pos, nrm, tan)]
+    p4 = torch.cat([x4, torch.ones_like(x4[..., :1])], dim=-1)[..., None]
+    forms = {  # name -> (leading rows -> result, the whole's leading length)
+        "clip matvec": (lambda s: matvec(a4[s][..., :3], x4[s]) + a4[s][..., 3], H),
+        "world f32": (lambda s: torch.cat(_finish_world(l2w[s], pos[s], nrm[s], tan[s]), -1),
+                      H * W),
+        "world bf16": (lambda s: torch.cat(_finish_world(*(t[s] for t in bf)), -1), H * W),
+        "old clip 4x4 @ 4x1": (lambda s: a4[s] @ p4[s], H),
+        "old world 3x3 @ 3x1": (lambda s: l2w[s][:, :3, :3] @ pos[s][..., None], H * W),
+    }
+
+    def routed(rays, ti):
+        of, nx, step = rnd(rays, 3), rnd(3, ti), dense.PAIRS // ti
+        return lambda s: torch.cat([of[s][i:i + step] @ nx
+                                    for i in range(0, of[s].shape[0], step)])
+
+    forms["dense (rays, 3) @ (3, 34)"] = (routed(H * W, 34), H * W)
+    forms["dense (rays, 3) @ (3, 5314)"] = (routed(98304, 5314), 98304)
     out = {}
-    for n in (2, 3, 4, 8):
-        h = H // n
-        same4 = all(torch.equal(a4[k * h:(k + 1) * h] @ x4[k * h:(k + 1) * h],
-                                whole4[k * h:(k + 1) * h]) for k in range(n))
-        p = h * W
-        same3 = all(torch.equal(a3[k * p:(k + 1) * p] @ x3[k * p:(k + 1) * p],
-                                whole3[k * p:(k + 1) * p]) for k in range(n))
-        out[n] = {"4x4 @ 4x1": same4, "3x3 @ 3x1": same3}
-    log(f"sharded: batched products on N row blocks equal to the whole frame's: "
+    for name, (fn, total) in forms.items():
+        whole = fn(slice(None))
+        got = {}
+        for n in (2, 3, 4, 8):
+            h = total // n
+            got[n] = all(torch.equal(fn(slice(k * h, (k + 1) * h)), whole[k * h:(k + 1) * h])
+                         for k in range(n))
+        out[name] = got
+        del whole
+    log(f"sharded: per-pixel products on N row blocks equal to the whole frame's: "
         f"{json.dumps(out)}")
+    for name in ("clip matvec", "world f32", "world bf16"):
+        if not all(out[name].values()):
+            raise AssertionError(f"batch probe: {name} differs on a block of rows: {out[name]}")
+    return out
 
 
 def sharded_case_report(name, n, backend, recs, ref, totals, cuda_lib, psnr):
@@ -4145,6 +4371,17 @@ def main(argv) -> int:
     # ---- textured glTF scenes: BoxTextured (K1a), the textured Sponza-class .glb (K1b)
     with tempfile.TemporaryDirectory() as tmp:
         textured_phases(run_path, counts, cfg, tmp)
+    elapsed()
+
+    # ---- JPEG images: the decoder, the JPEG-textured cube (K1a), a JPEG sky
+    jpeg_decode_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        jpeg_totals = jpeg_scene_phase(run_path, counts, cfg, tmp)
+    for name in ("dense_trace", "coef_fetch", "temporal_accum", "wavelet_iter"):
+        if jpeg_totals[name] == 0:
+            raise AssertionError(f"{name}: no launch on the textured-box-jpeg path")
+    for name, n in cli_skybox_phase().items():
+        totals[name] += n
     elapsed()
 
     # ---- colonnade-83k: K1b at 647 chunks, the wavefront (K5, schedule)

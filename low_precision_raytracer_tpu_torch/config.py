@@ -182,8 +182,8 @@ SKYBOX_COLOR = (0.0, 0.0, 0.0)
 def check_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError for configurations the port does not
     cover yet, naming the ROADMAP queue-1 item that adds each.  Every
-    RenderConfig the port can construct renders (a JPEG texture, item 14,
-    is refused where the image is decoded); a row mesh needs a height
+    RenderConfig the port can construct renders (the JPEG forms of item
+    15 are refused where the image is decoded); a row mesh needs a height
     that divides over its ranks."""
     if cfg.mesh is not None:
         cfg.mesh.rows(cfg.height)

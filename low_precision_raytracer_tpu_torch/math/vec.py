@@ -24,6 +24,18 @@ def dot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
+def matvec(m, v):
+    """m (..., n, k) times v (..., k) -> (..., n) as a fixed-order sum of
+    elementwise products, ((m0 v0 + m1 v1) + m2 v2) + ...: one torch op
+    each, each rounded, so every element gets the same bits whatever the
+    batch around it (a batched `@` may pick its kernel, and so its order
+    of sums, by the batch size on a GPU)."""
+    acc = m[..., 0] * v[..., None, 0]
+    for j in range(1, m.shape[-1]):
+        acc = acc + m[..., j] * v[..., None, j]
+    return acc
+
+
 def normalize(v):
     """v / |v| with no epsilon guard: NaN/Inf are in-band values that
     downstream filters launder."""

@@ -10,8 +10,8 @@
 - the default material at id 0, a primitive's material offset by the
   materials already in the scene (a second file appends);
 - base-colour and emissive textures sRGB, metallic-roughness linear, each
-  decoded once per (texture, sRGB) pair by `utils/png.py` (a JPEG raises
-  NotImplementedError: ROADMAP queue 1 item 14); G = roughness, B =
+  decoded once per (texture, sRGB) pair by `utils/png.py:decode_image`
+  (PNG, and JPEG through `utils/jpeg.py`); G = roughness, B =
   metallic; normal maps are not loaded (shade never samples them);
 - KHR_lights_punctual point and directional lights, spot lights mapped to
   point; perspective cameras (orthographic warns);
@@ -516,8 +516,9 @@ def load_gltf(path: str, scene: HostScene | None = None) -> HostScene:
     HostScene when given (a second file's material ids are offset).
 
     Every malformed-asset failure surfaces as :class:`GLTFError` (a bad PNG
-    too); raw KeyError/IndexError/decode errors never escape this
-    boundary.  A JPEG image raises NotImplementedError."""
+    or JPEG too); raw KeyError/IndexError/decode errors never escape this
+    boundary.  A JPEG form the port does not decode raises
+    NotImplementedError (ROADMAP queue 1 item 15)."""
     try:
         return _load_gltf_checked(path, scene)
     except GLTFError:

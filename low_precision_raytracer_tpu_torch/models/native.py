@@ -2,8 +2,8 @@
 port of `low_precision_raytracer_tpu/models/native.py`).
 
 The library is built with `g++` at first use into `_build/` beside the
-package, under a name keyed by the source bytes and the flags, and loaded
-with ctypes.  Where the JAX package falls back to its numpy builder when
+package (`utils/host_build.py`, under a name keyed by the source bytes and
+the flags) and loaded with ctypes.  Where the JAX package falls back to its numpy builder when
 `make` fails, the port raises with the compiler's output: the numpy
 builder runs only where `models/bvh.py` asks for it by rule (64 or fewer
 primitives, or `use_native=False`).
@@ -12,24 +12,12 @@ primitives, or `use_native=False`).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 
 import numpy as np
 
-from low_precision_raytracer_tpu_torch.ops.cuda_lib import BUILD, CSRC
-
-SOURCE = CSRC / "bvh_builder.cpp"
-CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-shared")
+from low_precision_raytracer_tpu_torch.utils.host_build import build_host_library
 
 _lib = None
-
-
-def _target():
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD / f"libbvh_builder-{h.hexdigest()[:12]}.so"
 
 
 def get_library() -> ctypes.CDLL:
@@ -38,17 +26,7 @@ def get_library() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    out = _target()
-    if not out.exists():
-        BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cxx = os.environ.get("CXX", "g++")
-        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True, timeout=300)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{cxx} failed for csrc/bvh_builder.cpp:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
+    out = build_host_library("bvh_builder")
     lib = ctypes.CDLL(str(out))
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")

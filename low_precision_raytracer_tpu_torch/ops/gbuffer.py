@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from low_precision_raytracer_tpu_torch.math.vec import normalize
+from low_precision_raytracer_tpu_torch.math.vec import matvec, normalize
 from low_precision_raytracer_tpu_torch.ops.texture import has_textures
 from low_precision_raytracer_tpu_torch.ops.trace import Hit, trace
 
@@ -14,10 +14,17 @@ from low_precision_raytracer_tpu_torch.ops.trace import Hit, trace
 def _finish_world(l2w, position, normal, tangent):
     """World transform with (R, 4, 4)-gathered rows; normals/tangents go
     through L2W directly (no inverse-transpose), like the reference."""
-    rot = l2w[..., :3, :3]
-    normal = normalize((rot @ normal[..., :, None])[..., 0])
-    tangent = normalize((rot @ tangent[..., :, None])[..., 0])
-    pos_w = (rot @ position[..., :, None])[..., 0] + l2w[..., :3, 3]
+    # fixed-order f32 sums ((r0 x0 + r1 x1) + r2 x2), rounded once to the
+    # dtype as a batched `@` rounds its f32 accumulator: a shard's rows
+    # then get the whole frame's bits on any device (the order of
+    # `ops/reproject.py`'s clip product; on Cornell's hits every order
+    # gives the JAX attributes' bits)
+    dt = l2w.dtype
+    rot = l2w[..., :3, :3].float()
+    rotate = lambda x: matvec(rot, x.float()).to(dt)
+    normal = normalize(rotate(normal))
+    tangent = normalize(rotate(tangent))
+    pos_w = rotate(position) + l2w[..., :3, 3]
     return pos_w, normal, tangent
 
 

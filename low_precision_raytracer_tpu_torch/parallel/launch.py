@@ -111,8 +111,9 @@ def render_rank(mesh, spec: dict) -> None:
     module docstring).  A case: name, scene ("module:function"),
     scene_args, cfg (RenderConfig keywords), frames, times (a time a
     frame, or None), seed, uniforms (a file of the whole frames' GI
-    uniforms, a list of tensors a frame, or None), keep ("rows" or
-    "digest")."""
+    uniforms, a list of tensors a frame, or None), taa_bits (a file of
+    the whole frames' TAA bits, an (H, W) tensor a frame, or None), keep
+    ("rows" or "digest")."""
     from low_precision_raytracer_tpu_torch.config import RenderConfig
     from low_precision_raytracer_tpu_torch.ops import cuda_lib
     from low_precision_raytracer_tpu_torch.parallel import halo
@@ -125,17 +126,19 @@ def render_rank(mesh, spec: dict) -> None:
         host = _factory(case["scene"])(*case.get("scene_args", ()))
         r = Renderer(host, cfg, device=dev, seed=case.get("seed", 0), mesh=mesh)
         us_all = torch.load(case["uniforms"]) if case.get("uniforms") else None
+        bits_all = torch.load(case["taa_bits"]) if case.get("taa_bits") else None
         keep = case.get("keep", "rows")
         rec = {k: [] for k in ("images", "states", "launches", "exchanges", "frame_ms",
                                "n_rays", "halo_misses")}
         for f in range(case["frames"]):
             us = None if us_all is None else [u.to(dev) for u in us_all[f]]
+            bits = None if bits_all is None else bits_all[f].to(dev)
             t = 0.0 if case.get("times") is None else case["times"][f]
             before = dict(cuda_lib.LAUNCHES)
             halo.reset_counts()
             _sync(dev)
             t0 = time.perf_counter()
-            image, aux = r.render(time=t, uniforms=us)
+            image, aux = r.render(time=t, uniforms=us, taa_bits=bits)
             _sync(dev)
             rec["frame_ms"].append((time.perf_counter() - t0) * 1e3)
             rec["exchanges"].append(dict(halo.COUNTS))

@@ -3,8 +3,9 @@
 (H, W, 3) float arrays or tensors with row 0 at the image BOTTOM
 (normalized_y = -1, see ops/camera.py); files are flipped on write so PNGs
 look upright.  numpy and `zlib` only: `save_png` writes through
-`utils/png.py:encode_png` and `load_image_rgba_u8` reads through its
-decoder (the JAX package uses PIL, which the card's machine lacks); the
+`utils/png.py:encode_png` and `load_image_rgba_u8` reads PNG and JPEG
+through `utils/png.py:decode_image` (the JAX package uses PIL, which the
+card's machine lacks); the
 Radiance RGBE decoder is the JAX package's, copied.  `psnr` and `ssim`
 take arrays or CPU tensors, in float64."""
 
@@ -32,8 +33,7 @@ def save_png(path: str, img) -> None:
 
 
 def load_image_rgba_u8(path: str, flip: bool = False) -> np.ndarray:
-    """An image file -> (H, W, 4) uint8 RGBA (PNG; a JPEG raises
-    NotImplementedError, ROADMAP queue 1 item 14)."""
+    """An image file (PNG or JPEG) -> (H, W, 4) uint8 RGBA."""
     with open(path, "rb") as fh:
         arr = decode_image(fh.read())
     return arr[::-1] if flip else arr

@@ -21,8 +21,8 @@ depends only on the two before it, so an image takes rows + pixels - 1
 numpy steps, each row's filter selected per element.
 
 `encode_png` writes such files (any filter per row, Adam7 or not) for the
-textured scene tool and the tests.  A JPEG raises NotImplementedError:
-its decoder waits (ROADMAP queue 1 item 14).
+textured scene tool and the tests.  `decode_image` sends a JPEG to
+`utils/jpeg.py:decode_jpeg`.
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from low_precision_raytracer_tpu_torch.utils.jpeg import decode_jpeg
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # samples per pixel by colour type
@@ -46,12 +48,12 @@ class PNGError(ValueError):
 
 
 def decode_image(data: bytes) -> np.ndarray:
-    """An image file's bytes -> (H, W, 4) uint8 RGBA."""
+    """An image file's bytes (PNG or JPEG) -> (H, W, 4) uint8 RGBA."""
     if data[:8] == SIGNATURE:
         return decode_png(data)
     if data[:3] == b"\xff\xd8\xff":
-        raise NotImplementedError("JPEG textures wait (ROADMAP queue 1 item 14)")
-    raise PNGError("not a PNG image")
+        return decode_jpeg(data)
+    raise PNGError("not a PNG or JPEG image")
 
 
 def _chunks(data: bytes):

@@ -25,6 +25,7 @@ from low_precision_raytracer_tpu_torch.models import bvh as tbvh
 from low_precision_raytracer_tpu_torch.models import native
 from low_precision_raytracer_tpu_torch.models import scene as tscene
 from low_precision_raytracer_tpu_torch.models.procedural import sponza_like_scene
+from low_precision_raytracer_tpu_torch.utils import host_build
 from low_precision_raytracer_tpu_torch.utils.dtypes import widen_aabb
 
 FIELDS = ("aabb_lo", "aabb_hi", "parent", "lc", "rc", "leaf_offset", "leaf_count", "prim")
@@ -86,7 +87,7 @@ def test_native_build_equals_numpy_build(leaf_size):
 def test_native_build_failure_raises(monkeypatch, tmp_path):
     """A compiler that fails raises with its output; nothing falls back."""
     monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setattr(native, "BUILD", tmp_path)
+    monkeypatch.setattr(host_build, "BUILD", tmp_path)
     monkeypatch.setenv("CXX", "false")
     with pytest.raises(RuntimeError, match="bvh_builder.cpp"):
         native.get_library()

@@ -1,5 +1,6 @@
 """PyTorch port, the glTF loader (`models/gltf.py`): the port's `load_gltf`
-against the JAX package's on every asset in tests/assets/, on every
+against the JAX package's on every asset in tests/assets/ (the JPEG base
+colour of `BoxTexturedJpeg.glb` bit for bit too), on every
 `cube_glb` variant, on the cases tests/test_gltf.py writes (tangent
 synthesis, a matrix node, STEP and CUBICSPLINE channels, a data-URI and a
 percent-encoded buffer, a second file appended) and on the textured
@@ -108,7 +109,7 @@ def assert_host_equal(port, ref):
 
 
 @pytest.mark.parametrize("asset", ["Box.gltf", "BoxTextured.gltf", "sparse_quad.gltf",
-                                   "BoxInterleaved.glb"])
+                                   "BoxInterleaved.glb", "BoxTexturedJpeg.glb"])
 def test_assets_match_jax(asset):
     assert_host_equal(load_gltf(ASSETS + asset), jax_load(ASSETS + asset))
 

@@ -6,8 +6,7 @@ several IDAT chunks (`encode_png` forces each filter, which the test reads
 back from the stream; PIL decodes the files independently); on images PIL writes itself and on the repo's
 BoxTexturedCheck.png.  Also: a broken CRC, a cut stream and an unknown
 filter raise PNGError (a ValueError, which the loader reports as
-GLTFError), and a JPEG raises NotImplementedError naming ROADMAP queue 1
-item 14, from the decoder and through the loader."""
+GLTFError), and a JPEG decodes through `decode_image` and the loader."""
 
 import torch_threads  # noqa: F401  (caps the CPU threads per test process)
 import io
@@ -190,14 +189,15 @@ def _glb_with_image(data: bytes, tmp_path, mime="image/png"):
 
 
 def test_jpeg_waits(tmp_path):
-    """A JPEG texture raises NotImplementedError naming the queue-1 item
-    that holds its decoder, from the decoder and through the loader (not a
-    GLTFError: the file is well formed)."""
+    """A JPEG, which the port once refused (ROADMAP queue 1 item 14, done),
+    now decodes: through `decode_image` and through the loader, equal to
+    PIL's `convert("RGBA")` (`tests/test_torch_jpeg.py` holds the decoder
+    on every form)."""
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="JPEG")
+    rgb = np.random.default_rng(0).integers(0, 256, (8, 8, 3), dtype=np.uint8)
+    Image.fromarray(rgb).save(buf, format="JPEG")
     data = buf.getvalue()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 14\)"):
-        decode_image(data)
+    np.testing.assert_array_equal(decode_image(data), _pil_rgba(data))
     path = _glb_with_image(data, tmp_path, "image/jpeg")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1 item 14\)"):
-        load_gltf(path)
+    scene = load_gltf(path)
+    np.testing.assert_array_equal(scene.textures[0], _pil_rgba(data))

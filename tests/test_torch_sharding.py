@@ -352,3 +352,38 @@ def _reaches_are_tight():
                                    _cut(cv, r0, h, k, k, c_rows, c_rows), s, cfg)[:, k:k + h]
             assert not torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref)), \
                 f"K4 s={s} {name} one row short"
+
+
+# ---------------------------------------------------------------------------
+# per-pixel products (ROADMAP queue 3 F3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("blocks", [1, 2, 3, 4])
+def test_pixel_products_same_bits_on_row_blocks(blocks, dtype):
+    """The G-buffer's world transform (`ops/gbuffer.py:_finish_world`) and
+    the reprojection's clip product (`ops/reproject.py:
+    generate_temporal_maps`, `vec.matvec` plus the translation column) on
+    a 48 x 20 frame cut into 1-4 row blocks give the whole frame's bits:
+    fixed-order sums of elementwise products, the same on any device."""
+    from low_precision_raytracer_tpu_torch.math.vec import matvec
+    from low_precision_raytracer_tpu_torch.ops.gbuffer import _finish_world
+
+    gen = torch.Generator().manual_seed(blocks)
+    H, W = 48, 20
+    l2w = torch.randn((H, W, 4, 4), generator=gen).to(dtype)
+    pos, nrm, tan = (torch.randn((H, W, 3), generator=gen).to(dtype) for _ in range(3))
+    comp = torch.randn((H, W, 4, 4), generator=gen)
+    p32 = torch.randn((H, W, 3), generator=gen) * 5
+
+    def clip(c, p):
+        return matvec(c[..., :3], p) + c[..., 3]
+
+    whole = (*_finish_world(l2w, pos, nrm, tan), clip(comp, p32))
+    h = H // blocks
+    parts = [(*_finish_world(l2w[s], pos[s], nrm[s], tan[s]), clip(comp[s], p32[s]))
+             for s in (slice(b * h, (b + 1) * h) for b in range(blocks))]
+    bits = lambda x: x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+    for k, ref in enumerate(whole):
+        got = torch.cat([p[k] for p in parts])
+        assert got.dtype == ref.dtype and torch.equal(bits(got), bits(ref)), k

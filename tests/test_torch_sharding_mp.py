@@ -13,6 +13,12 @@ so a spawned rank imports neither this module nor JAX.
   (as tests/test_sharding.py:80-93 sets it up); the launch and exchange
   counts of each rank (four exchanges and the strides' five a frame, one
   all-reduce).
+- ROADMAP queue 3 G1: Cornell at 64 x 64 over 4 ranks, TAA at 0.3, the
+  camera panning further a frame than the halo: anchors leave it from
+  frame 1 on (the count is asserted above 0), each frame >= 35 dB
+  against JAX `render_frame_sharded`; frame 0 bit for bit against the
+  port, and frames 1-2 departing from the unsharded port frame at the
+  pixels where the JAX sharded frame departs from the JAX unsharded one.
 - A mesh of one rank renders the unsharded frame (tests/test_sharding.py:
   49-60).
 - The small colonnade (`sponza_like_scene(3, 1)`) over 2 ranks, bf16, with
@@ -42,12 +48,14 @@ import pytest
 import torch
 
 from low_precision_raytracer_tpu.config import RenderConfig as JaxConfig
+from low_precision_raytracer_tpu.models.hierarchy import Sampler as JaxSampler
 from low_precision_raytracer_tpu.models.procedural import cornell_box_scene as jax_cornell
 from low_precision_raytracer_tpu.models.scene import build_scene_arrays, flatten_frame
 from low_precision_raytracer_tpu.ops.trace import resolve_cfg as jax_resolve_cfg
 from low_precision_raytracer_tpu.parallel.tiling import make_pixel_mesh as jax_mesh
 from low_precision_raytracer_tpu.parallel.tiling import render_frame_sharded as jax_sharded
 from low_precision_raytracer_tpu.render.framestate import init_frame_state as jax_state
+from low_precision_raytracer_tpu.render.renderer import render_frame as jax_render_frame
 from low_precision_raytracer_tpu_torch.config import RenderConfig
 from low_precision_raytracer_tpu_torch.ops import trace as T
 from low_precision_raytracer_tpu_torch.parallel.launch import (
@@ -58,6 +66,8 @@ from low_precision_raytracer_tpu_torch.parallel.launch import (
 )
 from low_precision_raytracer_tpu_torch.render.renderer import Renderer
 from test_torch_render_e2e import _jax_uniforms
+from test_torch_taa import _jax_draws
+from torch_scenes import panning_cornell_scene
 
 ROOT = Path(__file__).resolve().parent.parent
 PROC = "low_precision_raytracer_tpu_torch.models.procedural:"
@@ -104,13 +114,16 @@ def _run(n, cases, tmp_path):
     return got
 
 
-def _reference(case, uniforms=None):
+def _reference(case, uniforms=None, taa_bits=None):
     """The port's one-process frames of a case, in a fresh thread."""
     def go():
         r = Renderer(_scene(case), RenderConfig(**case["cfg"]), device="cpu", seed=0)
         out = []
         for f in range(case["frames"]):
-            image, _aux = r.render(uniforms=None if uniforms is None else uniforms[f])
+            image, _aux = r.render(
+                time=0.0 if case.get("times") is None else case["times"][f],
+                uniforms=None if uniforms is None else uniforms[f],
+                taa_bits=None if taa_bits is None else taa_bits[f])
             out.append((image, {k: v.clone() for k, v in state_leaves(r.state).items()}))
         return out
 
@@ -196,6 +209,67 @@ def test_cornell_four_ranks(precision, tmp_path):
         # frame 0 reprojects through the initial identity matrices into a
         # history of zeros; from frame 1 a still camera's anchors stay home
         assert rec["halo_misses"][1] == 0
+
+
+def test_panning_anchors_leave_the_halo(tmp_path):
+    """ROADMAP queue 3 G1: Cornell at 64 x 64 over 4 ranks (16-row shards),
+    bf16, TAA at 0.3, the camera panning ~25 rows a frame
+    (`tests/torch_scenes.py`), so from frame 1 on anchors leave the halo
+    and the fetch reads zeros there, as the JAX `_gather2x2_halo` does.
+    Held: each frame >= 35 dB against the JAX `render_frame_sharded` on
+    the same draws; the whole frame's halo-miss count above 0 on frames 1
+    and 2; frame 0 bit for bit against the one-process port.  Frames 1
+    and 2 cannot equal the one-process frame (the shards drop the history
+    of the pixels whose anchors left the halo, the unsharded frame keeps
+    it), so they are held pixel by pixel against what the JAX package's
+    sharded frame does: where the port's sharded frame departs from its
+    unsharded one by more than 1e-5 (in any channel), the JAX sharded
+    frame departs from the JAX unsharded one by more than 1e-6, and the
+    reverse (~1,500 and ~3,100 such pixels of 4,096; elsewhere both
+    departures are last bits, below 1e-6, or none)."""
+    n, size, times = 4, 64, (0.0, 1.0, 2.0)
+    cfg = JaxConfig(width=size, height=size, precision="bf16", gi_on=True,
+                    traversal_impl="dense_pallas", taa_mix_weight=0.3)
+    host = panning_cornell_scene(JaxSampler, jax_cornell())
+    scene = build_scene_arrays(host, cfg.prec, leaf_size=cfg.bvh_leaf_size)
+    flat = lambda t: flatten_frame(host, cfg.prec, time=t, max_direct_lights=4,
+                                   width=size, height=size)
+    cfg = jax_resolve_cfg(scene, flat(0.0), cfg)
+    state = unsharded = jax_state(cfg, len(flat(0.0).obj_layout))
+    tcfg = RenderConfig(width=size, height=size, precision="bf16", taa_mix_weight=0.3)
+    key, jax_images, jax_whole, uniforms, bits = jax.random.PRNGKey(5), [], [], [], []
+    for t in times:
+        nxt, us, b, _k = _jax_draws(key, tcfg)
+        _, sub = jax.random.split(key)
+        image, _aux, state = jax_sharded(jax_mesh(n), scene, flat(t), state, cfg, sub)
+        whole, _aux, unsharded = jax_render_frame(scene, flat(t), unsharded, cfg, sub)
+        jax_images.append(np.asarray(image))
+        jax_whole.append(np.asarray(whole))
+        uniforms.append(us)
+        bits.append(b)
+        key = nxt
+    torch.save(uniforms, tmp_path / "uniforms.pt")
+    torch.save(bits, tmp_path / "bits.pt")
+    case = dict(name="pan", scene="torch_scenes:panning_cornell_scene", frames=len(times),
+                times=times, cfg=dict(width=size, height=size, precision="bf16",
+                                      taa_mix_weight=0.3),
+                uniforms=str(tmp_path / "uniforms.pt"), taa_bits=str(tmp_path / "bits.pt"))
+    got = _run(n, [case], tmp_path)["pan"]
+    ref = _reference(case, uniforms, bits)
+    _assert_bits(dict(images=got["images"][:1], states=got["states"][:1]), ref[:1], "pan")
+    misses = got["ranks"][0]["halo_misses"]
+    assert all(rec["halo_misses"] == misses for rec in got["ranks"])
+    assert misses[1] > 0 and misses[2] > 0, misses
+    for f, (image, jax_image) in enumerate(zip(got["images"], jax_images)):
+        p = _psnr(image.numpy(), jax_image)
+        assert p >= 35.0, f"frame {f}: {p:.2f} dB against JAX"
+        if f:
+            port_delta = np.abs(image.numpy() - ref[f][0].numpy()).max(-1)
+            jax_delta = np.abs(jax_image - jax_whole[f]).max(-1)
+            for a, b in ((port_delta, jax_delta), (jax_delta, port_delta)):
+                lost = a > 1e-5
+                assert lost.sum() > 100 and (b[lost] > 1e-6).all(), \
+                    (f, int(lost.sum()), int((b[lost] <= 1e-6).sum()))
 
 
 def test_one_rank_mesh_is_no_mesh(tmp_path):
