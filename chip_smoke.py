@@ -334,12 +334,15 @@ and after phase 20:
     'oneshot' on the same rays; 4 frames (the schedule >= 2 and K5 at
     least as often per frame); a 64x64 'rounds' render on the card against
     the CPU plain path, 2 frames;
-26. the Q2.4 tool (`tools/mxu_proto.py`, `tool_phase`) at TC = 48 on
-    2,073,600 rays, NCHUNK = 1 and 8: its own run with the counts zeroed
+26. the Q2.4 tool (`tools/mxu_proto.py`, `tool_phase`) at TC = 48 and 64
+    on 2,073,600 rays, NCHUNK = 1 and 8: its own run with the counts zeroed
     (both bodies timed, their agreement), then the VPU body exact and the
     tensor-core body within its bar (hit agreement >= 0.9999, |x - plain|
-    <= 1e-5 |plain| + 1e-6) against their plain versions on 2^16-ray
-    slices, with their bounds.
+    <= 1e-5 |plain| + 1e-6) against their plain versions on 2^14-ray
+    slices with the last ray tile, with their bounds; then their edges
+    (`tool_edge_phase`): R = 2,073,601, the chunks over several launches,
+    and the tensor-core product's fragment-layout probe (unit-vector
+    table rows: every block value exact, the body bit for bit).
 
 Before the last line it prints a `kernels_fp32` JSON line (K1a, K1b, K6 in
 fp32: launches on the fp32 path phases, the fp32 kernel phases' times), a
@@ -516,8 +519,9 @@ def nbytes(*ts):
 
 def load_beside(root, modules=("wavefront", "svgf_kernels", "dense_trace"),
                 libs=("wavefront", "svgf", "dense_trace")):
-    """The K5, K3, K2 and K1a wrappers (`modules` of ops/, built from
-    `libs`) of an older checkout of this repository at `root` (`git
+    """The K5, K3, K2 and K1a wrappers (`modules` of ops/, or a path in
+    the package such as "tools/mxu_proto"; built from `libs`) of an older
+    checkout of this repository at `root` (`git
     archive` of another commit), bound to that checkout's own kernels (its
     csrc/, built into its own _build/), for timing beside this tree's
     kernels on the same inputs.  Each wrapper module is loaded with the
@@ -547,7 +551,9 @@ def load_beside(root, modules=("wavefront", "svgf_kernels", "dense_trace"),
     lib = load("beside_cuda_lib", pkg / "ops" / "cuda_lib.py")
     sys.modules[key] = ops_pkg.cuda_lib = lib
     try:
-        mods = {m: load(f"beside_{m}", pkg / "ops" / f"{m}.py") for m in modules}
+        mods = {m.split("/")[-1]: load(f"beside_{m.replace('/', '_')}",
+                                       pkg / (f"{m}.py" if "/" in m else f"ops/{m}.py"))
+                for m in modules}
     finally:
         sys.modules[key] = ops_pkg.cuda_lib = own
     t0 = time.perf_counter()
@@ -3581,13 +3587,61 @@ def rounds_kernel_phase():
     return reps
 
 
+def tool_slice(case, n=BIG_CHECK):
+    """`case` on a strided slice of n of its rays with its last 64 rays,
+    the ray tile the edge of a ragged R falls in."""
+    import torch
+
+    R = case["o"].shape[1]
+    sel = torch.arange(0, R, max(1, R // n), device=case["o"].device)[:n]
+    sel = torch.unique(torch.cat([sel, torch.arange(max(0, R - 64), R, device=sel.device)]))
+    return dict(case, o=case["o"][:, sel].contiguous(), d=case["d"][:, sel].contiguous())
+
+
+def tool_plain(body, case):
+    from low_precision_raytracer_tpu_torch.tools import mxu_proto as MP
+
+    c = case
+    if body == "vpu":
+        return MP.vpu_body_plain(c["n_dt"], c["n_f32"], c["e"], c["o"], c["d"], c["tc"])
+    return MP.mxu_body_plain(c["a32t"], c["aabt"], c["o"], c["d"], c["tc"])
+
+
+def tool_hold(what, body, got, want, exact=False):
+    """A Q2.4 body against its plain version: the VPU body (and `exact`)
+    bit for bit; the tensor-core body to its bar (its accumulation order is
+    not the plain version's): hit agreement >= 0.9999, |x - plain| <= 1e-5
+    |plain| + 1e-6 where both hit.  -> (hit agreement, deviation as a share
+    of the bar, max |x - plain| where both hit)."""
+    import torch
+
+    hit_k, hit_p = got[0] < 1e5, want[0] < 1e5
+    agree = float((hit_k == hit_p).float().mean())
+    both = hit_k & hit_p
+    dev_rel = max(float(((a - b).abs() / (1e-5 * b.abs() + 1e-6))[both].max())
+                  if bool(both.any()) else 0.0 for a, b in zip(got, want))
+    err = max(float((a - b)[both].abs().max()) if bool(both.any()) else 0.0
+              for a, b in zip(got, want))
+    if body == "vpu" or exact:
+        for n, a, b in zip("tuv", got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {n} differs from the plain version on "
+                                     f"{int((a != b).sum())} of {a.numel()} rays")
+    elif agree < 0.9999 or dev_rel > 1.0:
+        raise AssertionError(f"{what}: hit agreement {agree}, deviation {dev_rel} of the bar")
+    return agree, dev_rel, err
+
+
+TOOL_NAMES = {"vpu": "mxu_proto_vpu", "mxu": "mxu_proto_mxu"}
+
+
 def tool_phase(nchunk, tc=48):
     """The Q2.4 tool (`tools/mxu_proto.py`) at 1080p, `nchunk` chunks of
     `tc` rows: its own run (`measure`: both bodies timed, their agreement)
     with the launch counts zeroed just before; then each body against its
-    plain version on a 2^16-ray slice (the VPU body bit for bit, the MXU
-    body to its bar), the plain versions timed there, the bounds from the
-    code's operation counts.  -> ({name: report}, launches)."""
+    plain version on a 2^14-ray slice (`tool_hold`), the plain versions
+    timed there, the bounds from the code's operation counts.  -> ({name:
+    report}, launches)."""
     import torch
 
     from low_precision_raytracer_tpu_torch.ops import cuda_lib
@@ -3596,60 +3650,101 @@ def tool_phase(nchunk, tc=48):
     case = MP.make_case(nchunk, tc, MP.R_1080P, "cuda")
     cuda_lib.reset_launches()
     rep = MP.measure(nchunk, tc, case=case)
-    launches = {k: cuda_lib.LAUNCHES[k] for k in ("mxu_proto_vpu", "mxu_proto_mxu")}
+    launches = {k: cuda_lib.LAUNCHES[k] for k in TOOL_NAMES.values()}
     if min(launches.values()) == 0:
-        raise AssertionError(f"mxu_proto NCHUNK={nchunk}: launches {launches}")
+        raise AssertionError(f"mxu_proto TC={tc} NCHUNK={nchunk}: launches {launches}")
     R = case["o"].shape[1]
-    sel = torch.arange(0, R, max(1, R // BIG_CHECK), device="cuda")[:BIG_CHECK]
-    sub = dict(case, o=case["o"][:, sel].contiguous(), d=case["d"][:, sel].contiguous())
-    bodies = {
-        "mxu_proto_vpu": (MP.run_vpu, lambda c: MP.vpu_body_plain(
-            c["n_dt"], c["n_f32"], c["e"], c["o"], c["d"], c["tc"])),
-        "mxu_proto_mxu": (MP.run_mxu, lambda c: MP.mxu_body_plain(
-            c["a32t"], c["aabt"], c["o"], c["d"], c["tc"])),
-    }
+    sub = tool_slice(case)
     pairs = R * nchunk * tc
     in_bytes = nbytes(case["o"], case["d"])
     reports = {}
-    for name, (kern, plain) in bodies.items():
-        got = kern(sub)
+    for body, name in TOOL_NAMES.items():
+        got = (MP.run_vpu if body == "vpu" else MP.run_mxu)(sub)
         torch.cuda.synchronize()
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        want = plain(sub)
+        want = tool_plain(body, sub)
         e1.record()
         e1.synchronize()
-        hit_k, hit_p = got[0] < 1e5, want[0] < 1e5
-        agree = float((hit_k == hit_p).float().mean())
-        both = hit_k & hit_p
-        dev_rel = max(float(((a - b).abs() / (1e-5 * b.abs() + 1e-6))[both].max())
-                      if bool(both.any()) else 0.0 for a, b in zip(got, want))
-        err = max(float((a - b)[both].abs().max()) if bool(both.any()) else 0.0
-                  for a, b in zip(got, want))
-        if name == "mxu_proto_vpu":
-            for n, a, b in zip("tuv", got, want):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"{name} NCHUNK={nchunk}: {n} differs from the plain "
-                                         f"version on {int((a != b).sum())} of {sel.numel()} rays")
+        agree, dev_rel, err = tool_hold(f"{name} TC={tc} NCHUNK={nchunk}", body, got, want)
+        if body == "vpu":
             t_ops = pairs * MP.VPU_OPS / F32_FLOPS
             tab = nbytes(case["n_dt"], case["n_f32"], case["e"])
         else:
-            # the tensor cores' accumulation order is not the plain version's:
-            # hit agreement >= 0.9999, |x - plain| <= 1e-5 |plain| + 1e-6 where both hit
-            if agree < 0.9999 or dev_rel > 1.0:
-                raise AssertionError(f"{name} NCHUNK={nchunk}: hit agreement {agree}, "
-                                     f"deviation {dev_rel} of the bar")
             t_ops = pairs * (MP.MXU_OPS_F32 / F32_FLOPS + MP.MXU_OPS_BF16 / BF16_TC_FLOPS)
             tab = nbytes(case["a32t"], case["aabt"])
         t_bytes = (in_bytes + tab + 3 * R * 4) / HBM_BPS
-        key = "vpu_ms" if name == "mxu_proto_vpu" else "mxu_ms"
-        reports[name] = dict(ms=rep[key], plain_ms=e0.elapsed_time(e1), plain_ms_on="slice",
-                             bound_ms=max(t_ops, t_bytes) * 1e3,
+        reports[name] = dict(ms=rep[f"{body}_ms"], plain_ms=e0.elapsed_time(e1),
+                             plain_ms_on="slice", bound_ms=max(t_ops, t_bytes) * 1e3,
                              bound_by="operations" if t_ops >= t_bytes else "bytes",
                              max_abs_err=err, hit_agreement=agree,
-                             deviation_of_bar=dev_rel, checked_rays=int(sel.numel()))
+                             deviation_of_bar=dev_rel, checked_rays=int(sub["o"].shape[1]))
     log(f"tool mxu_proto TC={tc} NCHUNK={nchunk}: {json.dumps(dict(run=rep, **reports))}")
     return reports, launches
+
+
+def tool_edge_phase():
+    """The Q2.4 bodies' edges, each against its plain version (`tool_hold`):
+    R = 2,073,601 (not a multiple of the tensor-core body's 64-ray tile or
+    of the VPU body's 1,024-ray group) at TC 48, NCHUNK 8, on a slice with
+    the last tile; the chunks split over several launches (at TC 48, one
+    chunk more than a launch of the VPU body takes, `MP.chunks_a_launch`,
+    and each body's launches counted against that function's), the later
+    launches starting from the winners the earlier ones wrote; a TC whose
+    one chunk does not fit in shared memory refused by both wrappers; and
+    the fragment-layout probe at TC 48 and 64: with the bf16 table's rows unit
+    vectors (`unit_case`) every block value of the kernel's product
+    (`mxu_probe`, the body's kernel with no tail) equals one ray feature
+    times a power of two, the plain product's value, and the tensor-core
+    body equals its plain version bit for bit."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.ops import cuda_lib
+    from low_precision_raytracer_tpu_torch.tools import mxu_proto as MP
+
+    out = {}
+    edge = tool_slice(MP.make_case(8, 48, MP.R_1080P + 1, "cuda"))
+    for body in TOOL_NAMES:
+        got = (MP.run_vpu if body == "vpu" else MP.run_mxu)(edge)
+        out[f"R+1 {body}"] = tool_hold(f"mxu_proto {body} R={MP.R_1080P + 1}", body, got,
+                                       tool_plain(body, edge))
+    # one chunk more than a VPU launch takes: each body over several launches
+    nchunk = MP.chunks_a_launch("vpu", 48) + 1
+    many = MP.make_case(nchunk, 48, BIG_CHECK, "cuda", seed=51)
+    for body in TOOL_NAMES:
+        want = -(-nchunk // MP.chunks_a_launch(body, 48))
+        launches = cuda_lib.LAUNCHES[TOOL_NAMES[body]]
+        got = (MP.run_vpu if body == "vpu" else MP.run_mxu)(many)
+        launches = cuda_lib.LAUNCHES[TOOL_NAMES[body]] - launches
+        if launches != want or launches < 2:
+            raise AssertionError(f"mxu_proto {body} NCHUNK={nchunk}: {launches} launches, "
+                                 f"want {want} (> 1)")
+        out[f"NCHUNK {nchunk} {body} ({launches} launches)"] = tool_hold(
+            f"mxu_proto {body} NCHUNK={nchunk}", body, got, tool_plain(body, many))
+    # each body refuses a TC of which no chunk fits in shared memory: one
+    # chunk of 8 (n + 1) rows, where n chunks of 8 rows fill a launch
+    for body in TOOL_NAMES:
+        big = 8 * (MP.chunks_a_launch(body, 8) + 1)
+        try:
+            (MP.run_vpu if body == "vpu" else MP.run_mxu)(MP.make_case(1, big, 64, "cuda"))
+        except ValueError as e:
+            if "unsupported tc" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"mxu_proto {body}: TC={big} was not refused")
+    for tc in (48, 64):
+        u = MP.unit_case(2, tc, 4096 + 5, "cuda")
+        got = MP.mxu_probe(u["a32t"], u["aabt"], u["o"], u["d"], tc)
+        want = MP.probe_plain(u["aabt"], u["o"], u["d"], tc)
+        if not torch.equal(got, want):
+            bad = (got != want).nonzero()
+            raise AssertionError(f"mxu_proto layout probe TC={tc}: {bad.shape[0]} of "
+                                 f"{got.numel()} block values differ, first (chunk, ray, "
+                                 f"block, row) {bad[:4].tolist()}")
+        out[f"probe TC={tc} mxu"] = tool_hold(f"mxu_proto layout probe TC={tc}", "mxu",
+                                              MP.run_mxu(u), tool_plain("mxu", u), exact=True)
+    log("tool mxu_proto edges (hit agreement, deviation of the bar, max |x - plain|): "
+        + json.dumps(out))
 
 
 BAND_ACCS = (("bf16", "both"), ("bf16", "dtype"), ("fp16", "both"), ("fp16", "dtype"),
@@ -4580,12 +4675,14 @@ def main(argv) -> int:
     elapsed()
 
     # ---- the Q2.4 tool: the VPU and the tensor-core chunk bodies
-    for nchunk in (1, 8):
-        tool_reports, tool_launches = tool_phase(nchunk)
-        for name, n in tool_launches.items():
-            totals[name] += n
-        if nchunk == 1:  # the kernels line takes NCHUNK = 1; NCHUNK = 8 is logged
-            reports.update(tool_reports)
+    for tc in (48, 64):
+        for nchunk in (1, 8):
+            tool_reports, tool_launches = tool_phase(nchunk, tc)
+            for name, n in tool_launches.items():
+                totals[name] += n
+            if (tc, nchunk) == (48, 1):  # the kernels line's; the others are logged
+                reports.update(tool_reports)
+    tool_edge_phase()
     elapsed()
 
     if "--profile" in argv:

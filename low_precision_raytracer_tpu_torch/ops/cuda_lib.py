@@ -55,8 +55,11 @@ SIGNATURES = {
         "lprt_wavefront_assigned": [P] * 6 + [I, I] + [P] * 3 + [I] * 4 + [P] * 5,
     },
     "mxu_proto": {
-        "lprt_mxu_proto_vpu": [P] * 3 + [I] * 3 + [P] * 3 + [P],
-        "lprt_mxu_proto_mxu": [P] * 4 + [I] * 5 + [P] * 3 + [P],
+        "lprt_mxu_proto_vpu": [P] * 3 + [I] * 4 + [P] * 3 + [P],
+        "lprt_mxu_proto_mxu": [P] * 4 + [I] * 4 + [P] * 3 + [P],
+        "lprt_mxu_proto_probe": [P] * 4 + [I] * 3 + [P] + [P],
+        "lprt_mxu_proto_chunks": [I, I],
+        "lprt_mxu_proto_layout": [P],
     },
     "packet_trace": {
         "lprt_packet_trace": [P] * 14 + [I] * 7 + [F] * 3 + [P] * 6 + [P],

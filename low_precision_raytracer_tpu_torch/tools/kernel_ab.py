@@ -16,7 +16,14 @@ from the root of this checkout, on one GPU.  KERNEL is
   'jax' (fp32 'both', fp16 'both' and 'dtype', bf16 'both'), colonnade-5k
   under 'jax' and colonnade-8M (bf16), every launch of every checkout held
   bit for bit against this checkout's reference walk
-  (`trace_rays_reference`), which is timed beside them.
+  (`trace_rays_reference`), which is timed beside them;
+- `tool`: the Q2.4 tool's two chunk bodies (`tools/mxu_proto.py`: `vpu`,
+  `mxu`) on its 1080p case at TC 48, NCHUNK 1 and 8, every checkout's
+  bodies held against this checkout's plain versions on a 2^14-ray slice
+  as `chip_smoke.tool_phase` holds them; first, each checkout's SASS
+  (`cuobjdump -sass` of its built library): per kernel of the tool, its
+  innermost loops with their instructions, MUFU.RCP (the divides'
+  reciprocals) and tensor-core instructions.
 Each DIR is another checkout of the repository (`git archive` into an
 ignored directory, or such a copy with one source edited); its wrappers
 and kernels are loaded as `chip_smoke.py --beside` loads them, and every
@@ -151,11 +158,77 @@ def walk(C, others):
         torch.cuda.empty_cache()
 
 
+def sass_loops(lib_path):
+    """The innermost loops of each kernel in a built library (`cuobjdump
+    -sass`): a backward branch at A to T closes the loop [T, A]; one that
+    holds no other loop is innermost.  -> {kernel: [dict(start, insts,
+    rcp, mma)]}, `rcp` the MUFU.RCP in the loop, `mma` its tensor-core
+    instructions (HMMA / HGMMA)."""
+    import os
+    import re
+    from pathlib import Path
+
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = Path(cuda_home) / "bin" / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name = part.split()[0]
+        insts = [(int(m.group(1), 16), m.group(2).strip())
+                 for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+        loops = []
+        for addr, op in insts:
+            m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+            if m and int(m.group(1), 16) <= addr:
+                loops.append((int(m.group(1), 16), addr))
+        inner = [(a, b) for a, b in loops
+                 if not any((c, d) != (a, b) and a <= c and d <= b for c, d in loops)]
+        out[name] = []
+        for a, b in sorted(inner):
+            body = [op for x, op in insts if a <= x <= b]
+            out[name].append(dict(start=hex(a), insts=len(body),
+                                  rcp=sum("MUFU.RCP" in op for op in body),
+                                  mma=sum(bool(re.search(r"\bHG?MMA", op)) for op in body)))
+    return out
+
+
+def tool(C, others):
+    """The Q2.4 tool's bodies of this checkout and of `others` ({name:
+    beside namespace})."""
+    import torch
+
+    from low_precision_raytracer_tpu_torch.tools import mxu_proto as MP
+
+    mods = {"this": MP, **{o: m.mxu_proto for o, m in others.items()}}
+    for o, mod in mods.items():
+        for kernel, loops in sass_loops(mod.cuda_lib._target("mxu_proto")).items():
+            print(json.dumps(dict(sass=o, kernel=kernel, inner_loops=loops)), flush=True)
+    for nchunk in (1, 8):
+        case = MP.make_case(nchunk, 48, MP.R_1080P, "cuda")
+        sub = C.tool_slice(case)
+        for body, name in C.TOOL_NAMES.items():
+            want = C.tool_plain(body, sub)
+            fns = {}
+            for o, mod in mods.items():
+                run = getattr(mod, f"run_{body}")
+                held = C.tool_hold(f"{name} {o} NCHUNK={nchunk}", body, run(sub), want)
+                print(json.dumps(dict(held=o, body=body, nchunk=nchunk, hit_agreement=held[0],
+                                      deviation_of_bar=held[1])), flush=True)
+                fns[o] = lambda run=run: run(case)
+            samples = C.ab_ms(list(fns.values()), 10)
+            report(dict(body=body, tc=48, nchunk=nchunk, rays=MP.R_1080P), fns, samples)
+        del case, sub
+        torch.cuda.empty_cache()
+
+
 # each kernel's runner, the sources built (and reported) before it (None:
 # every source; colonnade-83k's frames run K1b and the schedule too) and
 # the other checkouts' modules and sources (`chip_smoke.load_beside`)
 KERNELS = {"k1a": (k1a, ("dense_trace",), {}), "k5": (k5, None, {}),
-           "walk": (walk, ("bvh_walk",), dict(modules=("traversal",), libs=("bvh_walk",)))}
+           "walk": (walk, ("bvh_walk",), dict(modules=("traversal",), libs=("bvh_walk",))),
+           "tool": (tool, ("mxu_proto",), dict(modules=("tools/mxu_proto",),
+                                              libs=("mxu_proto",)))}
 
 
 def main(argv) -> int:

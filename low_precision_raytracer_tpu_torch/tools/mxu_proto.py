@@ -28,14 +28,20 @@ their operands:
 `build_tables` lays the tables out as the JAX tool does (`build_tables`
 :169-212).  `vpu_body_plain` / `mxu_body_plain` are the plain versions;
 `vpu_body` / `mxu_body` launch `csrc/mxu_proto.cu` on CUDA tensors (the
-plain versions on CPU tensors).  The MXU body's K = 16 product runs on the
-tensor cores (`mma.sync` m16n8k16, bf16 operands, f32 accumulate), whose
-accumulation order is not the plain version's; its f32 product stays on
-the CUDA cores in f32.
+plain versions on CPU tensors), on the kernels' own layouts of those
+tables (`vpu_table`, `mxu_tables`, built in each call).
+The MXU body's K = 16 product runs on the tensor cores (`wgmma` m64n64k16,
+bf16 operands, f32 accumulate), whose accumulation order is not the plain
+version's; its f32 product stays on the CUDA cores in f32, in the plain
+version's order: no split of it onto the tensor cores meets the body's bar
+(hit agreement >= 0.9999, |x - plain| <= 1e-5 |plain| + 1e-6), because
+even the correctly rounded product misses it on a few rays (measured by
+`tests/test_torch_mxu_proto.py` on the CPU).
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -236,55 +242,192 @@ def _check(name, tensors, shapes):
             raise ValueError(f"{name}: all tensors must be on one device")
 
 
+# the tables' layout as the kernels read it (csrc/mxu_proto.cu, which
+# reports its own through lprt_mxu_proto_layout; `_library` holds the two equal)
+VPU_ROW = 24  # floats a row of the VPU body's table
+SLICE = 8  # table rows a tensor-core product (csrc/mxu_proto.cu:SLICE)
+AB_ROW_BYTES = 8 * 16 * 2  # the 8 blocks' K = 16 bf16 values of a row
+F_ROW = 24  # floats a row of the MXU body's f32 table
+# the bf16 operand's core matrices: 8 rows x 16 bytes; LBO, SBO (bytes)
+# step to the next 8 K values and to the next block (csrc/mxu_proto.cu:b_desc)
+LBO, SBO = 128, 256
+BODIES = ("vpu", "mxu")  # lprt_mxu_proto_chunks' body numbers
+
+
+_CHECKED = []  # the libraries whose layout `_library` has checked
+
+
+def _library():
+    """The built `mxu_proto` library, its layout checked against this
+    module's."""
+    lib = cuda_lib.library("mxu_proto")
+    if lib not in _CHECKED:
+        got = (ctypes.c_int * 6)()
+        lib.lprt_mxu_proto_layout(ctypes.addressof(got))
+        want = (VPU_ROW, SLICE, AB_ROW_BYTES, F_ROW, LBO, SBO)
+        if tuple(got) != want:
+            raise RuntimeError(f"csrc/mxu_proto.cu lays its tables out as {tuple(got)}, "
+                               f"tools/mxu_proto.py as {want}")
+        _CHECKED.append(lib)
+    return lib
+
+
+def chunks_a_launch(body: str, tc: int) -> int:
+    """Chunks of tc rows one launch of `body` ('vpu' or 'mxu') takes: as
+    many as fit in a block's shared memory, as the kernels' library
+    decides it (needs a card).  Raises ValueError where none fits."""
+    n = _library().lprt_mxu_proto_chunks(BODIES.index(body), tc)
+    if n < 1:
+        raise ValueError(f"{body}_body: unsupported tc={tc} (no chunk fits in shared memory)")
+    return n
+
+
+def _check_mxu_tc(name, tc, a32t, aabt):
+    if tc < SLICE or tc % SLICE:
+        raise ValueError(f"{name}: the tensor-core body takes tc a multiple of {SLICE}, "
+                         f"not {tc}")
+    if a32t.shape[2] < 6 * tc or aabt.shape[2] < 8 * tc:
+        raise ValueError(f"{name}: tables too narrow for tc={tc}")
+
+
+def check_a32_layout(a32t, tc: int):
+    """Raises ValueError if a32t has a nonzero term where `build_tables`
+    puts a zero: the tensor-core body's kernel skips those terms."""
+    blk = a32t[:, :, :6 * tc].reshape(a32t.shape[0], 8, 6, tc)  # [c, k, block, row]
+    o_blk, d_blk = blk[:, :, [0, 2, 3]], blk[:, :, [1, 4, 5]]  # Oz Ox32 Oy32, Dz Dx32 Dy32
+    if bool(o_blk[:, 4:].ne(0).any() | d_blk[:, :4].ne(0).any() | d_blk[:, 7].ne(0).any()):
+        raise ValueError("check_a32_layout: a32t has nonzero terms outside build_tables' "
+                         "layout")
+
+
+def vpu_table(n_dt, n_f32, e):
+    """The VPU body's table: (TI, 24) f32 rows [n_dt (bf16 values) 9 |
+    n_f32 9 | e 3 | 0 0 0], read by 16-byte loads."""
+    TI = n_f32.shape[0]
+    pad = torch.zeros((TI, VPU_ROW - 21), dtype=torch.float32, device=n_f32.device)
+    return torch.cat([n_dt.float(), n_f32, e, pad], dim=1).contiguous()
+
+
+def mxu_tables(a32t, aabt, tc: int):
+    """The MXU body's tables from `build_tables`' a32t / aabt.  -> (tab_ab
+    bf16 (NC, TC / 8, 8, 2, 8, 8): per chunk and 8-row slice, the 8 blocks'
+    operand in wgmma's K-major core-matrix order [block][K half][row][8 K],
+    so that a slice is one product's B; tab_f f32 (NC, TC, 24): per row the
+    terms of the f32 product that the layout does not zero, [Oz k0-3 | Dz
+    k4-7 | Ox32 k0-3 | Dx32 k4-7 | Oy32 k0-3 | Dy32 k4-7]; k7 of a D block
+    and the terms left out are zeros of `build_tables`' layout,
+    `check_a32_layout`).  Slices only: an index list would copy it to the
+    card and wait for the stream.  Raises ValueError if TC is not a
+    multiple of 8 or if the tables are too narrow for TC."""
+    nchunk = a32t.shape[0]
+    _check_mxu_tc("mxu_tables", tc, a32t, aabt)
+    # aabt[c, 8 kh + k8, tc b + 8 s + r] -> [c, s, b, kh, r, k8]
+    ab = aabt[:, :, :8 * tc].reshape(nchunk, 2, 8, 8, tc // SLICE, SLICE)
+    tab_ab = ab.permute(0, 4, 3, 1, 5, 2).contiguous()
+    blk = a32t[:, :, :6 * tc].reshape(nchunk, 8, 6, tc)  # [c, k, block, row]
+    # blocks Oz 0, Dz 1, Ox32 2, Oy32 3, Dx32 4, Dy32 5
+    parts = [blk[:, 0:4, 0], blk[:, 4:8, 1], blk[:, 0:4, 2], blk[:, 4:8, 4], blk[:, 0:4, 3],
+             blk[:, 4:8, 5]]
+    tab_f = torch.cat(parts, dim=1).transpose(1, 2).contiguous()  # [c, row, 24]
+    return tab_ab, tab_f
+
+
 def vpu_body(n_dt, n_f32, e, o, d, tc: int):
-    """VPU body wrapper (see `vpu_body_plain`); CUDA `lprt_mxu_proto_vpu`."""
+    """VPU body wrapper (see `vpu_body_plain`); CUDA `lprt_mxu_proto_vpu` on
+    `vpu_table`'s layout, one launch for as many chunks as fit in shared
+    memory (`chunks_a_launch`)."""
     TI, R = n_f32.shape[0], o.shape[1]
     f32 = torch.float32
     _check("vpu_body", [n_f32, n_dt, e, o, d],
            [(f32, (TI, 9)), (torch.bfloat16, (TI, 9)), (f32, (TI, 3)), (f32, (3, R)),
             (f32, (3, R))])
-    if TI % tc:
+    if tc < 1:
+        raise ValueError(f"vpu_body: unsupported tc={tc}")
+    if TI == 0 or TI % tc:
         raise ValueError(f"vpu_body: {TI} rows are not whole chunks of {tc}")
     if o.device.type == "cpu":
         return vpu_body_plain(n_dt, n_f32, e, o, d, tc)
-    # one table of 21 f32 columns per row, [n_dt | n_f32 | e]
-    table = torch.cat([n_dt.float(), n_f32, e], dim=1).contiguous()
+    nchunk, step = TI // tc, chunks_a_launch("vpu", tc)
+    table = vpu_table(n_dt, n_f32, e)
     t = torch.empty((R,), dtype=f32, device=o.device)
     u, v = torch.empty_like(t), torch.empty_like(t)
-    code = cuda_lib.library("mxu_proto").lprt_mxu_proto_vpu(
-        table.data_ptr(), o.data_ptr(), d.data_ptr(), R, TI, tc, t.data_ptr(), u.data_ptr(),
-        v.data_ptr(), cuda_lib.stream_ptr(o.device))
-    cuda_lib.check(code, "mxu_proto vpu_body")
-    cuda_lib.LAUNCHES["mxu_proto_vpu"] += 1
+    lib = _library()
+    for c0 in range(0, nchunk, step):
+        code = lib.lprt_mxu_proto_vpu(
+            table.data_ptr() + c0 * tc * VPU_ROW * 4, o.data_ptr(), d.data_ptr(), R,
+            min(step, nchunk - c0), tc, int(c0 == 0), t.data_ptr(), u.data_ptr(),
+            v.data_ptr(), cuda_lib.stream_ptr(o.device))
+        cuda_lib.check(code, "mxu_proto vpu_body")
+        cuda_lib.LAUNCHES["mxu_proto_vpu"] += 1
     return t, u, v
+
+
+def _mxu_args(name, a32t, aabt, o, d, tc):
+    nchunk, R = a32t.shape[0], o.shape[1]
+    f32 = torch.float32
+    P32, P16 = a32t.shape[2], aabt.shape[2]
+    _check(name, [a32t, aabt, o, d],
+           [(f32, (nchunk, 8, P32)), (torch.bfloat16, (nchunk, 16, P16)), (f32, (3, R)),
+            (f32, (3, R))])
+    if nchunk == 0:
+        raise ValueError(f"{name}: no chunks")
+    _check_mxu_tc(name, tc, a32t, aabt)
 
 
 def mxu_body(a32t, aabt, o, d, tc: int):
     """MXU body wrapper (see `mxu_body_plain`); CUDA `lprt_mxu_proto_mxu`,
-    the Aab product on the tensor cores.  tc must be a multiple of 16."""
-    nchunk, R = a32t.shape[0], o.shape[1]
-    f32 = torch.float32
-    P32, P16 = a32t.shape[2], aabt.shape[2]
-    _check("mxu_body", [a32t, aabt, o, d],
-           [(f32, (nchunk, 8, P32)), (torch.bfloat16, (nchunk, 16, P16)), (f32, (3, R)),
-            (f32, (3, R))])
-    if P32 < 6 * tc or P16 < 8 * tc:
-        raise ValueError(f"mxu_body: tables too narrow for tc={tc}")
+    the Aab product on the tensor cores, on `mxu_tables`' layout (a32t must
+    hold `build_tables`' zeros, `check_a32_layout`), one launch for as many
+    chunks as fit in shared memory (`chunks_a_launch`).  tc must be a
+    multiple of 8."""
+    _mxu_args("mxu_body", a32t, aabt, o, d, tc)
     if o.device.type == "cpu":
         return mxu_body_plain(a32t, aabt, o, d, tc)
-    if tc % 16:
-        raise ValueError(f"mxu_body: the tensor-core body takes tc a multiple of 16, not {tc}")
-    # the kernel reads Aab as (rows, 16) bf16, row-major: a row's 16 K
-    # values are one 32-byte line (the mma A fragment's layout)
-    aab = aabt.transpose(1, 2).contiguous()
-    t = torch.empty((R,), dtype=f32, device=o.device)
+    nchunk, R = a32t.shape[0], o.shape[1]
+    step = chunks_a_launch("mxu", tc)
+    tab_ab, tab_f = mxu_tables(a32t, aabt, tc)
+    t = torch.empty((R,), dtype=torch.float32, device=o.device)
     u, v = torch.empty_like(t), torch.empty_like(t)
-    code = cuda_lib.library("mxu_proto").lprt_mxu_proto_mxu(
-        a32t.data_ptr(), aab.data_ptr(), o.data_ptr(), d.data_ptr(), R, nchunk, tc, P32, P16,
-        t.data_ptr(), u.data_ptr(), v.data_ptr(), cuda_lib.stream_ptr(o.device))
-    cuda_lib.check(code, "mxu_proto mxu_body")
-    cuda_lib.LAUNCHES["mxu_proto_mxu"] += 1
+    lib = _library()
+    for c0 in range(0, nchunk, step):
+        code = lib.lprt_mxu_proto_mxu(
+            tab_ab.data_ptr() + c0 * tc * AB_ROW_BYTES, tab_f.data_ptr() + c0 * tc * F_ROW * 4,
+            o.data_ptr(), d.data_ptr(), R, min(step, nchunk - c0), tc, int(c0 == 0),
+            t.data_ptr(), u.data_ptr(), v.data_ptr(), cuda_lib.stream_ptr(o.device))
+        cuda_lib.check(code, "mxu_proto mxu_body")
+        cuda_lib.LAUNCHES["mxu_proto_mxu"] += 1
     return t, u, v
+
+
+def mxu_probe(a32t, aabt, o, d, tc: int):
+    """The tensor-core product alone, as the MXU body's kernel computes it
+    (its PROBE form: no tail, on the card only): -> (NC, R, 8, TC) f32,
+    every block value of every (ray, row).  Its plain version is
+    `probe_plain`."""
+    _mxu_args("mxu_probe", a32t, aabt, o, d, tc)
+    if o.device.type == "cpu":
+        raise ValueError("mxu_probe: runs on the card only (its plain version: probe_plain)")
+    nchunk, R = a32t.shape[0], o.shape[1]
+    step = chunks_a_launch("mxu", tc)
+    tab_ab, tab_f = mxu_tables(a32t, aabt, tc)
+    out = torch.empty((nchunk, R, 8, tc), dtype=torch.float32, device=o.device)
+    lib = _library()
+    for c0 in range(0, nchunk, step):
+        code = lib.lprt_mxu_proto_probe(
+            tab_ab.data_ptr() + c0 * tc * AB_ROW_BYTES, tab_f.data_ptr() + c0 * tc * F_ROW * 4,
+            o.data_ptr(), d.data_ptr(), R, min(step, nchunk - c0), tc,
+            out.data_ptr() + c0 * R * 8 * tc * 4, cuda_lib.stream_ptr(o.device))
+        cuda_lib.check(code, "mxu_proto probe")
+    return out
+
+
+def probe_plain(aabt, o, d, tc: int):
+    """The bf16 product's block values, (NC, R, 8, TC) f32, summed in order
+    (`mxu_body_plain`'s mab)."""
+    _b32, bab = _features(o, d, slice(None))
+    nchunk = aabt.shape[0]
+    mab = torch.stack([_product(aabt[c, :, :8 * tc].float(), bab) for c in range(nchunk)])
+    return mab.reshape(nchunk, 8, tc, -1).permute(0, 3, 1, 2).contiguous()
 
 
 # f32 operations per (ray, row), counted from the code of each body (the
@@ -296,28 +439,49 @@ def mxu_body(a32t, aabt, o, d, tc: int):
 # widened test 7, the two selects 2, t > 0 and finite 2, the winner (min,
 # ==, two max) 4
 VPU_OPS = 142
-# MXU: the f32 product on the CUDA cores, 6 blocks x (8 mul + 7 add) 90,
-# then the same tail from t on (2 + 4 + 24 + 4 + 4 + 2 + 10 + 7 + 2 + 2 + 4)
-# 65; and the bf16 product on the tensor cores, 8 blocks x 16 K
+# MXU: the f32 product on the CUDA cores on the terms the A32 layout does
+# not zero, three O rows (3 mul + 3 add) and three D rows (3 mul + 2 add)
+# 33, then the same tail from t on (2 + 4 + 24 + 4 + 4 + 2 + 10 + 7 + 2 + 2
+# + 4) 65; and the bf16 product on the tensor cores, 8 blocks x 16 K
 # multiply-adds = 256 operations
-MXU_OPS_F32, MXU_OPS_BF16 = 155, 256
+MXU_OPS_F32, MXU_OPS_BF16 = 98, 256
 
 
 def make_case(nchunk: int, tc: int, R: int, device, seed: int = 0):
     """Random tables (n ~ N(0, 1), e ~ 0.1 N(0, 1)) and rays (o, d ~ N(0, 1),
     (3, R)) from `seed`, as the JAX tool draws them (its draws are its own).
-    -> dict of the bodies' inputs on `device`."""
+    -> dict of the bodies' inputs on `device` (a32t checked by
+    `check_a32_layout`)."""
     rng = np.random.default_rng(seed)
     TI = nchunk * tc
     n_f32 = rng.standard_normal((TI, 9), dtype=np.float32)
     e = (rng.standard_normal((TI, 3), dtype=np.float32) * np.float32(0.1)).astype(np.float32)
     n_dt, a32t, aabt = build_tables(n_f32, e, tc)
+    check_a32_layout(a32t, tc)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     o = torch.randn((3, R), generator=gen, device=device)
     d = torch.randn((3, R), generator=gen, device=device)
     to = lambda x: x.to(device)
     return dict(n_dt=to(n_dt), n_f32=to(torch.from_numpy(n_f32)), e=to(torch.from_numpy(e)),
                 a32t=to(a32t), aabt=to(aabt), o=o, d=d, tc=tc)
+
+
+def unit_case(nchunk: int, tc: int, R: int, device, seed: int = 0):
+    """`make_case` with the bf16 table's rows unit vectors scaled by one of
+    1, -1, 2, -0.5: each block value of the product is then one ray feature
+    times that factor, exactly, in any order of summation (the layout probe:
+    the tensor-core body must equal its plain version bit for bit)."""
+    case = make_case(nchunk, tc, R, "cpu", seed)
+    rng = np.random.default_rng(seed + 2)
+    rows = nchunk * 8 * tc
+    unit = np.zeros((rows, 16), np.float32)
+    unit[np.arange(rows), rng.integers(0, 16, rows)] = rng.choice(
+        np.array([1.0, -1.0, 2.0, -0.5], np.float32), rows)
+    aab = torch.from_numpy(unit).reshape(nchunk, 8 * tc, 16).transpose(1, 2)
+    aabt = torch.zeros_like(case["aabt"])
+    aabt[:, :, :8 * tc] = aab.to(torch.bfloat16)
+    case["aabt"] = aabt
+    return {k: v.to(device) if torch.is_tensor(v) else v for k, v in case.items()}
 
 
 def run_vpu(case):
